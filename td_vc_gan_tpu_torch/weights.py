@@ -1,0 +1,86 @@
+"""Weights from the JAX package's flax parameter trees into the port's modules.
+
+The port's modules carry the flax names (``decoder.stage_0_mrf.block_0_0.
+cond_0.v`` for ``params/decoder/stage_0_mrf/block_0_0/cond_0/v``), so the
+mapping is by name; only the layouts differ:
+
+- weight-normed conv ``v`` (k, in, out) -> (out, in, k), ``g`` per output;
+- transposed conv ``v`` (in, out, k) stays, ``g`` per input;
+- plain conv ``kernel`` (k, in, out) -> (out, in, k);
+- Linear ``kernel`` (in, out) -> (out, in).
+
+Every parameter and buffer must be matched exactly once; anything missing,
+left over or of the wrong shape raises.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from td_vc_gan_tpu_torch.models.crepe import Crepe
+from td_vc_gan_tpu_torch.models.layers import Linear, WNConv1d
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = np.array(value, dtype=np.float32)
+    return out
+
+
+def _params(tree: Mapping) -> dict[str, np.ndarray]:
+    return _flatten(tree["params"] if "params" in tree else tree)
+
+
+def _load(module: nn.Module, flat: dict[str, np.ndarray], layout) -> nn.Module:
+    targets = module.state_dict(keep_vars=True)  # parameters and stored buffers
+    missing = sorted(set(targets) - set(flat))
+    extra = sorted(set(flat) - set(targets))
+    if missing or extra:
+        raise KeyError(f"parameter trees differ: missing {missing[:5]}, unexpected {extra[:5]}")
+    with torch.no_grad():
+        for name, t in targets.items():
+            value = torch.from_numpy(layout(name, flat[name]))
+            if value.shape != t.shape:
+                raise ValueError(f"{name}: JAX shape {flat[name].shape} gives "
+                                 f"{tuple(value.shape)}, the port has {tuple(t.shape)}")
+            t.copy_(value)
+    return module
+
+
+def generator_from_jax(G: nn.Module, params_np: Mapping) -> nn.Module:
+    """Fill the port's Generator ``G`` from the JAX Generator's parameter
+    tree (numpy leaves, with or without the top ``params`` level)."""
+    owners = dict(G.named_modules())
+
+    def layout(name: str, a: np.ndarray) -> np.ndarray:
+        owner, leaf = owners[name.rpartition(".")[0]], name.rpartition(".")[2]
+        if isinstance(owner, Linear) and leaf == "kernel":
+            return np.ascontiguousarray(a.T)
+        if isinstance(owner, WNConv1d) and leaf in ("v", "kernel"):
+            return np.ascontiguousarray(a.transpose(2, 1, 0))
+        return a
+
+    return _load(G, _params(params_np), layout)
+
+
+def crepe_from_jax(net: Crepe, params_np: Mapping) -> Crepe:
+    """Fill the port's CREPE from the JAX CREPE's parameter tree, batch-norm
+    statistics included."""
+
+    def layout(name: str, a: np.ndarray) -> np.ndarray:
+        if name == "classifier_kernel":
+            return np.ascontiguousarray(a.T)
+        if name.endswith("_kernel"):
+            return np.ascontiguousarray(a.transpose(2, 1, 0))
+        return a
+
+    return _load(net, _params(params_np), layout)
