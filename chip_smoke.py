@@ -8,17 +8,27 @@ the kernel is built for sm_90a) and the CUDA toolkit. It needs no network
 and no weights: everything is made from seeds. Phases, one line or more each:
 
 1. card: name and power limit (nvidia-smi) and torch's device name;
-2. build: nvcc compiles every kernel of the conversion path;
-3. parity: the FiLM cond-chain kernel against its plain PyTorch version at
-   the four decoder-stage shapes of an 8960-sample segment (B=2), split and
-   concat forms;
+2. build: nvcc compiles both kernel sources (K1, the FiLM cond chain's
+   forward; K2, its backward), one nvcc per source, started together;
+3. parity: K1 against its plain PyTorch version at the four decoder-stage
+   shapes of an 8960-sample segment (B=2), split and concat forms;
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
    and convert_batch on 16 x 71680 samples: output checks, kernel launches
    counted over that run, the same call with the plain chain, a small input
    against the CPU path, the conversion real-time factor, and one convert
    call's device time by kernel (torch.profiler);
-5. kernel times at the main path's four stage shapes beside the bound, the
-   plain version and a cuDNN sequence (a yardstick the port never calls).
+5. K1 times at the conversion path's four stage shapes beside the bound, the
+   plain version and a cuDNN sequence (a yardstick the port never calls);
+6. K2 parity: every output of K2 against cond_chain_bwd_plain at the four
+   training stage shapes (B=2), split and concat forms, and gradients
+   through MRFBlock.films, the kernels against the plain chain;
+7. train: the full-width stage-2 GAN train step (D -> C -> G, the config
+   defaults, conv encoder) on 16 x 8960 samples: its first step against the
+   same step with the plain chain, then a warm-up and timed steps (CUDA
+   events) with 8 K1 and 8 K2 launches counted in each, loss and parameter
+   checks, peak memory, and one step's device time by kernel;
+8. K2 times at the step's eight (stage, batch) shapes beside the bound, the
+   plain version and cuDNN's backward of the same chain (a yardstick).
 
 Float32 throughout, with TF32 off in cuDNN and matmul: the port's compute
 type is f32, as the JAX package's default. Any failed check raises, and the
@@ -41,15 +51,29 @@ from torch.profiler import ProfilerActivity, profile
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
+from td_vc_gan_tpu_torch.models.discriminator import discriminator_from_config
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
+from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
+from td_vc_gan_tpu_torch.training.state import create_train_state
+from td_vc_gan_tpu_torch.training.step import build_train_step
 
 PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
 PARITY_RTOL = 1e-4        # kernel vs plain: max|d| <= 1e-4 * max|plain|
 AUDIO_ATOL = 1e-3         # converted audio (in [-1, 1]): kernel path vs plain / CPU path
 B, UTT = 16, 71680        # the conversion batch the JAX package measured
-SEG = 8960                # the training segment, for the parity phase
+SEG = 8960                # the training segment
+NUM_SPK = 100             # speakers (one-hot classes) of the smoke's models
+STAGES = 4                # decoder stages: K1 and K2 run once per stage per G pass
+TRAIN_STEPS = 5           # timed train steps, after the twin step and one warm-up
+STEP_LOSS_RTOL = 1e-4     # first step's losses: kernel path vs plain-chain path
+# First moments (gradients) of that step, per tensor, of its max|ref|: the two
+# paths take the leaky_relu slope differently wherever h is within rounding of
+# 0 (cuDNN's f32 conv in the plain path rounds h more coarsely than the
+# kernel), and each such element moves a cond-weight gradient by one term of
+# its B*T-term sum.
+STEP_MU_RTOL = 1e-2
 
 
 def say(*parts):
@@ -86,8 +110,24 @@ def stage_shapes(n_samples: int, cfg):
     return out
 
 
-def chain_inputs(b, t, c, cfg, seed):
-    """Split-form operands at a decoder stage, scaled like the seeded init."""
+def dyadic(x: torch.Tensor, step: float) -> torch.Tensor:
+    """x rounded to a multiple of ``step`` (a power of two)."""
+    return torch.round(x / step) * step
+
+
+def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False):
+    """Split-form and concat-form operands at a decoder stage, scaled like
+    the seeded init. ``exact_h`` rounds the conditioning to multiples of 1/8
+    and cond_0's weights to multiples of 1/256, and its bias to an odd
+    multiple of 1/4096: every product then has at most 10 significant bits
+    and every sum of them is exact in f32, so h is the same in any summation
+    order, and with it the leaky_relu slope (1 or 0.2) that the backward
+    picks at each element; and h is never exactly 0, where torch's
+    leaky_relu backward takes the slope 0.2 and the JAX package's (and K2's)
+    takes 1. With unrounded inputs an element whose h lies within rounding
+    of 0 takes one slope in one version and the other in the other; that is
+    a property of the function, not an error of either version, and at the
+    largest stage it does occur, in cuDNN's f32 backward as in the kernel's."""
     g = cfg.model.generator
     s, e = g.conditional_dim, 8
     cc = s + e
@@ -100,6 +140,9 @@ def chain_inputs(b, t, c, cfg, seed):
     spk = torch.randn((b, s), generator=gen, device="cuda")
     exc = torch.randn((b, t, e), generator=gen, device="cuda")
     w0, b0 = u(3, cc, n * cc, fan_in=3 * cc), u(n * cc, fan_in=3 * cc)
+    if exact_h:
+        spk, exc = dyadic(spk, 1 / 8), dyadic(exc, 1 / 8)
+        w0, b0 = dyadic(w0, 1 / 256), dyadic(b0, 1 / 256) + 1 / 4096
     w1, b1 = u(3, cc, n * 2 * c, fan_in=3 * cc), u(n * 2 * c, fan_in=3 * cc)
     w0_spk = w0[:, :s]
     split = dict(exc=exc, w0=w0[:, s:].contiguous(),
@@ -136,14 +179,106 @@ def phase_parity(cfg):
     return worst
 
 
-def signals(seed: int) -> np.ndarray:
-    """B voiced-like utterances: a gliding harmonic tone per row plus noise."""
+def cotangent(split: dict, seed: int):
+    """A cotangent g (B, T, n*2C) for the chain's output at these operands."""
+    b, t, _ = split["exc"].shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, t, split["w1"].shape[2]), generator=gen, device="cuda")
+
+
+def phase_k2_parity(cfg):
+    """K2 against cond_chain_bwd_plain at the four training stage shapes
+    (B=2), split and concat forms, every output; then autograd through
+    MRFBlock.films, the kernel path against the plain chain."""
+    worst = 0.0
+    for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
+        split, concat, n, cc = chain_inputs(2, t, c, cfg, seed=300 + i, exact_h=True)
+        g = cotangent(split, seed=400 + i)
+        args = {k: v for k, v in split.items() if k != "b1"}
+        got = cc_mod._launch_bwd(g=g, **args)
+        want = cc_mod.cond_chain_bwd_plain(g=g, **args)
+        cargs = dict(exc=concat["c"], w0=concat["w0"], hbias=concat["b0"], w1=concat["w1"])
+        gotc = cc_mod._launch_bwd(g=g, edge0=None, edge_t=None, **cargs)
+        wantc = cc_mod.cond_chain_bwd_plain(g=g, **cargs)
+        torch.cuda.synchronize()
+        parts = []
+        for form, a, b in (("split", got, want), ("concat", gotc, wantc)):
+            if set(a) != set(b):
+                raise AssertionError(f"K2 outputs {sorted(a)} differ from {sorted(b)}")
+            for k in sorted(b):
+                d, r = rel_err(a[k], b[k])
+                parts.append(f"{form}.{k} {r:.1e}")
+                worst = max(worst, d)
+                if not r <= PARITY_RTOL:
+                    raise AssertionError(f"K2 disagrees with cond_chain_bwd_plain at stage {i}, "
+                                         f"{form} d{k}: {r:.2e} of max|ref|")
+        say(f"k2 parity stage {i}: B=2 T={t} C={c}: max|d| of max|ref| " + ", ".join(parts)
+            + f"; tolerance {PARITY_RTOL:.0e} of max|ref|")
+        worst = max(worst, films_grad_parity(cfg, i, t, c))
+    return worst
+
+
+def films_grad_parity(cfg, stage, t, c):
+    """torch.autograd.grad through MRFBlock.films at one stage: the kernels
+    against the plain chain swapped in, on the same CUDA inputs. The inputs
+    and cond_0's weights are rounded as ``chain_inputs(exact_h=True)`` does,
+    with each weight-norm gain set to the norm ``weight()`` computes, so the
+    effective weight is the rounded v exactly."""
+    g = cfg.model.generator
+    s = g.conditional_dim
+    mrf = init_weights(MRFBlock(c, s + 8, tuple(g.mrf_dilations), tuple(g.mrf_kernel_sizes)),
+                       seed=500 + stage).cuda()
+    with torch.no_grad():
+        for blk in mrf.blocks():
+            conv = blk.cond_0
+            conv.v.copy_(dyadic(conv.v, 1 / 256))
+            conv.bias.copy_(dyadic(conv.bias, 1 / 256) + 1 / 4096)
+            conv.g.copy_(torch.sqrt(torch.sum(conv.v * conv.v, dim=(1, 2))))
+    gen = torch.Generator(device="cuda").manual_seed(600 + stage)
+    spk = dyadic(torch.randn((2, s), generator=gen, device="cuda"), 1 / 8).requires_grad_()
+    exc = dyadic(torch.randn((2, 8, t), generator=gen, device="cuda"), 1 / 8).requires_grad_()
+    weights_ = [p for name, p in mrf.named_parameters() if ".cond_" in name]
+    cot = None
+
+    def grads():
+        nonlocal cot
+        out = torch.cat([torch.cat(f, 1) for f in mrf.films(spk, exc)], 1)
+        if cot is None:
+            cot = torch.randn(out.shape, generator=gen, device="cuda")
+        return torch.autograd.grad(out, [spk, exc, *weights_], cot)
+
+    before = cc_mod.bwd_launches
+    got = grads()
+    if cc_mod.bwd_launches != before + 1:
+        raise AssertionError("MRFBlock.films did not run K2 in its backward")
+    kernel_op = cc_mod.cond_chain
+    cc_mod.cond_chain = cc_mod.cond_chain_plain
+    try:
+        want = grads()
+    finally:
+        cc_mod.cond_chain = kernel_op
+    torch.cuda.synchronize()
+    worst_r, worst_d = 0.0, 0.0
+    for a, b in zip(got, want):
+        d, r = rel_err(a, b)
+        worst_r, worst_d = max(worst_r, r), max(worst_d, d)
+    say(f"k2 films grad stage {stage}: grads of spk, exc and {len(weights_)} cond weights, "
+        f"kernel path vs plain chain: worst max|d| {worst_d:.2e} ({worst_r:.2e} of max|ref|); "
+        f"tolerance {PARITY_RTOL:.0e} of max|ref|")
+    if not worst_r <= PARITY_RTOL:
+        raise AssertionError(f"gradients through MRFBlock.films disagree at stage {stage}")
+    return worst_d
+
+
+def signals(seed: int, n: int = UTT) -> np.ndarray:
+    """B voiced-like utterances of n samples: a gliding harmonic tone per row
+    plus noise."""
     rng = np.random.default_rng(seed)
-    t = np.arange(UTT) / 16000
+    t = np.arange(n) / 16000
     f0 = rng.uniform(90, 260, (B, 1)) * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t))
     phase = 2 * np.pi * np.cumsum(f0, axis=1) / 16000
     x = sum(np.sin(k * phase) / k for k in range(1, 6))
-    return (0.2 * x + 0.01 * rng.standard_normal((B, UTT))).astype(np.float32)
+    return (0.2 * x + 0.01 * rng.standard_normal((B, n))).astype(np.float32)
 
 
 def phase_slice(cfg, card):
@@ -214,13 +349,13 @@ def phase_slice(cfg, card):
         f"({audio_s:.1f} s of audio): conversion RTF {audio_s / (ms / 1e3):.1f}x real time; "
         f"pitch_tensors (Viterbi) {pitch_ms:.2f} ms; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    profile_convert(lambda: conv.convert_tensors(*args, lab, seed=1), card)
+    profile_call(lambda: conv.convert_tensors(*args, lab, seed=1), "one convert call", card)
     return launches
 
 
-def profile_convert(fn, card, top: int = 10):
-    """Device time of one convert call by kernel name (torch.profiler), and
-    the share of the call's wall time the card was busy."""
+def profile_call(fn, label, card, top: int = 10):
+    """Device time of one call by kernel name (torch.profiler), and the share
+    of the call's wall time the card was busy."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -238,7 +373,7 @@ def profile_convert(fn, card, top: int = 10):
     if not by_name:
         say("profile: torch.profiler recorded no device kernels")
         return
-    say(f"profile: one convert call {wall_ms:.2f} ms wall (profiler on), kernels busy "
+    say(f"profile: {label} {wall_ms:.2f} ms wall (profiler on), kernels busy "
         f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(v[1] for v in by_name.values())} "
         f"kernel launches [{card}]")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
@@ -294,6 +429,175 @@ def phase_kernel_times(cfg, card, launches, parity_err):
             "library_ms": totals["library_ms"]}
 
 
+def train_batch(seed: int) -> dict:
+    """16 x 8960 training segments; the corrupted batch is the signal plus
+    seeded noise, a stand-in for the Praat corruption the port does not have
+    yet."""
+    sig = signals(seed, SEG)
+    noise = np.random.default_rng(seed + 1).standard_normal(sig.shape).astype(np.float32)
+    return {"signal": torch.from_numpy(sig).cuda(),
+            "corrupted": torch.from_numpy(sig + 0.05 * noise).cuda(),
+            "label": torch.arange(B, device="cuda") % NUM_SPK}
+
+
+def train_state(cfg):
+    """The full-width stage-2 models (random weights from seeds) and their
+    optimizers."""
+    g = generator_from_config(cfg.model.generator, NUM_SPK, seed=0)
+    d = discriminator_from_config(cfg, NUM_SPK, seed=1)
+    return create_train_state(cfg, g, d, None, crepe_from_seed(2).cuda())
+
+
+def phase_train(cfg, card):
+    """The full-width stage-2 GAN train step: its first step against the
+    same step with the plain chain, then timed steps with the launch counts
+    of each, and one step's kernels by device time."""
+    t0 = time.perf_counter()
+    state = train_state(cfg)
+    step = build_train_step(cfg, state)
+    batch = train_batch(10)
+    n_g = sum(p.numel() for p in state.G.parameters())
+    n_d = sum(p.numel() for p in state.D.parameters())
+    before = {f"G.{k}": v.clone() for k, v in state.G.state_dict().items()}
+    before.update({f"D.{k}": v.clone() for k, v in state.D.state_dict().items()})
+    say(f"train: G {n_g} and D {n_d} parameters, batch {B} x {SEG}, "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+
+    # the first step, with the kernels and with the plain chain swapped in
+    m_kernel = step(batch, torch.Generator(device="cuda").manual_seed(5))
+    twin = train_state(cfg)
+    twin_step = build_train_step(cfg, twin)
+    kernel_op = cc_mod.cond_chain
+    cc_mod.cond_chain = cc_mod.cond_chain_plain
+    try:
+        m_plain = twin_step(batch, torch.Generator(device="cuda").manual_seed(5))
+    finally:
+        cc_mod.cond_chain = kernel_op
+    worst_loss = max(abs(float(m_kernel[k]) - float(m_plain[k])) /
+                     max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
+    worst_mu = 0.0
+    for net, twin_net, opt, twin_opt in ((state.G, twin.G, state.opt_g, twin.opt_g),
+                                         (state.D, twin.D, state.opt_d, twin.opt_d)):
+        for p, q in zip(net.parameters(), twin_net.parameters()):
+            a = opt.optimizer.state[p]["exp_avg"]
+            b = twin_opt.optimizer.state[q]["exp_avg"]
+            worst_mu = max(worst_mu, float((a - b).abs().max()) /
+                           max(float(b.abs().max()), 1e-30))
+    say(f"train: first step, kernel path vs plain-chain path: losses worst relative "
+        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); G and D first "
+        f"moments worst max|d| {worst_mu:.2e} of the tensor's max|ref| "
+        f"(tolerance {STEP_MU_RTOL:.0e})")
+    if not (worst_loss <= STEP_LOSS_RTOL and worst_mu <= STEP_MU_RTOL):
+        raise AssertionError("the train step with the kernels disagrees with the plain chain")
+    del twin, twin_step
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    step(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    cc_mod.launches = cc_mod.bwd_launches = 0
+    for _ in range(TRAIN_STEPS):
+        k1, k2 = cc_mod.launches, cc_mod.bwd_launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch, gen)
+        end.record()
+        counts.append((cc_mod.launches - k1, cc_mod.bwd_launches - k2))
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = (cc_mod.launches, cc_mod.bwd_launches)
+    ms = sorted(s.elapsed_time(e) for s, e in times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite losses after {TRAIN_STEPS + 2} steps: {bad}")
+    if any(c != (STAGES * 2, STAGES * 2) for c in counts):
+        raise AssertionError(f"expected {STAGES * 2} K1 and {STAGES * 2} K2 launches per "
+                             f"step, got {counts}")
+    after = {f"G.{k}": v for k, v in state.G.state_dict().items()}
+    after.update({f"D.{k}": v for k, v in state.D.state_dict().items()})
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    if still:
+        raise AssertionError(f"parameters that did not change: {still[:5]}")
+    median = ms[len(ms) // 2]
+    say(f"train: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
+        f"{ms[0]:.2f}, max {ms[-1]:.2f}), {1e3 / median:.3f} steps/s, "
+        f"{B * 1e3 / median:.2f} segments/s; K1/K2 launches per step {counts[0]}; "
+        f"G_loss {float(metrics['G_loss']):.4f}, D_loss {float(metrics['D_loss']):.4f}; "
+        f"every G and D parameter changed; peak device memory {peak:.2f} GiB [{card}]")
+    profile_call(lambda: step(batch, gen), "one train step", card)
+    return launches, median
+
+
+def k2_bound(b, t, e, n, cc, two_c) -> tuple[float, float, float]:
+    """(flops, bytes, ms) of the least the card could do for one K2 call:
+    h recompute, dexc and dW0 2*3*E*n*Cc flops per (b, t) row each, da and
+    dW1 2*3*n*Cc*2C each; every input read once, every output written once."""
+    n0, n2 = n * cc, n * two_c
+    flops = 2.0 * b * t * (3 * 3 * e * n0 + 2 * 3 * n0 * two_c)
+    ins = b * t * e + 3 * e * n0 + 3 * b * n0 + 3 * cc * n2 + b * t * n2
+    outs = b * t * e + 3 * e * n0 + 3 * b * n0 + 3 * cc * n2 + n2
+    nbytes = 4.0 * (ins + outs)
+    return flops, nbytes, max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def phase_k2_times(cfg, card, launches, parity_err):
+    """K2 at the train step's eight (stage, batch) shapes: kernel, bound,
+    plain version and cuDNN's backward of the same chain."""
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    worst = parity_err
+    for bsz in (2 * B, B):
+        for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
+            split, _, n, cc = chain_inputs(bsz, t, c, cfg, seed=700 + i, exact_h=True)
+            e = split["exc"].shape[-1]
+            g = cotangent(split, seed=800 + i)
+            args = {k: v for k, v in split.items() if k != "b1"}
+            got = cc_mod._launch_bwd(g=g, **args)
+            want = cc_mod.cond_chain_bwd_plain(g=g, **args)
+            for k in want:
+                d, r = rel_err(got[k], want[k])
+                if r > PARITY_RTOL:
+                    raise AssertionError(f"K2 disagrees with its plain version at B={bsz} "
+                                         f"T={t}, d{k}: {r:.2e} of max|ref|")
+                worst = max(worst, d)
+            del got, want
+            k_ms = cuda_ms(lambda: cc_mod._launch_bwd(g=g, **args), iters=3, warmup=1)
+            p_ms = cuda_ms(lambda: cc_mod.cond_chain_bwd_plain(g=g, **args), iters=2)
+            leaves = [split[k].clone().requires_grad_() for k in ("exc", "w0", "hbias", "w1", "b1")]
+            exc, w0, hbias, w1, b1 = leaves
+            h = F.conv1d(exc.transpose(1, 2), w0.permute(2, 1, 0), padding=1) + hbias[..., None]
+            out = F.conv1d(F.leaky_relu(h, 0.2), w1.permute(2, 1, 0), b1, padding=1, groups=n)
+            gt = g.transpose(1, 2)
+            l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True),
+                           iters=2)
+            del h, out, leaves
+            flops, nbytes, bound = k2_bound(bsz, t, e, n, cc, 2 * c)
+            say(f"k2 B={bsz} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
+                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB; "
+                f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved), plain {p_ms:.3f} ms, "
+                f"cuDNN backward of conv1d+lrelu+grouped conv1d {l_ms:.3f} ms, "
+                f"launches per step 1 [{card}]")
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                           ("library_ms", l_ms), ("flops", flops), ("bytes", nbytes)):
+                totals[key] += v
+            del split, g, args
+            torch.cuda.empty_cache()
+    bound_by = ("operations" if totals["flops"] / PEAK_F32_FLOPS >= totals["bytes"] / PEAK_BYTES
+                else "bytes")
+    say(f"k2 per train step (8 calls): {totals['ms']:.3f} ms against a bound of "
+        f"{totals['bound_ms']:.3f} ms ({bound_by}), {totals['bound_ms'] / totals['ms']:.1%} "
+        f"of it; plain {totals['plain_ms']:.3f} ms, cuDNN {totals['library_ms']:.3f} ms [{card}]")
+    return {"name": "cond_chain_bwd", "route": "cuda",
+            "source": "td_vc_gan_tpu_torch/csrc/cond_chain_bwd.cu",
+            "replaces": "td_vc_gan_tpu/ops/pallas/cond_chain.py:221",
+            "launches": launches, "max_abs_err": worst,
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
+            "library_ms": totals["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -308,14 +612,22 @@ def main() -> int:
 
     _, build_s, log = cc_mod.build()
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    say(f"build: {cc_mod.SOURCE.name} with nvcc in {build_s:.1f} s; " + " | ".join(ptxas))
+    say(f"build: {', '.join(src.name for src in cc_mod.SOURCES)} with nvcc, in parallel, "
+        f"in {build_s:.1f} s; " + " | ".join(ptxas))
 
     cfg = Config()
     parity_err = phase_parity(cfg)
-    launches = phase_slice(cfg, card)
-    row = phase_kernel_times(cfg, card, launches, parity_err)
+    convert_launches = phase_slice(cfg, card)
+    k1_row = phase_kernel_times(cfg, card, convert_launches, parity_err)
+    k2_err = phase_k2_parity(cfg)
+    (train_k1, train_k2), _ = phase_train(cfg, card)
+    k2_row = phase_k2_times(cfg, card, train_k2, k2_err)
+    # K1 runs on both main paths: conversion (phase 4) and the train step
+    k1_row["launches"] = convert_launches + train_k1
+    k1_row["launches_by_path"] = {"convert": convert_launches, "train": train_k1}
+    k2_row["launches_by_path"] = {"train": train_k2}
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
-    say(json.dumps({"kernels": [row]}))
+    say(json.dumps({"kernels": [k1_row, k2_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""Configuration schema for the conversion slice.
+"""Configuration schema of the port.
 
 Own copies of the JAX package's dataclasses (``GeneratorConfig``,
-``NormConfig``, ``CondConfig``, ``ModelConfig``) with the same defaults, plus
-the two ``train`` fields the slice reads. Reference-style multi-document YAML
+``NormConfig``, ``CondConfig``, ``DiscriminatorConfig``, ``ModelConfig``,
+``TrainConfig``, ``LogConfig``) with the same defaults, holding the fields
+that conversion and the train step read. Reference-style multi-document YAML
 loads through :func:`load_config`; unknown keys are ignored, as in the JAX
 package, so the reference's stage configs load unchanged.
 """
@@ -57,21 +58,61 @@ class GeneratorConfig:
 
 
 @dataclass
+class DiscriminatorConfig:
+    num_disc: int = 3
+    num_layers: int = 4
+    num_channels_base: int = 16
+    num_channel_mult: int = 4
+    downsampling_factor: int = 4
+
+
+@dataclass
 class ModelConfig:
     sample_rate: int = 16000
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
 
 
 @dataclass
 class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` that the train step
+    and the optimizers read, with its defaults (the stage-2 losses)."""
+
+    no_conv: bool = False
+    lr_g: float = 1e-4
+    lr_d: float = 1e-4
+    D_step_interval: int = 1
+    G_step_interval: int = 1
+    adam_beta: list[float] = field(default_factory=lambda: [0.8, 0.99])
+    lambda_rec: float = 10.0
+    lambda_idt: float = 1.0
+    lambda_feat: float = 2.0
+    lambda_spec: float = 5.0
+    lambda_wave: float = 0.0
+    lambda_latcls: float = 0.0
+    lambda_cont_emb: float = 10.0
+    lambda_corrupted: float = 1.0
+    lambda_converted: float = 0.0
+    lambda_f0: float = 1000.0
+    grad_max_norm_D: float | None = None
+    grad_max_norm_G: float | None = None
     max_segment: int = 8960
+    freeze_subnets: list[str] | None = field(default_factory=list)
+    jitter_amp: int = 0
     compute_dtype: str = "float32"
+    mel_fft_sizes: list[int] = field(default_factory=lambda: [2048])
+
+
+@dataclass
+class LogConfig:
+    val_lat_cls: bool = False
 
 
 @dataclass
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    log: LogConfig = field(default_factory=LogConfig)
 
 
 def _coerce(value: Any, target_type: Any):

@@ -17,13 +17,6 @@ from td_vc_gan_tpu_torch.models import crepe as crepe_mod
 from td_vc_gan_tpu_torch.ops import dsp
 
 
-def _log_f0_mean(f0: torch.Tensor) -> torch.Tensor:
-    """Voiced log-F0 mean, (B, 1)."""
-    voiced = (f0 > 0).to(f0.dtype)
-    return torch.sum(voiced * torch.log(f0 + 1e-6), -1, keepdim=True) / (
-        torch.sum(voiced, -1, keepdim=True) + 1e-6)
-
-
 class Converter:
     """Holds a generator and a CREPE net on one device (default: the CUDA
     card; ``device="cpu"`` runs on the CPU)."""
@@ -50,7 +43,7 @@ class Converter:
     def pitch_tensors(self, signals: torch.Tensor):
         """(B, T) on the device -> (f0 (B, F), voiced log-F0 mean (B, 1))."""
         f0, _ = crepe_mod.filtered_pitch(self.crepe, signals, self.decoder)
-        return f0, _log_f0_mean(f0)
+        return f0, crepe_mod.log_f0_mean(f0)
 
     @torch.inference_mode()
     def convert_tensors(self, signals, f0_src, mu_src, mu_tgt, labels_tgt,
@@ -83,11 +76,14 @@ class Converter:
         return f0.cpu().numpy(), mu.cpu().numpy()
 
     def convert(self, signal: np.ndarray, label_tgt: int, f0_src: np.ndarray,
-                mu_src: np.ndarray, mu_tgt: np.ndarray, seed: int = 0) -> np.ndarray:
-        """Convert one utterance to the target speaker with pitch matching."""
+                mu_src: np.ndarray, mu_tgt: np.ndarray, seed: int = 0,
+                start_phase=None, noise=None) -> np.ndarray:
+        """Convert one utterance to the target speaker with pitch matching;
+        ``start_phase`` and ``noise`` ((1, padded length)) may inject the
+        excitation draws."""
         padded, n = self.pad_to_bucket(signal)
         wav = self.convert_batch(padded[None], np.asarray([label_tgt]), f0_src,
-                                 mu_src, mu_tgt, seed)
+                                 mu_src, mu_tgt, seed, start_phase, noise)
         return wav[0, :n]
 
     def convert_batch(self, signals: np.ndarray, labels_tgt: np.ndarray,
@@ -103,21 +99,29 @@ class Converter:
         return wav.cpu().numpy()
 
     def convert_with_ratio(self, signal: np.ndarray, label_tgt: int,
-                           f0_ratio: float = 1.0, seed: int = 0) -> np.ndarray:
-        """Convert with an explicit pitch ratio instead of a target utterance."""
+                           f0_ratio: float = 1.0, seed: int = 0, start_phase=None,
+                           noise=None) -> np.ndarray:
+        """Convert with an explicit pitch ratio instead of a target utterance;
+        the draws as :meth:`convert`."""
         f0, mu = self.pitch(signal)
         shift = np.log(np.asarray(f0_ratio, dtype=np.float32))
-        return self.convert(signal, label_tgt, f0, mu, mu + shift, seed)
+        return self.convert(signal, label_tgt, f0, mu, mu + shift, seed, start_phase, noise)
 
     def convert_long(self, signal: np.ndarray, label_tgt: int, mu_tgt: np.ndarray | float,
-                     chunk: int = 71680, overlap: int = 12800, seed: int = 0) -> np.ndarray:
+                     chunk: int = 71680, overlap: int = 12800, seed: int = 0,
+                     draws=None) -> np.ndarray:
         """Unbounded-length conversion: fixed-size chunks cross-faded over
         ``overlap`` samples with a raised cosine; the source pitch statistic
-        is averaged over disjoint chunks of the whole utterance."""
+        is averaged over disjoint chunks of the whole utterance. Chunk i
+        draws its excitation from ``seed + i``, or takes ``draws[i]``, a
+        (start_phase, noise (1, chunk)) pair, when ``draws`` is given."""
+        def chunk_draws(i):
+            return draws[i] if draws is not None else (None, None)
+
         if len(signal) <= chunk:
             f0, mu = self.pitch(signal)
             mu_t = np.full_like(mu, float(mu_tgt)) if np.isscalar(mu_tgt) else mu_tgt
-            return self.convert(signal, label_tgt, f0, mu, mu_t, seed)
+            return self.convert(signal, label_tgt, f0, mu, mu_t, seed, *chunk_draws(0))
 
         hop = chunk - overlap
         mus = []
@@ -138,7 +142,8 @@ class Converter:
             if len(seg) < chunk:
                 seg = np.pad(seg, (0, chunk - len(seg)))
             f0, _ = self.pitch(seg)
-            y = self.convert(seg, label_tgt, f0, mu_src, mu_t, seed + n_chunks)
+            y = self.convert(seg, label_tgt, f0, mu_src, mu_t, seed + n_chunks,
+                             *chunk_draws(n_chunks))
             w = np.ones(chunk, dtype=np.float32)
             if start > 0:
                 w[:overlap] = fade

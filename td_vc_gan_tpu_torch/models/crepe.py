@@ -57,6 +57,13 @@ def get_shift(pitch_source: torch.Tensor, pitch_target: torch.Tensor) -> torch.T
     return frequency_to_bins(pitch_target) - frequency_to_bins(pitch_source)
 
 
+def log_f0_mean(f0: torch.Tensor) -> torch.Tensor:
+    """Mean log-F0 over the voiced frames (f0 > 0): (B, F) -> (B, 1)."""
+    voiced = (f0 > 0).to(f0.dtype)
+    return torch.sum(voiced * torch.log(f0 + 1e-6), -1, keepdim=True) / (
+        torch.sum(voiced, -1, keepdim=True) + 1e-6)
+
+
 class EvalBatchNorm(nn.Module):
     """Inference batch norm folded to one multiply-add (eps 1e-5)."""
 

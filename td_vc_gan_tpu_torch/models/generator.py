@@ -172,7 +172,9 @@ class Generator(nn.Module):
     """Conv-encoder generator. ``forward(x, c_tgt, c_var)`` takes x (B, T, 1),
     a one-hot target speaker (B, num_classes) and the excitation (B, T, 1)
     (None: zeros) and returns (wav (B, T, 1), subsamples [(B, T_i, 1)],
-    content (B, T', content_dim)), channels-last as in the JAX package."""
+    content (B, T', content_dim)), channels-last as in the JAX package. The
+    excitation comes third, before the JAX signature's ``c_src``, which is a
+    keyword here."""
 
     def __init__(self, decoder_ratios, decoder_channels, num_classes: int,
                  conditional_dim: int, content_dim: int | None = None,
@@ -191,10 +193,26 @@ class Generator(nn.Module):
                                content_dim, use_weight_norm=dec_wn,
                                kernel_sizes=kernel_sizes, dilations=dilations)
 
-    def forward(self, x: torch.Tensor, c_tgt: torch.Tensor,
-                c_var: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor | None, c_tgt: torch.Tensor | None,
+                c_var: torch.Tensor | None = None, c_src: torch.Tensor | None = None,
+                encode_only: bool = False, content: torch.Tensor | None = None):
+        """The JAX Generator's call, channels-last.
+
+        ``encode_only`` returns the content (B, T', content_dim) alone.
+        ``content`` is a precomputed content embedding: the encoder is
+        skipped and ``x`` is not read (the train step encodes once and decodes
+        the conversion and identity passes from it). ``c_src`` is the
+        source speaker's one-hot: the JAX package reads it only for the
+        encoder and bottleneck conditioning, which the configurations this
+        port supports do not have, so it is accepted and not read.
+        """
+        if content is None:
+            content = self.encoder(x.transpose(1, 2))
+        else:
+            content = content.transpose(1, 2)
+        if encode_only:
+            return content.transpose(1, 2)
         spk = self.embedding(c_tgt)
-        content = self.encoder(x.transpose(1, 2))
         if c_var is None:
             total = math.prod(self.decoder_ratios)
             c_var = torch.zeros((content.shape[0], content.shape[-1] * total, 1),

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cond_chain_op
+from td_vc_gan_tpu_torch.ops.dsp import reflect_pad
 
 LEAKY_RELU_SLOPE = 0.2
 
@@ -62,7 +63,8 @@ class WNConv1d(nn.Module):
     """1-D convolution with optional weight norm.
 
     padding: int (symmetric), (left, right), or 'same'; pad_mode 'zeros' or
-    'reflect' (reflect pads the input with ``F.pad``, which needs T > pad).
+    'reflect' (:func:`reflect_pad`, which reflects repeatedly where the pad
+    is not shorter than T, as the JAX package does).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -99,7 +101,7 @@ class WNConv1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         left, right = self.pads
         if self.pad_mode == "reflect" and (left or right):
-            x = F.pad(x, (left, right), mode="reflect")
+            x = reflect_pad(x, left, right)
             padding = 0
         elif left == right:
             padding = left
@@ -154,6 +156,22 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.kernel, self.bias)
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -g
+
+
+def grad_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Gradient reversal: the identity forward, -1 times the gradient
+    backward (the JAX package's ``grad_reverse``, scale fixed at 1)."""
+    return _GradReverse.apply(x)
 
 
 def init_weights(module: nn.Module, seed: int) -> nn.Module:

@@ -1,10 +1,12 @@
-"""Waveform DSP of the conversion path: the Kaiser low-pass of the excitation
-pyramid and sinusoid+noise excitation synthesis.
+"""Waveform DSP: the Kaiser low-passes of the excitation pyramid and the
+discriminator, sinusoid+noise excitation synthesis, per-row circular shifts
+and jitter.
 
-Counterparts of ``td_vc_gan_tpu/ops/dsp.py``. The JAX package draws the
-excitation's start phase and noise from a JAX PRNG, which torch cannot
-reproduce; :func:`f0_to_excitation` therefore takes them as optional
-arguments and otherwise draws them from a ``torch.Generator``.
+Counterparts of ``td_vc_gan_tpu/ops/dsp.py``. The JAX package draws its
+random numbers (the excitation's start phase and noise, the jitter shifts)
+from a JAX PRNG, which torch cannot reproduce; the functions here therefore
+take them as optional arguments and otherwise draw them from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,24 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.signal.windows import kaiser as _kaiser_window
+
+
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Reflect-pad the last axis as ``jnp.pad(mode="reflect")``: ``F.pad``
+    where every pad is shorter than the axis, else by index, reflecting as
+    often as the pad needs (period 2*(T-1)); needs T >= 2 then."""
+    t = x.shape[-1]
+    if max(left, right) < t:
+        return F.pad(x, (left, right), mode="reflect")
+    if t < 2:
+        raise ValueError(f"reflect padding of {max(left, right)} needs at least 2 samples, "
+                         f"got {t}")
+    period = 2 * (t - 1)
+    idx = torch.remainder(torch.arange(-left, t + right, device=x.device), period)
+    idx = torch.where(idx < t, idx, period - idx)
+    return x.index_select(-1, idx)
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,6 +45,20 @@ def kaiser_filter(L: int, w: float) -> np.ndarray:
     f = np.sin(math.pi * w * n) / (math.pi * n + 1e-8)
     f[len(n) // 2] = w
     f = f * _kaiser_window(L + 1, 2.5, sym=True)
+    f = f / f.sum()
+    return f.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def kaiser_filter_fc(L: int, fc: float, beta: float = 2.5) -> np.ndarray:
+    """Kaiser low-pass with an explicit cutoff and beta, L taps (L odd), unit
+    sum, float32: the discriminator's 129-tap band split (fc 0.5, beta 10)."""
+    if L % 2 == 0:
+        raise ValueError("even-length filter not supported")
+    n = np.arange(-((L - 1) // 2), (L - 1) // 2 + 1, dtype=np.float64)
+    f = np.sin(math.pi * fc * n) / (math.pi * n + 1e-8)
+    f[len(n) // 2] = fc
+    f = f * _kaiser_window(L, beta, sym=True)
     f = f / f.sum()
     return f.astype(np.float32)
 
@@ -73,3 +106,26 @@ def f0_to_excitation(f0: torch.Tensor, step_size: int, sampling_rate: int = 1600
         noise = torch.randn(phase.shape, generator=generator, device=f0.device)
     excitation = sin_gain * torch.sin(phase + start_phase) + noise * noise_std
     return torch.where(freq == 0, noise * noise_std * noise_gain, excitation)
+
+
+def roll_batches(x: torch.Tensor, shifts: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-row circular shift along ``axis``: out[b, ..., j, ...] =
+    x[b, ..., (j - shifts[b]) mod n, ...], so a positive shift moves content
+    to higher indices. ``shifts`` (B,) indexes axis 0 of ``x``."""
+    axis = axis % x.dim()
+    n = x.shape[axis]
+    j = torch.arange(n, device=x.device)
+    idx = torch.remainder(j[None, :] - shifts.to(x.device, torch.int64)[:, None], n)  # (B, n)
+    shape = [1] * x.dim()
+    shape[0], shape[axis] = x.shape[0], n
+    return torch.gather(x, axis, idx.reshape(shape).expand(x.shape))
+
+
+def add_jitter(x: torch.Tensor, jitter_amp: int, shifts: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Circular time shift of each row by a draw from [-amp, amp] (time is
+    the last axis); ``shifts`` (B,) injects the draws."""
+    if shifts is None:
+        shifts = torch.randint(-jitter_amp, jitter_amp + 1, (x.shape[0],),
+                               generator=generator, device=x.device)
+    return roll_batches(x, shifts, x.dim() - 1)

@@ -56,10 +56,9 @@ def _load(module: nn.Module, flat: dict[str, np.ndarray], layout) -> nn.Module:
     return module
 
 
-def generator_from_jax(G: nn.Module, params_np: Mapping) -> nn.Module:
-    """Fill the port's Generator ``G`` from the JAX Generator's parameter
-    tree (numpy leaves, with or without the top ``params`` level)."""
-    owners = dict(G.named_modules())
+def _conv_layout(module: nn.Module):
+    """The flax-to-torch layout of every leaf of ``module``, by its owner."""
+    owners = dict(module.named_modules())
 
     def layout(name: str, a: np.ndarray) -> np.ndarray:
         owner, leaf = owners[name.rpartition(".")[0]], name.rpartition(".")[2]
@@ -69,7 +68,24 @@ def generator_from_jax(G: nn.Module, params_np: Mapping) -> nn.Module:
             return np.ascontiguousarray(a.transpose(2, 1, 0))
         return a
 
-    return _load(G, _params(params_np), layout)
+    return layout
+
+
+def generator_from_jax(G: nn.Module, params_np: Mapping) -> nn.Module:
+    """Fill the port's Generator ``G`` from the JAX Generator's parameter
+    tree (numpy leaves, with or without the top ``params`` level)."""
+    return _load(G, _params(params_np), _conv_layout(G))
+
+
+def discriminator_from_jax(D: nn.Module, params_np: Mapping) -> nn.Module:
+    """Fill the port's CollaborativeMultibandDiscriminator (or a single
+    Discriminator) from the JAX module's parameter tree."""
+    return _load(D, _params(params_np), _conv_layout(D))
+
+
+def classifier_from_jax(C: nn.Module, params_np: Mapping) -> nn.Module:
+    """Fill the port's LatentClassifier from the JAX module's parameter tree."""
+    return _load(C, _params(params_np), _conv_layout(C))
 
 
 def crepe_from_jax(net: Crepe, params_np: Mapping) -> Crepe:

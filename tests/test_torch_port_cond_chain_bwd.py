@@ -1,0 +1,169 @@
+"""The cond chain's backward: the plain version beside K2, the autograd
+Function, and the dispatch that keeps a CUDA forward differentiable.
+
+``cond_chain_bwd_plain`` is held against torch.autograd through
+``cond_chain_plain`` (split and concat forms, several batch rows and lengths,
+T not a multiple of any tile) and against the JAX package's ``_chain_bwd``
+(the Pallas backward in interpret mode, concat form, 3 time tiles). K2 itself
+needs the card and is held against ``cond_chain_bwd_plain`` by chip_smoke.py;
+here the CUDA dispatch is exercised with the launches mocked by the plain
+versions. Tolerance: 1e-5 of max|ref| (f32, sums in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from td_vc_gan_tpu.ops.pallas import cond_chain as jax_cond_chain
+from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
+from td_vc_gan_tpu_torch.ops.cuda import cond_chain
+
+torch.set_num_threads(1)
+
+RTOL = 1e-5
+
+
+def assert_close(got, want, name):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=RTOL * scale, err_msg=name)
+
+
+def operands(split, b=2, t=40, s=10, e=4, n=3, cc=None, two_c=8, seed=0):
+    """Chain operands as float32 tensors: split form (per-batch bias, edges)
+    or concat form (shared bias, no edges)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32))
+
+    cc = cc or s + e
+    ein = e if split else cc
+    ops = dict(exc=r(b, t, ein), w0=r(3, ein, n * cc), hbias=r(b, n * cc) if split else r(n * cc),
+               w1=r(3, cc, n * two_c), b1=r(n * two_c))
+    if split:
+        ops.update(edge0=r(b, n * cc), edge_t=r(b, n * cc))
+    return ops
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "concat"])
+@pytest.mark.parametrize("b,t", [(1, 1), (2, 13), (3, 40), (2, 130)])
+def test_plain_backward_matches_autograd(split, b, t):
+    ops = {k: v.requires_grad_() for k, v in operands(split, b=b, t=t, seed=t).items()}
+    out = cond_chain.cond_chain_plain(**ops)
+    g = torch.from_numpy(np.random.default_rng(t + 1).standard_normal(out.shape)
+                         .astype(np.float32))
+    want = torch.autograd.grad(out, list(ops.values()), g)
+    args = {k: v.detach() for k, v in ops.items() if k != "b1"}
+    got = cond_chain.cond_chain_bwd_plain(g=g, **args)
+    assert set(got) == set(ops)
+    for name, w in zip(ops, want):
+        assert got[name].shape == w.shape, name
+        assert_close(got[name].numpy(), w.numpy(), name)
+
+
+def test_plain_backward_matches_pallas_interpret():
+    """Concat form against the JAX custom_vjp's backward (the Pallas kernel in
+    interpret mode), T = 96 in 3 tiles of 32; the TPU kernel's 128-column
+    padding gets a zero cotangent."""
+    ops = operands(False, b=2, t=96, n=3, cc=12, two_c=8, seed=5)
+    c, w0, b0, w1, b1 = (jnp.asarray(ops[k].numpy()) for k in ("exc", "w0", "hbias", "w1", "b1"))
+    n2 = w1.shape[2]
+    g = np.random.default_rng(6).standard_normal((2, 96, n2)).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: jax_cond_chain.film_cond_chain(*a, interpret=True),
+                       c, w0, b0, w1, b1)
+    gp = np.zeros(out.shape, np.float32)
+    gp[..., :n2] = g
+    want = dict(zip(("exc", "w0", "hbias", "w1", "b1"), (np.asarray(a) for a in vjp(gp))))
+    got = cond_chain.cond_chain_bwd_plain(
+        g=torch.from_numpy(g), **{k: ops[k] for k in ("exc", "w0", "hbias", "w1")})
+    for name in want:
+        assert_close(got[name].numpy(), want[name], name)
+
+
+def test_autograd_function_on_the_cpu():
+    """CondChain differentiates every operand on CPU tensors, as the plain
+    chain under autograd does, and launches nothing."""
+    ops = {k: v.requires_grad_() for k, v in operands(True, b=2, t=17, seed=7).items()}
+    before = (cond_chain.launches, cond_chain.bwd_launches)
+    out = cond_chain.cond_chain(**ops)
+    assert out.grad_fn is not None
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(8))
+    got = torch.autograd.grad(out, list(ops.values()), g)
+    want = torch.autograd.grad(cond_chain.cond_chain_plain(**ops), list(ops.values()), g)
+    for name, a, w in zip(ops, got, want):
+        assert_close(a.numpy(), w.numpy(), name)
+    assert (cond_chain.launches, cond_chain.bwd_launches) == before
+
+
+def test_cuda_request_under_grad_keeps_its_gradients(monkeypatch):
+    """With the dispatch taking the kernel route (mocked on the CPU by launches
+    that, like the kernels, return tensors without a graph), the output still
+    has a grad_fn, its backward goes through the backward launch, and every
+    operand's gradient equals the plain chain's."""
+    calls = []
+
+    def fake_launch(*args):
+        with torch.no_grad():
+            calls.append("fwd")
+            return cond_chain.cond_chain_plain(*args)
+
+    def fake_launch_bwd(*args):
+        calls.append("bwd")
+        return cond_chain.cond_chain_bwd_plain(*args)
+
+    monkeypatch.setattr(cond_chain, "_use_kernels", lambda exc: True)
+    monkeypatch.setattr(cond_chain, "_launch", fake_launch)
+    monkeypatch.setattr(cond_chain, "_launch_bwd", fake_launch_bwd)
+    for split in (True, False):
+        calls.clear()
+        ops = {k: v.requires_grad_() for k, v in operands(split, t=21, seed=9).items()}
+        out = cond_chain.cond_chain(**ops)
+        assert out.grad_fn is not None
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(10))
+        got = torch.autograd.grad(out, list(ops.values()), g)
+        assert calls == ["fwd", "bwd"]
+        want = torch.autograd.grad(cond_chain.cond_chain_plain(**ops), list(ops.values()), g)
+        for name, a, w in zip(ops, got, want):
+            assert_close(a.numpy(), w.numpy(), name)
+
+
+def test_mrf_films_gradients_reach_speaker_excitation_and_weights(monkeypatch):
+    """Through MRFBlock.films on the (mocked) kernel route, the speaker
+    embedding, the excitation and every cond weight get the plain chain's
+    gradient."""
+    monkeypatch.setattr(cond_chain, "_use_kernels", lambda exc: True)
+    monkeypatch.setattr(cond_chain, "_launch",
+                        lambda *a: cond_chain.cond_chain_plain(*a).detach())
+    monkeypatch.setattr(cond_chain, "_launch_bwd", cond_chain.cond_chain_bwd_plain)
+    mrf = init_weights(MRFBlock(4, 6 + 4, dilations=(1, 2), kernel_sizes=(3, 5)), seed=11)
+    gen = torch.Generator().manual_seed(12)
+    spk = torch.randn((2, 6), generator=gen).requires_grad_()
+    exc = torch.randn((2, 4, 19), generator=gen).requires_grad_()
+    leaves = [spk, exc] + [p for name, p in mrf.named_parameters() if ".cond_" in name]
+
+    def grads():
+        out = torch.cat([torch.cat(f, 1) for f in mrf.films(spk, exc)], 1)
+        return torch.autograd.grad(out, leaves, torch.ones_like(out))
+
+    got = grads()
+    monkeypatch.setattr(cond_chain, "_use_kernels", lambda exc: False)
+    want = grads()
+    assert len(got) == 2 + 4 * 6
+    for a, w in zip(got, want):
+        assert_close(a.numpy(), w.numpy(), "films")
+        assert float(w.abs().max()) > 0
+
+
+def test_kernel_route_checks_operands():
+    """The kernel route raises on what K1/K2 do not take (checked before any
+    build): Cc or 2C not a multiple of 4, float64, non-contiguous."""
+    ops = operands(True, s=9, e=2)  # Cc = 11
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cond_chain._check_operands(**ops)
+    ops = operands(True, s=12)  # Cc = 16
+    with pytest.raises(TypeError, match="float32"):
+        cond_chain._check_operands(**{**ops, "w0": ops["w0"].double()})
+    with pytest.raises(ValueError, match="contiguous"):
+        cond_chain._check_operands(**{**ops, "exc": ops["exc"].transpose(0, 1)})

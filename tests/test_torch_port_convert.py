@@ -190,3 +190,57 @@ def test_port_imports_nothing_of_jax():
     sources = sorted((REPO / "td_vc_gan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in sources:
         assert not banned.search(path.read_text()), path
+
+
+@pytest.fixture(scope="module")
+def full_mrf_converters():
+    """The JAX Converter and the port's on the full MRF (kernels 3, 7, 11 x
+    dilations 1, 3, 5) at narrow widths."""
+    g = JaxGenerator(decoder_ratios=RATIOS, decoder_channels=CHANNELS,
+                     num_bottleneck_layers=0, num_classes=4, conditional_dim=8,
+                     content_dim=8)
+    x = jnp.zeros((1, 1280, 1))
+    params = random_params(g, x, jnp.zeros((1, 4)), None, x, seed=2)
+    crepe_params = jax.jit(jcrepe.init_crepe)(jax.random.PRNGKey(1))
+    jconv = JaxConverter(jcfg.Config(), g, params, crepe_params, decoder="viterbi")
+    port_g = weights.generator_from_jax(Generator(RATIOS, CHANNELS, 4, 8, 8), params)
+    port_crepe = weights.crepe_from_jax(Crepe("tiny"), jax.tree_util.tree_map(np.asarray,
+                                                                             crepe_params))
+    return jconv, Converter(Config(), port_g, port_crepe, decoder="viterbi", device="cpu")
+
+
+def test_convert_short_utterance_with_full_mrf(full_mrf_converters):
+    """1000 samples (padded to 1280): the encoder's last stage has 8 frames,
+    under the widest MRF conv's reflect pad of 25, which the JAX layer pads
+    by repeated reflection."""
+    jconv, conv = full_mrf_converters
+    sig = (0.2 * np.sin(2 * np.pi * 170 * np.arange(1000) / 16000)).astype(np.float32)
+    f0, mu = jconv.pitch(sig)
+    want = jconv.convert(sig, 3, f0, mu, mu + np.float32(0.1), seed=4)
+    start, noise = jax_draws(4, (1, 1280))
+    got = conv.convert(sig, 3, f0, mu, mu + np.float32(0.1), start_phase=start, noise=noise)
+    assert got.shape == (1000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_convert_with_ratio_with_injected_draws(full_mrf_converters):
+    jconv, conv = full_mrf_converters
+    sig = (0.2 * np.sin(2 * np.pi * 140 * np.arange(2300) / 16000)).astype(np.float32)
+    want = jconv.convert_with_ratio(sig, 1, 1.25, seed=6)
+    start, noise = jax_draws(6, (1, 2560))
+    got = conv.convert_with_ratio(sig, 1, 1.25, start_phase=start, noise=noise)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_convert_long_matches_jax(full_mrf_converters):
+    """Three overlapping chunks; chunk i takes the draws JAX makes from
+    seed + i."""
+    jconv, conv = full_mrf_converters
+    t = np.arange(5000) / 16000
+    sig = (0.2 * np.sin(2 * np.pi * (130 + 60 * t) * t)).astype(np.float32)
+    want = jconv.convert_long(sig, 2, mu_tgt=np.log(190.0), chunk=2560, overlap=640, seed=9)
+    draws = [jax_draws(9 + i, (1, 2560)) for i in range(3)]
+    got = conv.convert_long(sig, 2, mu_tgt=np.log(190.0), chunk=2560, overlap=640,
+                            draws=draws)
+    assert got.shape == sig.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -166,3 +166,32 @@ def test_load_config_matches_jax(tmp_path):
                        ).model.generator.content_dim == 8
     with pytest.raises(ValueError, match="multiple"):
         load_config(overrides={"train": {"max_segment": 1000}})
+
+
+def test_generator_encode_only_content_and_c_src(generators):
+    """The train step's calls: encode_only, decoding from a given content,
+    and a source speaker (read by no supported configuration) all as in the
+    JAX Generator."""
+    jax_g, params, port = generators
+    rng = np.random.default_rng(6)
+    x = (0.3 * rng.standard_normal((2, 1280, 1))).astype(np.float32)
+    c_tgt, c_src = np.eye(4, dtype=np.float32)[[2, 0]], np.eye(4, dtype=np.float32)[[1, 1]]
+    c_var = (0.1 * rng.standard_normal((2, 1280, 1))).astype(np.float32)
+    cont = jax.jit(lambda p, x: jax_g.apply(p, x, None, encode_only=True))(params, x)
+    with torch.no_grad():
+        pcont = port(torch.from_numpy(x), None, encode_only=True)
+        np.testing.assert_allclose(pcont.numpy(), np.asarray(cont), **TOL)
+        content = np.asarray(cont)[::-1].copy()  # any content, not x's own
+        wav, subs, out_cont = jax.jit(
+            lambda p, c, v, k: jax_g.apply(p, None, c, None, v, content=k))(
+            params, c_tgt, c_var, content)
+        pwav, psubs, pout_cont = port(None, torch.from_numpy(c_tgt), torch.from_numpy(c_var),
+                                      content=torch.from_numpy(content))
+        np.testing.assert_allclose(pwav.numpy(), np.asarray(wav), **TOL)
+        for a, b in zip(psubs, subs):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+        np.testing.assert_array_equal(pout_cont.numpy(), content)
+        want = jax.jit(jax_g.apply)(params, x, c_tgt, c_src, c_var)[0]
+        got = port(torch.from_numpy(x), torch.from_numpy(c_tgt), torch.from_numpy(c_var),
+                   c_src=torch.from_numpy(c_src))[0]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

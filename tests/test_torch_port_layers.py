@@ -14,6 +14,7 @@ import torch
 from td_vc_gan_tpu.models import layers as jl
 from td_vc_gan_tpu_torch import weights
 from td_vc_gan_tpu_torch.models import layers as tl
+from td_vc_gan_tpu_torch.ops.dsp import reflect_pad
 
 torch.set_num_threads(1)
 
@@ -124,3 +125,33 @@ def test_init_weights_is_seeded_and_normalised():
     # g = ||v|| at init, so the effective weight is v
     torch.testing.assert_close(a.weight(), a.v, rtol=1e-6, atol=1e-6)
     assert float(a.v.detach().abs().max()) <= 1 / np.sqrt(15)
+
+
+@pytest.mark.parametrize("t,kw", [
+    (8, dict(kernel_size=11, dilation=5, padding=25)),   # the MRF's widest conv, pad >= T
+    (2, dict(kernel_size=7, padding=3)),                 # the k7 input convs at T = 2
+    (5, dict(kernel_size=15, padding=7)),                # the discriminator's input conv
+    (6, dict(kernel_size=3, padding=(9, 2))),            # uneven, one side past T
+])
+def test_wn_conv1d_reflect_pad_not_shorter_than_t(t, kw):
+    """Reflect padding of at least T reflects repeatedly, as the JAX layer's
+    jnp.pad(mode='reflect') does."""
+    x = np.random.default_rng(2).standard_normal((2, t, 3)).astype(np.float32)
+    mod = jl.WNConv1d(features=4, pad_mode="reflect", **kw)
+    params = random_params(mod, x, seed=3)
+    want = np.asarray(mod.apply(params, x))
+    port = tl.WNConv1d(3, 4, kw["kernel_size"], dilation=kw.get("dilation", 1),
+                       padding=kw["padding"], pad_mode="reflect")
+    port = weights.generator_from_jax(port, params)
+    np.testing.assert_allclose(nwc(port(ncw(x))), want, **TOL)
+
+
+def test_reflect_pad_matches_numpy_at_every_length():
+    for t in range(2, 9):
+        x = np.arange(2 * t, dtype=np.float32).reshape(2, 1, t)
+        for left, right in ((0, 0), (1, 0), (t - 1, t - 1), (t, 3 * t + 1), (25, 25)):
+            want = np.pad(x, ((0, 0), (0, 0), (left, right)), mode="reflect")
+            np.testing.assert_array_equal(reflect_pad(torch.from_numpy(x), left, right).numpy(),
+                                          want, err_msg=f"T={t} pads=({left}, {right})")
+    with pytest.raises(ValueError, match="at least 2"):
+        reflect_pad(torch.zeros(1, 1, 1), 1, 1)
