@@ -9,7 +9,8 @@ and no weights: everything is made from seeds. Phases, one line or more each:
 
 1. card: name and power limit (nvidia-smi) and torch's device name;
 2. build: nvcc compiles both kernel sources (K1, the FiLM cond chain's
-   forward; K2, its backward), one nvcc per source, started together;
+   forward; K2, its backward; both on the tensor cores as 3xTF32 through
+   csrc/tf32x3.cuh), one nvcc per source, started together;
 3. parity: K1 against its plain PyTorch version at the four decoder-stage
    shapes of an 8960-sample segment (B=2), split and concat forms;
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
@@ -17,28 +18,36 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    counted over that run, the same call with the plain chain, a small input
    against the CPU path, the conversion real-time factor, and one convert
    call's device time by kernel (torch.profiler);
-5. K1 times at the conversion path's four stage shapes beside the bound, the
-   plain version and a cuDNN sequence (a yardstick the port never calls);
+5. K1 times at the conversion path's four stage shapes and at the train
+   step's eight (stage, batch) shapes, each beside two bounds (the card's
+   3xTF32 tensor-core rate and its f32 CUDA-core rate), the plain version
+   and a cuDNN sequence (a yardstick the port never calls);
 6. K2 parity: every output of K2 against cond_chain_bwd_plain at the four
    training stage shapes (B=2), split and concat forms, and gradients
-   through MRFBlock.films, the kernels against the plain chain;
+   through MRFBlock.films, the kernels against the plain chain; then K1 and
+   K2 at widths off the decoder's defaults (Cc = 264; E = 6 and 10);
 7. train: the full-width stage-2 GAN train step (D -> C -> G, the config
    defaults, conv encoder) on 16 x 8960 samples: its first step against the
    same step with the plain chain, then a warm-up and timed steps (CUDA
    events) with 8 K1 and 8 K2 launches counted in each, loss and parameter
    checks, peak memory, and one step's device time by kernel;
-8. K2 times at the step's eight (stage, batch) shapes beside the bound, the
-   plain version and cuDNN's backward of the same chain (a yardstick).
+8. K2 at the step's eight (stage, batch) shapes: against its plain
+   version, a second run bit for bit, then its time beside the two bounds,
+   the plain version and cuDNN's backward of the same chain (a yardstick).
 
 Float32 throughout, with TF32 off in cuDNN and matmul: the port's compute
 type is f32, as the JAX package's default. Any failed check raises, and the
 script then exits non-zero without its result lines. The last two lines are
-the JSON kernel table and the result object.
+the JSON kernel table (this run's numbers only) and the result object;
+before them, each kernel's time beside the one recorded before the
+kernels' tensor-core redesign.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,12 +64,15 @@ from td_vc_gan_tpu_torch.models.discriminator import discriminator_from_config
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
+from td_vc_gan_tpu_torch.testing import PARITY_RTOL, chain_inputs, dyadic, stage_shapes
 from td_vc_gan_tpu_torch.training.state import create_train_state
 from td_vc_gan_tpu_torch.training.step import build_train_step
 
 PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores (data sheet)
+# H100 SXM, the fastest f32-accurate rate: 3xTF32 on the tensor cores, three
+# TF32 products (494.7 TFLOP/s dense, data sheet) per f32 product
+PEAK_F32_TC_FLOPS = 494.7e12 / 3
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
-PARITY_RTOL = 1e-4        # kernel vs plain: max|d| <= 1e-4 * max|plain|
 AUDIO_ATOL = 1e-3         # converted audio (in [-1, 1]): kernel path vs plain / CPU path
 B, UTT = 16, 71680        # the conversion batch the JAX package measured
 SEG = 8960                # the training segment
@@ -74,6 +86,18 @@ STEP_LOSS_RTOL = 1e-4     # first step's losses: kernel path vs plain-chain path
 # kernel), and each such element moves a cond-weight gradient by one term of
 # its B*T-term sum.
 STEP_MU_RTOL = 1e-2
+# Widths off the decoder's defaults that the kernels take too, as
+# (conditional_dim, E): a wider speaker embedding (Cc = 264: two passes of
+# K2's da product, two column groups of the h recompute) and excitation
+# widths that are not a multiple of 4 (K2's dW0 stages exc in 4-byte pieces,
+# in either weight-grad tile: E <= 8 and E > 8).
+WIDE_CASES = ((256, 8), (130, 6), (126, 10))
+# The kernels' times before their tensor-core redesign, as recorded in
+# PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W). Printed beside this
+# run's on a line of their own, never in the JSON kernel table, which holds
+# only this run's numbers.
+EARLIER_MS = {"cond_chain_fwd": (42.519, "convert call"),
+              "cond_chain_bwd": (99.527, "train step")}
 
 
 def say(*parts):
@@ -99,63 +123,45 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def stage_shapes(n_samples: int, cfg):
-    """(T, C) of every decoder stage for an utterance of n_samples."""
-    g = cfg.model.generator
-    t = n_samples // g.total_ratio
-    out = []
-    for r, c in zip(g.decoder_ratios, g.decoder_channels[1:]):
-        t *= r
-        out.append((t, c))
-    return out
-
-
-def dyadic(x: torch.Tensor, step: float) -> torch.Tensor:
-    """x rounded to a multiple of ``step`` (a power of two)."""
-    return torch.round(x / step) * step
-
-
-def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False):
-    """Split-form and concat-form operands at a decoder stage, scaled like
-    the seeded init. ``exact_h`` rounds the conditioning to multiples of 1/8
-    and cond_0's weights to multiples of 1/256, and its bias to an odd
-    multiple of 1/4096: every product then has at most 10 significant bits
-    and every sum of them is exact in f32, so h is the same in any summation
-    order, and with it the leaky_relu slope (1 or 0.2) that the backward
-    picks at each element; and h is never exactly 0, where torch's
-    leaky_relu backward takes the slope 0.2 and the JAX package's (and K2's)
-    takes 1. With unrounded inputs an element whose h lies within rounding
-    of 0 takes one slope in one version and the other in the other; that is
-    a property of the function, not an error of either version, and at the
-    largest stage it does occur, in cuDNN's f32 backward as in the kernel's."""
-    g = cfg.model.generator
-    s, e = g.conditional_dim, 8
-    cc = s + e
-    n = len(g.mrf_kernel_sizes) * len(g.mrf_dilations)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def u(*shape, fan_in):
-        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) / fan_in ** 0.5
-
-    spk = torch.randn((b, s), generator=gen, device="cuda")
-    exc = torch.randn((b, t, e), generator=gen, device="cuda")
-    w0, b0 = u(3, cc, n * cc, fan_in=3 * cc), u(n * cc, fan_in=3 * cc)
-    if exact_h:
-        spk, exc = dyadic(spk, 1 / 8), dyadic(exc, 1 / 8)
-        w0, b0 = dyadic(w0, 1 / 256), dyadic(b0, 1 / 256) + 1 / 4096
-    w1, b1 = u(3, cc, n * 2 * c, fan_in=3 * cc), u(n * 2 * c, fan_in=3 * cc)
-    w0_spk = w0[:, :s]
-    split = dict(exc=exc, w0=w0[:, s:].contiguous(),
-                 hbias=spk @ (w0_spk[0] + w0_spk[1] + w0_spk[2]) + b0,
-                 w1=w1, b1=b1, edge0=spk @ w0_spk[0], edge_t=spk @ w0_spk[2])
-    concat = dict(c=torch.cat([spk[:, None, :].expand(b, t, s), exc], -1).contiguous(),
-                  w0=w0, b0=b0, w1=w1, b1=b1)
-    return split, concat, n, cc
-
-
 def rel_err(got, want) -> tuple[float, float]:
     d = float((got - want).abs().max())
     return d, d / max(float(want.abs().max()), 1e-30)
+
+
+def bounds(flops: float, nbytes: float) -> tuple[float, float, str]:
+    """(bound_ms, bound_simt_ms, bound_by) of work that must do ``flops``
+    f32 operations and move ``nbytes``: the least time at the card's fastest
+    f32-accurate rate (3xTF32 tensor cores) and at its f32 CUDA-core rate,
+    each the larger of the operation and byte times."""
+    byte_s = nbytes / PEAK_BYTES
+    bound_by = "operations" if flops / PEAK_F32_TC_FLOPS >= byte_s else "bytes"
+    return (max(flops / PEAK_F32_TC_FLOPS, byte_s) * 1e3,
+            max(flops / PEAK_F32_FLOPS, byte_s) * 1e3, bound_by)
+
+
+class Totals(dict):
+    """Sums of a kernel's per-shape numbers (ms, bounds, plain, library)."""
+
+    KEYS = ("ms", "plain_ms", "bound_ms", "bound_simt_ms", "library_ms", "flops", "bytes")
+
+    def __init__(self):
+        super().__init__((k, 0.0) for k in self.KEYS)
+
+    def add(self, **kv):
+        for k, v in kv.items():
+            self[k] += v
+
+    def line(self) -> str:
+        bound_by = bounds(self["flops"], self["bytes"])[2]
+        return (f"{self['ms']:.3f} ms against a bound of {self['bound_ms']:.3f} ms "
+                f"({bound_by}, 3xTF32 tensor cores; {self['bound_ms'] / self['ms']:.1%} of "
+                f"it) and {self['bound_simt_ms']:.3f} ms (f32 CUDA cores; "
+                f"{self['bound_simt_ms'] / self['ms']:.1%}); plain {self['plain_ms']:.3f} ms, "
+                f"cuDNN {self['library_ms']:.3f} ms")
+
+    def row(self) -> dict:
+        return {k: self[k] for k in ("ms", "plain_ms", "bound_ms", "bound_simt_ms",
+                                     "library_ms")}
 
 
 def phase_parity(cfg):
@@ -270,6 +276,30 @@ def films_grad_parity(cfg, stage, t, c):
     return worst_d
 
 
+def wide_parity(cfg, stage: int = 1):
+    """K1 and K2 against their plain versions at WIDE_CASES: split form,
+    B=2, one training stage's (T, C), dyadic cond_0 operands."""
+    t, c = stage_shapes(SEG, cfg)[stage]
+    parts = []
+    for s, e in WIDE_CASES:
+        wcfg = copy.deepcopy(cfg)
+        wcfg.model.generator.conditional_dim = s
+        split, _, n, cc = chain_inputs(2, t, c, wcfg, seed=900 + e, exact_h=True, e=e)
+        _, r_fwd = rel_err(cc_mod.cond_chain(**split), cc_mod.cond_chain_plain(**split))
+        g = cotangent(split, seed=950 + e)
+        args = {k: v for k, v in split.items() if k != "b1"}
+        got = cc_mod._launch_bwd(g=g, **args)
+        want = cc_mod.cond_chain_bwd_plain(g=g, **args)
+        r_bwd = max(rel_err(got[k], want[k])[1] for k in want)
+        torch.cuda.synchronize()
+        parts.append(f"Cc={cc} E={e}: K1 {r_fwd:.1e}, K2 (worst output) {r_bwd:.1e}")
+        if not (r_fwd <= PARITY_RTOL and r_bwd <= PARITY_RTOL):
+            raise AssertionError(f"cond-chain kernels disagree with their plain versions at "
+                                 f"Cc={cc} E={e}")
+    say(f"wide parity: B=2 T={t} C={c}, split form, max|d| of max|ref|: " + "; ".join(parts)
+        + f"; tolerance {PARITY_RTOL:.0e} of max|ref|")
+
+
 def signals(seed: int, n: int = UTT) -> np.ndarray:
     """B voiced-like utterances of n samples: a gliding harmonic tone per row
     plus noise."""
@@ -380,53 +410,64 @@ def profile_call(fn, label, card, top: int = 10):
         say(f"profile: {ms:8.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:90]}")
 
 
+def k1_stage(cfg, card, b, t, c, seed, label):
+    """K1 at one (B, T, C): held against its plain version, then timed beside
+    its bounds, the plain version and a cuDNN sequence (a yardstick the port
+    never calls). Returns (max|d|, the numbers for Totals)."""
+    split, concat, n, cc = chain_inputs(b, t, c, cfg, seed=seed)
+    e = split["exc"].shape[-1]
+    d, r = rel_err(cc_mod.cond_chain(**split), cc_mod.cond_chain_plain(**split))
+    if r > PARITY_RTOL:
+        raise AssertionError(f"cond-chain kernel disagrees with its plain version at "
+                             f"{label} B={b} T={t}: {r:.2e} of max|ref|")
+    k_ms = cuda_ms(lambda: cc_mod.cond_chain(**split), iters=5, warmup=2)
+    p_ms = cuda_ms(lambda: cc_mod.cond_chain_plain(**split), iters=3)
+    w0c = concat["w0"].permute(2, 1, 0)
+    w1g = concat["w1"].permute(2, 1, 0)
+    cin = concat["c"].transpose(1, 2).contiguous()
+
+    def cudnn_chain():
+        h = F.leaky_relu(F.conv1d(cin, w0c, concat["b0"], padding=1), 0.2)
+        return F.conv1d(h, w1g, concat["b1"], padding=1, groups=n)
+
+    l_ms = cuda_ms(cudnn_chain, iters=3)
+    flops = 2.0 * b * t * (n * cc * 3 * e + n * 2 * c * 3 * cc)
+    nbytes = 4.0 * (sum(x.numel() for x in split.values()) + b * t * n * 2 * c)
+    bound, bound_simt, _ = bounds(flops, nbytes)
+    say(f"k1 {label} B={b} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
+        f"(3xTF32) / {bound_simt:.3f} ms (f32 CUDA cores) ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e9:.3f} GB; {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved), "
+        f"plain {p_ms:.3f} ms, cuDNN conv1d+lrelu+grouped conv1d {l_ms:.3f} ms, "
+        f"max|d| vs plain {d:.2e} [{card}]")
+    del split, concat
+    torch.cuda.empty_cache()
+    return d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_simt_ms=bound_simt,
+                   library_ms=l_ms, flops=flops, bytes=nbytes)
+
+
 def phase_kernel_times(cfg, card, launches, parity_err):
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    """K1 at the conversion path's four stage shapes (one call each per
+    convert call) and at the train step's eight (stage, batch) shapes."""
     worst = parity_err
+    paths = {"convert": Totals(), "train": Totals()}
     for i, (t, c) in enumerate(stage_shapes(UTT, cfg)):
-        split, concat, n, cc = chain_inputs(B, t, c, cfg, seed=200 + i)
-        e = split["exc"].shape[-1]
-        d, r = rel_err(cc_mod.cond_chain(**split), cc_mod.cond_chain_plain(**split))
-        if r > PARITY_RTOL:
-            raise AssertionError(f"cond-chain kernel disagrees with its plain version at "
-                                 f"main-path stage {i}: {r:.2e} of max|ref|")
+        d, v = k1_stage(cfg, card, B, t, c, 200 + i, "convert")
+        paths["convert"].add(**v)
         worst = max(worst, d)
-        k_ms = cuda_ms(lambda: cc_mod.cond_chain(**split), iters=5, warmup=2)
-        p_ms = cuda_ms(lambda: cc_mod.cond_chain_plain(**split), iters=3)
-        w0c = concat["w0"].permute(2, 1, 0)
-        w1g = concat["w1"].permute(2, 1, 0)
-        cin = concat["c"].transpose(1, 2).contiguous()
-
-        def cudnn_chain():
-            h = F.leaky_relu(F.conv1d(cin, w0c, concat["b0"], padding=1), 0.2)
-            return F.conv1d(h, w1g, concat["b1"], padding=1, groups=n)
-
-        l_ms = cuda_ms(cudnn_chain, iters=3)
-        flops = 2.0 * B * t * (n * cc * 3 * e + n * 2 * c * 3 * cc)
-        nbytes = 4.0 * (sum(x.numel() for x in split.values()) + B * t * n * 2 * c)
-        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        say(f"kernel stage {i}: B={B} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
-            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB; "
-            f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved), plain {p_ms:.3f} ms, "
-            f"cuDNN conv1d+lrelu+grouped conv1d {l_ms:.3f} ms, launches per convert 1, "
-            f"max|d| vs plain {d:.2e} [{card}]")
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                       ("library_ms", l_ms), ("flops", flops), ("bytes", nbytes)):
-            totals[key] += v
-        del split, concat
-        torch.cuda.empty_cache()
-    bound_by = ("operations" if totals["flops"] / PEAK_F32_FLOPS >= totals["bytes"] / PEAK_BYTES
-                else "bytes")
-    say(f"kernel per convert call (4 stages): {totals['ms']:.3f} ms against a bound of "
-        f"{totals['bound_ms']:.3f} ms ({bound_by}), {totals['bound_ms'] / totals['ms']:.1%} "
-        f"of it [{card}]")
+    say(f"k1 per convert call (4 calls): {paths['convert'].line()} [{card}]")
+    for bsz in (2 * B, B):
+        for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
+            d, v = k1_stage(cfg, card, bsz, t, c, 250 + i, "train")
+            paths["train"].add(**v)
+            worst = max(worst, d)
+    say(f"k1 per train step (8 calls): {paths['train'].line()} [{card}]")
+    conv = paths["convert"]
     return {"name": "cond_chain_fwd", "route": "cuda",
             "source": "td_vc_gan_tpu_torch/csrc/cond_chain.cu",
             "replaces": "td_vc_gan_tpu/ops/pallas/cond_chain.py:157",
-            "launches": launches, "max_abs_err": worst,
-            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
-            "library_ms": totals["library_ms"]}
+            "launches": launches, "max_abs_err": worst, **conv.row(),
+            "bound_by": bounds(conv["flops"], conv["bytes"])[2],
+            "by_path": {k: v.row() for k, v in paths.items()}}
 
 
 def train_batch(seed: int) -> dict:
@@ -531,22 +572,23 @@ def phase_train(cfg, card):
     return launches, median
 
 
-def k2_bound(b, t, e, n, cc, two_c) -> tuple[float, float, float]:
-    """(flops, bytes, ms) of the least the card could do for one K2 call:
-    h recompute, dexc and dW0 2*3*E*n*Cc flops per (b, t) row each, da and
-    dW1 2*3*n*Cc*2C each; every input read once, every output written once."""
+def k2_work(b, t, e, n, cc, two_c) -> tuple[float, float]:
+    """(flops, bytes) of the least the card could do for one K2 call: h
+    recompute, dexc and dW0 2*3*E*n*Cc flops per (b, t) row each, da and dW1
+    2*3*n*Cc*2C each; every input read once, every output written once."""
     n0, n2 = n * cc, n * two_c
     flops = 2.0 * b * t * (3 * 3 * e * n0 + 2 * 3 * n0 * two_c)
     ins = b * t * e + 3 * e * n0 + 3 * b * n0 + 3 * cc * n2 + b * t * n2
     outs = b * t * e + 3 * e * n0 + 3 * b * n0 + 3 * cc * n2 + n2
-    nbytes = 4.0 * (ins + outs)
-    return flops, nbytes, max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return flops, 4.0 * (ins + outs)
 
 
 def phase_k2_times(cfg, card, launches, parity_err):
-    """K2 at the train step's eight (stage, batch) shapes: kernel, bound,
-    plain version and cuDNN's backward of the same chain."""
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    """K2 at the train step's eight (stage, batch) shapes: against its plain
+    version, a second run bit for bit (no atomics: the same result every
+    run), then kernel, bounds, plain version and cuDNN's backward of the same
+    chain."""
+    totals = Totals()
     worst = parity_err
     for bsz in (2 * B, B):
         for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
@@ -555,14 +597,18 @@ def phase_k2_times(cfg, card, launches, parity_err):
             g = cotangent(split, seed=800 + i)
             args = {k: v for k, v in split.items() if k != "b1"}
             got = cc_mod._launch_bwd(g=g, **args)
+            again = cc_mod._launch_bwd(g=g, **args)
             want = cc_mod.cond_chain_bwd_plain(g=g, **args)
             for k in want:
                 d, r = rel_err(got[k], want[k])
                 if r > PARITY_RTOL:
                     raise AssertionError(f"K2 disagrees with its plain version at B={bsz} "
                                          f"T={t}, d{k}: {r:.2e} of max|ref|")
+                if not torch.equal(got[k], again[k]):
+                    raise AssertionError(f"K2 gave two different d{k} on the same inputs "
+                                         f"at B={bsz} T={t}")
                 worst = max(worst, d)
-            del got, want
+            del got, again, want
             k_ms = cuda_ms(lambda: cc_mod._launch_bwd(g=g, **args), iters=3, warmup=1)
             p_ms = cuda_ms(lambda: cc_mod.cond_chain_bwd_plain(g=g, **args), iters=2)
             leaves = [split[k].clone().requires_grad_() for k in ("exc", "w0", "hbias", "w1", "b1")]
@@ -573,29 +619,50 @@ def phase_k2_times(cfg, card, launches, parity_err):
             l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True),
                            iters=2)
             del h, out, leaves
-            flops, nbytes, bound = k2_bound(bsz, t, e, n, cc, 2 * c)
+            flops, nbytes = k2_work(bsz, t, e, n, cc, 2 * c)
+            bound, bound_simt, _ = bounds(flops, nbytes)
             say(f"k2 B={bsz} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
-                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB; "
-                f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved), plain {p_ms:.3f} ms, "
-                f"cuDNN backward of conv1d+lrelu+grouped conv1d {l_ms:.3f} ms, "
-                f"launches per step 1 [{card}]")
-            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                           ("library_ms", l_ms), ("flops", flops), ("bytes", nbytes)):
-                totals[key] += v
+                f"(3xTF32) / {bound_simt:.3f} ms (f32 CUDA cores) ({flops / 1e9:.1f} GFLOP, "
+                f"{nbytes / 1e9:.3f} GB; {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s "
+                f"achieved), plain {p_ms:.3f} ms, cuDNN backward of conv1d+lrelu+grouped "
+                f"conv1d {l_ms:.3f} ms, launches per step 1, every output bit-identical "
+                f"in a second run [{card}]")
+            totals.add(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_simt_ms=bound_simt,
+                       library_ms=l_ms, flops=flops, bytes=nbytes)
             del split, g, args
             torch.cuda.empty_cache()
-    bound_by = ("operations" if totals["flops"] / PEAK_F32_FLOPS >= totals["bytes"] / PEAK_BYTES
-                else "bytes")
-    say(f"k2 per train step (8 calls): {totals['ms']:.3f} ms against a bound of "
-        f"{totals['bound_ms']:.3f} ms ({bound_by}), {totals['bound_ms'] / totals['ms']:.1%} "
-        f"of it; plain {totals['plain_ms']:.3f} ms, cuDNN {totals['library_ms']:.3f} ms [{card}]")
+    say(f"k2 per train step (8 calls): {totals.line()} [{card}]")
     return {"name": "cond_chain_bwd", "route": "cuda",
             "source": "td_vc_gan_tpu_torch/csrc/cond_chain_bwd.cu",
             "replaces": "td_vc_gan_tpu/ops/pallas/cond_chain.py:221",
-            "launches": launches, "max_abs_err": worst,
-            "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
-            "library_ms": totals["library_ms"]}
+            "launches": launches, "max_abs_err": worst, **totals.row(),
+            "bound_by": bounds(totals["flops"], totals["bytes"])[2]}
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?(cond_chain_fwd_kernel|k2_\w+?_kernel)"
+                      r"((?:I(?:L[ib]\d+E)+E)?)", ln)
+        if m:
+            targs = re.findall(r"L[ib](\d+)E", m.group(2))
+            name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+        elif name and "spill" in ln:
+            out.append(f"{name}: {ln.strip()}")
+        elif name and "registers" in ln:
+            out[-1] += f", {ln.split(':', 1)[1].strip()}"
+            name = None
+    return out
+
+
+def say_earlier(rows):
+    """Each kernel's time in this run beside its EARLIER_MS entry."""
+    for row in rows:
+        ms, per = EARLIER_MS[row["name"]]
+        say(f"earlier: {row['name']} {row['ms']:.3f} ms per {per} in this run; "
+            f"{ms:.3f} ms before the tensor-core redesign (recorded in PERF.md, "
+            f"not measured here)")
 
 
 def main() -> int:
@@ -611,21 +678,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     _, build_s, log = cc_mod.build()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     say(f"build: {', '.join(src.name for src in cc_mod.SOURCES)} with nvcc, in parallel, "
-        f"in {build_s:.1f} s; " + " | ".join(ptxas))
+        f"in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
 
     cfg = Config()
     parity_err = phase_parity(cfg)
     convert_launches = phase_slice(cfg, card)
     k1_row = phase_kernel_times(cfg, card, convert_launches, parity_err)
     k2_err = phase_k2_parity(cfg)
+    wide_parity(cfg)
     (train_k1, train_k2), _ = phase_train(cfg, card)
     k2_row = phase_k2_times(cfg, card, train_k2, k2_err)
     # K1 runs on both main paths: conversion (phase 4) and the train step
     k1_row["launches"] = convert_launches + train_k1
     k1_row["launches_by_path"] = {"convert": convert_launches, "train": train_k1}
     k2_row["launches_by_path"] = {"train": train_k2}
+    say_earlier([k1_row, k2_row])
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     say(json.dumps({"kernels": [k1_row, k2_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

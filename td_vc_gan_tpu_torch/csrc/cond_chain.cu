@@ -1,4 +1,4 @@
-// FiLM conditioning chain, forward, for one MRF stage's n FiLM blocks.
+// FiLM conditioning chain, forward (K1), for one MRF stage's n FiLM blocks.
 //
 // Replaces td_vc_gan_tpu/ops/pallas/cond_chain.py::_fwd_kernel (launched by
 // _pallas_fwd). It computes, in the split form the decoder feeds it
@@ -15,216 +15,251 @@
 //
 // What bounds it on an H100: at the decoder's shapes the work is
 // ~2*3*Cc*n*2C flops per output row against n*2C*4 bytes written, i.e. about
-// 400 flops per byte, far above the card's f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flops per byte): the chain is bound by f32 operations.
+// 400 flops per byte, far above the card's ridge even at the tensor cores'
+// f32-accurate rate (165 TFLOP/s over 3.35 TB/s = 49 flops per byte): the
+// chain is bound by operations.
 //
-// What the design does about it: the n*Cc-wide intermediate h (1224 columns at
-// full width) never reaches device memory. One CTA owns (batch row, time
-// tile); it stages the tile's excitation rows (plus a 2-row halo on each side)
-// in shared memory once, then loops over the n blocks: phase 1 computes block
-// i's h for the tile plus one halo row on each side into shared memory
-// (channel-major, odd row stride so the stores do not conflict) and applies
-// leaky_relu; phase 2 gives every thread a 4-row x 4-column register tile of
-// out_i, reading 6 activations from shared memory and three float4 rows of W1
-// through L1/L2 per input channel, for 48 FMAs. W1 (up to 3*136*256 floats per
-// block) does not fit in shared memory and is streamed through L1/L2; all CTAs
-// read the same W1, so it stays resident in L2.
+// What the design does about it: both products run on the tensor cores as
+// 3xTF32 (tf32x3.cuh: f32 accuracy at a third of the TF32 rate, 2.5x the
+// f32 CUDA-core peak), and the n*Cc-wide intermediate h (1224 columns at full
+// width) never reaches device memory. One CTA of 8 warps owns (batch row,
+// 128-row time tile). It stages the tile's excitation rows (plus a 2-row halo
+// on each side) in shared memory once, then loops over the n blocks:
+//  1. lrelu(h_i) for the tile plus one halo row on each side, into shared
+//     memory (cond_chain_h.cuh: an M = 144, N = Cc, K = 3E tensor-core
+//     product; each warp keeps its columns' W0 fragments in registers and
+//     walks the rows);
+//  2. out_i = the M = 128, N = 2C, K = 3*Cc product: A is lrelu(h_i) in shared
+//     memory (tap j reads it j rows down), B is W1_i, which at 2C = 256
+//     (3*136*256 floats, 418 KB) does not fit in shared memory, so it comes in
+//     K-chunks of 24 (or 48) rows x 64 (or 32) columns through a
+//     double-buffered cp.async ring and is split into hi and lo once where it
+//     lands (not in each of the 4 or 8 warps that read it); each warp owns a
+//     32 x 32 (or 16 x 32) tile of out_i, 8 (or 4) m16n8k8 tiles per k-step,
+//     and the CTA makes 2C / 64 passes over the columns. Every staged chunk
+//     of W1 serves the tile's 128 rows.
+// Shared-memory strides keep each warp's fragment loads free of bank
+// conflicts (tf32x3.cuh). Two CTAs fit on an SM (107-111 KB of shared
+// memory each in the split form).
 //
-// Numerics: plain f32 FMAs on the CUDA cores, no TF32 anywhere; the sums run in
-// another order than cuDNN's or XLA's, so results agree with the plain
-// version to rounding (tolerances are stated by the callers).
+// Numerics: 3xTF32 products into f32 accumulators, no TF32-only product; the
+// sums run in another order than cuDNN's or XLA's, so results agree with the
+// plain version to rounding (tolerances are stated by the callers). Inputs
+// with at most 11 significant bits are multiplied exactly.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (td_vc_gan_tpu_torch/ops/cuda/cond_chain.py does this at first use).
 
 #include <cuda_runtime.h>
 
+#include "cond_chain_h.cuh"
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kRowsPerThread = 4;   // output rows of a thread's register tile
-constexpr int kColsPerThread = 4;   // output columns of it: one float4
-constexpr int kHRows = 8;           // h rows per work item of phase 1
-constexpr int kMaxThreads = 256;
-constexpr int kMaxRowThreads = 32;  // caps the time tile at 128 rows
-constexpr float kSlope = 0.2f;
+using cond_chain_h::HArgs;
+using namespace tf32x3;
+
+constexpr int kThreads = 256;         // 8 warps
+constexpr int kTile = 128;            // output rows per CTA
+constexpr int kActRows = kTile + 2;   // lrelu(h) rows t0-1 .. t0+kTile
+constexpr int kXsRows = (kActRows + 15) / 16 * 16 + 2;  // exc rows t0-2 ..
+constexpr int kStages = 2;            // double-buffered
+
+// k-steps (8 rows each) of W1 per stage: as many as keep two CTAs on an SM
+__host__ __device__ constexpr int chunk_steps(int wn) { return wn == 1 ? 6 : 3; }
+constexpr size_t kSmemMax = 227 * 1024;
 
 struct Args {
-  const float* exc;      // (B, T, E)
-  const float* w0;       // (3, E, n*Cc)
-  const float* hbias;    // (B, n*Cc), or (n*Cc) with hbias_bstride = 0
-  long long hbias_bstride;
-  const float* edge0;    // (B, n*Cc) or null
-  const float* edge_t;   // (B, n*Cc) or null
-  const float* w1;       // (3, Cc, n*2C)
-  const float* b1;       // (n*2C)
-  float* out;            // (B, T, n*2C)
-  int T, E, n, cc, two_c;
-  int tile, lda, exc_rows, col_threads;
+  HArgs h;
+  const float* w1;  // (3, Cc, n*2C)
+  const float* b1;  // (n*2C)
+  float* out;       // (B, T, n*2C)
+  int two_c;
+  int ldx, lda, ldw;  // shared-memory row strides (floats): exc, lrelu(h), W1 chunk
 };
 
-__global__ void cond_chain_fwd_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* act = smem;                    // [Cc][lda]: lrelu(h_i), tile rows t0-1 ..
-  float* xs = smem + a.cc * a.lda;      // [exc_rows][E]: exc rows t0-2 ..
+// WN: warps across the columns of a pass (2: 64 columns, 4 x 2 warps of
+// 32 x 32; 1: 32 columns, 8 x 1 warps of 16 x 32).
+template <int WN>
+__global__ void __launch_bounds__(kThreads) cond_chain_fwd_kernel(Args a) {
+  constexpr int MT = WN;       // m-tiles (16 rows) per warp
+  constexpr int BN = 32 * WN;  // columns per pass
+  constexpr int kChunkSteps = chunk_steps(WN);
+  constexpr int kChunkRows = kChunkSteps * 8;
+  extern __shared__ __align__(16) float smem[];
+  float* act = smem;                     // [kActRows][lda]
+  float* xs = act + kActRows * a.lda;    // [kXsRows][ldx]
+  float* wst = xs + kXsRows * a.ldx;     // [kStages][hi, lo][kChunkRows][ldw]
+  const int wlo = kChunkRows * a.ldw;    // lo parts of a stage, after its hi parts
 
+  const HArgs& h = a.h;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * a.tile;
+  const int t0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int n0 = a.n * a.cc;
-  const int n2 = a.n * a.two_c;
-  const int h_rows = a.tile + 2;
-  const int groups = (h_rows + kHRows - 1) / kHRows;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
+  const int n2 = h.n * a.two_c;
+  const int ks_tap = h.cc_pad / 8;
+  const int ksteps = 3 * ks_tap;
+  const int nchunks = (ksteps + kChunkSteps - 1) / kChunkSteps;
 
-  const float* exc_b = a.exc + (size_t)b * a.T * a.E;
-  for (int idx = tid; idx < a.exc_rows * a.E; idx += nthr) {
-    const int r = idx / a.E;
-    const int t = t0 - 2 + r;
-    xs[idx] = (t >= 0 && t < a.T) ? exc_b[(size_t)t * a.E + (idx - r * a.E)] : 0.f;
-  }
+  cond_chain_h::stage_exc(h, xs, a.ldx, kXsRows, b, t0);
 
-  const int tx = tid % a.col_threads;
-  const int ty = tid / a.col_threads;  // tile = blockDim.x / col_threads * 4 rows
-
-  for (int i = 0; i < a.n; ++i) {
+  for (int i = 0; i < h.n; ++i) {
     __syncthreads();  // xs staged; the previous block's act fully read
-
-    // phase 1: act[c][r] = lrelu(h_i)[t0 - 1 + r], zero outside [0, T)
-    for (int item = tid; item < a.cc * groups; item += nthr) {
-      const int c = item % a.cc;
-      const int g = item / a.cc;
-      const int col = i * a.cc + c;
-      float acc[kHRows];
-#pragma unroll
-      for (int k = 0; k < kHRows; ++k) acc[k] = 0.f;
-      for (int j = 0; j < 3; ++j) {
-        const float* wj = a.w0 + (size_t)j * a.E * n0 + col;
-        const float* xj = xs + (g * kHRows + j) * a.E;
-        for (int e = 0; e < a.E; ++e) {
-          const float w = __ldg(wj + (size_t)e * n0);
-#pragma unroll
-          for (int k = 0; k < kHRows; ++k) acc[k] = fmaf(xj[k * a.E + e], w, acc[k]);
-        }
-      }
-      const float hb = __ldg(a.hbias + (size_t)b * a.hbias_bstride + col);
-      const float e0 = a.edge0 ? __ldg(a.edge0 + (size_t)b * n0 + col) : 0.f;
-      const float et = a.edge_t ? __ldg(a.edge_t + (size_t)b * n0 + col) : 0.f;
-#pragma unroll
-      for (int k = 0; k < kHRows; ++k) {
-        const int r = g * kHRows + k;
-        if (r < h_rows) {
-          const int t = t0 - 1 + r;
-          float v = 0.f;
-          if (t >= 0 && t < a.T) {
-            v = acc[k] + hb;
-            if (t == 0) v -= e0;
-            if (t == a.T - 1) v -= et;
-            v = v >= 0.f ? v : kSlope * v;
-          }
-          act[c * a.lda + r] = v;
-        }
-      }
-    }
+    cond_chain_h::recompute_act<false>(h, xs, a.ldx, act, a.lda, kActRows, b, t0, i);
     __syncthreads();
 
-    // phase 2: a 4x4 register tile of out_i per thread
-    {
-      const int col = i * a.two_c + tx * kColsPerThread;
-      float acc[kRowsPerThread][kColsPerThread];
+    for (int c0 = 0; c0 < a.two_c; c0 += BN) {
+      // chunk ch: W1 rows k = ch*kChunkRows .. (k = j*Cc_pad + c), columns c0 .. c0+BN
+      // (split = true: this thread's pieces of chunk ch, landed, split in place)
+      auto load = [&](int ch, bool split) {
+        float* dst = wst + (ch % kStages) * 2 * wlo;
+        constexpr int kPieces = BN / 4;
+        for (int idx = tid; idx < kChunkRows * kPieces; idx += kThreads) {
+          const int kr = idx / kPieces;
+          const int p = idx - kr * kPieces;
+          const int k = ch * kChunkRows + kr;
+          const int j = k >= 2 * h.cc_pad ? 2 : k >= h.cc_pad ? 1 : 0;
+          const int c = k - j * h.cc_pad;
+          const int col = c0 + p * 4;
+          const bool ok = j < 3 && c < h.cc && col < a.two_c;
+          if (split) {
+            split_in_place(dst + kr * a.ldw + p * 4, wlo);
+          } else {
+            cp_async16(dst + kr * a.ldw + p * 4,
+                       ok ? a.w1 + ((size_t)j * h.cc + c) * n2 + i * a.two_c + col : a.w1, ok);
+          }
+        }
+      };
+
+      float acc[MT][4][4];
 #pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int q = 0; q < kColsPerThread; ++q) acc[k][q] = __ldg(a.b1 + col + q);
-      const float* w1c = a.w1 + col;
-      for (int c = 0; c < a.cc; ++c) {
-        const float* ar = act + c * a.lda + ty * kRowsPerThread;
-        float av[kRowsPerThread + 2];
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int q = 0; q < kRowsPerThread + 2; ++q) av[q] = ar[q];
+          for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+      // A[r][k] of k-step (j, cb) = act[r + j][cb + k]: output row t0 + r reads h
+      // row t0 + r + j - 1; ap walks (j, cb) = (0, 0), (0, 8), .., (1, 0), ..
+      const float* ap = act + (wm * 16 * MT + grp) * a.lda + tig;
+      int cb = 0;
+      for (int ch = 0; ch < kStages - 1; ++ch) {
+        if (ch < nchunks) load(ch, false);
+        cp_async_commit();
+      }
+      for (int ch = 0; ch < nchunks; ++ch) {
+        cp_async_wait<kStages - 2>();
+        load(ch, true);   // split once here, not in every warp that reads it
+        __syncthreads();  // chunk ch split for every thread; chunk ch-1's stage is free
+        if (ch + kStages - 1 < nchunks) load(ch + kStages - 1, false);
+        cp_async_commit();
+        const float* ws = wst + (ch % kStages) * 2 * wlo;
+        for (int ss = 0; ss < kChunkSteps; ++ss) {
+          const int s = ch * kChunkSteps + ss;
+          if (s >= ksteps) break;
+          FragA fa[MT];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float4 w = __ldg(reinterpret_cast<const float4*>(
-              w1c + ((size_t)j * a.cc + c) * n2));
+          for (int mt = 0; mt < MT; ++mt) fa[mt] = load_a(ap + mt * 16 * a.lda, a.lda, 1);
+          cb += 8;
+          ap += 8;
+          if (cb == h.cc_pad) {
+            cb = 0;
+            ap += a.lda - h.cc_pad;
+          }
 #pragma unroll
-          for (int k = 0; k < kRowsPerThread; ++k) {
-            acc[k][0] = fmaf(av[k + j], w.x, acc[k][0]);
-            acc[k][1] = fmaf(av[k + j], w.y, acc[k][1]);
-            acc[k][2] = fmaf(av[k + j], w.z, acc[k][2]);
-            acc[k][3] = fmaf(av[k + j], w.w, acc[k][3]);
+          for (int nt = 0; nt < 4; ++nt) {
+            const FragB fb =
+                load_b_split(ws + (ss * 8 + tig) * a.ldw + wn * 32 + nt * 8 + grp, wlo, a.ldw);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][nt], fa[mt], fb);
           }
         }
       }
+      cp_async_wait<0>();
+      __syncthreads();  // every stage read before the next pass loads into them
+
 #pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k) {
-        const int t = t0 + ty * kRowsPerThread + k;
-        if (t < a.T) {
-          *reinterpret_cast<float4*>(a.out + ((size_t)b * a.T + t) * n2 + col) =
-              make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = c0 + wn * 32 + nt * 8 + 2 * tig;
+          if (col >= a.two_c) continue;
+          const int ocol = i * a.two_c + col;
+          const float bb0 = __ldg(a.b1 + ocol);
+          const float bb1 = __ldg(a.b1 + ocol + 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int t = t0 + wm * 16 * MT + mt * 16 + grp + 8 * half;
+            if (t < h.T) {
+              *reinterpret_cast<float2*>(a.out + ((size_t)b * h.T + t) * n2 + ocol) =
+                  make_float2(acc[mt][nt][2 * half] + bb0, acc[mt][nt][2 * half + 1] + bb1);
+            }
+          }
         }
       }
     }
   }
+}
+
+template <int WN>
+int launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(cond_chain_fwd_kernel<WN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((a.h.T + kTile - 1) / kTile), (unsigned)B);
+  cond_chain_fwd_kernel<WN><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// The launch geometry: 256 threads (fewer when 2C < 32), each owning 4
-// output columns and 4 rows, so the time tile is 16 rows at 2C = 256 and 128
-// at 2C = 32. Returns false for shapes the kernel does not take.
-static bool geometry(int T, int E, int cc, int two_c, int* threads, int* tile,
-                     int* lda, int* exc_rows, size_t* smem) {
-  if (T <= 0 || E <= 0 || cc <= 0 || two_c <= 0 || two_c % kColsPerThread) return false;
-  const int col_threads = two_c / kColsPerThread;
-  if (col_threads > kMaxThreads) return false;
-  int row_threads = kMaxThreads / col_threads;
-  if (row_threads > kMaxRowThreads) row_threads = kMaxRowThreads;
-  *threads = col_threads * row_threads;
-  *tile = row_threads * kRowsPerThread;
-  *lda = (*tile + 2) | 1;
-  *exc_rows = ((*tile + 2 + kHRows - 1) / kHRows) * kHRows + 2;
-  *smem = ((size_t)cc * *lda + (size_t)*exc_rows * E) * sizeof(float);
-  return true;
-}
 
 extern "C" const char* cond_chain_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); shapes
-// the kernel does not take, or too much shared memory, give an error code.
+// the kernel does not take (2C or Cc not a multiple of 4), or too much shared
+// memory, give an error code.
 extern "C" int cond_chain_fwd_f32(const float* exc, const float* w0, const float* hbias,
                                   long long hbias_bstride, const float* edge0,
                                   const float* edge_t, const float* w1, const float* b1,
                                   float* out, int B, int T, int E, int n, int cc, int two_c,
                                   void* stream) {
-  Args a;
-  int threads;
-  size_t smem;
-  if (B <= 0 || B > 65535 || n <= 0 ||
-      !geometry(T, E, cc, two_c, &threads, &a.tile, &a.lda, &a.exc_rows, &smem)) {
+  if (B <= 0 || B > 65535 || T <= 0 || E <= 0 || n <= 0 || cc <= 0 || two_c <= 0 ||
+      cc % 4 || two_c % 4) {
     return (int)cudaErrorInvalidValue;
   }
-  a.exc = exc;
-  a.w0 = w0;
-  a.hbias = hbias;
-  a.hbias_bstride = hbias_bstride;
-  a.edge0 = edge0;
-  a.edge_t = edge_t;
+  Args a;
+  a.h.exc = exc;
+  a.h.w0 = w0;
+  a.h.hbias = hbias;
+  a.h.hbias_bstride = hbias_bstride;
+  a.h.edge0 = edge0;
+  a.h.edge_t = edge_t;
+  a.h.T = T;
+  a.h.E = E;
+  a.h.n = n;
+  a.h.cc = cc;
+  a.h.e_pad = (E + 7) / 8 * 8;
+  a.h.cc_pad = (cc + 7) / 8 * 8;
   a.w1 = w1;
   a.b1 = b1;
   a.out = out;
-  a.T = T;
-  a.E = E;
-  a.n = n;
-  a.cc = cc;
   a.two_c = two_c;
-  a.col_threads = two_c / kColsPerThread;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cond_chain_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((unsigned)((T + a.tile - 1) / a.tile), (unsigned)B);
-  cond_chain_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const int wn = two_c > 32 ? 2 : 1;
+  a.ldx = row_read_stride(E);
+  a.lda = row_read_stride(cc);
+  a.ldw = k_read_stride(32 * wn);
+  const size_t smem = ((size_t)kActRows * a.lda + (size_t)kXsRows * a.ldx +
+                       (size_t)kStages * 2 * chunk_steps(wn) * 8 * a.ldw) * sizeof(float);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  return wn == 2 ? launch<2>(a, B, smem, (cudaStream_t)stream)
+                 : launch<1>(a, B, smem, (cudaStream_t)stream);
 }

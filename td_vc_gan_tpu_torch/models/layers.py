@@ -21,14 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from td_vc_gan_tpu_torch.ops.activation import leaky_relu
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cond_chain_op
 from td_vc_gan_tpu_torch.ops.dsp import reflect_pad
-
-LEAKY_RELU_SLOPE = 0.2
-
-
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, LEAKY_RELU_SLOPE)
 
 
 def _wn(v: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:

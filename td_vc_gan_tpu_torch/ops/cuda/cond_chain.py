@@ -18,7 +18,10 @@ Two forms, one pair of kernels:
 
 The forward (K1, ``csrc/cond_chain.cu``) replaces
 ``td_vc_gan_tpu/ops/pallas/cond_chain.py::_fwd_kernel``; the backward (K2,
-``csrc/cond_chain_bwd.cu``) replaces its ``_bwd_kernel``. Both are tied
+``csrc/cond_chain_bwd.cu``) replaces its ``_bwd_kernel``. Both run their
+products on the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``: f32 accuracy
+from TF32 ``mma.sync`` tiles) and share cond_0's recompute
+(``csrc/cond_chain_h.cuh``). Both are tied
 together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors launch
 the kernels (or raise for what they do not take), CPU tensors run
 :func:`cond_chain_plain` and :func:`cond_chain_bwd_plain`. Layouts are
@@ -31,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,7 +43,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-LEAKY_SLOPE = 0.2
+from td_vc_gan_tpu_torch.ops.activation import LEAKY_RELU_SLOPE, leaky_relu
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCE = _CSRC / "cond_chain.cu"
@@ -70,16 +74,37 @@ def _nvcc() -> str:
                        f"{_CSRC} on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(source: Path) -> list[Path]:
+    """``source`` and every header it includes with ``#include "..."``,
+    recursively, each once, in the order they are first met."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / name for name in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _lib_path(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{tag}.so"
+    """The library built from ``source``, keyed by the bytes of the source,
+    of every header it includes and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[list[Path], float, str]:
     """Compile each kernel source into its own library in ``csrc/build/``
-    (keyed by the source's hash), all ``nvcc`` runs started together, unless
-    a library built from the same source is there. Returns (library paths,
-    build seconds, nvcc's output); the seconds are 0 when nothing was built."""
+    (keyed by the hash of the source and its headers), all ``nvcc`` runs
+    started together, unless a library built from the same files is there.
+    Returns (library paths, build seconds, nvcc's output); the seconds are 0
+    when nothing was built."""
     libs = [_lib_path(src) for src in SOURCES]
     todo = [(src, lib) for src, lib in zip(SOURCES, libs) if not lib.exists()]
     if not todo:
@@ -160,13 +185,15 @@ def _h_plain(exc, w0, hbias, edge0, edge_t, n, cc):
 
 def cond_chain_plain(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
     """The chain in plain PyTorch: conv1d over ``exc``, bias and edge fixes,
-    leaky_relu, then the n per-block convs as one grouped conv1d.
+    leaky_relu, then the n per-block convs as one grouped conv1d. Under
+    autograd its leaky_relu takes the slope 1 at h = 0, as K2 and the JAX
+    package do.
 
     ``hbias`` is (B, n*Cc) or (n*Cc,); ``edge0``/``edge_t`` (B, n*Cc) are
     subtracted at rows 0 and T-1 when given.
     """
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
-    a = F.leaky_relu(_h_plain(exc, w0, hbias, edge0, edge_t, n, cc), LEAKY_SLOPE)
+    a = leaky_relu(_h_plain(exc, w0, hbias, edge0, edge_t, n, cc), LEAKY_RELU_SLOPE)
     out = F.conv1d(a, w1.permute(2, 1, 0), b1, padding=1, groups=n)
     return out.transpose(1, 2).contiguous()
 
@@ -190,10 +217,10 @@ def cond_chain_bwd_plain(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
     """
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
     h = _h_plain(exc, w0, hbias, edge0, edge_t, n, cc)          # (B, n*Cc, T)
-    a = F.leaky_relu(h, LEAKY_SLOPE)
+    a = F.leaky_relu(h, LEAKY_RELU_SLOPE)
     gt = g.transpose(1, 2)                                       # (B, n*2C, T)
     da = F.conv_transpose1d(gt, w1.permute(2, 1, 0), padding=1, groups=n)
-    dh = torch.where(h >= 0, da, LEAKY_SLOPE * da)
+    dh = torch.where(h >= 0, da, LEAKY_RELU_SLOPE * da)
     dexc = F.conv_transpose1d(dh, w0.permute(2, 1, 0), padding=1)
     a_taps, x_taps = _taps(a, t), _taps(exc.transpose(1, 2), t)
     gb = gt.reshape(b, n, two_c, t)
@@ -255,7 +282,8 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
     global launches
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t)
     if w1.data_ptr() % 16:
-        raise ValueError("cond chain kernel reads w1 as float4: it must be 16-byte aligned")
+        raise ValueError("cond chain kernel copies w1 in 16-byte pieces: it must be "
+                         "16-byte aligned")
     fwd, _ = _library()
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=torch.float32)
     err = fwd.cond_chain_fwd_f32(
@@ -278,10 +306,13 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
     _check_cuda("g", g, exc.device)
     if g.shape != (b, t, n * two_c):
         raise ValueError(f"cond chain cotangent {tuple(g.shape)} is not {(b, t, n * two_c)}")
+    if (e % 4 == 0 and exc.data_ptr() % 16) or g.data_ptr() % 16:
+        raise ValueError("cond chain backward kernels copy g, and exc when E is a multiple "
+                         "of 4, in 16-byte pieces: they must be 16-byte aligned")
     fwd, bwd = _library()
     dev = exc.device
-    # (n, 3, 2C, Cc): block i's tap-j cond_1 kernel with Cc contiguous, so the
-    # kernel reads four input channels of one output column as a float4
+    # (n, 3, 2C, Cc): block i's tap-j cond_1 kernel transposed, Cc contiguous,
+    # the B operand of K2's da product
     w1t = w1.reshape(3, cc, n, two_c).permute(2, 0, 3, 1).contiguous()
     ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c)),
                      device=dev, dtype=torch.float32)

@@ -158,12 +158,75 @@ def test_mrf_films_gradients_reach_speaker_excitation_and_weights(monkeypatch):
 
 def test_kernel_route_checks_operands():
     """The kernel route raises on what K1/K2 do not take (checked before any
-    build): Cc or 2C not a multiple of 4, float64, non-contiguous."""
+    build): Cc or 2C not a multiple of 4, float64, non-contiguous. Cc past
+    one pass of K2's da product (148) and E not a multiple of 4 (6) pass."""
     ops = operands(True, s=9, e=2)  # Cc = 11
     with pytest.raises(ValueError, match="multiple of 4"):
         cond_chain._check_operands(**ops)
+    for kw, cc in ((dict(s=144, e=4), 148), (dict(s=10, e=6), 16)):
+        assert cond_chain._check_operands(**operands(True, **kw))[4] == cc
     ops = operands(True, s=12)  # Cc = 16
     with pytest.raises(TypeError, match="float32"):
         cond_chain._check_operands(**{**ops, "w0": ops["w0"].double()})
     with pytest.raises(ValueError, match="contiguous"):
         cond_chain._check_operands(**{**ops, "exc": ops["exc"].transpose(0, 1)})
+
+
+# --- K2's 3xTF32 products, emulated with numpy (see test_torch_port_cond_chain)
+
+from td_vc_gan_tpu_torch import testing  # noqa: E402
+from td_vc_gan_tpu_torch.config import Config  # noqa: E402
+from test_torch_port_cond_chain import h_split, lrelu, mm3, shifted  # noqa: E402
+
+
+def chain_bwd_split(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
+    """The chain's backward as K2 takes it: every product 3xTF32, the slope
+    from the recomputed h (1 at h >= 0)."""
+    b, t, e = exc.shape
+    cc = w1.shape[1]
+    n = w0.shape[2] // cc
+    two_c = w1.shape[2] // n
+    h = h_split(exc, w0, hbias, edge0, edge_t)
+    a = lrelu(h)
+    blk = [(slice(i * cc, (i + 1) * cc), slice(i * two_c, (i + 1) * two_c)) for i in range(n)]
+    # g_i[t - j + 1] is tap 2 - j of the 'same' window
+    da = np.concatenate([sum(mm3(shifted(g[..., o], 2 - j), w1[j][:, o].T) for j in range(3))
+                         for _, o in blk], -1)
+    dh = np.where(a >= 0, da, np.float32(0.2) * da).astype(np.float32)
+    out = dict(
+        exc=sum(mm3(shifted(dh, 2 - j), w0[j].T) for j in range(3)),
+        w0=np.stack([mm3(shifted(exc, j).reshape(-1, e).T, dh.reshape(-1, n * cc))
+                     for j in range(3)]),
+        w1=np.stack([np.concatenate([
+            mm3(shifted(a[..., c], j).reshape(-1, cc).T, g[..., o].reshape(-1, two_c))
+            for c, o in blk], -1) for j in range(3)]),
+        hbias=dh.sum(1) if hbias.ndim == 2 else dh.sum((0, 1)), b1=g.sum((0, 1)))
+    if edge0 is not None:
+        out.update(edge0=-dh[:, 0], edge_t=-dh[:, -1])
+    return out
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_split_products_backward_match_plain_at_parity_shapes(stage):
+    """At the smoke's K2 parity shapes and inputs (dyadic cond_0 operands),
+    every output of the 3xTF32 backward is within testing.PARITY_RTOL of
+    max|ref| of cond_chain_bwd_plain's: the split form at every stage, the
+    concat form (E = Cc = 136, ~17x the cond_0 work) at the two shorter ones."""
+    cfg = Config()
+    t, c = testing.stage_shapes(cfg.train.max_segment, cfg)[stage]
+    split_ops, concat, n, cc = testing.chain_inputs(2, t, c, cfg, seed=300 + stage,
+                                                    exact_h=True, device="cpu")
+    g = torch.from_numpy(np.random.default_rng(400 + stage).standard_normal(
+        (2, t, split_ops["w1"].shape[2])).astype(np.float32))
+    forms = [{k: v for k, v in split_ops.items() if k != "b1"}]
+    if stage < 2:
+        forms.append(dict(exc=concat["c"], w0=concat["w0"], hbias=concat["b0"], w1=concat["w1"]))
+    for args in forms:
+        want = cond_chain.cond_chain_bwd_plain(g=g, **args)
+        got = chain_bwd_split(g=g.numpy(), **{k: v.numpy() for k, v in args.items()})
+        assert set(got) == set(want)
+        for k in want:
+            w = want[k].numpy()
+            assert got[k].shape == w.shape, k
+            err = float(np.abs(got[k] - w).max())
+            assert err <= testing.PARITY_RTOL * float(np.abs(w).max()), (k, err)

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from td_vc_gan_tpu.models import layers as jl
+from td_vc_gan_tpu.ops.pallas import cond_chain as jax_cond_chain
 from td_vc_gan_tpu_torch import weights
 from td_vc_gan_tpu_torch.models import layers as tl
+from td_vc_gan_tpu_torch.ops.cuda import cond_chain
 from td_vc_gan_tpu_torch.ops.dsp import reflect_pad
 
 torch.set_num_threads(1)
@@ -155,3 +157,83 @@ def test_reflect_pad_matches_numpy_at_every_length():
                                           want, err_msg=f"T={t} pads=({left}, {right})")
     with pytest.raises(ValueError, match="at least 2"):
         reflect_pad(torch.zeros(1, 1, 1), 1, 1)
+
+
+def test_leaky_relu_gradient_matches_jax_at_exact_zeros():
+    """The port's leaky_relu takes the slope 1 where its input is exactly 0
+    (+0 and -0), as the JAX package's output-reading VJP does; torch's own
+    leaky_relu takes 0.2 there. Compared exactly."""
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((3, 50)).astype(np.float32)
+    x[:, ::7] = 0.0
+    x[0, 3] = -0.0
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    y_jax, vjp = jax.vjp(jl.leaky_relu, jax.numpy.asarray(x))
+    (want,) = vjp(jax.numpy.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tl.leaky_relu(xt)
+    (got,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(y_jax))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    zeros = x == 0
+    np.testing.assert_array_equal(got.numpy()[zeros], g[zeros])
+    (old,) = torch.autograd.grad(torch.nn.functional.leaky_relu(xt, 0.2), xt,
+                                 torch.from_numpy(g))
+    assert not np.array_equal(old.numpy()[zeros], g[zeros])
+
+
+def test_film_resnet_block_gradients_match_jax_at_exact_zeros():
+    """Gradients of one FiLMResnetBlock with exact zeros planted in both of
+    its leaky_relu inputs: in x, and in h wherever gamma = -1 and beta = 0
+    (h * (1 + gamma) + beta = 0). Tolerance as the module's."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((2, 30, 6)).astype(np.float32)
+    x[:, ::4, :] = 0.0
+    gamma, beta = (0.3 * rng.standard_normal((2, 2, 30, 6))).astype(np.float32)
+    gamma[:, 1::5, :] = -1.0
+    beta[:, 1::5, :] = 0.0
+    mod = jl.FiLMResnetBlock(channels=6, dilation=3, kernel_size=5)
+    params = random_params(mod, x, None, (gamma, beta), seed=22)
+    cot = rng.standard_normal((2, 30, 6)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, gm, bt: mod.apply(params, a, film=(gm, bt)), x, gamma, beta)
+    want = [np.asarray(w) for w in vjp(cot)]
+    port = weights.generator_from_jax(tl.FiLMResnetBlock(6, dilation=3, kernel_size=5), params)
+    leaves = [ncw(a).requires_grad_() for a in (x, gamma, beta)]
+    out = port(leaves[0], (leaves[1], leaves[2]))
+    got = torch.autograd.grad(out, leaves, ncw(cot))
+    for name, a, w in zip(("x", "gamma", "beta"), got, want):
+        np.testing.assert_allclose(nwc(a), w, err_msg=name, **TOL)
+    # the planted zeros are where torch's own leaky_relu would have differed
+    assert float(np.abs(want[0][:, ::4, :]).max()) > 0
+
+
+def test_plain_cond_chain_gradients_match_jax_at_exact_zeros():
+    """Autograd through cond_chain_plain (concat form) against the JAX
+    package's custom VJP (the Pallas backward in interpret mode), with h
+    exactly 0 planted: c is zero over t = 10..15, so h = b0 at t = 11..14,
+    and a third of b0's columns are 0. Tolerance 1e-5 of max|ref| per
+    gradient (f32, sums in another order)."""
+    rng = np.random.default_rng(23)
+    b, t, cc, n, two_c = 2, 40, 8, 3, 4
+    c = rng.standard_normal((b, t, cc)).astype(np.float32)
+    c[:, 10:16] = 0.0
+    w0 = (0.3 * rng.standard_normal((3, cc, n * cc))).astype(np.float32)
+    b0 = (0.3 * rng.standard_normal(n * cc)).astype(np.float32)
+    b0[::3] = 0.0
+    w1 = (0.3 * rng.standard_normal((3, cc, n * two_c))).astype(np.float32)
+    b1 = (0.3 * rng.standard_normal(n * two_c)).astype(np.float32)
+    g = rng.standard_normal((b, t, n * two_c)).astype(np.float32)
+    ops = (c, w0, b0, w1, b1)
+    out, vjp = jax.vjp(lambda *a: jax_cond_chain.film_cond_chain(*a, interpret=True),
+                       *(jax.numpy.asarray(a) for a in ops))
+    gp = np.zeros(out.shape, np.float32)
+    gp[..., :n * two_c] = g
+    want = [np.asarray(w) for w in vjp(gp)]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in ops]
+    got = torch.autograd.grad(cond_chain.cond_chain_plain(*leaves), leaves, torch.from_numpy(g))
+    for name, a, w in zip(("c", "w0", "b0", "w1", "b1"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+    h = cond_chain._h_plain(torch.from_numpy(c), torch.from_numpy(w0), torch.from_numpy(b0),
+                            None, None, n, cc)
+    assert int((h == 0).sum()) >= b * 4 * (n * cc // 3)
