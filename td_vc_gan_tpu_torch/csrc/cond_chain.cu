@@ -40,7 +40,14 @@
 //     of W1 serves the tile's 128 rows.
 // Shared-memory strides keep each warp's fragment loads free of bank
 // conflicts (tf32x3.cuh). Two CTAs fit on an SM (107-111 KB of shared
-// memory each in the split form).
+// memory each in the split form at the decoder's widths).
+//
+// Wide conditioning. The staged rows grow with Cc (and E in the concat
+// form): where the 128-row tile's plan passes a block's 227 KB, the host
+// (fwd_plan) takes a 64-row tile and then a 32-row one, a template
+// parameter with its own warp layout (4 x 2 warps of 16 x 32; 2 x 4 warps
+// of 16 x 32 over 128 columns), so the decoder's widths keep their
+// instances. Only what no tile holds is refused.
 //
 // Numerics: 3xTF32 products into f32 accumulators, no TF32-only product; the
 // sums run in another order than cuDNN's or XLA's, so results agree with the
@@ -61,13 +68,20 @@ using cond_chain_h::HArgs;
 using namespace tf32x3;
 
 constexpr int kThreads = 256;         // 8 warps
-constexpr int kTile = 128;            // output rows per CTA
-constexpr int kActRows = kTile + 2;   // lrelu(h) rows t0-1 .. t0+kTile
-constexpr int kXsRows = (kActRows + 15) / 16 * 16 + 2;  // exc rows t0-2 ..
 constexpr int kStages = 2;            // double-buffered
+// output rows per CTA: 128, or 64 and then 32 where a wide Cc (or E) leaves
+// the 128-row tile's shared memory over the limit
+constexpr int kTiles[] = {128, 64, 32};
+__host__ __device__ constexpr int act_rows(int tile) { return tile + 2; }  // rows t0-1 .. t0+tile
+__host__ __device__ constexpr int xs_rows(int tile) {                       // exc rows t0-2 ..
+  return (act_rows(tile) + 15) / 16 * 16 + 2;
+}
+// warps across a pass's columns: at least 2 for 64-row tiles and 4 for
+// 32-row tiles, so that each warp still owns whole 16-row m-tiles
+__host__ __device__ constexpr int min_wn(int tile) { return tile >= 128 ? 1 : tile >= 64 ? 2 : 4; }
 
 // k-steps (8 rows each) of W1 per stage: as many as keep two CTAs on an SM
-__host__ __device__ constexpr int chunk_steps(int wn) { return wn == 1 ? 6 : 3; }
+__host__ __device__ constexpr int chunk_steps(int wn) { return wn == 1 ? 6 : wn == 2 ? 3 : 2; }
 constexpr size_t kSmemMax = 227 * 1024;
 
 struct Args {
@@ -79,11 +93,17 @@ struct Args {
   int ldx, lda, ldw;  // shared-memory row strides (floats): exc, lrelu(h), W1 chunk
 };
 
-// WN: warps across the columns of a pass (2: 64 columns, 4 x 2 warps of
-// 32 x 32; 1: 32 columns, 8 x 1 warps of 16 x 32).
-template <int WN>
+// WN: warps across the columns of a pass, TILE: output rows per CTA. At
+// TILE = 128: WN = 2 gives 64 columns, 4 x 2 warps of 32 x 32; WN = 1 gives
+// 32 columns, 8 x 1 warps of 16 x 32. At TILE = 64, WN = 2: 4 x 2 warps of
+// 16 x 32; at TILE = 32, WN = 4: 128 columns, 2 x 4 warps of 16 x 32.
+template <int WN, int TILE>
 __global__ void __launch_bounds__(kThreads) cond_chain_fwd_kernel(Args a) {
-  constexpr int MT = WN;       // m-tiles (16 rows) per warp
+  constexpr int MT = TILE * WN / 128;  // m-tiles (16 rows) per warp
+  static_assert(MT >= 1 && MT * 16 * (8 / WN) == TILE, "warps must cover the tile");
+  constexpr int kTile = TILE;
+  constexpr int kActRows = act_rows(TILE);
+  constexpr int kXsRows = xs_rows(TILE);
   constexpr int BN = 32 * WN;  // columns per pass
   constexpr int kChunkSteps = chunk_steps(WN);
   constexpr int kChunkRows = kChunkSteps * 8;
@@ -208,14 +228,37 @@ __global__ void __launch_bounds__(kThreads) cond_chain_fwd_kernel(Args a) {
   }
 }
 
-template <int WN>
+template <int WN, int TILE>
 int launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(cond_chain_fwd_kernel<WN>,
+  cudaError_t e = cudaFuncSetAttribute(cond_chain_fwd_kernel<WN, TILE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((a.h.T + kTile - 1) / kTile), (unsigned)B);
-  cond_chain_fwd_kernel<WN><<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid((unsigned)((a.h.T + TILE - 1) / TILE), (unsigned)B);
+  cond_chain_fwd_kernel<WN, TILE><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The largest tile whose shared memory fits (0 if none), its WN and bytes.
+struct FwdPlan {
+  int tile, wn;
+  size_t smem;
+  int ldx, lda, ldw;
+};
+
+FwdPlan fwd_plan(int E, int cc, int two_c) {
+  for (int tile : kTiles) {
+    FwdPlan p;
+    p.tile = tile;
+    p.wn = two_c > 32 ? 2 : 1;
+    if (p.wn < min_wn(tile)) p.wn = min_wn(tile);
+    p.ldx = row_read_stride(E);
+    p.lda = row_read_stride(cc);
+    p.ldw = k_read_stride(32 * p.wn);
+    p.smem = ((size_t)act_rows(tile) * p.lda + (size_t)xs_rows(tile) * p.ldx +
+              (size_t)kStages * 2 * chunk_steps(p.wn) * 8 * p.ldw) * sizeof(float);
+    if (p.smem <= kSmemMax) return p;
+  }
+  return FwdPlan{0, 0, 0, 0, 0, 0};
 }
 
 }  // namespace
@@ -253,13 +296,20 @@ extern "C" int cond_chain_fwd_f32(const float* exc, const float* w0, const float
   a.b1 = b1;
   a.out = out;
   a.two_c = two_c;
-  const int wn = two_c > 32 ? 2 : 1;
-  a.ldx = row_read_stride(E);
-  a.lda = row_read_stride(cc);
-  a.ldw = k_read_stride(32 * wn);
-  const size_t smem = ((size_t)kActRows * a.lda + (size_t)kXsRows * a.ldx +
-                       (size_t)kStages * 2 * chunk_steps(wn) * 8 * a.ldw) * sizeof(float);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  return wn == 2 ? launch<2>(a, B, smem, (cudaStream_t)stream)
-                 : launch<1>(a, B, smem, (cudaStream_t)stream);
+  const FwdPlan p = fwd_plan(E, cc, two_c);
+  if (p.tile == 0) return (int)cudaErrorInvalidValue;
+  a.ldx = p.ldx;
+  a.lda = p.lda;
+  a.ldw = p.ldw;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (p.tile == 128) {
+    return p.wn == 2 ? launch<2, 128>(a, B, p.smem, st) : launch<1, 128>(a, B, p.smem, st);
+  }
+  return p.tile == 64 ? launch<2, 64>(a, B, p.smem, st) : launch<4, 32>(a, B, p.smem, st);
+}
+
+// The rows of the time tile cond_chain_fwd_f32 takes at these widths (128,
+// 64 or 32), or 0 when no tile's shared memory fits.
+extern "C" int cond_chain_fwd_tile(int E, int cc, int two_c) {
+  return fwd_plan(E, cc, two_c).tile;
 }

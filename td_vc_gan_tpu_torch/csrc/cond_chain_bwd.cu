@@ -35,7 +35,9 @@
 // outputs, and every sum runs in a fixed order (the results are the same
 // from run to run, with no atomics):
 //
-//  (a) k2_data_kernel, one CTA of 8 warps per (batch row, 126-row time tile):
+//  (a) k2_data_kernel, one CTA of 8 warps per (batch row, 126-row time tile;
+//      62 or 30 rows where a wide Cc or E passes a block's shared memory,
+//      chosen on the host by make_plan, DataGeom below):
 //      stages the tile's excitation rows once; per block i it
 //       - recomputes lrelu(h_i) for the tile plus one halo row on each side
 //         (128 rows) in shared memory (cond_chain_h.cuh);
@@ -91,15 +93,31 @@ using cond_chain_h::HArgs;
 using cond_chain_h::kSlope;
 using namespace tf32x3;
 
-constexpr int kThreads = 256;        // data kernel: 8 warps, 4 (rows) x 2 (channels)
-constexpr int kRows = 128;           // h / dh rows per CTA: the tile and a halo row each side
-constexpr int kTile = kRows - 2;     // the CTA's own rows
-constexpr int kXsRows = kRows + 2;   // exc rows t0-2 ..
-constexpr int kGRows = kRows + 2;    // g rows t0-2 .. t0+kTile+1
+constexpr int kThreads = 256;        // data kernel: 8 warps
 constexpr int kOC = 8;               // g columns (output channels o) per stage
 constexpr int kStages = 2;           // double-buffered
-constexpr int kDaNT = 9;             // 8-channel n-tiles of da per warp and pass
-constexpr int kDaCols = 2 * kDaNT * 8;  // channels of da per pass: 2 warps x 72
+
+// The data kernel's shape for R rows of h / dh per CTA (its time tile and a
+// halo row each side): 128, or 64 and then 32 where a wide Cc (or E) leaves
+// the 128-row plan's shared memory over the limit. At R = 128 and 64 the
+// warps are 4 (rows) x 2 (channels), each owning 72 channels of a pass; at
+// R = 32 they are 2 x 4, each owning 32 channels.
+template <int R>
+struct DataGeom {
+  static constexpr int kRows = R;
+  static constexpr int kTile = R - 2;        // the CTA's own rows
+  static constexpr int kXsRows = R + 2;      // exc rows t0-2 ..
+  static constexpr int kGRows = R + 2;       // g rows t0-2 .. t0+kTile+1
+  static constexpr int kWNShift = R >= 64 ? 1 : 2;
+  static constexpr int kWN = 1 << kWNShift;    // warps along da's channels
+  static constexpr int kWM = 8 / kWN;          // warps along its rows
+  static constexpr int kMT = R / (16 * kWM);   // m-tiles (16 rows) per warp
+  static constexpr int kDaNT = R >= 64 ? 9 : 4;  // 8-channel n-tiles of da per warp and pass
+  static constexpr int kDaCols = kWN * kDaNT * 8;  // channels of da per pass
+  static_assert(kMT >= 1 && kMT * 16 * kWM == R, "warps must cover the rows");
+};
+constexpr int kDataRows[] = {128, 64, 32};
+constexpr int kDaCols128 = DataGeom<128>::kDaCols;  // 144: one pass at the decoder's Cc
 constexpr int kWRows = 32;           // weight-grad kernel: rows per stage
 constexpr int kWStages = 2;
 constexpr size_t kSmemMax = 227 * 1024;
@@ -120,6 +138,7 @@ struct DataArgs {
 
 // sum over r < kTile of p[(r0 + r) * ld], by one warp, in a fixed order
 // (rows outside [0, T) hold zeros); the result in every lane
+template <int kTile>
 __device__ __forceinline__ float own_rows_sum(const float* p, int ld, int r0) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
@@ -129,10 +148,18 @@ __device__ __forceinline__ float own_rows_sum(const float* p, int ld, int r0) {
   return s;
 }
 
-// kOnePass (Cc <= kDaCols) compiles the loop over da's passes, and the h
-// recompute's over column groups, away.
-template <bool kOnePass>
+// kOnePass (Cc <= kDaCols, R = 128 only) compiles the loop over da's
+// passes, and the h recompute's over column groups, away.
+template <int R, bool kOnePass>
 __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
+  using Geo = DataGeom<R>;
+  constexpr int kRows = Geo::kRows;
+  constexpr int kTile = Geo::kTile;
+  constexpr int kXsRows = Geo::kXsRows;
+  constexpr int kGRows = Geo::kGRows;
+  constexpr int kDaNT = Geo::kDaNT;
+  constexpr int kDaCols = Geo::kDaCols;
+  constexpr int kMT = Geo::kMT;
   extern __shared__ __align__(16) float smem[];
   const HArgs& h = a.h;
   float* buf = smem;                         // [kRows + 2][lda]: lrelu(h_i), then dh_i; rows t0-1 ..
@@ -149,8 +176,8 @@ __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
   const int lane = tid & 31;
   const int grp = lane >> 2;
   const int tig = lane & 3;
-  const int wm = warp >> 1;  // 32-row slab of da
-  const int wn = warp & 1;   // 72-channel half of da
+  const int wm = warp >> Geo::kWNShift;  // slab of 16 * kMT rows of da
+  const int wn = warp & (Geo::kWN - 1);  // kDaNT * 8 channels of a pass
   const int n0 = h.n * h.cc;
   const int n2 = h.n * a.two_c;
   const int nchunks = (a.two_c + kOC - 1) / kOC;
@@ -220,9 +247,9 @@ __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
           cp_async_commit();
         }
       }
-      float acc[2][kDaNT][4];
+      float acc[kMT][kDaNT][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < kDaNT; ++nt)
 #pragma unroll
@@ -237,21 +264,21 @@ __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
         const float* wts = gs + kGRows * a.ldg;
         // g of the tile's own rows (gs rows 2 .. kTile + 1) summed per channel, for db1
         if (ps == 0 && warp < kOC && ch * kOC + warp < a.two_c) {
-          const float s = own_rows_sum(gs + warp, a.ldg, 2);
+          const float s = own_rows_sum<kTile>(gs + warp, a.ldg, 2);
           if (lane == 0) a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + ch * kOC + warp] = s;
         }
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          FragA fa[2];
+          FragA fa[kMT];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            fa[mt] = load_a(gs + (wm * 32 + mt * 16 + grp + 2 - j) * a.ldg + tig, a.ldg, 1);
+          for (int mt = 0; mt < kMT; ++mt)
+            fa[mt] = load_a(gs + (wm * 16 * kMT + mt * 16 + grp + 2 - j) * a.ldg + tig, a.ldg, 1);
 #pragma unroll
           for (int nt = 0; nt < kDaNT; ++nt) {
             const FragB fb = load_b_split(
                 wts + (j * kOC + tig) * a.ldw + wn * kDaNT * 8 + nt * 8 + grp, wlo, a.ldw);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+            for (int mt = 0; mt < kMT; ++mt) mma3(acc[mt][nt], fa[mt], fb);
           }
         }
       }
@@ -260,14 +287,14 @@ __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
       // dh = lrelu'(h) da in place (each element is read and written by its
       // owner only); lrelu(h) and dh of the tile's own rows to scratch
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
         for (int nt = 0; nt < kDaNT; ++nt) {
           const int c = cp0 + wn * kDaNT * 8 + nt * 8 + 2 * tig;
           if (c >= h.cc) continue;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            const int q = wm * 32 + mt * 16 + grp + 8 * half;
+            const int q = wm * 16 * kMT + mt * 16 + grp + 8 * half;
             const int u = t0 - 1 + q;
             const bool valid = u >= 0 && u < h.T;
             float* slot = buf + q * a.lda + c;
@@ -336,7 +363,7 @@ __global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
     }
     // dh of the tile's own rows (buf rows 1 .. kTile) summed per channel, for dhbias
     for (int c = warp; c < h.cc; c += kThreads / 32) {
-      const float s = own_rows_sum(buf + c, a.lda, 1);
+      const float s = own_rows_sum<kTile>(buf + c, a.lda, 1);
       if (lane == 0) a.phb[((size_t)b * a.ntiles + tix) * n0 + i * h.cc + c] = s;
     }
   }
@@ -559,7 +586,7 @@ Wgrad wgrad_plan(int M, int N, int G, int B, int T) {
 // the kernels do not take.
 struct Plan {
   bool ok;
-  int ntiles, lda, ldx, ldg, ldw;
+  int rows, ntiles, lda, ldx, ldg, ldw;
   size_t smem;
   Wgrad w1, w0;
   size_t off_a, off_dh, off_phb, off_pb1, off_pw1, off_pw0, total;
@@ -576,11 +603,20 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   p.lda = row_read_stride(cc);
   p.ldx = row_read_stride(E);
   p.ldg = row_read_stride(kOC);
-  p.ldw = k_read_stride(kDaCols);
-  p.smem = ((size_t)(kRows + 2) * p.lda + (size_t)kXsRows * p.ldx +
-            (size_t)kStages * (kGRows * p.ldg + 2 * 3 * kOC * p.ldw)) * sizeof(float);
-  if (p.smem > kSmemMax) return p;
-  p.ntiles = (T + kTile - 1) / kTile;
+  p.rows = 0;
+  for (int r : kDataRows) {  // the largest tile whose shared memory fits
+    const int da_cols = r == 128 ? DataGeom<128>::kDaCols
+                                 : r == 64 ? DataGeom<64>::kDaCols : DataGeom<32>::kDaCols;
+    p.ldw = k_read_stride(da_cols);
+    p.smem = ((size_t)(r + 2) * p.lda + (size_t)(r + 2) * p.ldx +
+              (size_t)kStages * ((r + 2) * p.ldg + 2 * 3 * kOC * p.ldw)) * sizeof(float);
+    if (p.smem <= kSmemMax) {
+      p.rows = r;
+      break;
+    }
+  }
+  if (p.rows == 0) return p;
+  p.ntiles = (T + p.rows - 3) / (p.rows - 2);
   const size_t R = (size_t)B * T;
   const size_t n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.w1 = wgrad_plan(two_c, cc, n, B, T);
@@ -597,13 +633,14 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   return p;
 }
 
-template <bool kOnePass>
+template <int R, bool kOnePass>
 cudaError_t launch_data(const DataArgs& d, const Plan& p, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(k2_data_kernel<kOnePass>,
+  cudaError_t e = cudaFuncSetAttribute(k2_data_kernel<R, kOnePass>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)p.smem);
   if (e != cudaSuccess) return e;
-  k2_data_kernel<kOnePass><<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, p.smem, stream>>>(d);
+  k2_data_kernel<R, kOnePass>
+      <<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, p.smem, stream>>>(d);
   return cudaGetLastError();
 }
 
@@ -654,6 +691,13 @@ cudaError_t launch_wgrad(const Wgrad& p, const float* X, long long ldx, int xgof
 }
 
 }  // namespace
+
+// The rows of h / dh per data-kernel CTA at these widths (128, 64 or 32), or
+// 0 for shapes the kernels do not take.
+extern "C" int cond_chain_bwd_rows(int B, int T, int E, int n, int cc, int two_c) {
+  const Plan p = make_plan(B, T, E, n, cc, two_c);
+  return p.ok ? p.rows : 0;
+}
 
 // Floats of device scratch cond_chain_bwd_f32 needs for these shapes (0 for
 // shapes the kernels do not take).
@@ -709,8 +753,10 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   d.ldx = p.ldx;
   d.ldg = p.ldg;
   d.ldw = p.ldw;
-  cudaError_t e = cc <= kDaCols ? launch_data<true>(d, p, B, stream)
-                                : launch_data<false>(d, p, B, stream);
+  cudaError_t e = p.rows == 128 ? (cc <= kDaCols128 ? launch_data<128, true>(d, p, B, stream)
+                                                    : launch_data<128, false>(d, p, B, stream))
+                  : p.rows == 64 ? launch_data<64, false>(d, p, B, stream)
+                                 : launch_data<32, false>(d, p, B, stream);
   if (e != cudaSuccess) return (int)e;
 
   // dW1^T from g and lrelu(h) (shifted); dW0^T from dh and exc (shifted)

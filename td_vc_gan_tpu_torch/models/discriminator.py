@@ -61,6 +61,33 @@ class Discriminator(nn.Module):
         return torch.gather(logits, 1, idx).transpose(1, 2), features
 
 
+class MultiscaleDiscriminator(nn.Module):
+    """Average-pool cascade of single-band discriminators (the reference's
+    discriminator.py:55-75; imported but unused by its trainer). Scale i
+    scores the input pooled i times (k=4, stride 2, pad 1, padding not
+    counted). Returns (per-scale logits (B, T_i, 1), per-scale feature maps)."""
+
+    def __init__(self, num_disc: int, num_classes: int, num_layers: int = 4,
+                 num_channels_base: int = 16, num_channel_mult: int = 4,
+                 downsampling_factor: int = 4, use_weight_norm: bool = True):
+        super().__init__()
+        self.num_disc = num_disc
+        for i in range(num_disc):
+            self.add_module(f"disc_{i}", Discriminator(
+                num_classes, num_layers, num_channels_base, num_channel_mult,
+                downsampling_factor, use_weight_norm=use_weight_norm))
+
+    def forward(self, x: torch.Tensor, label_tgt: torch.Tensor):
+        outs, feats = [], []
+        for i in range(self.num_disc):
+            o, f = getattr(self, f"disc_{i}")(x, label_tgt)
+            outs.append(o)
+            feats.append(f)
+            x = F.avg_pool1d(x.transpose(1, 2), 4, 2, 1,
+                             count_include_pad=False).transpose(1, 2)
+        return outs, feats
+
+
 def kaiser_downsample(x: torch.Tensor) -> torch.Tensor:
     """The fixed 129-tap Kaiser low-pass (beta 10, fc 0.5) with stride-2
     decimation: (B, T, 1) -> (B, T/2, 1), zero padding of 64 on each side."""

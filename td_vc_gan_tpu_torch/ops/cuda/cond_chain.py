@@ -141,9 +141,13 @@ def _library():
         fwd.cond_chain_fwd_f32.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
         fwd.cond_chain_fwd_f32.restype = i
+        fwd.cond_chain_fwd_tile.argtypes = [i, i, i]
+        fwd.cond_chain_fwd_tile.restype = i
         fwd.cond_chain_error_string.argtypes = [i]
         fwd.cond_chain_error_string.restype = ctypes.c_char_p
         bwd = ctypes.CDLL(str(bwd_path))
+        bwd.cond_chain_bwd_rows.argtypes = [i, i, i, i, i, i]
+        bwd.cond_chain_bwd_rows.restype = i
         bwd.cond_chain_bwd_workspace.argtypes = [i, i, i, i, i, i]
         bwd.cond_chain_bwd_workspace.restype = ctypes.c_longlong
         bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, p,
@@ -268,6 +272,13 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
     return b, t, e, n, cc, two_c
 
 
+# The kernels take a 128-row time tile, else a 64- or 32-row one where a
+# wide Cc or E leaves the larger tile's shared memory over a block's 227 KB;
+# each library says which tile it takes (0: none fits).
+_NO_TILE = ("cond chain kernels: even a 32-row time tile at Cc={cc}, E={e} needs more "
+            "than a block's 227 KB of shared memory")
+
+
 def _stream(dev):
     with torch.cuda.device(dev):
         return torch.cuda.current_stream(dev).cuda_stream
@@ -285,6 +296,8 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
         raise ValueError("cond chain kernel copies w1 in 16-byte pieces: it must be "
                          "16-byte aligned")
     fwd, _ = _library()
+    if not fwd.cond_chain_fwd_tile(e, cc, two_c):
+        raise ValueError(_NO_TILE.format(cc=cc, e=e))
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=torch.float32)
     err = fwd.cond_chain_fwd_f32(
         exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(),
@@ -310,6 +323,8 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
         raise ValueError("cond chain backward kernels copy g, and exc when E is a multiple "
                          "of 4, in 16-byte pieces: they must be 16-byte aligned")
     fwd, bwd = _library()
+    if not bwd.cond_chain_bwd_rows(b, t, e, n, cc, two_c):
+        raise ValueError(_NO_TILE.format(cc=cc, e=e))
     dev = exc.device
     # (n, 3, 2C, Cc): block i's tap-j cond_1 kernel transposed, Cc contiguous,
     # the B operand of K2's da product

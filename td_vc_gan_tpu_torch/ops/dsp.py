@@ -129,3 +129,27 @@ def add_jitter(x: torch.Tensor, jitter_amp: int, shifts: torch.Tensor | None = N
         shifts = torch.randint(-jitter_amp, jitter_amp + 1, (x.shape[0],),
                                generator=generator, device=x.device)
     return roll_batches(x, shifts, x.dim() - 1)
+
+
+# Host-side (numpy) RMS helpers of the input pipeline, as the JAX package's
+# ops/dsp.py:188-205.
+
+
+def eq_rms_gain(signal: np.ndarray, target_rms_db: float) -> float:
+    """The scalar ``eq_rms`` multiplies by, so that the input pipeline can
+    cache it per file and scale crop slices (a scalar multiply commutes
+    bitwise with slicing)."""
+    rms = np.sqrt((signal**2).mean())
+    return 10 ** (target_rms_db / 20) / rms
+
+
+def eq_rms(signal: np.ndarray, target_rms_db: float) -> np.ndarray:
+    """Scale a waveform to a target RMS in dBFS (util/__init__.py:53-56)."""
+    return signal * eq_rms_gain(signal, target_rms_db)
+
+
+def eq_rms_signals(signal_eq: np.ndarray, signal_tgt: np.ndarray) -> np.ndarray:
+    """Match the RMS of ``signal_eq`` to ``signal_tgt`` (util/__init__.py:58-62)."""
+    rms_eq = np.sqrt((signal_eq**2).mean())
+    rms_tgt = np.sqrt((signal_tgt**2).mean())
+    return signal_eq * rms_tgt / (rms_eq + 1e-8)

@@ -1,12 +1,13 @@
-"""Operands for holding the cond-chain kernels against their plain versions.
+"""Seeded inputs that ``chip_smoke.py`` (on the card) and the CPU tests share.
 
-``chip_smoke.py`` (on the card) and the CPU tests build the same inputs
-here: the decoder's stage shapes and seeded cond-chain operands at one
-stage, optionally rounded so that cond_0's products are exact.
+The decoder's stage shapes and seeded cond-chain operands at one stage,
+optionally rounded so that cond_0's products are exact; and a CREPE-tiny
+state dict in torchcrepe's layout, for the loaders of both packages.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # kernel vs plain version: max|d| <= PARITY_RTOL * max|plain|
@@ -73,3 +74,29 @@ def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False, e: int = 8,
     concat = dict(c=torch.cat([spk[:, None, :].expand(b, t, s), exc], -1).contiguous(),
                   w0=w0, b0=b0, w1=w1, b1=b1)
     return split, concat, n, cc
+
+
+def torchcrepe_state_dict(seed: int) -> dict:
+    """A CREPE-tiny state dict in torchcrepe's layout (``conv{i}``,
+    ``conv{i}_BN``, ``classifier``), with seeded values."""
+    from td_vc_gan_tpu_torch.models.crepe import Crepe
+
+    net = Crepe("tiny")
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    sd = {}
+    for i in range(6):
+        w = getattr(net, f"conv{i}_kernel")
+        n = w.shape[0]
+        sd[f"conv{i + 1}.weight"] = t(0.1 * rng.standard_normal((*w.shape, 1)))
+        sd[f"conv{i + 1}.bias"] = t(0.1 * rng.standard_normal(n))
+        sd[f"conv{i + 1}_BN.weight"] = t(rng.uniform(0.5, 1.5, n))
+        sd[f"conv{i + 1}_BN.bias"] = t(0.1 * rng.standard_normal(n))
+        sd[f"conv{i + 1}_BN.running_mean"] = t(0.1 * rng.standard_normal(n))
+        sd[f"conv{i + 1}_BN.running_var"] = t(rng.uniform(0.5, 2, n))
+    sd["classifier.weight"] = t(0.05 * rng.standard_normal(net.classifier_kernel.shape))
+    sd["classifier.bias"] = torch.zeros(net.classifier_bias.shape)
+    return sd

@@ -172,6 +172,24 @@ def test_kernel_route_checks_operands():
         cond_chain._check_operands(**{**ops, "exc": ops["exc"].transpose(0, 1)})
 
 
+@pytest.mark.parametrize("split,cc,two_c", [
+    (True, 136, 256),    # the decoder's widths
+    (True, 136, 32),
+    (True, 392, 128),    # conditional_dim 384: both kernels' 64-row tiles
+    (False, 184, 128),
+    (False, 344, 128),   # 32-row tiles
+    (True, 1204, 32),
+], ids=["decoder", "decoder-2C32", "split392", "concat184", "concat344", "split1204"])
+def test_kernel_tiles_take_any_cc_up_to_shared_memory(split, cc, two_c):
+    """The operand check lets widths through whose 128-row plans pass a
+    block's shared memory: the kernels take 64- or 32-row time tiles there,
+    and only the libraries' own plans refuse what no tile holds (on the
+    card, chip_smoke.py holds each tile against the plain version)."""
+    ops = {"edge0": None, "edge_t": None,
+           **operands(split, t=6, s=cc - 8 if split else 8, e=8, cc=cc, two_c=two_c)}
+    assert cond_chain._check_operands(**ops)[4] == cc
+
+
 # --- K2's 3xTF32 products, emulated with numpy (see test_torch_port_cond_chain)
 
 from td_vc_gan_tpu_torch import testing  # noqa: E402

@@ -161,6 +161,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["td_vc_gan_tpu"] = None
+sys.modules["yaml"] = None  # the card's machine has no PyYAML
 import td_vc_gan_tpu_torch
 for m in pkgutil.walk_packages(td_vc_gan_tpu_torch.__path__, "td_vc_gan_tpu_torch."):
     importlib.import_module(m.name)
@@ -175,6 +176,13 @@ g.content_dim = g.conditional_dim = 8
 g.mrf_kernel_sizes, g.mrf_dilations = [3], [1]
 conv = Converter(cfg, generator_from_config(g, 4, device="cpu"), crepe_from_seed(0),
                  device="cpu")
+import tempfile
+from pathlib import Path
+from td_vc_gan_tpu_torch.config import load_config, parse_overrides
+with tempfile.TemporaryDirectory() as d:
+    cfg.save(Path(d) / "config.yaml")
+    back = load_config(Path(d) / "config.yaml", parse_overrides(["train.num_epoch=2"]))
+assert back.model.generator.decoder_ratios == [10, 4, 2, 2] and back.train.num_epoch == 2
 print("ok", conv.device)
 """
 
