@@ -39,9 +39,9 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    the plain version and cuDNN's backward of the same chain (a yardstick);
 9. the train CLI (``python -m td_vc_gan_tpu_torch.cli.train``, a
    subprocess) on a corpus the script writes (16 speakers x 6 utterances of
-   1.5-4 s, 4 of them FLAC): epochs 0 and 1 (10 steps at batch 16, through
-   the data pipeline with its corruption), validation, checkpoints and
-   sample dumps at every epoch, then a resume for 2 more steps; checks on
+   1.5-4 s, 4 of them FLAC): epoch 0 (5 steps at batch 16, through the
+   data pipeline with its corruption), validation, a checkpoint and sample
+   dumps, then a resume for 2 more steps; checks on
    the losses, the kernel launches of every step, the resumed state, the
    reference-format export and the samples; the loop's step time beside
    phase 7's, its wait on the input pipeline, the host's corruption time per
@@ -53,7 +53,23 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    of the test manifest, file and log checks, K1 launches per convert_batch
    call, wall time and RTF; then K1 against its plain version at the chain
    shapes of the two CLIs (B=1 at each test utterance's validation and
-   sample bucket, B=4 at its conversion bucket, every stage).
+   sample bucket, B=4 at its conversion bucket, every stage);
+11. wavlm convert: the full-width wavlm-stage2_2 Converter (WavLM-Large
+   from a seed, the 16-layer posterior encoder, phase 4's decoder) and
+   CREPE-tiny on phase 4's batch: 4 K1 launches per call, output checks,
+   the plain-chain path, the backbone's features on the card against the
+   CPU's (one 1 s utterance), convert ms, RTF, pitch ms, the backbone alone
+   and its share of a profiled call;
+12. wavlm train: the full-width wavlm-stage2_2 train step on 16 x 8960: its
+   first step against the plain-chain step, timed steps with 8 K1 and 8 K2
+   launches each, the backbone bit-identical after them and every other G
+   tensor changed, peak memory, a profile;
+13. the wavlm CLIs: WavLM-Large from a seed written as a Microsoft
+   ``WavLM-Large.pt``; the train CLI with ``--wavlm_checkpoint`` on phase
+   9's corpus (epoch 0 with a save, then a resume for 2 steps), then the
+   conversion CLI on that run; the backbone's digest after loading, after
+   the resume and in the conversion CLI against the written file's, K1 and
+   K2 in every step, save time and bytes.
 
 Float32 throughout, with TF32 off in cuDNN and matmul (the CLIs set the
 same): the port's compute type is f32, as the JAX package's default. Any failed check raises, and the
@@ -97,8 +113,15 @@ from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
 from td_vc_gan_tpu_torch.models.discriminator import discriminator_from_config
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
+from td_vc_gan_tpu_torch.models.wavlm import WavLM, WavLMConfig, backbone_digest, key_table
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
-from td_vc_gan_tpu_torch.testing import PARITY_RTOL, chain_inputs, dyadic, stage_shapes
+from td_vc_gan_tpu_torch.testing import (
+    PARITY_RTOL,
+    chain_inputs,
+    dyadic,
+    microsoft_wavlm_checkpoint,
+    stage_shapes,
+)
 from td_vc_gan_tpu_torch.training import checkpoint as ckpt
 from td_vc_gan_tpu_torch.training.loop import _pad_bucket
 from td_vc_gan_tpu_torch.training.state import create_train_state
@@ -151,10 +174,16 @@ EARLIER_MS = {"cond_chain_fwd": (25.500, "convert call"),
 CORPUS_SPK, CORPUS_UTT, TRAIN_UTT = 16, 6, 5
 TEST_SPK = (0, 5, 10, 15)
 FLAC_FILES = ((0, 1), (5, 2), (10, 3), (15, 4))
-CLI_OVERRIDES = ("model.generator.encoder_model=conv", "train.num_epoch=1",
+CLI_OVERRIDES = ("model.generator.encoder_model=conv", "train.num_epoch=0",
                  "log.log_interval=1", "log.save_interval=1", "log.val_interval=1",
                  "log.gen_interval=1", "log.gen_num=2", "test.num_tests=2")
 CLI_TIMEOUT = 300
+# The WavLM backbone's features on the card against the CPU's for one 1 s
+# utterance, TF32 off: of max|ref| (24 f32 layers, sums in another order; on
+# the CPU, f32 against f64 differs by 6.8e-7 of max|ref|; TF32 would give ~1e-3).
+FEATURE_RTOL = 1e-4
+# The wavlm CLI run: as phase 9's, with the WavLM encoder.
+WAVLM_CLI_OVERRIDES = tuple(o.replace("=conv", "=wavlm") for o in CLI_OVERRIDES)
 
 
 def say(*parts):
@@ -515,12 +544,13 @@ def profile_call(fn, label, card, top: int = 10):
     busy = sum(v[0] for v in by_name.values())
     if not by_name:
         say("profile: torch.profiler recorded no device kernels")
-        return
+        return None
     say(f"profile: {label} {wall_ms:.2f} ms wall (profiler on), kernels busy "
         f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(v[1] for v in by_name.values())} "
         f"kernel launches [{card}]")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         say(f"profile: {ms:8.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:90]}")
+    return busy
 
 
 def k1_stage(cfg, card, b, t, c, seed, label):
@@ -838,12 +868,12 @@ def phase_train_cli(root: Path, card: str, bare_median: float) -> tuple[int, int
         base += ["--override", o]
     first, wall1 = run_cli("td_vc_gan_tpu_torch.cli.train", base)
     second, wall2 = run_cli("td_vc_gan_tpu_torch.cli.train", base + [
-        "--load_path", str(run), "--max_steps", "12", "--override", "train.num_epoch=2"])
+        "--load_path", str(run), "--max_steps", "7", "--override", "train.num_epoch=1"])
     steps = step_lines(first)
     resumed = step_lines(second)
-    if [s["Itt"] for s in steps] != list(range(10)) or [s["Itt"] for s in resumed] != [10, 11]:
+    if [s["Itt"] for s in steps] != list(range(5)) or [s["Itt"] for s in resumed] != [5, 6]:
         raise AssertionError(f"logged steps {[s['Itt'] for s in steps]} then "
-                             f"{[s['Itt'] for s in resumed]}, expected 0..9 then 10, 11")
+                             f"{[s['Itt'] for s in resumed]}, expected 0..4 then 5, 6")
     bad = [(s["Itt"], k) for s in steps + resumed for k, v in s.items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite logged values (step, key): {bad[:5]}")
@@ -856,7 +886,7 @@ def phase_train_cli(root: Path, card: str, bare_median: float) -> tuple[int, int
     digest_saved = re.search(r"digest (\w+)", saved[-1]).group(1)
     digest_resumed = re.search(r"digest (\w+)", one_line(second, "Resumed train state")[0]).group(1)
     if digest_saved != digest_resumed:
-        raise AssertionError("the resumed train state differs from the one saved at epoch 1")
+        raise AssertionError("the resumed train state differs from the one saved at epoch 0")
     peaks = [float(v) for ln in one_line(first, "Saved 2 samples")
              for v in re.findall(r"(\d+\.\d+)(?:,|$)", ln.split("max|y| before writing:")[1])]
     if "not finite" in " ".join(first) or not peaks or max(peaks) > 1.0:
@@ -865,30 +895,30 @@ def phase_train_cli(root: Path, card: str, bare_median: float) -> tuple[int, int
     # the reference-format export, re-imported into a fresh G
     cfg = load_config(run / "config.yaml")
     g = generator_from_config(cfg.model.generator, CORPUS_SPK, seed=123)
-    ckpt.import_torch_generator(cfg, run / "step1-G.pt", g)
-    blob = torch.load(run / ckpt.STATE_DIR / "epoch_1.pt", map_location="cpu",
+    ckpt.import_torch_generator(cfg, run / "step0-G.pt", g)
+    blob = torch.load(run / ckpt.STATE_DIR / "epoch_0.pt", map_location="cpu",
                       weights_only=False)
     differ = [k for k, v in g.state_dict().items() if not torch.equal(v.cpu(), blob["G"][k])]
     if differ:
-        raise AssertionError(f"step1-G.pt re-imported differs from the saved G: {differ[:5]}")
+        raise AssertionError(f"step0-G.pt re-imported differs from the saved G: {differ[:5]}")
     done = [re.search(r"K1 (\d+) \(validation (\d+), samples (\d+)\), K2 (\d+)", ln).groups()
             for ln in (one_line(first, "Done at step")[0], one_line(second, "Done at step")[0])]
     k1 = sum(int(d[0]) for d in done)
     k2 = sum(int(d[3]) for d in done)
-    loop_ms = sorted(s["step_ms"] for s in steps if 2 <= s["Itt"] <= 9)
+    loop_ms = sorted(s["step_ms"] for s in steps if 1 <= s["Itt"] <= 4)
     waits = sorted(s["data_wait_ms"] for s in steps + resumed)
-    median = (loop_ms[3] + loop_ms[4]) / 2
+    median = (loop_ms[1] + loop_ms[2]) / 2
     save = [re.search(r"in ([\d.]+) s, (\d+) bytes", ln).groups() for ln in saved]
     peak = re.search(r"peak device memory ([\d.]+) GiB", one_line(first, "Done at step")[0])
     first_loss = steps[0]["G_loss"], steps[-1]["G_loss"]
-    say(f"train cli: {len(steps)} steps (epochs 0-1) in {wall1:.1f} s of wall time, then a "
+    say(f"train cli: {len(steps)} steps (epoch 0) in {wall1:.1f} s of wall time, then a "
         f"resume at step {resumed[0]['Itt']} for {len(resumed)} steps in {wall2:.1f} s; "
         f"every logged loss finite (G_loss {first_loss[0]:.4f} at step 0, {first_loss[1]:.4f} "
-        f"at step 9); K1/K2 launches {STAGES * 2}/{STAGES * 2} in every step; validation K1 "
+        f"at step 4); K1/K2 launches {STAGES * 2}/{STAGES * 2} in every step; validation K1 "
         f"launches {val_k1} per epoch ({STAGES} per utterance), sample dumps K1 "
-        f"{[int(d[2]) for d in done]} (first run, resume); resumed state bit-identical to the saved one; step1-G.pt "
+        f"{[int(d[2]) for d in done]} (first run, resume); resumed state bit-identical to the saved one; step0-G.pt "
         f"re-imported bit-identical; sample max|y| {max(peaks):.4f}")
-    say(f"train cli: loop step time, median of steps 2-9: {median:.2f} ms (min "
+    say(f"train cli: loop step time, median of steps 1-4: {median:.2f} ms (min "
         f"{loop_ms[0]:.2f}, max {loop_ms[-1]:.2f}; host wall time, ending in the metrics' copy "
         f"to the host) against phase 7's bare step median {bare_median:.2f} ms "
         f"({median / bare_median - 1:+.1%}); every step's ms "
@@ -1040,6 +1070,258 @@ def cli_chain_parity(cfg, root: Path, card: str) -> float:
     return worst
 
 
+def wavlm_cfg(cfg):
+    """``cfg`` with the WavLM encoder: wavlm-stage2_2 (the JAX package's
+    flagship defaults)."""
+    out = copy.deepcopy(cfg)
+    out.model.generator.encoder_model = "wavlm"
+    return out
+
+
+def phase_wavlm_convert(cfg, card):
+    """The full-width wavlm-stage2_2 Converter (WavLM-Large from a seed, CREPE
+    tiny) on phase 4's batch: K1 launches, output checks, the plain-chain
+    path, the backbone on the card against the CPU's, times and the
+    backbone's share of a profiled call."""
+    wcfg = wavlm_cfg(cfg)
+    t0 = time.perf_counter()
+    g = generator_from_config(wcfg.model.generator, num_classes=100, seed=0)
+    conv = Converter(wcfg, g, crepe_from_seed(1), decoder="viterbi")
+    n_backbone = sum(p.numel() for p in g.encoder.wavlm.parameters())
+    say(f"wavlm convert: full-width wavlm-stage2_2 G ({sum(p.numel() for p in g.parameters())} "
+        f"parameters, {n_backbone} in the frozen WavLM-Large from a seed) and CREPE-tiny, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    sigs = signals(0)
+    labels = np.arange(B) % 100
+
+    # the main path: counts from 0, read right after
+    cc_mod.launches = 0
+    f0, mu = conv.pitch_batch(sigs)
+    mu_tgt = mu + np.float32(np.log(1.2))
+    wav = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
+    launches = cc_mod.launches
+    if launches != STAGES:
+        raise AssertionError(f"expected {STAGES} K1 launches per convert call, got {launches}")
+    if wav.shape != (B, UTT) or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        raise AssertionError(f"bad wavlm conversion output: shape {wav.shape}, finite "
+                             f"{np.isfinite(wav).all()}, max|y| {np.abs(wav).max()}")
+    kernel_op = cc_mod.cond_chain
+    cc_mod.cond_chain = cc_mod.cond_chain_plain
+    try:
+        wav_plain = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
+    finally:
+        cc_mod.cond_chain = kernel_op
+    d_plain = float(np.abs(wav - wav_plain).max())
+    if d_plain > AUDIO_ATOL:
+        raise AssertionError(f"wavlm conversion: the kernel path and the plain path differ by "
+                             f"{d_plain:.3e}")
+
+    # the backbone on the card against the CPU's, one 1 s utterance
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    one = torch.from_numpy(np.pad(sigs[:1, :16000], ((0, 0), (160, 0))))
+    with torch.inference_mode():
+        f_gpu = g.encoder.wavlm(one.cuda()).cpu()
+        f_cpu = copy.deepcopy(g.encoder.wavlm).cpu()(one)
+    d_feat, r_feat = rel_err(f_gpu, f_cpu)
+    if not r_feat <= FEATURE_RTOL:
+        raise AssertionError(f"WavLM features on the card differ from the CPU's by {r_feat:.2e} "
+                             f"of max|ref|")
+    say(f"wavlm convert: K1 launches in pitch_batch + convert_batch {launches}; output finite, "
+        f"max|y| {np.abs(wav).max():.4f}; kernel path vs plain-chain path max|d|={d_plain:.3e} "
+        f"(tolerance {AUDIO_ATOL}); WavLM features (1 x 16160 samples, {tuple(f_cpu.shape)}) "
+        f"card vs CPU max|d| {d_feat:.3e} ({r_feat:.2e} of max|ref| {float(f_cpu.abs().max()):.3f}; "
+        f"tolerance {FEATURE_RTOL:.0e}; TF32 off)")
+
+    args = [conv._tensor(a) for a in (sigs, f0, mu, mu_tgt)]
+    lab = conv._tensor(labels, torch.int64)
+    padded = torch.nn.functional.pad(args[0], (160, 0))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: conv.convert_tensors(*args, lab, seed=1), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pitch_ms = cuda_ms(lambda: conv.pitch_tensors(args[0]), iters=2, warmup=1)
+    with torch.inference_mode():
+        backbone_ms = cuda_ms(lambda: g.encoder.wavlm(padded), iters=5, warmup=1)
+    audio_s = B * UTT / wcfg.model.sample_rate
+    say(f"wavlm convert: convert_tensors {ms:.2f} ms per call for {B} x {UTT} samples "
+        f"({audio_s:.1f} s of audio): conversion RTF {audio_s / (ms / 1e3):.1f}x real time; "
+        f"the backbone alone {backbone_ms:.2f} ms ({backbone_ms / ms:.1%} of the call); "
+        f"pitch_tensors (Viterbi) {pitch_ms:.2f} ms; peak device memory {peak:.2f} GiB [{card}]")
+    busy = profile_call(lambda: conv.convert_tensors(*args, lab, seed=1),
+                        "one wavlm convert call", card)
+    with torch.inference_mode():
+        busy_b = profile_call(lambda: g.encoder.wavlm(padded), "the WavLM backbone alone", card,
+                              top=6)
+    if busy and busy_b:
+        say(f"wavlm convert: the backbone's share of a profiled convert call: {busy_b:.2f} of "
+            f"{busy:.2f} ms of kernels ({busy_b / busy:.1%}) [{card}]")
+    del conv, g, args, padded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wavlm_train(cfg, card):
+    """The full-width wavlm-stage2_2 train step (16 x 8960): its first step
+    against the plain-chain step, then timed steps with the launch counts of
+    each; the backbone bit-identical after them, every other G tensor moved."""
+    wcfg = wavlm_cfg(cfg)
+    t0 = time.perf_counter()
+    state = train_state(wcfg)
+    step = build_train_step(wcfg, state)
+    batch = train_batch(10)
+    backbone = {k: v.clone() for k, v in state.G.encoder.wavlm.state_dict().items()}
+    rest = {k: v.clone() for k, v in state.G.state_dict().items()
+            if not k.startswith("encoder.wavlm.")}
+    say(f"wavlm train: G {sum(p.numel() for p in state.G.parameters())} parameters "
+        f"({sum(p.numel() for p in state.opt_g.params)} trainable), batch {B} x {SEG}, set up "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    m_kernel = step(batch, torch.Generator(device="cuda").manual_seed(5))
+    twin = train_state(wcfg)
+    twin_step = build_train_step(wcfg, twin)
+    kernel_op = cc_mod.cond_chain
+    cc_mod.cond_chain = cc_mod.cond_chain_plain
+    try:
+        m_plain = twin_step(batch, torch.Generator(device="cuda").manual_seed(5))
+    finally:
+        cc_mod.cond_chain = kernel_op
+    worst_loss = max(abs(float(m_kernel[k]) - float(m_plain[k])) /
+                     max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
+    say(f"wavlm train: first step, kernel path vs plain-chain path: losses worst relative "
+        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
+    if not worst_loss <= STEP_LOSS_RTOL:
+        raise AssertionError("the wavlm train step with the kernels disagrees with the plain "
+                             "chain")
+    del twin, twin_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    step(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    cc_mod.launches = cc_mod.bwd_launches = 0
+    for _ in range(TRAIN_STEPS):
+        k1, k2 = cc_mod.launches, cc_mod.bwd_launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch, gen)
+        end.record()
+        counts.append((cc_mod.launches - k1, cc_mod.bwd_launches - k2))
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = (cc_mod.launches, cc_mod.bwd_launches)
+    ms = sorted(s.elapsed_time(e) for s, e in times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite losses in the wavlm train step: {bad}")
+    if any(c != (STAGES * 2, STAGES * 2) for c in counts):
+        raise AssertionError(f"expected {STAGES * 2} K1 and {STAGES * 2} K2 launches per "
+                             f"wavlm step, got {counts}")
+    after = state.G.state_dict()
+    moved = [k for k, v in backbone.items() if not torch.equal(v, after[f"encoder.wavlm.{k}"])]
+    still = [k for k, v in rest.items() if torch.equal(v, after[k])]
+    if moved or still:
+        raise AssertionError(f"backbone tensors that changed: {moved[:5]}; other G tensors "
+                             f"that did not: {still[:5]}")
+    if any(p.grad is not None for p in state.G.encoder.wavlm.parameters()):
+        raise AssertionError("the frozen backbone has gradients")
+    median = ms[len(ms) // 2]
+    say(f"wavlm train: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
+        f"{ms[0]:.2f}, max {ms[-1]:.2f}), {B * 1e3 / median:.2f} segments/s; K1/K2 launches "
+        f"per step {counts[0]}; G_loss {float(metrics['G_loss']):.4f}; the backbone "
+        f"bit-identical after {TRAIN_STEPS + 2} steps, with no gradient, every other G tensor "
+        f"changed; peak device memory {peak:.2f} GiB [{card}]")
+    profile_call(lambda: step(batch, gen), "one wavlm train step", card)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, median
+
+
+def write_wavlm_checkpoint(root: Path) -> tuple[Path, str, float]:
+    """WavLM-Large from a seed, written as a Microsoft ``WavLM-Large.pt``;
+    (its path, the digest of its tensors in the loader's table order, the
+    seconds the write took)."""
+    blob = microsoft_wavlm_checkpoint(init_weights(WavLM(WavLMConfig()), 11))
+    digest = backbone_digest(blob["model"][ms] for ms, _ in key_table(WavLMConfig()))
+    path = root / "WavLM-Large.pt"
+    t0 = time.perf_counter()
+    torch.save(blob, path)
+    return path, digest, time.perf_counter() - t0
+
+
+def phase_wavlm_clis(root: Path, card: str) -> tuple[int, int, int]:
+    """The train CLI with --wavlm_checkpoint on phase 9's corpus (epoch 0,
+    a save, a resume for 2 steps), then the conversion CLI on that run; the
+    backbone's digest after loading, after the resume and in the conversion
+    CLI against the written file's. Returns (train K1, train K2, convert K1)."""
+    ckpt_path, digest, write_s = write_wavlm_checkpoint(root)
+    size = ckpt_path.stat().st_size
+    run = root / "wavlm_run"
+    base = ["--save_path", str(run), "--data_path", str(root),
+            "--wavlm_checkpoint", str(ckpt_path)]
+    for o in WAVLM_CLI_OVERRIDES:
+        base += ["--override", o]
+    first, wall1 = run_cli("td_vc_gan_tpu_torch.cli.train", base)
+    second, wall2 = run_cli("td_vc_gan_tpu_torch.cli.train", base + [
+        "--load_path", str(run), "--max_steps", "7", "--override", "train.num_epoch=1"])
+    steps, resumed = step_lines(first), step_lines(second)
+    if [s["Itt"] for s in steps] != list(range(5)) or [s["Itt"] for s in resumed] != [5, 6]:
+        raise AssertionError(f"wavlm CLI: logged steps {[s['Itt'] for s in steps]} then "
+                             f"{[s['Itt'] for s in resumed]}, expected 0..4 then 5, 6")
+    bad = [(s["Itt"], k) for s in steps + resumed for k, v in s.items() if not np.isfinite(v)]
+    counts = {(int(s["k1"]), int(s["k2"])) for s in steps + resumed}
+    if bad or counts != {(STAGES * 2, STAGES * 2)}:
+        raise AssertionError(f"wavlm CLI: non-finite values {bad[:5]}, K1/K2 per step "
+                             f"{sorted(counts)}")
+    digests = {
+        "loaded": one_line(first, "Loaded WavLM backbone from")[0],
+        "resumed": one_line(second, "Resumed train state")[0],
+        "end of training": one_line(second, "Done at step")[0],
+    }
+    gen_lines, gen_wall = run_cli("td_vc_gan_tpu_torch.cli.generate_with_target",
+                                  ["--save_path", str(root / "wavlm_converted"),
+                                   "--load_path", str(run), "--data_path", str(root)])
+    digests["conversion CLI"] = one_line(gen_lines, "WavLM backbone from train state epoch 0")[0]
+    wrong = {k: ln for k, ln in digests.items() if f"digest {digest}" not in ln}
+    if wrong:
+        raise AssertionError(f"the backbone's digest differs from the written file's "
+                             f"({digest}) at {sorted(wrong)}: {list(wrong.values())[:2]}")
+    summary = one_line(gen_lines, "Converted ")[0]
+    m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
+                  r"\(RTF ([\d.]+)x.*K1 launches (\d+); outputs (finite|NOT finite), "
+                  r"max\|y\| ([\d.]+)", summary)
+    calls, audio_s, conv_s, rtf, gen_k1, finite, peak_y = m.groups()
+    if finite != "finite" or float(peak_y) > 1.0 or int(gen_k1) != STAGES * int(calls):
+        raise AssertionError(f"wavlm conversion CLI: outputs {finite}, max|y| {peak_y}, "
+                             f"{gen_k1} K1 launches in {calls} calls")
+    saved = one_line(first, "Saved epoch ")[0]
+    save_s, save_b = re.search(r"in ([\d.]+) s, (\d+) bytes", saved).groups()
+    peak = re.search(r"peak device memory ([\d.]+) GiB", one_line(first, "Done at step")[0])
+    loop_ms = sorted(s["step_ms"] for s in steps if s["Itt"] >= 1)
+    done = [re.search(r"K1 (\d+) \(validation (\d+), samples (\d+)\), K2 (\d+)", ln).groups()
+            for ln in (one_line(first, "Done at step")[0], digests["end of training"])]
+    say(f"wavlm cli: WavLM-Large.pt from a seed ({size / 1e9:.3f} GB, Microsoft layout, "
+        f"conv_feature_layers as a string) written in {write_s:.2f} s; train CLI "
+        f"--wavlm_checkpoint: {len(steps)} steps (epoch 0) in {wall1:.1f} s of wall time, a "
+        f"resume at step 5 for {len(resumed)} steps in {wall2:.1f} s; every logged loss "
+        f"finite; K1/K2 {STAGES * 2}/{STAGES * 2} in every step; the backbone's digest equal to "
+        f"the file's after loading, after the resume, at the end of training and in the "
+        f"conversion CLI ({digest[:16]}...)")
+    say(f"wavlm cli: loop step time, median of steps 1-4 {(loop_ms[1] + loop_ms[2]) / 2:.2f} ms "
+        f"(min {loop_ms[0]:.2f}, max {loop_ms[-1]:.2f}); checkpoint save {float(save_s):.2f} s "
+        f"for {int(save_b) / 1e9:.3f} GB (train state with the backbone, and step0-*.pt); "
+        f"peak device memory {peak.group(1) if peak else 'not reported'} GiB; conversion CLI: "
+        f"{calls} convert_batch calls, K1 {gen_k1}, outputs finite, max|y| "
+        f"{float(peak_y):.4f}, {float(audio_s):.2f} s of audio in {float(conv_s):.2f} s (RTF "
+        f"{float(rtf):.1f}x inside the CLI), {gen_wall:.1f} s of wall time [{card}]")
+    return (sum(int(d[0]) for d in done), sum(int(d[3]) for d in done), int(gen_k1))
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
     out, name = [], None
@@ -1096,13 +1378,21 @@ def main() -> int:
         pipeline_beside_step(cfg, root, card)
         gen_k1 = phase_generate_cli(root, card)
         k1_row["max_abs_err"] = max(k1_row["max_abs_err"], cli_chain_parity(cfg, root, card))
-    # K1 runs on every main path: conversion (phase 4), the train step
-    # (phase 7) and the two CLIs (phases 9 and 10); K2 on the training paths
+        wavlm_convert_k1 = phase_wavlm_convert(cfg, card)
+        (wavlm_train_k1, wavlm_train_k2), _ = phase_wavlm_train(cfg, card)
+        wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = phase_wavlm_clis(root, card)
+    # K1 runs on every main path: conversion (phases 4 and 11), the train
+    # step (phases 7 and 12) and the CLIs (phases 9, 10 and 13); K2 on the
+    # training paths
     k1_row["launches_by_path"] = {"convert": convert_launches, "train": train_k1,
-                                  "train_cli": cli_k1, "generate_cli": gen_k1}
+                                  "train_cli": cli_k1, "generate_cli": gen_k1,
+                                  "wavlm_convert": wavlm_convert_k1,
+                                  "wavlm_train": wavlm_train_k1, "wavlm_train_cli": wavlm_cli_k1,
+                                  "wavlm_generate_cli": wavlm_gen_k1}
     k1_row["launches"] = sum(k1_row["launches_by_path"].values())
-    k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2}
-    k2_row["launches"] = train_k2 + cli_k2
+    k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
+                                  "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2}
+    k2_row["launches"] = sum(k2_row["launches_by_path"].values())
     say_earlier([k1_row, k2_row])
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     say(json.dumps({"kernels": [k1_row, k2_row]}))

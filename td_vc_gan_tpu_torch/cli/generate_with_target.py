@@ -10,6 +10,12 @@ arguments plus ``--device``, the same file names and the same
 Outputs ``{phrase}-{src}-{tgt}-conv.wav``, ``{phrase}-{src}-X-orig.wav`` and
 ``conv_log.txt`` in ``--save_path``.
 
+With a WavLM-encoder config, ``step{E}-G.pt`` holds no backbone (the
+reference's format has only the posterior encoder), so the backbone, and its
+config, come from the run's newest full train state when there is one, else
+from the seed; the CLI prints which, with the backbone's digest. (The JAX
+package's CLI takes the seed's backbone here without saying so.)
+
 Usage:
     python -m td_vc_gan_tpu_torch.cli.generate_with_target --save_path out \
         --load_path runs/exp --data_path data/vctk [--epoch N] [--device cpu]
@@ -34,6 +40,7 @@ from td_vc_gan_tpu_torch.data.dataset import WaveDataset
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
+from td_vc_gan_tpu_torch.models.wavlm import wavlm_digest
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
 from td_vc_gan_tpu_torch.training import checkpoint as ckpt
 
@@ -67,17 +74,26 @@ def parse_args(argv=None):
 
 def load_generator(cfg, load_path: Path, epoch, num_spk: int, device=None):
     """G with weights from ``step{epoch}-G.pt`` / ``latest-G.pt`` in the
-    reference's format, else from the port's newest full train state."""
-    G = generator_from_config(cfg.model.generator, num_spk, device, seed=0)
+    reference's format, else from the port's newest full train state; a
+    WavLM encoder's backbone from that train state, else from the seed."""
     g_file = load_path / (f"step{epoch}-G.pt" if epoch is not None else "latest-G.pt")
+    wavlm = cfg.model.generator.encoder_model == "wavlm"
+    se = ckpt.latest_epoch(load_path)
+    blob = ckpt.load_state_file(load_path, se) if se is not None and (
+        wavlm or not g_file.exists()) else None
+    G = generator_from_config(cfg.model.generator, num_spk, device, seed=0,
+                              wavlm_cfg=ckpt.state_wavlm_cfg(blob) if blob else None)
     if g_file.exists():
         msg = ckpt.import_torch_generator(cfg, g_file, G)
         print(f"Loaded {g_file} ({len(msg['matched'])} tensors)")
-        return G
-    se = ckpt.latest_epoch(load_path)
-    if se is not None:
-        blob = torch.load(load_path / ckpt.STATE_DIR / f"epoch_{se}.pt", map_location="cpu",
-                          weights_only=False)
+        if wavlm:
+            if blob is not None:
+                ckpt.load_backbone(G, blob)
+                source = f"train state epoch {se}"
+            else:
+                source = f"seed (no train state under {load_path})"
+            print(f"WavLM backbone from {source}, digest {wavlm_digest(ckpt.backbone(G))}")
+    elif blob is not None:
         G.load_state_dict(blob["G"])
         print(f"Loaded train state epoch {se}")
     else:

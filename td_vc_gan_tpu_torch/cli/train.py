@@ -4,7 +4,8 @@
 Usage:
     python -m td_vc_gan_tpu_torch.cli.train --save_path runs/exp --data_path data/vctk \
         [--config_file config.yaml] [--override train.batch_size=16 ...] \
-        [--load_path runs/exp] [--epoch N] [--device cuda|cpu]
+        [--load_path runs/exp] [--epoch N] [--wavlm_checkpoint WavLM-Large.pt] \
+        [--device cuda|cpu]
 
 ``--override`` values are JSON (numbers, true/false, null, lists), else raw
 strings; no PyYAML is needed unless ``--config_file`` is a YAML file.
@@ -37,7 +38,8 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of steps 10-15 here")
     parser.add_argument("--wavlm_checkpoint", default=None,
-                        help="not ported yet (the WavLM encoder)")
+                        help="Microsoft WavLM .pt (WavLM-Large.pt) for the frozen backbone "
+                             "of a wavlm config; without it the backbone comes from the seed")
     parser.add_argument("--override", action="append", default=[],
                         help="dotted config override, e.g. train.batch_size=4")
     parser.add_argument("--coordinator_address", default=None,
@@ -50,8 +52,6 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.num_processes and args.num_processes > 1:
         parser.error("--num_processes > 1: multi-process training is not ported yet")
-    if args.wavlm_checkpoint:
-        parser.error("--wavlm_checkpoint: the WavLM encoder is not ported yet")
     return args
 
 
@@ -72,6 +72,7 @@ def main(argv=None):
         crepe_weights=args.crepe_weights,
         profile_dir=args.profile_dir,
         precorrupted_index=args.precorrupted_index,
+        wavlm_checkpoint=args.wavlm_checkpoint,
         device=args.device,
     )
 

@@ -1,9 +1,12 @@
-"""Generator: conv content encoder -> excitation-conditioned decoder.
+"""Generator: content encoder -> excitation-conditioned decoder.
 
-Counterpart of ``td_vc_gan_tpu/models/generator.py`` for the conv encoder
-without bottleneck or norm layers, the configuration every shipped
-conversion config uses. Submodule names follow the flax module names
-(``encoder.stage_0_mrf.block_0_0.conv`` ...), which ``weights.py`` relies on.
+Counterpart of ``td_vc_gan_tpu/models/generator.py`` with either content
+encoder, the conv encoder or the SSL encoder (frozen WavLM and a posterior
+encoder, ``encoder_model='wavlm'``), without bottleneck or norm layers, the
+configurations every shipped conversion config uses. Submodule names follow
+the flax module names (``encoder.stage_0_mrf.block_0_0.conv``,
+``encoder.wavlm.encoder.layer_0.self_attn.q_kernel`` ...), which
+``weights.py`` relies on.
 Modules run ``(B, C, T)``; :meth:`Generator.forward` keeps the JAX package's
 channels-last ``(B, T, C)`` at its boundary.
 """
@@ -25,6 +28,8 @@ from td_vc_gan_tpu_torch.models.layers import (
     init_weights,
     leaky_relu,
 )
+from td_vc_gan_tpu_torch.models.ssl_encoder import SSLEncoder
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
 from td_vc_gan_tpu_torch.ops.dsp import kaiser_filter
 
 EXCITE_CHANNELS = (8, 8, 8, 8, 8)
@@ -169,26 +174,36 @@ class Decoder(nn.Module):
 
 
 class Generator(nn.Module):
-    """Conv-encoder generator. ``forward(x, c_tgt, c_var)`` takes x (B, T, 1),
+    """The generator. ``forward(x, c_tgt, c_var)`` takes x (B, T, 1),
     a one-hot target speaker (B, num_classes) and the excitation (B, T, 1)
     (None: zeros) and returns (wav (B, T, 1), subsamples [(B, T_i, 1)],
     content (B, T', content_dim)), channels-last as in the JAX package. The
     excitation comes third, before the JAX signature's ``c_src``, which is a
-    keyword here."""
+    keyword here.
+
+    ``encoder_model='wavlm'`` takes the SSL encoder (``num_enc_layers`` WN
+    layers, ``content_dim`` wide, over a frozen WavLM of ``wavlm_cfg``, None:
+    WavLM-Large) in place of the conv encoder; its frames are 320 samples,
+    so the decoder's ratios must multiply to 320."""
 
     def __init__(self, decoder_ratios, decoder_channels, num_classes: int,
                  conditional_dim: int, content_dim: int | None = None,
                  use_weight_norm: tuple[bool, bool] = (True, True),
-                 kernel_sizes=(3, 7, 11), dilations=(1, 3, 5)):
+                 kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
+                 encoder_model: str = "conv", num_enc_layers: int = 16,
+                 wavlm_cfg: WavLMConfig | None = None):
         super().__init__()
         enc_wn, dec_wn = use_weight_norm
         self.num_classes = num_classes
         self.decoder_ratios = tuple(decoder_ratios)
         self.embedding = Linear(num_classes, conditional_dim)
-        self.encoder = Encoder(tuple(reversed(decoder_ratios)),
-                               tuple(reversed(decoder_channels)), content_dim,
-                               use_weight_norm=enc_wn, kernel_sizes=kernel_sizes,
-                               dilations=dilations)
+        if encoder_model == "wavlm":
+            self.encoder = SSLEncoder(num_enc_layers, content_dim, wavlm_cfg=wavlm_cfg)
+        else:
+            self.encoder = Encoder(tuple(reversed(decoder_ratios)),
+                                   tuple(reversed(decoder_channels)), content_dim,
+                                   use_weight_norm=enc_wn, kernel_sizes=kernel_sizes,
+                                   dilations=dilations)
         self.decoder = Decoder(decoder_ratios, decoder_channels, conditional_dim,
                                content_dim, use_weight_norm=dec_wn,
                                kernel_sizes=kernel_sizes, dilations=dilations)
@@ -222,14 +237,16 @@ class Generator(nn.Module):
                 content.transpose(1, 2))
 
 
-def generator_from_config(gen_cfg, num_classes: int, device=None, seed: int = 0) -> Generator:
-    """A Generator for a GeneratorConfig (conv encoder, no bottleneck, no
-    norm layers, decoder conditioned on the target speaker), its weights made
-    from ``seed``, on ``device`` (default: the CUDA card)."""
+def generator_from_config(gen_cfg, num_classes: int, device=None, seed: int = 0,
+                          wavlm_cfg: WavLMConfig | None = None) -> Generator:
+    """A Generator for a GeneratorConfig (conv or WavLM encoder, no
+    bottleneck, no norm layers, decoder conditioned on the target speaker),
+    its weights made from ``seed``, on ``device`` (default: the CUDA card).
+    ``wavlm_cfg`` sizes the WavLM backbone (None: WavLM-Large)."""
     dev = resolve_device(device)
     nl, cond = gen_cfg.norm_layer, gen_cfg.conditioning
     unsupported = []
-    if gen_cfg.encoder_model != "conv":
+    if gen_cfg.encoder_model not in ("conv", "wavlm"):
         unsupported.append(f"encoder_model={gen_cfg.encoder_model!r}")
     if gen_cfg.num_bottleneck_layers:
         unsupported.append("bottleneck layers")
@@ -244,5 +261,7 @@ def generator_from_config(gen_cfg, num_classes: int, device=None, seed: int = 0)
                   gen_cfg.conditional_dim, gen_cfg.content_dim,
                   use_weight_norm=(wn.encoder == "weight_norm", wn.decoder == "weight_norm"),
                   kernel_sizes=tuple(gen_cfg.mrf_kernel_sizes),
-                  dilations=tuple(gen_cfg.mrf_dilations))
+                  dilations=tuple(gen_cfg.mrf_dilations),
+                  encoder_model=gen_cfg.encoder_model, num_enc_layers=gen_cfg.num_enc_layers,
+                  wavlm_cfg=wavlm_cfg)
     return init_weights(g, seed).to(dev)

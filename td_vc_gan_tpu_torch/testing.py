@@ -1,8 +1,9 @@
 """Seeded inputs that ``chip_smoke.py`` (on the card) and the CPU tests share.
 
 The decoder's stage shapes and seeded cond-chain operands at one stage,
-optionally rounded so that cond_0's products are exact; and a CREPE-tiny
-state dict in torchcrepe's layout, for the loaders of both packages.
+optionally rounded so that cond_0's products are exact; a CREPE-tiny
+state dict in torchcrepe's layout, and a WavLM checkpoint in the Microsoft
+layout, for the loaders of both packages.
 """
 
 from __future__ import annotations
@@ -100,3 +101,38 @@ def torchcrepe_state_dict(seed: int) -> dict:
     sd["classifier.weight"] = t(0.05 * rng.standard_normal(net.classifier_kernel.shape))
     sd["classifier.bias"] = torch.zeros(net.classifier_bias.shape)
     return sd
+
+
+def microsoft_conv_layers(layers) -> str:
+    """``conv_feature_layers`` written as the Microsoft cfg writes it:
+    ``"[(512,10,5)] + [(512,3,2)] * 4 + [(512,2,2)] * 2"``."""
+    runs: list[list] = []
+    for layer in layers:
+        if runs and runs[-1][0] == tuple(layer):
+            runs[-1][1] += 1
+        else:
+            runs.append([tuple(layer), 1])
+    return " + ".join(f"[({','.join(map(str, lay))})]" + (f" * {n}" if n > 1 else "")
+                      for lay, n in runs)
+
+
+def microsoft_wavlm_checkpoint(model) -> dict:
+    """A port :class:`~td_vc_gan_tpu_torch.models.wavlm.WavLM` as a
+    Microsoft WavLM ``.pt`` holds it: ``{"cfg": dict, "model": state dict}``,
+    the cfg's ``conv_feature_layers`` a string, ``weight_g`` shaped (1, 1, k),
+    and the pretraining-only ``mask_emb`` that the loaders skip."""
+    import dataclasses
+
+    from td_vc_gan_tpu_torch.models.wavlm import key_table
+
+    cfg = model.cfg
+    raw = dataclasses.asdict(cfg)
+    raw["conv_feature_layers"] = microsoft_conv_layers(cfg.conv_feature_layers)
+    raw.update(dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0, mask_prob=0.0)
+    sd = model.state_dict()
+    out = {}
+    for ms, ours in key_table(cfg):
+        t = sd[ours].detach().cpu().clone()
+        out[ms] = t.reshape(1, 1, -1) if ms.endswith("weight_g") else t
+    out["mask_emb"] = torch.zeros(cfg.encoder_embed_dim)
+    return {"cfg": raw, "model": out}

@@ -5,7 +5,10 @@ Counterpart of ``td_vc_gan_tpu/training/checkpoint.py``. The reference writes
 and keeps no optimizer state (train.py:596-608). The JAX package keeps its
 full TrainState with Orbax under ``<run>/orbax/epoch_{E}``; the port keeps its
 own (G, D, C, their AdamW/Adam states and the step) with ``torch.save`` under
-``<run>/torch_state/epoch_{E}.pt``, found again by :func:`latest_epoch`. The
+``<run>/torch_state/epoch_{E}.pt``, found again by :func:`latest_epoch`. With
+the WavLM encoder that state carries the frozen backbone, as the JAX
+package's does (WavLM-Large adds 1.26 GB per save), and the backbone's
+config, so that a run's conversion rebuilds the backbone it trained with. The
 reference-format files are written beside it (:func:`export_torch`), so that
 the JAX package, the reference's tooling and the port read each other's
 weights. Restoring a reference file merges it permissively into the model
@@ -14,12 +17,14 @@ weights. Restoring a reference file merges it permissively into the model
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
 from td_vc_gan_tpu_torch.training import torch_interop as ti
 from td_vc_gan_tpu_torch.training.state import TrainState
 
@@ -41,10 +46,36 @@ def save_state(state: TrainState, path: str | Path, epoch: int) -> Path:
             "opt_d": state.opt_d.optimizer.state_dict()}
     if state.C is not None:
         blob.update(C=state.C.state_dict(), opt_c=state.opt_c.optimizer.state_dict())
+    if (wavlm := backbone(state.G)) is not None:
+        blob["wavlm_cfg"] = dataclasses.asdict(wavlm.cfg)
     tmp = out.with_suffix(".tmp")
     torch.save(blob, tmp)
     tmp.replace(out)
     return out
+
+
+def backbone(G: torch.nn.Module):
+    """G's WavLM backbone, or None for the conv encoder."""
+    return getattr(G.encoder, "wavlm", None)
+
+
+def load_state_file(path: str | Path, epoch: int) -> dict:
+    """The saved train state of ``epoch``, its tensors on the CPU and mapped
+    from the file, not read, until used."""
+    return torch.load(_state_file(path, epoch), map_location="cpu", weights_only=False,
+                      mmap=True)
+
+
+def state_wavlm_cfg(blob: Mapping) -> WavLMConfig | None:
+    """The WavLM backbone's config recorded in a saved train state, if any."""
+    return WavLMConfig(**blob["wavlm_cfg"]) if "wavlm_cfg" in blob else None
+
+
+def load_backbone(G: torch.nn.Module, blob: Mapping) -> None:
+    """Fill G's WavLM backbone from a saved train state's G."""
+    prefix = "encoder.wavlm."
+    backbone(G).load_state_dict({k[len(prefix):]: v for k, v in blob["G"].items()
+                                 if k.startswith(prefix)})
 
 
 def latest_epoch(path: str | Path) -> int | None:
@@ -65,7 +96,7 @@ def restore_state(state: TrainState, path: str | Path, epoch: int | None = None)
         epoch = latest_epoch(path)
         if epoch is None:
             raise FileNotFoundError(f"no saved train state under {Path(path) / STATE_DIR}")
-    blob = torch.load(_state_file(path, epoch), map_location="cpu", weights_only=False)
+    blob = load_state_file(path, epoch)
     state.G.load_state_dict(blob["G"])
     state.D.load_state_dict(blob["D"])
     state.opt_g.optimizer.load_state_dict(blob["opt_g"])

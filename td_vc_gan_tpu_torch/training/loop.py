@@ -12,7 +12,11 @@ conversions, each at its interval, with the JAX loop's semantics:
 - resume from ``load_path``: the port's full train state first (the newest,
   or ``epoch``), else the reference's ``step{epoch}-*.pt`` / ``latest-*.pt``
   merged with :func:`checkpoint.load_possible`;
-- the random stream restarts from ``train.seed`` in every call.
+- the random stream restarts from ``train.seed`` in every call;
+- ``wavlm_checkpoint`` (a Microsoft WavLM ``.pt``) sizes and fills the frozen
+  backbone of a WavLM-encoder config; without it the backbone comes from the
+  seed. The loop logs the backbone's digest (:func:`wavlm.wavlm_digest`)
+  after loading it, after a resume and at the end.
 
 Multi-host training, the device mesh, jit caches and the JAX compilation
 cache have no counterpart here. The host side (decoding, augmentation,
@@ -46,6 +50,7 @@ from td_vc_gan_tpu_torch.models.discriminator import discriminator_from_config
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.latent_classifier import LatentClassifier
 from td_vc_gan_tpu_torch.models.layers import init_weights
+from td_vc_gan_tpu_torch.models.wavlm import load_wavlm_checkpoint, wavlm_digest
 from td_vc_gan_tpu_torch.ops import dsp
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
 from td_vc_gan_tpu_torch.training import checkpoint as ckpt
@@ -53,14 +58,16 @@ from td_vc_gan_tpu_torch.training import state as state_mod
 from td_vc_gan_tpu_torch.training import step as step_mod
 
 
-def build_models(cfg: Config, num_spk: int, device=None, seed: int | None = None):
+def build_models(cfg: Config, num_spk: int, device=None, seed: int | None = None,
+                 wavlm_cfg=None):
     """G, D and (when the config uses it) the latent classifier C, with
     weights made from ``seed`` (default ``train.seed``; D and C from the next
-    seeds), on ``device``. The port's modules hold their weights, so this is
+    seeds), on ``device``; ``wavlm_cfg`` sizes a WavLM encoder's backbone
+    (None: WavLM-Large). The port's modules hold their weights, so this is
     also the JAX loop's ``init_params``; CREPE comes from :func:`build_crepe`."""
     seed = cfg.train.seed if seed is None else seed
     dev = resolve_device(device)
-    G = generator_from_config(cfg.model.generator, num_spk, dev, seed)
+    G = generator_from_config(cfg.model.generator, num_spk, dev, seed, wavlm_cfg=wavlm_cfg)
     D = discriminator_from_config(cfg, num_spk, dev, seed + 1)
     C = None
     if cfg.train.lambda_latcls != 0 or cfg.log.val_lat_cls:
@@ -122,6 +129,12 @@ def state_digest(state: state_mod.TrainState) -> str:
     return h.hexdigest()
 
 
+def backbone_note(G) -> str:
+    """', backbone digest ...' for a WavLM-encoder G, else ''."""
+    wavlm = ckpt.backbone(G)
+    return "" if wavlm is None else f", backbone digest {wavlm_digest(wavlm)}"
+
+
 def _to_device(batch: dict, dev: torch.device) -> dict:
     if dev.type != "cuda":
         return {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -144,6 +157,7 @@ def train(
     crepe_weights: str | None = None,
     profile_dir: str | None = None,
     precorrupted_index: str | None = None,
+    wavlm_checkpoint: str | None = None,
     device=None,
     log_fn=print,
 ) -> state_mod.TrainState:
@@ -174,7 +188,15 @@ def train(
         normalization_db=cfg.train.normalization_db, seed=cfg.train.seed,
     )
 
-    G, D, C = build_models(cfg, train_ds.num_spk, dev)
+    wavlm_cfg = wavlm_state = None
+    if wavlm_checkpoint and cfg.model.generator.encoder_model == "wavlm":
+        wavlm_cfg, wavlm_state = load_wavlm_checkpoint(wavlm_checkpoint)
+    G, D, C = build_models(cfg, train_ds.num_spk, dev, wavlm_cfg=wavlm_cfg)
+    if wavlm_state is not None:
+        ckpt.backbone(G).load_state_dict(wavlm_state)
+        log_fn(f"Loaded WavLM backbone from {wavlm_checkpoint} ({len(wavlm_state)} tensors, "
+               f"{sum(t.numel() for t in wavlm_state.values())} parameters{backbone_note(G)})")
+        del wavlm_state
     crepe = build_crepe(cfg, crepe_weights, dev)
     state = state_mod.create_train_state(cfg, G, D, C, crepe)
 
@@ -188,7 +210,7 @@ def train(
             ckpt.restore_state(state, load_path, state_epoch)
             start_epoch = state_epoch + 1
             log_fn(f"Resumed train state epoch {state_epoch} (step {state.step}, "
-                   f"digest {state_digest(state)})")
+                   f"digest {state_digest(state)}{backbone_note(G)})")
         else:
             base = f"step{epoch}" if epoch is not None else "latest"
             g_file = load_path / f"{base}-G.pt"
@@ -311,7 +333,8 @@ def train(
     peak = (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if dev.type == "cuda" else "")
     log_fn(f"Done at step {iter_count}: cond-chain launches K1 {k_end[0] - k_start[0]} "
-           f"(validation {k_val}, samples {k_gen}), K2 {k_end[1] - k_start[1]}{peak}")
+           f"(validation {k_val}, samples {k_gen}), K2 {k_end[1] - k_start[1]}{peak}"
+           f"{backbone_note(state.G)}")
     if writer:
         writer.close()
     return state

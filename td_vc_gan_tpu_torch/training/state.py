@@ -55,7 +55,10 @@ def trainable(module: nn.Module, frozen_prefixes=()) -> list[nn.Parameter]:
 def make_optimizers(cfg, G: nn.Module, D: nn.Module, C: nn.Module | None = None):
     """AdamW (lr, betas, weight decay 0.01, eps 1e-8) for G and D, Adam for C,
     as the JAX package's ``make_optimizers``; G's ``encoder.wavlm`` and the
-    config's ``freeze_subnets`` are frozen."""
+    config's ``freeze_subnets`` are frozen. The WavLM backbone's parameters
+    also have ``requires_grad=False`` (``models/ssl_encoder.py``), so they get
+    no gradient, no moments, no weight decay, and add nothing to G's
+    gradient norm (the JAX package's are zero gradients there)."""
     t = cfg.train
     betas = tuple(t.adam_beta)
     frozen = ["encoder/wavlm", *(t.freeze_subnets or [])]

@@ -11,6 +11,8 @@ Counterpart of ``td_vc_gan_tpu/training/step.py`` (``compute_pitch_features``,
   gives D's parameters no gradient.
 - The rec pass's content serves as the converted embedding of the
   contrastive loss.
+- With the WavLM encoder, the backbone runs without autograd and gets no
+  gradient; the corrupted batch is encoded through ``encode_only``.
 
 The JAX step's XLA and TPU devices (weight-norm hoisting, remat, shard_map,
 ``lax.cond`` gating, the perf flags) are not carried over: they leave the math
@@ -102,7 +104,8 @@ def build_train_step(cfg, state: TrainState) -> Callable:
     num_disc = cfg.model.discriminator.num_disc
     sr = cfg.model.sample_rate
     fft_sizes = tuple(t.mel_fft_sizes)
-    g_params = list(G.parameters())
+    # the frozen WavLM backbone has requires_grad=False and takes no gradient
+    g_params = [p for p in G.parameters() if p.requires_grad]
 
     def train_step(batch: dict, generator: torch.Generator | None = None,
                    draws: dict | None = None) -> dict:

@@ -1,8 +1,8 @@
 """Third-party pretrained torch weights into the port's models.
 
-Counterpart of ``td_vc_gan_tpu/training/torch_import.py`` (CREPE only; the
-WavLM encoder is not ported yet). The port's CREPE keeps torch's layouts, so
-only the names change.
+Counterpart of ``td_vc_gan_tpu/training/torch_import.py`` for CREPE; the
+WavLM checkpoint's loader is ``models.wavlm.load_wavlm_checkpoint``. The
+port's CREPE keeps torch's layouts, so only the names change.
 """
 
 from __future__ import annotations

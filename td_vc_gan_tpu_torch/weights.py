@@ -7,7 +7,13 @@ mapping is by name; only the layouts differ:
 - weight-normed conv ``v`` (k, in, out) -> (out, in, k), ``g`` per output;
 - transposed conv ``v`` (in, out, k) stays, ``g`` per input;
 - plain conv ``kernel`` (k, in, out) -> (out, in, k);
-- Linear ``kernel`` (in, out) -> (out, in).
+- Linear ``kernel`` (in, out) -> (out, in);
+- the WavLM backbone's bare arrays (``models/wavlm.py``), kept in the
+  Microsoft checkpoint's torch layouts: extractor ``conv_i`` (k, in, out)
+  -> (out, in, k); every ``*_kernel`` (in, out) -> (out, in), applied as
+  ``F.linear``; ``pos_conv_v`` (k, d/g, d) -> (d, d/g, k); ``pos_conv_g``
+  (k,), ``grep_a`` (1, H, 1, 1) and ``rel_attn_bias`` (buckets, H) as they
+  are.
 
 Every parameter and buffer must be matched exactly once; anything missing,
 left over or of the wrong shape raises.
@@ -23,6 +29,13 @@ from torch import nn
 
 from td_vc_gan_tpu_torch.models.crepe import Crepe
 from td_vc_gan_tpu_torch.models.layers import Linear, WNConv1d
+from td_vc_gan_tpu_torch.models.wavlm import (
+    ConvFeatureExtractor,
+    EncoderLayer,
+    MultiheadAttention,
+    TransformerEncoder,
+    WavLM,
+)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -66,6 +79,13 @@ def _conv_layout(module: nn.Module):
             return np.ascontiguousarray(a.T)
         if isinstance(owner, WNConv1d) and leaf in ("v", "kernel"):
             return np.ascontiguousarray(a.transpose(2, 1, 0))
+        if isinstance(owner, ConvFeatureExtractor) and not leaf.endswith("_bias"):
+            return np.ascontiguousarray(a.transpose(2, 1, 0))  # conv_i
+        if isinstance(owner, TransformerEncoder) and leaf == "pos_conv_v":
+            return np.ascontiguousarray(a.transpose(2, 1, 0))
+        if isinstance(owner, (MultiheadAttention, EncoderLayer, WavLM)) and \
+                leaf.endswith("_kernel"):
+            return np.ascontiguousarray(a.T)
         return a
 
     return layout

@@ -20,6 +20,8 @@ import yaml
 from td_vc_gan_tpu import config as jcfg
 from td_vc_gan_tpu.cli import generate_with_target as jgen_cli
 from td_vc_gan_tpu.models import discriminator as jd
+from td_vc_gan_tpu.models import generator as jg
+from td_vc_gan_tpu.models.wavlm import WavLMConfig as JaxWavLMConfig
 from td_vc_gan_tpu.training import checkpoint as jckpt
 from td_vc_gan_tpu.training import loop as jloop
 from td_vc_gan_tpu.training import torch_import as jtorch_import
@@ -28,6 +30,8 @@ from td_vc_gan_tpu_torch.cli import generate_with_target as pgen_cli
 from td_vc_gan_tpu_torch.config import load_config, parse_override_value, parse_overrides
 from td_vc_gan_tpu_torch.models import discriminator as pd
 from td_vc_gan_tpu_torch.models.crepe import Crepe
+from td_vc_gan_tpu_torch.models.generator import generator_from_config
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
 from td_vc_gan_tpu_torch.training import checkpoint as pckpt
 from td_vc_gan_tpu_torch.training import loop as ploop
 from td_vc_gan_tpu_torch.training import torch_import as ptorch_import
@@ -136,6 +140,67 @@ def test_import_jax_exported_generator(models, tmp_path):
     x, onehot, exc, got = _g_outputs(m, tG)
     want = np.asarray(jax.jit(m.G.apply)(m.pg, x, onehot, None, exc)[0])
     assert np.abs(got - want).max() <= G_RTOL * np.abs(want).max()
+
+
+WAVLM = dict(
+    encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+    encoder_attention_heads=4, conv_pos=16, conv_pos_groups=4, num_buckets=32,
+    max_distance=80, conv_feature_layers=((16, 10, 5),) + ((16, 3, 2),) * 4 + ((16, 2, 2),) * 2,
+)
+
+
+def test_wavlm_generator_pt_both_directions(models, tmp_path):
+    """A WavLM-encoder G (the tiny backbone of test_torch_port_wavlm.py):
+    the port's step2-G.pt equals the JAX package's key for key and bit for
+    bit (the posterior encoder, no backbone); each package reads the other's
+    back to the same weights, leaving its own backbone as it was."""
+    m = models
+    over = {**TINY, "model": {**TINY["model"], "generator": {
+        **TINY["model"]["generator"], "decoder_ratios": [10, 8, 2, 2],
+        "encoder_model": "wavlm", "num_enc_layers": 2}}}
+    jc, pc = jcfg.load_config(None, over), load_config(None, over)
+    jG = jg.generator_from_config(jc.model.generator, NUM_SPK, wavlm_cfg=JaxWavLMConfig(**WAVLM))
+    x = jnp.zeros((1, SEG, 1))
+    pg = fill(jax.eval_shape(jG.init, jax.random.PRNGKey(0), x, jnp.zeros((1, NUM_SPK)), None,
+                             x), 21)
+    tG = weights.generator_from_jax(generator_from_config(
+        pc.model.generator, NUM_SPK, "cpu", wavlm_cfg=WavLMConfig(**WAVLM)), pg)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    jckpt.export_torch(SimpleNamespace(params_g=pg, params_d=m.pd, params_c=None), jc,
+                       tmp_path / "jax", 2)
+    pckpt.export_torch(SimpleNamespace(G=tG, D=m.tD, C=None), pc, tmp_path / "port", 2)
+    a = torch.load(tmp_path / "jax" / "step2-G.pt", weights_only=False)
+    b = torch.load(tmp_path / "port" / "step2-G.pt", weights_only=False)
+    assert list(a) == list(b) and "encoder.encoder.enc.res_skip_layers.1.weight_v" in a
+    assert not any("wavlm" in k for k in a)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+    # JAX's file into a port G from another seed: its posterior and decoder
+    # become the JAX weights, its backbone stays its own
+    fresh = generator_from_config(pc.model.generator, NUM_SPK, "cpu", seed=7,
+                                  wavlm_cfg=WavLMConfig(**WAVLM))
+    own = {k: v.clone() for k, v in fresh.encoder.wavlm.state_dict().items()}
+    msg = pckpt.import_torch_generator(pc, tmp_path / "jax" / "step2-G.pt", fresh)
+    assert len(msg["matched"]) == len(a) and not msg["unmatched_keys"]
+    assert msg["missing_keys"] and all("/encoder/wavlm/" in k for k in msg["missing_keys"])
+    for k, v in fresh.state_dict().items():
+        want = own[k[len("encoder.wavlm."):]] if k.startswith("encoder.wavlm.") else \
+            tG.state_dict()[k]
+        assert torch.equal(v, want), k
+
+    # the port's file into the JAX tree from another seed
+    other = fill(jax.eval_shape(jG.init, jax.random.PRNGKey(0), x, jnp.zeros((1, NUM_SPK)),
+                                None, x), 22)
+    back, _ = jckpt.import_torch_generator(jc, tmp_path / "port" / "step2-G.pt", other)
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(pg)[0]:
+        name = jax.tree_util.keystr(path)
+        src = pg if "'wavlm'" not in name else other
+        want = dict(jax.tree_util.tree_flatten_with_path(src)[0])[path]
+        np.testing.assert_array_equal(np.asarray(flat_back[path]), np.asarray(want),
+                                      err_msg=name)
 
 
 def test_load_possible_matches_jax():

@@ -31,6 +31,8 @@ from td_vc_gan_tpu_torch.data.audio_io import read_audio, write_audio
 from td_vc_gan_tpu_torch.data.dataset import WaveDataset
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
+from td_vc_gan_tpu_torch.models.layers import init_weights
+from td_vc_gan_tpu_torch.models.wavlm import WavLM, WavLMConfig, backbone_digest, key_table
 from td_vc_gan_tpu_torch.training import checkpoint as ckpt
 
 torch.set_num_threads(1)
@@ -219,6 +221,52 @@ def test_clis_need_a_card_unless_asked_for_the_cpu(monkeypatch, corpus, tmp_path
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gen_cli.main(["--save_path", str(tmp_path / "g"), "--load_path", str(tmp_path),
                       "--data_path", str(corpus)])
-    for bad in (["--num_processes", "2"], ["--wavlm_checkpoint", "w.pt"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(["--save_path", "s", "--data_path", "d", *bad])
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--save_path", "s", "--data_path", "d", "--num_processes", "2"])
+    args = train_cli.parse_args(["--save_path", "s", "--data_path", "d",
+                                 "--wavlm_checkpoint", "w.pt"])
+    assert args.wavlm_checkpoint == "w.pt"
+
+
+def test_train_and_convert_with_wavlm_checkpoint(corpus, tmp_path):
+    """``--wavlm_checkpoint`` on the CPU: a Microsoft-format .pt of a tiny
+    backbone (the widths of tests/test_torch_port_wavlm.py) sizes and fills
+    the WavLM encoder; one epoch with a save; the backbone's digest after
+    loading, at the end of training and in the conversion CLI (which takes it
+    from the train state, not from step0-G.pt) is the written file's."""
+    tiny = WavLMConfig(encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                       encoder_attention_heads=4, conv_pos=16, conv_pos_groups=4,
+                       num_buckets=32, max_distance=80,
+                       conv_feature_layers=((16, 10, 5),) + ((16, 3, 2),) * 4
+                       + ((16, 2, 2),) * 2)
+    blob = testing.microsoft_wavlm_checkpoint(init_weights(WavLM(tiny), 8))
+    torch.save(blob, tmp_path / "wavlm.pt")
+    digest = backbone_digest(blob["model"][ms] for ms, _ in key_table(tiny))
+    run = tmp_path / "run"
+    argv = ["--save_path", str(run), "--data_path", str(corpus), "--device", "cpu",
+            "--wavlm_checkpoint", str(tmp_path / "wavlm.pt")]
+    for o in OVERRIDES + ["model.generator.decoder_ratios=[10,8,2,2]",
+                          "model.generator.encoder_model=wavlm", "train.num_epoch=0",
+                          "log.gen_interval=5"]:
+        argv += ["--override", o]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(argv)
+    lines = out.getvalue().splitlines()
+    loaded = next(ln for ln in lines if ln.startswith("Loaded WavLM backbone from"))
+    done = next(ln for ln in lines if ln.startswith("Done at step 2"))
+    assert f"backbone digest {digest}" in loaded and f"backbone digest {digest}" in done
+    steps = [ln for ln in lines if ln.startswith("Epoch ")]
+    assert len(steps) == 2 and all(np.isfinite(float(v)) for s_ in steps
+                                   for v in re.findall(r"G_loss: (\S+?),", s_))
+    assert not any("wavlm" in k for k in torch.load(run / "step0-G.pt", weights_only=False))
+    state = torch.load(run / ckpt.STATE_DIR / "epoch_0.pt", weights_only=False)
+    assert ckpt.state_wavlm_cfg(state) == tiny
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen_cli.main(["--save_path", str(tmp_path / "gen"), "--load_path", str(run),
+                      "--data_path", str(corpus), "--device", "cpu"])
+    text = out.getvalue()
+    assert f"WavLM backbone from train state epoch 0, digest {digest}" in text
+    assert "outputs finite" in text

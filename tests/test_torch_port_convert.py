@@ -6,7 +6,8 @@ package's seeded init, both carried by ``weights.py``. The excitation's
 random draws (start phase, noise) are taken from the JAX PRNG exactly as the
 JAX Converter draws them and injected into the port. Tolerances: excitation
 atol 1e-5 (f32 phase accumulated over 2560 samples in another order);
-converted audio atol 1e-4.
+converted audio atol 1e-4, with the conv encoder and with the WavLM encoder
+(the tiny backbone of tests/test_torch_port_wavlm.py).
 """
 
 import subprocess
@@ -23,12 +24,14 @@ from td_vc_gan_tpu import config as jcfg
 from td_vc_gan_tpu.inference import Converter as JaxConverter
 from td_vc_gan_tpu.models import crepe as jcrepe
 from td_vc_gan_tpu.models.generator import Generator as JaxGenerator
+from td_vc_gan_tpu.models.wavlm import WavLMConfig as JaxWavLMConfig
 from td_vc_gan_tpu.ops import dsp as jdsp
 from td_vc_gan_tpu_torch import weights
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.crepe import Crepe
 from td_vc_gan_tpu_torch.models.generator import Generator
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
 from td_vc_gan_tpu_torch.ops import dsp
 
 torch.set_num_threads(1)
@@ -183,6 +186,14 @@ with tempfile.TemporaryDirectory() as d:
     cfg.save(Path(d) / "config.yaml")
     back = load_config(Path(d) / "config.yaml", parse_overrides(["train.num_epoch=2"]))
 assert back.model.generator.decoder_ratios == [10, 4, 2, 2] and back.train.num_epoch == 2
+import torch
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
+g.decoder_ratios, g.encoder_model, g.num_enc_layers = [10, 8, 2, 2], "wavlm", 2
+tiny = WavLMConfig(encoder_layers=1, encoder_embed_dim=16, encoder_ffn_embed_dim=16,
+                   encoder_attention_heads=2, conv_pos=4, conv_pos_groups=2,
+                   conv_feature_layers=((8, 10, 5),) + ((8, 3, 2),) * 4 + ((8, 2, 2),) * 2)
+wavlm_g = generator_from_config(g, 4, device="cpu", wavlm_cfg=tiny)
+assert wavlm_g(torch.zeros(1, 640, 1), torch.eye(4)[:1])[0].shape == (1, 640, 1)
 print("ok", conv.device)
 """
 
@@ -249,6 +260,62 @@ def test_convert_long_matches_jax(full_mrf_converters):
     want = jconv.convert_long(sig, 2, mu_tgt=np.log(190.0), chunk=2560, overlap=640, seed=9)
     draws = [jax_draws(9 + i, (1, 2560)) for i in range(3)]
     got = conv.convert_long(sig, 2, mu_tgt=np.log(190.0), chunk=2560, overlap=640,
+                            draws=draws)
+    assert got.shape == sig.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+WAVLM = dict(
+    extractor_mode="layer_norm", encoder_layers=2, encoder_embed_dim=32,
+    encoder_ffn_embed_dim=64, encoder_attention_heads=4, layer_norm_first=True,
+    conv_feature_layers=((16, 10, 5),) + ((16, 3, 2),) * 4 + ((16, 2, 2),) * 2,
+    conv_pos=16, conv_pos_groups=4, num_buckets=32, max_distance=80,
+)
+
+
+@pytest.fixture(scope="module")
+def wavlm_converters():
+    """The JAX Converter and the port's with the WavLM-encoder generator
+    (ratios 10, 8, 2, 2: WavLM's 320) at narrow widths."""
+    ratios = (10, 8, 2, 2)
+    kw = dict(kernel_sizes=(3,), dilations=(1,))
+    g = JaxGenerator(decoder_ratios=ratios, decoder_channels=CHANNELS,
+                     num_bottleneck_layers=0, num_classes=4, conditional_dim=8,
+                     content_dim=8, encoder_model="wavlm", num_enc_layers=2,
+                     wavlm_cfg=JaxWavLMConfig(**WAVLM), **kw)
+    x = jnp.zeros((1, 1280, 1))
+    params = random_params(g, x, jnp.zeros((1, 4)), None, x, seed=3)
+    crepe_params = jax.jit(jcrepe.init_crepe)(jax.random.PRNGKey(1))
+    jconv = JaxConverter(jcfg.Config(), g, params, crepe_params, decoder="viterbi")
+    port_g = weights.generator_from_jax(
+        Generator(ratios, CHANNELS, 4, 8, 8, encoder_model="wavlm", num_enc_layers=2,
+                  wavlm_cfg=WavLMConfig(**WAVLM), **kw), params)
+    port_crepe = weights.crepe_from_jax(Crepe("tiny"), jax.tree_util.tree_map(np.asarray,
+                                                                             crepe_params))
+    return jconv, Converter(Config(), port_g, port_crepe, decoder="viterbi", device="cpu")
+
+
+def test_wavlm_convert_batch(wavlm_converters):
+    jconv, conv = wavlm_converters
+    sigs = _signals()
+    labels = np.array([3, 0], np.int32)
+    f0, mu = jconv.pitch_batch(sigs)
+    mu_tgt = mu + np.log(0.8).astype(np.float32)
+    want = jconv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=8)
+    start, noise = jax_draws(8, sigs.shape)
+    got = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, start_phase=start, noise=noise)
+    assert got.shape == sigs.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_wavlm_convert_long(wavlm_converters):
+    """Three chunks of 2560 samples (8 WavLM frames each), cross-faded."""
+    jconv, conv = wavlm_converters
+    t = np.arange(5000) / 16000
+    sig = (0.2 * np.sin(2 * np.pi * (150 + 50 * t) * t)).astype(np.float32)
+    want = jconv.convert_long(sig, 1, mu_tgt=np.log(170.0), chunk=2560, overlap=640, seed=2)
+    draws = [jax_draws(2 + i, (1, 2560)) for i in range(3)]
+    got = conv.convert_long(sig, 1, mu_tgt=np.log(170.0), chunk=2560, overlap=640,
                             draws=draws)
     assert got.shape == sig.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

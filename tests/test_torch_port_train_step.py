@@ -42,9 +42,10 @@ from td_vc_gan_tpu_torch import weights
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.models.crepe import Crepe, crepe_from_seed
 from td_vc_gan_tpu_torch.models.discriminator import CollaborativeMultibandDiscriminator
-from td_vc_gan_tpu_torch.models.generator import Generator
+from td_vc_gan_tpu_torch.models.generator import Generator, generator_from_config
 from td_vc_gan_tpu_torch.models.latent_classifier import LatentClassifier
 from td_vc_gan_tpu_torch.models.layers import init_weights
+from td_vc_gan_tpu_torch.models.wavlm import WavLMConfig
 from td_vc_gan_tpu_torch.ops import losses as tlosses
 from td_vc_gan_tpu_torch.training import state as tstate
 from td_vc_gan_tpu_torch.training import step as tstep
@@ -400,3 +401,41 @@ def test_interval_gating_skips_updates():
     assert all(float(v) == 0.0 for v in second.values())
     assert all(torch.equal(a, p) for a, p in zip(before, list(G.parameters())
                                                   + list(D.parameters())))
+
+
+def test_wavlm_step_freezes_the_backbone():
+    """The port's step with the WavLM encoder (the tiny backbone of
+    tests/test_torch_port_wavlm.py; the corrupted batch through encode_only,
+    clipping on): the backbone bit-identical after two steps, with no
+    gradient and no optimizer state, while every posterior-encoder tensor
+    moves and the losses stay finite. The posterior's gradients are held
+    against jax.grad in tests/test_torch_port_wavlm.py."""
+    _, cfg = configs()
+    g = cfg.model.generator
+    g.decoder_ratios, g.encoder_model, g.num_enc_layers = [10, 8, 2, 2], "wavlm", 2
+    cfg.train.grad_max_norm_G = 1.0
+    wavlm = WavLMConfig(encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                        encoder_attention_heads=4, conv_pos=16, conv_pos_groups=4,
+                        num_buckets=32, max_distance=80,
+                        conv_feature_layers=((16, 10, 5),) + ((16, 3, 2),) * 4
+                        + ((16, 2, 2),) * 2)
+    G = generator_from_config(g, NUM_SPK, "cpu", seed=3, wavlm_cfg=wavlm)
+    D = init_weights(CollaborativeMultibandDiscriminator(3, NUM_SPK, num_channels_base=4), 4)
+    state = tstate.create_train_state(cfg, G, D, None, crepe_from_seed(5))
+    backbone = {k: v.clone() for k, v in G.encoder.wavlm.state_dict().items()}
+    posterior = {k: v.clone() for k, v in G.encoder.posterior.state_dict().items()}
+    step = tstep.build_train_step(cfg, state)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch().items()}
+    for i in range(2):
+        metrics = step(batch, torch.Generator().manual_seed(i))
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert float(metrics["G_loss_cont_emb"]) > 0
+    for k, v in G.encoder.wavlm.state_dict().items():
+        assert torch.equal(v, backbone[k]), k
+    frozen = list(G.encoder.wavlm.parameters())
+    assert all(p.grad is None and not p.requires_grad for p in frozen)
+    in_opt = {id(p) for p in state.opt_g.params}
+    assert not any(id(p) in in_opt or p in state.opt_g.optimizer.state for p in frozen)
+    assert len(in_opt) == sum(1 for p in G.parameters()) - len(frozen)
+    for k, v in G.encoder.posterior.state_dict().items():
+        assert not torch.equal(v, posterior[k]), k
