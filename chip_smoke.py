@@ -8,9 +8,10 @@ the kernel is built for sm_90a) and the CUDA toolkit. It needs no network
 and no weights: everything is made from seeds. Phases, one line or more each:
 
 1. card: name and power limit (nvidia-smi) and torch's device name;
-2. build: nvcc compiles both kernel sources (K1, the FiLM cond chain's
+2. build: nvcc compiles the four kernel sources (K1, the FiLM cond chain's
    forward; K2, its backward; both on the tensor cores as 3xTF32 through
-   csrc/tf32x3.cuh), one nvcc per source, started together;
+   csrc/tf32x3.cuh; and their bf16 instances, K1-bf16 and K2-bf16, through
+   csrc/cond_chain_bf16.cuh), one nvcc per source, started together;
 3. parity: K1 against its plain PyTorch version at the four decoder-stage
    shapes of an 8960-sample segment (B=2), split and concat forms;
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
@@ -71,8 +72,32 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    the resume and in the conversion CLI against the written file's, K1 and
    K2 in every step, save time and bytes.
 
-Float32 throughout, with TF32 off in cuDNN and matmul (the CLIs set the
-same): the port's compute type is f32, as the JAX package's default. Any failed check raises, and the
+14. bf16 kernels: K1-bf16 and K2-bf16 (the bf16 instances, one bf16
+   mma.sync product each) against their plain bf16 versions (within one bf16
+   ulp but for a stated share of elements, and max|d| within 2^-7 of
+   max|plain|), every output, at the four training stages in both forms and
+   at widths that take the 64- and 32-row tiles, K2-bf16 bit for bit in a
+   second run; their times at the bf16 conversion's four stage shapes (K1)
+   and at the batch-64 train step's eight (K1, K2), each beside two bounds
+   (the dense bf16 tensor-core rate and the memory rate), the plain bf16
+   version, the f32 kernel and cuDNN's bf16 sequence (a yardstick);
+15. bf16 convert: ``train.compute_dtype: bfloat16`` conversion of phase 4's
+   batch with each encoder (the WavLM backbone in bf16): 4 K1-bf16 launches
+   per call and no f32 K1, the output (f32, finite, max|y| <= 1), the
+   plain-bf16-chain path, the f32 conversion with the same weights and
+   draws (max|d| and SNR), RTF, pitch (f32), peak memory, a profile;
+16. bf16 train: the bf16 train step at batch 64 x 8960 (the JAX package's
+   headline, wavlm-stage2_2, then the conv encoder): its first step against
+   the plain-bf16-chain step, timed steps with 8 K1-bf16 and 8 K2-bf16 and
+   no f32 K1 or K2 each, parameters and AdamW moments f32, every trainable
+   parameter changed, peak memory, a profile;
+17. the CLIs in bf16: the train CLI with ``--override
+   train.compute_dtype=bfloat16`` (conv encoder; epoch 0 with a save, then a
+   resume without the override, which takes bf16 from the train state), then
+   the conversion CLI on that run, with the bf16 kernels.
+
+Phases 1-13 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
+the same), as the JAX package's default. Any failed check raises, and the
 script then exits non-zero without its result lines. The last two lines are
 the JSON kernel table (this run's numbers only) and the result object;
 before them, each kernel's time beside the one recorded for its previous
@@ -184,6 +209,38 @@ CLI_TIMEOUT = 300
 FEATURE_RTOL = 1e-4
 # The wavlm CLI run: as phase 9's, with the WavLM encoder.
 WAVLM_CLI_OVERRIDES = tuple(o.replace("=conv", "=wavlm") for o in CLI_OVERRIDES)
+# bf16 mixed precision (phases 14-17).
+PEAK_BF16_FLOPS = 989.4e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
+B64 = 64                    # the JAX package's headline train batch (bench.py:110, :112)
+# A bf16 kernel against its plain bf16 version, every output: the two sum in
+# another order in f32 and round once at the same points, so an element
+# differs by one bf16 ulp where the f32 sums straddle a rounding boundary,
+# and by more only where an earlier rounding (lrelu(h), dh) flipped or the
+# value is a cancellation near 0; at most this share of elements may lie
+# beyond one ulp of the plain value ...
+BF16_ULP_SHARE = 1e-2
+# ... and max|d| <= this of max|plain|.
+BF16_MAX_REL = 2.0 ** -7
+# Converted audio (in [-1, 1]), bf16 kernel path vs plain-bf16-chain path:
+# the two paths' chain outputs differ by one bf16 ulp in a few elements,
+# which the ~40 bf16 layers after them carry to the output.
+BF16_AUDIO_ATOL = 2e-2
+# bf16 conversion against the f32 one (same weights and draws): a gate on
+# gross faults, not a quality claim.
+BF16_SNR_DB = 20.0
+# The bf16 step's first losses, kernel path vs plain-bf16-chain path.
+BF16_STEP_LOSS_RTOL = 1e-2
+# Widths off the decoder's for the bf16 instances, as (form, conditional_dim,
+# E), at all four stages: split Cc = 600 (K1-bf16 128 rows, K2-bf16 64: its
+# f32 h buffer is the larger) and Cc = 1204 (K1-bf16 64, K2-bf16 32, the
+# weight grads staged element by element: n*Cc is not a multiple of 8);
+# excitation widths 6 and 10 (not multiples of 8 or 16: padded k-steps,
+# dW0 staged element by element).
+BF16_TILED_CASES = (("split", 592, 8), ("split", 1196, 8), ("split", 130, 6),
+                    ("split", 126, 10))
+# Split Cc = 2000: K1-bf16 takes its 32-row tile; K2-bf16 holds no tile and
+# refuses.
+BF16_K1_ONLY_CASE = ("split", 1992, 8)
 
 
 def say(*parts):
@@ -386,7 +443,8 @@ def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool):
     the tiles the libraries take; with ``timed``, each kernel's time beside
     the 3xTF32 bound of its operations. One part of the wide-parity line."""
     t, c = stage_shapes(SEG, cfg)[stage]
-    fwd_lib, bwd_lib = cc_mod._library()
+    libs = cc_mod._library()
+    fwd_lib, bwd_lib = libs["fwd"], libs["bwd"]
     fwd_args, bwd_args, split, n, cc = chain_args(cfg, form, s, e, stage, 900 + e + s + stage)
     ew = fwd_args["exc"].shape[-1]
     tiles = (fwd_lib.cond_chain_fwd_tile(ew, cc, 2 * c),
@@ -625,8 +683,9 @@ def train_batch(seed: int) -> dict:
 
 def train_state(cfg):
     """The full-width stage-2 models (random weights from seeds) and their
-    optimizers."""
-    g = generator_from_config(cfg.model.generator, NUM_SPK, seed=0)
+    optimizers; a WavLM backbone in ``train.compute_dtype``."""
+    g = generator_from_config(cfg.model.generator, NUM_SPK, seed=0,
+                              compute_dtype=cfg.train.compute_dtype)
     d = discriminator_from_config(cfg, NUM_SPK, seed=1)
     return create_train_state(cfg, g, d, None, crepe_from_seed(2).cuda())
 
@@ -1012,8 +1071,8 @@ def phase_generate_cli(root: Path, card: str) -> int:
                            "--data_path", str(root)])
     summary = one_line(lines, "Converted ")[0]
     m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
-                  r"\(RTF ([\d.]+)x.*K1 launches (\d+); outputs (finite|NOT finite), "
-                  r"max\|y\| ([\d.]+)", summary)
+                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(float32\); outputs "
+                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
     calls, audio_s, conv_s, rtf, k1, finite, peak = m.groups()
     n_utt = len(TEST_SPK)
     convs = sorted(out.glob("*-conv.wav"))
@@ -1293,8 +1352,8 @@ def phase_wavlm_clis(root: Path, card: str) -> tuple[int, int, int]:
                              f"({digest}) at {sorted(wrong)}: {list(wrong.values())[:2]}")
     summary = one_line(gen_lines, "Converted ")[0]
     m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
-                  r"\(RTF ([\d.]+)x.*K1 launches (\d+); outputs (finite|NOT finite), "
-                  r"max\|y\| ([\d.]+)", summary)
+                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(float32\); outputs "
+                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
     calls, audio_s, conv_s, rtf, gen_k1, finite, peak_y = m.groups()
     if finite != "finite" or float(peak_y) > 1.0 or int(gen_k1) != STAGES * int(calls):
         raise AssertionError(f"wavlm conversion CLI: outputs {finite}, max|y| {peak_y}, "
@@ -1322,11 +1381,518 @@ def phase_wavlm_clis(root: Path, card: str) -> tuple[int, int, int]:
     return (sum(int(d[0]) for d in done), sum(int(d[3]) for d in done), int(gen_k1))
 
 
+# ---------------------------------------------------------------------------
+# bf16 mixed precision (train.compute_dtype: bfloat16): phases 14-17
+# ---------------------------------------------------------------------------
+
+
+def bf16_cfg(cfg, encoder: str = "conv"):
+    """``cfg`` in bf16 mixed precision with the given encoder."""
+    out = copy.deepcopy(cfg)
+    out.train.compute_dtype = "bfloat16"
+    out.model.generator.encoder_model = encoder
+    return out
+
+
+def bf16_bounds(flops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of bf16 work: the larger of its operations at the
+    card's dense bf16 tensor-core rate and its bytes at its memory rate."""
+    op_s, byte_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes"
+
+
+def ulp_parity(label: str, got, want) -> tuple[float, float, float]:
+    """A bf16 kernel output against its plain version (same dtype): the share
+    of elements more than one bf16 ulp of the plain value apart, max|d| of
+    max|plain|, and max|d|; raises beyond BF16_ULP_SHARE or BF16_MAX_REL."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    share = float((d > ulp).float().mean())
+    dmax = float(d.max())
+    rel = dmax / max(float(w.abs().max()), 1e-30)
+    if not (share <= BF16_ULP_SHARE and rel <= BF16_MAX_REL):
+        raise AssertionError(f"{label}: {share:.2e} of elements beyond one bf16 ulp (limit "
+                             f"{BF16_ULP_SHARE:.0e}), max|d| {rel:.2e} of max|plain| (limit "
+                             f"{BF16_MAX_REL:.2e})")
+    return share, rel, dmax
+
+
+def bf16_chain_parity(cfg, card):
+    """K1-bf16 and K2-bf16 against their plain bf16 versions at the four
+    training stage shapes (B=2), split and concat forms, every output, K2-bf16
+    bit for bit in a second run; then at the widths whose shared memory needs
+    the 64- and 32-row tiles; returns (worst K1 max|d|, worst K2 max|d|). The
+    operands are those of ``chain_inputs(exact_h=True)`` rounded to bf16 (the
+    rounded values are bf16 already), so h is exact in any summation order
+    and the leaky_relu slope K2 takes at each element is the plain version's:
+    with unrounded inputs an h within rounding of 0 takes the other slope in
+    one of them, which moves dexc by up to 0.8 da w0 (seen at 1.8e-2 of
+    max|dexc| in the concat form)."""
+    w1 = w2 = 0.0
+    worst_share = worst_rel = 0.0
+    cases = [("split" if f == 0 else "concat", cfg.model.generator.conditional_dim, 8, i)
+             for i in range(STAGES) for f in (0, 1)]
+    cases += [(form, s, e, i) for form, s, e in BF16_TILED_CASES for i in range(STAGES)]
+    libs = cc_mod._library()
+    tiles = set()
+    for form, s, e, i in cases:
+        t, c = stage_shapes(SEG, cfg)[i]
+        wcfg = copy.deepcopy(cfg)
+        wcfg.model.generator.conditional_dim = s
+        split, concat, n, cc = chain_inputs(2, t, c, wcfg, seed=1400 + s + 10 * i, e=e,
+                                            exact_h=True, dtype=torch.bfloat16)
+        if form == "split":
+            fwd = split
+        else:
+            fwd = dict(exc=concat["c"], w0=concat["w0"], hbias=concat["b0"], w1=concat["w1"],
+                       b1=concat["b1"])
+        bwd = {k: v for k, v in fwd.items() if k != "b1"}
+        bwd.setdefault("edge0", None)
+        bwd.setdefault("edge_t", None)
+        ew = fwd["exc"].shape[-1]
+        tiles.add((form, cc, ew, libs["fwd_bf16"].cond_chain_fwd_bf16_tile(ew, cc, 2 * c),
+                   libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, ew, n, cc, 2 * c)))
+        sh, rel, d = ulp_parity(f"K1-bf16 {form} Cc={cc} T={t}", cc_mod.cond_chain(**fwd),
+                                cc_mod.cond_chain_plain(**fwd))
+        w1 = max(w1, d)
+        worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
+        g = cotangent(split, seed=1500 + s + i).to(torch.bfloat16)
+        got = cc_mod._launch_bwd(g=g, **bwd)
+        again = cc_mod._launch_bwd(g=g, **bwd)
+        want = cc_mod.cond_chain_bwd_plain(g=g, **bwd)
+        for k in want:
+            sh, rel, d = ulp_parity(f"K2-bf16 {form} Cc={cc} T={t} d{k}", got[k], want[k])
+            if not torch.equal(got[k], again[k]):
+                raise AssertionError(f"K2-bf16 gave two different d{k} on the same inputs")
+            w2 = max(w2, d)
+            worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
+        del split, concat, fwd, bwd, got, again, want
+    torch.cuda.synchronize()
+    # a width whose K1-bf16 plan needs the 32-row tile; K2-bf16's f32 buffer
+    # holds no tile there, and the kernel refuses it
+    form, s, e = BF16_K1_ONLY_CASE
+    t, c = stage_shapes(SEG, cfg)[0]
+    wcfg = copy.deepcopy(cfg)
+    wcfg.model.generator.conditional_dim = s
+    split, _, n, cc = chain_inputs(2, t, c, wcfg, seed=1600, e=e, exact_h=True,
+                                   dtype=torch.bfloat16)
+    tile = libs["fwd_bf16"].cond_chain_fwd_bf16_tile(e, cc, 2 * c)
+    sh, rel, d = ulp_parity(f"K1-bf16 split Cc={cc}", cc_mod.cond_chain(**split),
+                            cc_mod.cond_chain_plain(**split))
+    w1 = max(w1, d)
+    worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
+    try:
+        cc_mod._launch_bwd(g=cotangent(split, 1601).to(torch.bfloat16),
+                           **{k: v for k, v in split.items() if k != "b1"})
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    if tile != 32 or not refused:
+        raise AssertionError(f"split Cc={cc}: K1-bf16 tile {tile} (expected 32), K2-bf16 "
+                             f"{'refused' if refused else 'ran'} (expected a refusal)")
+    used = sorted({(k1, k2) for _, _, _, k1, k2 in tiles} | {(tile, 0)})
+    if not {32, 64} <= {x for pair in used for x in pair}:
+        raise AssertionError(f"the parity cases took tiles {used}, not both 64 and 32 rows")
+    say(f"bf16 parity: K1-bf16 and K2-bf16 (every output, a second run bit for bit) against "
+        f"their plain bf16 versions at the 4 training stages (B=2, split and concat) and at "
+        + ", ".join(f"{f} Cc={cc} E={ew} (K1 tile {a}, K2 rows {b})"
+                    for f, cc, ew, a, b in sorted(tiles) if f == "split" and
+                    (cc, ew) != (cfg.model.generator.conditional_dim + 8, 8))
+        + f", split Cc={s + e} (K1 tile {tile}, K2 refused): worst share beyond one bf16 ulp "
+        f"{worst_share:.2e} (limit {BF16_ULP_SHARE:.0e}), worst max|d| {worst_rel:.2e} of "
+        f"max|plain| (limit {BF16_MAX_REL:.2e}) [{card}]")
+    return w1, w2
+
+
+def k1_bf16_stage(cfg, card, b, t, c, seed, label):
+    """K1-bf16 at one (B, T, C): parity, then its time beside its bf16 bounds,
+    the plain bf16 version, K1 (f32) and cuDNN's bf16 sequence."""
+    split, concat, n, cc = chain_inputs(b, t, c, cfg, seed=seed, dtype=torch.bfloat16)
+    e = split["exc"].shape[-1]
+    sh, rel, d = ulp_parity(f"K1-bf16 {label} B={b} T={t}", cc_mod.cond_chain(**split),
+                            cc_mod.cond_chain_plain(**split))
+    k_ms = cuda_ms(lambda: cc_mod.cond_chain(**split), iters=5, warmup=2)
+    p_ms = cuda_ms(lambda: cc_mod.cond_chain_plain(**split), iters=2)
+    f32 = {k: v.float() for k, v in split.items()}
+    f_ms = cuda_ms(lambda: cc_mod.cond_chain(**f32), iters=3, warmup=1)
+    del f32
+    w0c, w1g = concat["w0"].permute(2, 1, 0), concat["w1"].permute(2, 1, 0)
+    cin = concat["c"].transpose(1, 2).contiguous()
+
+    def cudnn_chain():
+        h = F.leaky_relu(F.conv1d(cin, w0c, concat["b0"], padding=1), 0.2)
+        return F.conv1d(h, w1g, concat["b1"], padding=1, groups=n)
+
+    l_ms = cuda_ms(cudnn_chain, iters=3)
+    flops = 2.0 * b * t * (n * cc * 3 * e + n * 2 * c * 3 * cc)
+    nbytes = 2.0 * (sum(x.numel() for x in split.values()) + b * t * n * 2 * c)
+    bound, by = bf16_bounds(flops, nbytes)
+    say(f"k1-bf16 {label} B={b} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({by}: {flops / 1e9:.1f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB at 3.35 TB/s "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms; {bound / k_ms:.1%} of it), plain bf16 "
+        f"{p_ms:.3f} ms, K1 (f32) {f_ms:.3f} ms, cuDNN bf16 conv1d+lrelu+grouped conv1d "
+        f"{l_ms:.3f} ms; vs plain: {sh:.2e} beyond one ulp, max|d| {d:.2e} [{card}]")
+    del split, concat, cin
+    torch.cuda.empty_cache()
+    return d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, library_ms=l_ms, f32_ms=f_ms,
+                   flops=flops, bytes=nbytes)
+
+
+def k2_bf16_stage(cfg, card, b, t, c, seed):
+    """K2-bf16 at one (B, T, C): parity and a second run bit for bit, then its
+    time beside its bf16 bounds, the plain bf16 version, K2 (f32) and cuDNN's
+    bf16 backward of the same chain."""
+    split, _, n, cc = chain_inputs(b, t, c, cfg, seed=seed, exact_h=True, dtype=torch.bfloat16)
+    e = split["exc"].shape[-1]
+    g = cotangent(split, seed=seed + 50).to(torch.bfloat16)
+    args = {k: v for k, v in split.items() if k != "b1"}
+    got = cc_mod._launch_bwd(g=g, **args)
+    again = cc_mod._launch_bwd(g=g, **args)
+    want = cc_mod.cond_chain_bwd_plain(g=g, **args)
+    worst_sh = worst_d = 0.0
+    for k in want:
+        sh, _, d = ulp_parity(f"K2-bf16 B={b} T={t} d{k}", got[k], want[k])
+        if not torch.equal(got[k], again[k]):
+            raise AssertionError(f"K2-bf16 gave two different d{k} at B={b} T={t}")
+        worst_sh, worst_d = max(worst_sh, sh), max(worst_d, d)
+    del got, again, want
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: cc_mod._launch_bwd(g=g, **args), iters=3, warmup=1)
+    p_ms = cuda_ms(lambda: cc_mod.cond_chain_bwd_plain(g=g, **args), iters=1)
+    f32 = {k: (v.float() if v is not None else None) for k, v in args.items()}
+    g32 = g.float()
+    f_ms = cuda_ms(lambda: cc_mod._launch_bwd(g=g32, **f32), iters=2, warmup=1)
+    del f32, g32
+    torch.cuda.empty_cache()
+    leaves = [split[k].clone().requires_grad_() for k in ("exc", "w0", "hbias", "w1", "b1")]
+    exc, w0, hbias, w1, b1 = leaves
+    h = F.conv1d(exc.transpose(1, 2), w0.permute(2, 1, 0), padding=1) + hbias[..., None]
+    out = F.conv1d(F.leaky_relu(h, 0.2), w1.permute(2, 1, 0), b1, padding=1, groups=n)
+    gt = g.transpose(1, 2)
+    l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True), iters=2)
+    del h, out, leaves
+    flops, nbytes4 = k2_work(b, t, e, n, cc, 2 * c)
+    nbytes = nbytes4 / 2  # every input and output is bf16
+    bound, by = bf16_bounds(flops, nbytes)
+    say(f"k2-bf16 B={b} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms ({by}: "
+        f"{flops / 1e9:.1f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB at 3.35 TB/s "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms; {bound / k_ms:.1%} of it), plain bf16 "
+        f"{p_ms:.3f} ms, K2 (f32) {f_ms:.3f} ms, cuDNN bf16 backward {l_ms:.3f} ms; vs plain "
+        f"(every output): {worst_sh:.2e} beyond one ulp, max|d| {worst_d:.2e}; bit-identical "
+        f"in a second run [{card}]")
+    del split, g, args
+    torch.cuda.empty_cache()
+    return worst_d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, library_ms=l_ms, f32_ms=f_ms,
+                         flops=flops, bytes=nbytes)
+
+
+def bf16_row(name, source, replaces, sums: dict, err: float) -> dict:
+    """A kernel-table row from summed per-shape numbers."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err,
+            **{k: sums[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "f32_ms")},
+            "bound_by": bf16_bounds(sums["flops"], sums["bytes"])[1],
+            "bound_flops_ms": sums["flops"] / PEAK_BF16_FLOPS * 1e3,
+            "bound_bytes_ms": sums["bytes"] / PEAK_BYTES * 1e3}
+
+
+def phase_bf16_kernels(cfg, card):
+    """Phase 14: K1-bf16 and K2-bf16 parity, then their times at the bf16
+    conversion's four stage shapes (K1) and the batch-64 train step's eight
+    (K1, K2); the two kernel-table rows."""
+    w1, w2 = bf16_chain_parity(cfg, card)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "f32_ms", "flops", "bytes")
+    k1 = {"convert": dict.fromkeys(keys, 0.0), "train": dict.fromkeys(keys, 0.0)}
+    k2 = dict.fromkeys(keys, 0.0)
+    for i, (t, c) in enumerate(stage_shapes(UTT, cfg)):
+        d, v = k1_bf16_stage(cfg, card, B, t, c, 1700 + i, "convert")
+        w1 = max(w1, d)
+        for k in keys:
+            k1["convert"][k] += v[k]
+    for bsz in (2 * B64, B64):
+        for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
+            d, v = k1_bf16_stage(cfg, card, bsz, t, c, 1750 + i, "train b64")
+            w1 = max(w1, d)
+            for k in keys:
+                k1["train"][k] += v[k]
+            d, v = k2_bf16_stage(cfg, card, bsz, t, c, 1800 + i)
+            w2 = max(w2, d)
+            for k in keys:
+                k2[k] += v[k]
+    for label, sums, per in (("k1-bf16", k1["convert"], "bf16 convert call (4 calls)"),
+                             ("k1-bf16", k1["train"], "batch-64 train step (8 calls)"),
+                             ("k2-bf16", k2, "batch-64 train step (8 calls)")):
+        bound, by = bf16_bounds(sums["flops"], sums["bytes"])
+        say(f"{label} per {per}: {sums['ms']:.3f} ms against a bound of {sums['bound_ms']:.3f} "
+            f"ms ({by}; {sums['bound_ms'] / sums['ms']:.1%} of it; bf16 tensor cores "
+            f"{sums['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms, HBM "
+            f"{sums['bytes'] / PEAK_BYTES * 1e3:.3f} ms); plain bf16 {sums['plain_ms']:.3f} ms, "
+            f"f32 kernel {sums['f32_ms']:.3f} ms, cuDNN bf16 {sums['library_ms']:.3f} ms [{card}]")
+    row1 = bf16_row("cond_chain_fwd_bf16", "td_vc_gan_tpu_torch/csrc/cond_chain_bf16.cu",
+                    "td_vc_gan_tpu/ops/pallas/cond_chain.py:157", k1["convert"], w1)
+    row1["by_path"] = {k: {kk: v[kk] for kk in keys[:5]} for k, v in k1.items()}
+    row2 = bf16_row("cond_chain_bwd_bf16", "td_vc_gan_tpu_torch/csrc/cond_chain_bwd_bf16.cu",
+                    "td_vc_gan_tpu/ops/pallas/cond_chain.py:221", k2, w2)
+    return row1, row2
+
+
+def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
+    return float(10 * np.log10(np.sum(ref.astype(np.float64) ** 2)
+                               / max(np.sum((got - ref).astype(np.float64) ** 2), 1e-30)))
+
+
+def phase_bf16_convert(cfg, card) -> int:
+    """Phase 15: bf16 conversion of phase 4's batch with each encoder: K1-bf16
+    launches, output checks, the plain-bf16-chain path, the f32 conversion
+    with the same weights and draws, RTF, pitch, peak memory. Returns the
+    K1-bf16 launches of both encoders' calls."""
+    total = 0
+    sigs = signals(0)
+    labels = np.arange(B) % 100
+    for enc in ("conv", "wavlm"):
+        bcfg = bf16_cfg(cfg, enc)
+        t0 = time.perf_counter()
+        g = generator_from_config(bcfg.model.generator, num_classes=100, seed=0,
+                                  compute_dtype="bfloat16")
+        conv = Converter(bcfg, g, crepe_from_seed(1), decoder="viterbi")
+        build_s = time.perf_counter() - t0
+        # the main path: counts from 0, read right after
+        cc_mod.launches = cc_mod.launches_bf16 = 0
+        f0, mu = conv.pitch_batch(sigs)
+        mu_tgt = mu + np.float32(np.log(1.2))
+        wav = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
+        k1_bf16, k1_f32 = cc_mod.launches_bf16, cc_mod.launches
+        total += k1_bf16
+        if (k1_bf16, k1_f32) != (STAGES, 0):
+            raise AssertionError(f"bf16 {enc} conversion: {k1_bf16} K1-bf16 and {k1_f32} K1 "
+                                 f"launches, expected {STAGES} and 0")
+        args = [conv._tensor(a) for a in (sigs, f0, mu, mu_tgt)]
+        lab = conv._tensor(labels, torch.int64)
+        out_dtype = conv.convert_tensors(*args, lab, seed=0).dtype
+        if (wav.shape != (B, UTT) or out_dtype != torch.float32 or not np.isfinite(wav).all()
+                or np.abs(wav).max() > 1.0):
+            raise AssertionError(f"bad bf16 {enc} conversion: shape {wav.shape}, dtype "
+                                 f"{out_dtype}, finite {np.isfinite(wav).all()}, max|y| "
+                                 f"{np.abs(wav).max()}")
+        kernel_op = cc_mod.cond_chain
+        cc_mod.cond_chain = cc_mod.cond_chain_plain
+        try:
+            wav_plain = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
+        finally:
+            cc_mod.cond_chain = kernel_op
+        d_plain = float(np.abs(wav - wav_plain).max())
+        if d_plain > BF16_AUDIO_ATOL:
+            raise AssertionError(f"bf16 {enc} conversion: the kernel path and the plain-bf16 "
+                                 f"path differ by {d_plain:.3e}")
+        g32 = generator_from_config(cfg.model.generator if enc == "conv" else
+                                    wavlm_cfg(cfg).model.generator, num_classes=100, seed=0)
+        wav32 = Converter(cfg, g32, crepe_from_seed(1), decoder="viterbi").convert_batch(
+            sigs, labels, f0, mu, mu_tgt, seed=0)
+        del g32
+        d32 = float(np.abs(wav - wav32).max())
+        snr = snr_db(wav32, wav)
+        if not snr >= BF16_SNR_DB:
+            raise AssertionError(f"bf16 {enc} conversion against f32: SNR {snr:.1f} dB")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: conv.convert_tensors(*args, lab, seed=1), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pitch_ms = cuda_ms(lambda: conv.pitch_tensors(args[0]), iters=2, warmup=1)
+        audio_s = B * UTT / bcfg.model.sample_rate
+        say(f"bf16 convert ({enc}): G built in {build_s:.1f} s; K1-bf16 launches {k1_bf16}, K1 "
+            f"(f32) {k1_f32}; output f32, finite, max|y| {np.abs(wav).max():.4f}; kernel path vs "
+            f"plain-bf16-chain path max|d| {d_plain:.3e} (tolerance {BF16_AUDIO_ATOL}); against "
+            f"the f32 conversion (same weights and draws) max|d| {d32:.3e} "
+            f"({d32 / float(np.abs(wav32).max()):.2e} of max|ref|), SNR {snr:.1f} dB (at least "
+            f"{BF16_SNR_DB:.0f}); convert_tensors {ms:.2f} ms per call: RTF "
+            f"{audio_s / (ms / 1e3):.1f}x; pitch_tensors (Viterbi, f32) {pitch_ms:.2f} ms; peak "
+            f"device memory {peak:.2f} GiB [{card}]")
+        profile_call(lambda: conv.convert_tensors(*args, lab, seed=1),
+                     f"one bf16 {enc} convert call", card, top=6)
+        del conv, g, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def train_batch64(seed: int) -> dict:
+    """64 x 8960 training segments, as ``train_batch``."""
+    sig = np.concatenate([signals(seed + 7 * k, SEG) for k in range(B64 // B)])
+    noise = np.random.default_rng(seed + 1).standard_normal(sig.shape).astype(np.float32)
+    return {"signal": torch.from_numpy(sig).cuda(),
+            "corrupted": torch.from_numpy(sig + 0.05 * noise).cuda(),
+            "label": torch.arange(B64, device="cuda") % NUM_SPK}
+
+
+def phase_bf16_train(cfg, card) -> tuple[int, int]:
+    """Phase 16: the bf16 train step at batch 64 x 8960 with each encoder
+    (wavlm-stage2_2 first, the JAX package's headline): its first step
+    against the plain-bf16-chain step, then timed steps with the launch
+    counts of each, parameter, moment and loss checks, peak memory and a
+    profile. Returns the K1-bf16 and K2-bf16 launches of the timed steps."""
+    k1_total = k2_total = 0
+    batch = train_batch64(10)
+    for enc in ("wavlm", "conv"):
+        bcfg = bf16_cfg(cfg, enc)
+        t0 = time.perf_counter()
+        state = train_state(bcfg)
+        step = build_train_step(bcfg, state)
+        trainable = {f"G.{k}": p.detach().clone() for k, p in state.G.named_parameters()
+                     if p.requires_grad}
+        trainable.update({f"D.{k}": p.detach().clone() for k, p in state.D.named_parameters()})
+        setup_s = time.perf_counter() - t0
+        m_kernel = step(batch, torch.Generator(device="cuda").manual_seed(5))
+        twin = train_state(bcfg)
+        twin_step = build_train_step(bcfg, twin)
+        kernel_op = cc_mod.cond_chain
+        cc_mod.cond_chain = cc_mod.cond_chain_plain
+        try:
+            m_plain = twin_step(batch, torch.Generator(device="cuda").manual_seed(5))
+        finally:
+            cc_mod.cond_chain = kernel_op
+        worst_loss = max(abs(float(m_kernel[k]) - float(m_plain[k])) /
+                         max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
+        if not worst_loss <= BF16_STEP_LOSS_RTOL:
+            raise AssertionError(f"bf16 {enc} step: the kernel path's first losses differ from "
+                                 f"the plain-bf16-chain step's by {worst_loss:.2e}")
+        del twin, twin_step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        step(batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts = [], []
+        cc_mod.launches = cc_mod.bwd_launches = 0
+        cc_mod.launches_bf16 = cc_mod.bwd_launches_bf16 = 0
+        for _ in range(TRAIN_STEPS):
+            before = (cc_mod.launches_bf16, cc_mod.bwd_launches_bf16, cc_mod.launches,
+                      cc_mod.bwd_launches)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            metrics = step(batch, gen)
+            end.record()
+            counts.append(tuple(a - b for a, b in zip(
+                (cc_mod.launches_bf16, cc_mod.bwd_launches_bf16, cc_mod.launches,
+                 cc_mod.bwd_launches), before)))
+            times.append((start, end))
+        torch.cuda.synchronize()
+        k1_total += cc_mod.launches_bf16
+        k2_total += cc_mod.bwd_launches_bf16
+        ms = sorted(s.elapsed_time(e) for s, e in times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite losses in the bf16 {enc} step: {bad}")
+        if any(c != (STAGES * 2, STAGES * 2, 0, 0) for c in counts):
+            raise AssertionError(f"bf16 {enc} step: (K1-bf16, K2-bf16, K1, K2) launches per "
+                                 f"step {counts}, expected ({STAGES * 2}, {STAGES * 2}, 0, 0)")
+        params = dict(state.G.named_parameters(prefix="G"))
+        params.update(state.D.named_parameters(prefix="D"))
+        still = [k for k, v in trainable.items() if torch.equal(v, params[k])]
+        not_f32 = [k for k, p in params.items() if p.dtype != torch.float32]
+        for opt in (state.opt_g, state.opt_d):
+            for p in opt.params:
+                for key, v in opt.optimizer.state[p].items():
+                    if torch.is_tensor(v) and v.dim() and v.dtype != torch.float32:
+                        not_f32.append(f"moment {key} {tuple(v.shape)}")
+        if still or not_f32:
+            raise AssertionError(f"bf16 {enc} step: parameters that did not change "
+                                 f"{still[:5]}; tensors not f32 {not_f32[:5]}")
+        median = ms[len(ms) // 2]
+        say(f"bf16 train ({enc}): batch {B64} x {SEG}, set up in {setup_s:.1f} s; first step "
+            f"against the plain-bf16-chain step: losses worst relative difference "
+            f"{worst_loss:.2e} (tolerance {BF16_STEP_LOSS_RTOL:.0e}); {TRAIN_STEPS} timed "
+            f"steps: median {median:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), "
+            f"{B64 * 1e3 / median:.2f} segments/s; K1-bf16/K2-bf16/K1/K2 per step {counts[0]}; "
+            f"G_loss {float(metrics['G_loss']):.4f}; every trainable parameter changed, "
+            f"parameters and AdamW moments f32; peak device memory {peak:.2f} GiB [{card}]")
+        profile_call(lambda: step(batch, gen), f"one bf16 {enc} train step (batch {B64})",
+                     card, top=8)
+        del state, step, trainable, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return k1_total, k2_total
+
+
+def phase_bf16_clis(root: Path, card: str) -> tuple[int, int, int]:
+    """Phase 17: the train CLI with ``--override train.compute_dtype=bfloat16``
+    (conv encoder) on phase 9's corpus, epoch 0 with a save, then a resume
+    without the override, which takes bf16 from the train state; then the
+    conversion CLI on that run. Returns (train K1-bf16, train K2-bf16,
+    conversion K1-bf16)."""
+    run = root / "bf16_run"
+    base = ["--save_path", str(run), "--data_path", str(root)]
+    for o in CLI_OVERRIDES:
+        base += ["--override", o]
+    first, wall1 = run_cli("td_vc_gan_tpu_torch.cli.train",
+                           base + ["--override", "train.compute_dtype=bfloat16"])
+    second, wall2 = run_cli("td_vc_gan_tpu_torch.cli.train", base + [
+        "--load_path", str(run), "--max_steps", "7", "--override", "train.num_epoch=1"])
+    restored = one_line(second, "train.compute_dtype bfloat16 from the train state")[0]
+    resumed_cfg = load_config(run / "config.yaml")
+    if resumed_cfg.train.compute_dtype != "bfloat16":
+        raise AssertionError(f"the resumed run's config says {resumed_cfg.train.compute_dtype}")
+    steps, resumed = step_lines(first), step_lines(second)
+    if [s["Itt"] for s in steps] != list(range(5)) or [s["Itt"] for s in resumed] != [5, 6]:
+        raise AssertionError(f"bf16 CLI: logged steps {[s['Itt'] for s in steps]} then "
+                             f"{[s['Itt'] for s in resumed]}")
+    bad = [(s["Itt"], k) for s in steps + resumed for k, v in s.items() if not np.isfinite(v)]
+    counts = {(int(s["k1"]), int(s["k2"])) for s in steps + resumed}
+    if bad or counts != {(STAGES * 2, STAGES * 2)}:
+        raise AssertionError(f"bf16 CLI: non-finite values {bad[:5]}, K1/K2 per step "
+                             f"{sorted(counts)}")
+    done = [re.search(r"K1 (\d+) \(validation (\d+), samples (\d+)\), K2 (\d+) \(bf16 "
+                      r"instances: K1 (\d+), K2 (\d+)\)", one_line(lines, "Done at step")[0])
+            .groups() for lines in (first, second)]
+    n_steps = (len(steps), len(resumed))
+    for (k1, val, samples, k2, k1b, k2b), n in zip(done, n_steps):
+        # train steps and validation run in bf16; the sample dumps in f32
+        if (int(k2b), int(k2)) != (STAGES * 2 * n, STAGES * 2 * n) or \
+                int(k1b) != STAGES * 2 * n + int(val) or int(k1) != int(k1b) + int(samples):
+            raise AssertionError(f"bf16 CLI launches: {done}")
+    gen_lines, gen_wall = run_cli("td_vc_gan_tpu_torch.cli.generate_with_target",
+                                  ["--save_path", str(root / "bf16_converted"),
+                                   "--load_path", str(run), "--data_path", str(root)])
+    summary = one_line(gen_lines, "Converted ")[0]
+    m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
+                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(bfloat16\); outputs "
+                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
+    if m is None:
+        raise AssertionError(f"bf16 conversion CLI: {summary}")
+    calls, audio_s, conv_s, rtf, gen_k1, finite, peak_y = m.groups()
+    if finite != "finite" or float(peak_y) > 1.0 or int(gen_k1) != STAGES * int(calls):
+        raise AssertionError(f"bf16 conversion CLI: outputs {finite}, max|y| {peak_y}, "
+                             f"{gen_k1} K1-bf16 launches in {calls} calls")
+    loop_ms = sorted(s["step_ms"] for s in steps if s["Itt"] >= 1)
+    say(f"bf16 cli: train CLI --override train.compute_dtype=bfloat16: {len(steps)} steps "
+        f"(epoch 0) in {wall1:.1f} s of wall time, loop step median of steps 1-4 "
+        f"{(loop_ms[1] + loop_ms[2]) / 2:.2f} ms; a resume without the override for "
+        f"{len(resumed)} steps in {wall2:.1f} s ({restored.split(' (')[0]}; its config.yaml "
+        f"bfloat16); every logged loss finite; K1/K2 {STAGES * 2}/{STAGES * 2} per step, bf16 "
+        f"instances (train steps and validation) {[(int(d[4]), int(d[5])) for d in done]}, "
+        f"the sample dumps in f32 as in the JAX loop; conversion CLI: {calls} convert_batch "
+        f"calls, K1-bf16 {gen_k1}, outputs finite, max|y| {float(peak_y):.4f}, RTF "
+        f"{float(rtf):.1f}x inside the CLI, {gen_wall:.1f} s of wall time [{card}]")
+    return (sum(int(d[4]) for d in done), sum(int(d[5]) for d in done), int(gen_k1))
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
     out, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(cond_chain_fwd_kernel|k2_\w+?_kernel)"
+        m = re.search(r"Compiling entry function '.*?(cond_chain_fwd_kernel|k1_bf16_kernel|"
+                      r"k2b?_\w+?_kernel)"
                       r"((?:I(?:L[ib]\d+E)+E)?)", ln)
         if m:
             targs = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -1361,7 +1927,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     _, build_s, log = cc_mod.build()
-    say(f"build: {', '.join(src.name for src in cc_mod.SOURCES)} with nvcc, in parallel, "
+    say(f"build: {', '.join(src.name for src in cc_mod.SOURCES + cc_mod.BF16_SOURCES)} with "
+        f"nvcc, in parallel, "
         f"in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
 
     cfg = Config()
@@ -1381,6 +1948,10 @@ def main() -> int:
         wavlm_convert_k1 = phase_wavlm_convert(cfg, card)
         (wavlm_train_k1, wavlm_train_k2), _ = phase_wavlm_train(cfg, card)
         wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = phase_wavlm_clis(root, card)
+        k1b_row, k2b_row = phase_bf16_kernels(cfg, card)
+        bf16_convert_k1 = phase_bf16_convert(cfg, card)
+        bf16_train_k1, bf16_train_k2 = phase_bf16_train(cfg, card)
+        bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = phase_bf16_clis(root, card)
     # K1 runs on every main path: conversion (phases 4 and 11), the train
     # step (phases 7 and 12) and the CLIs (phases 9, 10 and 13); K2 on the
     # training paths
@@ -1393,9 +1964,17 @@ def main() -> int:
     k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
                                   "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2}
     k2_row["launches"] = sum(k2_row["launches_by_path"].values())
+    # the bf16 instances on the bf16 paths: conversion (phase 15, both
+    # encoders), the batch-64 train step (phase 16, both encoders), the CLIs
+    # (phase 17)
+    k1b_row["launches_by_path"] = {"convert": bf16_convert_k1, "train": bf16_train_k1,
+                                   "train_cli": bf16_cli_k1, "generate_cli": bf16_gen_k1}
+    k1b_row["launches"] = sum(k1b_row["launches_by_path"].values())
+    k2b_row["launches_by_path"] = {"train": bf16_train_k2, "train_cli": bf16_cli_k2}
+    k2b_row["launches"] = sum(k2b_row["launches_by_path"].values())
     say_earlier([k1_row, k2_row])
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
-    say(json.dumps({"kernels": [k1_row, k2_row]}))
+    say(json.dumps({"kernels": [k1_row, k2_row, k1b_row, k2b_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -24,6 +24,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import os
 import re
@@ -81,8 +82,14 @@ def load_generator(cfg, load_path: Path, epoch, num_spk: int, device=None):
     se = ckpt.latest_epoch(load_path)
     blob = ckpt.load_state_file(load_path, se) if se is not None and (
         wavlm or not g_file.exists()) else None
+    # as the JAX CLI, G is built without the run's compute_dtype, so a
+    # WavLM backbone converts in f32 even in a bf16 run (the conv stacks
+    # take the run's dtype from the Converter's scope)
+    wavlm_cfg = ckpt.state_wavlm_cfg(blob) if blob else None
+    if wavlm_cfg is not None:
+        wavlm_cfg = dataclasses.replace(wavlm_cfg, compute_dtype=None)
     G = generator_from_config(cfg.model.generator, num_spk, device, seed=0,
-                              wavlm_cfg=ckpt.state_wavlm_cfg(blob) if blob else None)
+                              wavlm_cfg=wavlm_cfg)
     if g_file.exists():
         msg = ckpt.import_torch_generator(cfg, g_file, G)
         print(f"Loaded {g_file} ({len(msg['matched'])} tensors)")
@@ -139,7 +146,7 @@ def generate_signals(save_path, data_path, load_path, config_file=None,
     conv = Converter(cfg, G, crepe, decoder="viterbi", device=dev)
 
     t0 = time.perf_counter()
-    k0 = cc_mod.launches
+    k0 = cc_mod.kernel_launches(conv.compute_dtype)[0]
     calls = 0
     audio_s = 0.0
     peak, finite = 0.0, True
@@ -192,7 +199,8 @@ def generate_signals(save_path, data_path, load_path, config_file=None,
     print(f"Converted {len(test_ds)} utterances to {len(ds_spks)} speakers in {calls} "
           f"convert_batch calls: {audio_s:.2f} s of audio in {wall:.2f} s "
           f"(RTF {audio_s / max(wall, 1e-9):.1f}x, file I/O and pitch included); "
-          f"cond-chain K1 launches {cc_mod.launches - k0}; outputs "
+          f"cond-chain K1 launches {cc_mod.kernel_launches(conv.compute_dtype)[0] - k0} "
+          f"({conv.compute_dtype}); outputs "
           f"{'finite' if finite else 'NOT finite'}, max|y| {peak:.4f} before writing")
 
 

@@ -114,6 +114,10 @@ class TrainConfig:
     normalization_db: float | None = -30.0
     jitter_amp: int = 0
     seed: int = 1234
+    # 'bfloat16': mixed precision, as the JAX package's: bf16 conv and matmul
+    # inputs and activations (G, D, C, CREPE in the step, the WavLM backbone,
+    # the cond-chain kernels), f32 accumulation, parameters, optimizer state
+    # and losses (models/layers.py compute_dtype_scope)
     compute_dtype: str = "float32"
     mel_fft_sizes: list[int] = field(default_factory=lambda: [2048])
 
@@ -256,3 +260,6 @@ def validate(cfg: Config) -> None:
             f"the total decoder ratio {g.total_ratio}")
     if g.encoder_model not in ("conv", "wavlm"):
         raise ValueError(f"unknown encoder_model {g.encoder_model!r}")
+    if cfg.train.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"train.compute_dtype must be 'float32' or 'bfloat16', got "
+                         f"{cfg.train.compute_dtype!r}")

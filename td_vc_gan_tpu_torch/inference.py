@@ -14,15 +14,18 @@ import torch
 
 from td_vc_gan_tpu_torch import resolve_device
 from td_vc_gan_tpu_torch.models import crepe as crepe_mod
+from td_vc_gan_tpu_torch.models.layers import compute_dtype_scope
 from td_vc_gan_tpu_torch.ops import dsp
 
 
 class Converter:
     """Holds a generator and a CREPE net on one device (default: the CUDA
-    card; ``device="cpu"`` runs on the CPU)."""
+    card; ``device="cpu"`` runs on the CPU). ``compute_dtype`` is G's
+    compute scope: None takes ``cfg.train.compute_dtype``, ``"float32"``
+    forces f32. Pitch runs outside the scope, in f32."""
 
     def __init__(self, cfg, G, crepe, bucket_multiple: int = 320,
-                 decoder: str = "viterbi", device=None):
+                 decoder: str = "viterbi", device=None, compute_dtype: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.G = G.to(self.device).eval()
@@ -30,6 +33,8 @@ class Converter:
         self.bucket = bucket_multiple
         self.decoder = decoder
         self.num_classes = G.num_classes
+        self.compute_dtype = (compute_dtype if compute_dtype is not None
+                              else cfg.train.compute_dtype)
 
     def pad_to_bucket(self, signal: np.ndarray) -> tuple[np.ndarray, int]:
         n = signal.shape[-1]
@@ -63,7 +68,8 @@ class Converter:
                                    start_phase=start_phase, noise=noise, generator=gen)
         onehot = torch.nn.functional.one_hot(labels_tgt.to(torch.int64),
                                              self.num_classes).to(torch.float32)
-        wav, _, _ = self.G(signals[..., None], onehot, exc[..., None])
+        with compute_dtype_scope(self.compute_dtype):
+            wav, _, _ = self.G(signals[..., None], onehot, exc[..., None])
         return wav[..., 0]
 
     def pitch(self, signal: np.ndarray):

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from td_vc_gan_tpu_torch.models.layers import conv1d, get_compute_dtype
+
 PITCH_BINS = 360
 WINDOW_SIZE = 1024
 HOP = 64
@@ -65,7 +67,8 @@ def log_f0_mean(f0: torch.Tensor) -> torch.Tensor:
 
 
 class EvalBatchNorm(nn.Module):
-    """Inference batch norm folded to one multiply-add (eps 1e-5)."""
+    """Inference batch norm folded to one multiply-add (eps 1e-5), in the
+    input's dtype."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -76,11 +79,14 @@ class EvalBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.scale * torch.rsqrt(self.var + 1e-5)
-        return x * s[:, None] + (self.bias - self.mean * s)[:, None]
+        return x * s.to(x.dtype)[:, None] + (self.bias - self.mean * s).to(x.dtype)[:, None]
 
 
 class Crepe(nn.Module):
-    """(N, 1024) normalised frames -> (N, 360) sigmoid activations."""
+    """(N, 1024) normalised frames -> (N, 360) sigmoid activations, f32.
+    Inside a compute scope (the train step's) the convs and the classifier
+    take bf16 inputs and weights, as the JAX package's CREPE; conversion
+    calls it outside any scope, in f32."""
 
     def __init__(self, model: str = "tiny"):
         super().__init__()
@@ -109,16 +115,18 @@ class Crepe(nn.Module):
                     p.copy_(z * std)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        x = frames[:, None, :]
+        dt = get_compute_dtype() or frames.dtype
+        x = frames[:, None, :].to(dt)
         for i, (s, pad) in enumerate(zip(_STRIDES, _PADS)):
             x = F.pad(x, pad)
-            x = F.conv1d(x, getattr(self, f"conv{i}_kernel"), getattr(self, f"conv{i}_bias"),
-                         stride=s)
+            x = conv1d(x, getattr(self, f"conv{i}_kernel").to(dt),
+                       getattr(self, f"conv{i}_bias").to(dt), stride=s)
             x = getattr(self, f"bn{i}")(F.relu(x))
             x = F.max_pool1d(x, 2)
         # flatten time-major, as the flax (N, T, C) reshape does
         x = x.transpose(1, 2).reshape(x.shape[0], -1)
-        return torch.sigmoid(F.linear(x, self.classifier_kernel) + self.classifier_bias)
+        return torch.sigmoid(F.linear(x, self.classifier_kernel.to(dt)).float()
+                             + self.classifier_bias)
 
 
 def crepe_from_seed(seed: int, model: str = "tiny") -> Crepe:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from td_vc_gan_tpu_torch import resolve_device
-from td_vc_gan_tpu_torch.models.layers import WNConv1d, init_weights, leaky_relu
+from td_vc_gan_tpu_torch.models.layers import WNConv1d, finalize_dtype, init_weights, leaky_relu
 from td_vc_gan_tpu_torch.ops.dsp import kaiser_filter_fc
 
 KAISER_TAPS = 129
@@ -26,7 +26,8 @@ KAISER_TAPS = 129
 class Discriminator(nn.Module):
     """Single-band discriminator: a k15 reflect input conv, ``num_layers``
     grouped strided convs (k = 10*ds + 1), a k5 conv and a k3 per-speaker
-    head. Returns (selected logits (B, T', 1), feature maps)."""
+    head. Returns (selected logits (B, T', 1), feature maps), in f32 under a
+    compute scope (the adversarial and feature losses run in f32)."""
 
     def __init__(self, num_classes: int, num_layers: int = 4, num_channels_base: int = 16,
                  num_channel_mult: int = 4, downsampling_factor: int = 4,
@@ -58,7 +59,8 @@ class Discriminator(nn.Module):
         features.append(x)
         logits = self.output(x)
         idx = label_tgt.to(torch.int64)[:, None, None].expand(-1, 1, logits.shape[-1])
-        return torch.gather(logits, 1, idx).transpose(1, 2), features
+        return (finalize_dtype(torch.gather(logits, 1, idx).transpose(1, 2)),
+                [finalize_dtype(f) for f in features])
 
 
 class MultiscaleDiscriminator(nn.Module):

@@ -25,6 +25,8 @@ from td_vc_gan_tpu_torch.models.layers import (
     MRFBlock,
     WNConv1d,
     WNConvTranspose1d,
+    conv1d,
+    finalize_dtype,
     init_weights,
     leaky_relu,
 )
@@ -61,8 +63,9 @@ class ExciteDownsampleBlock(nn.Module):
         h = self.down_conv(x)
         for i in range(self.n_layers):
             h = getattr(self, f"conv_{i}")(leaky_relu(h))
-        sh = F.conv1d(self.shortcut(x), self.lowpass, stride=self.r, padding=8 * self.r,
-                      groups=self.lowpass.shape[0])
+        sh = self.shortcut(x)
+        sh = conv1d(sh, self.lowpass.to(sh.dtype), stride=self.r, padding=8 * self.r,
+                    groups=self.lowpass.shape[0])
         n = min(h.shape[-1], sh.shape[-1])
         return h[..., :n] + sh[..., :n]
 
@@ -70,7 +73,7 @@ class ExciteDownsampleBlock(nn.Module):
 class Encoder(nn.Module):
     """k7 reflect input conv, per stage [lrelu, strided conv k=2r, MRF], a
     final k7 conv and a projection to ``embedding_dim``; the output is
-    L2-normalised over channels (eps 1e-12)."""
+    L2-normalised over channels (eps 1e-12), in f32 under a compute scope."""
 
     def __init__(self, downsample_ratios, channel_sizes, embedding_dim: int | None,
                  use_weight_norm: bool = True, kernel_sizes=(3, 7, 11),
@@ -101,6 +104,7 @@ class Encoder(nn.Module):
         x = self.final_conv(leaky_relu(x))
         if self.proj is not None:
             x = self.proj(leaky_relu(x))
+        x = finalize_dtype(x)
         norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
         return x / torch.clamp_min(norm, 1e-12)
 
@@ -216,7 +220,8 @@ class Generator(nn.Module):
         ``encode_only`` returns the content (B, T', content_dim) alone.
         ``content`` is a precomputed content embedding: the encoder is
         skipped and ``x`` is not read (the train step encodes once and decodes
-        the conversion and identity passes from it). ``c_src`` is the
+        the conversion and identity passes from it). Under a compute scope
+        the outputs are cast back to f32. ``c_src`` is the
         source speaker's one-hot: the JAX package reads it only for the
         encoder and bottleneck conditioning, which the configurations this
         port supports do not have, so it is accepted and not read.
@@ -226,23 +231,27 @@ class Generator(nn.Module):
         else:
             content = content.transpose(1, 2)
         if encode_only:
-            return content.transpose(1, 2)
+            return finalize_dtype(content.transpose(1, 2))
         spk = self.embedding(c_tgt)
         if c_var is None:
             total = math.prod(self.decoder_ratios)
             c_var = torch.zeros((content.shape[0], content.shape[-1] * total, 1),
                                 dtype=content.dtype, device=content.device)
         wav, subsamples = self.decoder(content, spk, c_var.transpose(1, 2))
-        return (wav.transpose(1, 2), [s.transpose(1, 2) for s in subsamples],
-                content.transpose(1, 2))
+        return (finalize_dtype(wav.transpose(1, 2)),
+                [finalize_dtype(s.transpose(1, 2)) for s in subsamples],
+                finalize_dtype(content.transpose(1, 2)))
 
 
 def generator_from_config(gen_cfg, num_classes: int, device=None, seed: int = 0,
-                          wavlm_cfg: WavLMConfig | None = None) -> Generator:
+                          wavlm_cfg: WavLMConfig | None = None,
+                          compute_dtype: str | None = None) -> Generator:
     """A Generator for a GeneratorConfig (conv or WavLM encoder, no
     bottleneck, no norm layers, decoder conditioned on the target speaker),
     its weights made from ``seed``, on ``device`` (default: the CUDA card).
-    ``wavlm_cfg`` sizes the WavLM backbone (None: WavLM-Large)."""
+    ``wavlm_cfg`` sizes the WavLM backbone (None: WavLM-Large, in
+    ``compute_dtype``, as the JAX package's: the conv stacks take theirs
+    from the compute scope instead)."""
     dev = resolve_device(device)
     nl, cond = gen_cfg.norm_layer, gen_cfg.conditioning
     unsupported = []
@@ -256,6 +265,9 @@ def generator_from_config(gen_cfg, num_classes: int, device=None, seed: int = 0,
         unsupported.append("conditioning other than decoder='target'")
     if unsupported:
         raise NotImplementedError("the port's generator has no " + ", ".join(unsupported))
+    if (wavlm_cfg is None and gen_cfg.encoder_model == "wavlm"
+            and compute_dtype not in (None, "float32")):
+        wavlm_cfg = WavLMConfig(compute_dtype=compute_dtype)
     wn = gen_cfg.weight_norm
     g = Generator(gen_cfg.decoder_ratios, gen_cfg.decoder_channels, num_classes,
                   gen_cfg.conditional_dim, gen_cfg.content_dim,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from td_vc_gan_tpu_torch.models.layers import WNConv1d, grad_reverse, leaky_relu
+from td_vc_gan_tpu_torch.models.layers import WNConv1d, finalize_dtype, grad_reverse, leaky_relu
 
 
 class LatentClassifier(nn.Module):
@@ -35,4 +35,4 @@ class LatentClassifier(nn.Module):
         for i in range(self.num_layers):
             x = leaky_relu(getattr(self, f"down_{i}")(x))
         x = leaky_relu(self.pre_out(x))
-        return torch.mean(self.output(x), dim=-1)
+        return torch.mean(finalize_dtype(self.output(x)), dim=-1)  # time-mean in f32

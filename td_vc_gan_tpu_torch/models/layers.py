@@ -11,6 +11,14 @@ channel, a Linear ``kernel`` is ``(out, in)``.
 Weights are made from a seed by :func:`init_weights`, with the JAX package's
 distributions: U(+-1/sqrt(fan_in)) for kernels and biases, and ``g`` set to
 the norm of ``v`` so that the initial weight equals ``v``.
+
+Mixed precision (``train.compute_dtype: bfloat16``) is the JAX package's
+policy, with explicit casts: inside :class:`compute_dtype_scope` every
+:class:`WNConv1d` / :class:`WNConvTranspose1d` casts its input, its effective
+(f32) kernel and its bias to the scope's dtype, so the convs run in bf16 and
+the activations between layers stay bf16; parameters stay f32 (the cast's
+backward brings each gradient back to f32), and the top-level modules cast
+their outputs back with :func:`finalize_dtype`.
 """
 
 from __future__ import annotations
@@ -24,6 +32,70 @@ from torch import nn
 from td_vc_gan_tpu_torch.ops.activation import leaky_relu
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cond_chain_op
 from td_vc_gan_tpu_torch.ops.dsp import reflect_pad
+
+
+# the compute dtype of the innermost active scope; None: no scope (f32)
+_COMPUTE_DTYPE: list = [None]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": None, "none": None}
+
+
+def get_compute_dtype() -> torch.dtype | None:
+    return _COMPUTE_DTYPE[0]
+
+
+class compute_dtype_scope:
+    """``with compute_dtype_scope("bfloat16"): ...``: the convs inside run in
+    that dtype. ``None``, ``"float32"`` and ``"none"`` are no-ops (f32); any
+    other string raises KeyError, as the JAX package's scope does."""
+
+    def __init__(self, dtype):
+        if isinstance(dtype, str):
+            dtype = _DTYPES[dtype.lower()]
+        self.dtype = dtype
+
+    def __enter__(self):
+        self._prev = _COMPUTE_DTYPE[0]
+        _COMPUTE_DTYPE[0] = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        _COMPUTE_DTYPE[0] = self._prev
+        return False
+
+
+def finalize_dtype(x):
+    """A model output cast back to f32 when a compute scope is active."""
+    if _COMPUTE_DTYPE[0] is not None and x is not None and x.dtype != torch.float32:
+        return x.float()
+    return x
+
+
+def conv1d(x, w, b=None, **kw):
+    """``F.conv1d``; a bf16 conv on the CPU runs as an f32 conv of the bf16
+    values, rounded to bf16 once: the products are exact either way and the
+    sum is f32, as on the card, where torch's CPU bf16 convs give wrong sums
+    at some shapes (k=8 stride 4; grouped k=16)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv1d(x.float(), w.float(), None if b is None else b.float(),
+                        **kw).to(x.dtype)
+    return F.conv1d(x, w, b, **kw)
+
+
+def conv_transpose1d(x, w, b=None, **kw):
+    """``F.conv_transpose1d``, bf16 on the CPU as :func:`conv1d`."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv_transpose1d(x.float(), w.float(), None if b is None else b.float(),
+                                  **kw).to(x.dtype)
+    return F.conv_transpose1d(x, w, b, **kw)
+
+
+def _in_scope(x, w, b):
+    """(x, w, b) cast to the scope's compute dtype (unchanged outside a scope)."""
+    dt = _COMPUTE_DTYPE[0]
+    if dt is None:
+        return x, w, b
+    return x.to(dt), w.to(dt), None if b is None else b.to(dt)
 
 
 def _wn(v: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
@@ -103,8 +175,9 @@ class WNConv1d(nn.Module):
         else:
             x = F.pad(x, (left, right))
             padding = 0
-        return F.conv1d(x, self.weight(), self.bias, self.stride, padding,
-                        self.dilation, self.groups)
+        x, w, b = _in_scope(x, self.weight(), self.bias)
+        return conv1d(x, w, b, stride=self.stride, padding=padding, dilation=self.dilation,
+                      groups=self.groups)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -131,8 +204,9 @@ class WNConvTranspose1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _wn(self.v, self.g, 0) if self.use_weight_norm else self.kernel
-        return F.conv_transpose1d(x, w, self.bias, self.stride, self.padding,
-                                  self.output_padding)
+        x, w, b = _in_scope(x, w, self.bias)
+        return conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding,
+                                output_padding=self.output_padding)
 
 
 class Linear(nn.Module):
@@ -233,7 +307,10 @@ class MRFBlock(nn.Module):
 
     def films(self, spk: torch.Tensor, exc: torch.Tensor) -> list[tuple]:
         """Every block's (gamma, beta), (B, C, T) each, from the split cond:
-        spk (B, S) and exc (B, E, T) with S + E = cond_channels."""
+        spk (B, S) and exc (B, E, T) with S + E = cond_channels. In a
+        compute scope the chain's operands are cast first, as the JAX
+        package's ``_batched_film`` casts them, so its bias and edge terms
+        are computed in that dtype too."""
         blocks = self.blocks()
         s = spk.shape[-1]
         # (3, Cc, n*Cc) and (3, Cc, n*2C): the JAX package's WIO layout
@@ -241,6 +318,8 @@ class MRFBlock(nn.Module):
         b0 = torch.cat([blk.cond_0.bias for blk in blocks])
         w1 = torch.cat([blk.cond_1.weight() for blk in blocks], 0).permute(2, 1, 0)
         b1 = torch.cat([blk.cond_1.bias for blk in blocks])
+        if (dt := get_compute_dtype()) is not None:
+            spk, exc, w0, b0, w1, b1 = (a.to(dt) for a in (spk, exc, w0, b0, w1, b1))
         w0_spk, w0_exc = w0[:, :s], w0[:, s:]
         hbias = spk @ (w0_spk[0] + w0_spk[1] + w0_spk[2]) + b0
         edge0 = spk @ w0_spk[0]   # the tap reading t-1 is the zero pad at t = 0

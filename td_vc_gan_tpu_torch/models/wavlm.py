@@ -25,6 +25,14 @@ checkpoint's own:
 So :func:`load_wavlm_checkpoint` copies the Microsoft ``.pt``'s tensors as
 they are, only renamed (and ``weight_g`` flattened), and
 :func:`backbone_digest` hashes the same bytes in the file and in the model.
+
+Precision. ``WavLMConfig.compute_dtype = "bfloat16"`` runs the backbone as
+the JAX package's does: the wav is cast to bf16 on entry, every conv and
+``F.linear`` takes its f32 weights cast to the activation's dtype on each
+call (no bf16 copy is kept, so the weights and their digest stay the f32
+ones), LayerNorm and GroupNorm compute in f32 and cast back, the attention
+scores and softmax are f32 and the probabilities bf16, and the output is
+cast to f32. In f32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from td_vc_gan_tpu_torch.models.layers import conv1d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +69,9 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 800
     gru_rel_pos: bool = True
+    # 'bfloat16': bf16 conv and matmul inputs and activations (see the
+    # module's docstring); None or 'float32': f32
+    compute_dtype: str | None = None
 
     @property
     def total_stride(self) -> int:
@@ -66,6 +79,15 @@ class WavLMConfig:
         for _, _, stride in self.conv_feature_layers:
             s *= stride
         return s  # 320 => 50 Hz frames at 16 kHz
+
+
+def _dt(cfg: WavLMConfig) -> torch.dtype | None:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def _as(t: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor | None:
+    """A weight cast to the activation's dtype (a no-op in f32)."""
+    return None if t is None else t.to(like.dtype)
 
 
 def wavlm_base_config() -> WavLMConfig:
@@ -90,7 +112,8 @@ def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
 
 
 class _LayerNorm(nn.Module):
-    """Affine LayerNorm over the last axis (channels), in float32, eps 1e-5."""
+    """Affine LayerNorm over the last axis (channels), in float32, eps 1e-5,
+    cast back to the input's dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -104,7 +127,8 @@ class _LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                            self.eps).to(x.dtype)
 
 
 class _GroupNorm(_LayerNorm):
@@ -113,7 +137,7 @@ class _GroupNorm(_LayerNorm):
     layer 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), x.shape[1], self.scale, self.bias, self.eps)
+        return F.group_norm(x.float(), x.shape[1], self.scale, self.bias, self.eps).to(x.dtype)
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -145,8 +169,8 @@ class ConvFeatureExtractor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x[:, None, :]
         for i, (_, _, stride) in enumerate(self.cfg.conv_feature_layers):
-            h = F.conv1d(h, getattr(self, f"conv_{i}"),
-                         getattr(self, f"conv_{i}_bias", None), stride)
+            h = conv1d(h, _as(getattr(self, f"conv_{i}"), h),
+                       _as(getattr(self, f"conv_{i}_bias", None), h), stride=stride)
             if self.cfg.extractor_mode == "layer_norm":
                 h = getattr(self, f"ln_{i}")(h.transpose(1, 2)).transpose(1, 2)
             elif i == 0:
@@ -226,7 +250,8 @@ class MultiheadAttention(nn.Module):
         dh = d // h
 
         def proj(name, y):
-            return F.linear(y, getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias"))
+            return F.linear(y, _as(getattr(self, f"{name}_kernel"), y),
+                            _as(getattr(self, f"{name}_bias"), y))
 
         q, k, v = (proj(name, x).reshape(b, t, h, dh).transpose(1, 2) for name in "qkv")
 
@@ -238,15 +263,17 @@ class MultiheadAttention(nn.Module):
             bias = position_bias[None]  # (1, H, T, T)
             if self.gated:
                 # gates from the unscaled queries (modules.py:523-533)
-                gates = torch.sigmoid(F.linear(q, self.grep_kernel, self.grep_bias)
+                gates = torch.sigmoid(F.linear(q, _as(self.grep_kernel, q), _as(self.grep_bias, q))
                                       .reshape(b, h, t, 2, 4).sum(-1))
                 gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
                 bias = (gate_a * (gate_b * self.grep_a - 1.0) + 2.0) * bias  # (B, H, T, T)
 
-        scores = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+        # scores and softmax in f32 (exact products of bf16 q and k), the
+        # probabilities in the activations' dtype
+        scores = torch.matmul((q * dh ** -0.5).float(), k.float().transpose(-1, -2))
         if bias is not None:
             scores = scores + bias
-        attn = torch.softmax(scores.float(), dim=-1)
+        attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, d)
         return proj("out", out), position_bias
 
@@ -274,8 +301,9 @@ class EncoderLayer(nn.Module):
         self.fc2_bias.data.zero_()
 
     def ffn(self, y: torch.Tensor) -> torch.Tensor:
-        y = F.gelu(F.linear(y, self.fc1_kernel, self.fc1_bias), approximate="none")
-        return F.linear(y, self.fc2_kernel, self.fc2_bias)
+        y = F.gelu(F.linear(y, _as(self.fc1_kernel, y), _as(self.fc1_bias, y)),
+                   approximate="none")
+        return F.linear(y, _as(self.fc2_kernel, y), _as(self.fc2_bias, y))
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor | None = None):
         ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
@@ -324,8 +352,8 @@ class TransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         k = c.conv_pos
-        pos = F.conv1d(x.transpose(1, 2), self.pos_conv_weight(), self.pos_conv_bias,
-                       padding=k // 2, groups=c.conv_pos_groups)
+        pos = conv1d(x.transpose(1, 2), _as(self.pos_conv_weight(), x),
+                     _as(self.pos_conv_bias, x), padding=k // 2, groups=c.conv_pos_groups)
         if k % 2 == 0:
             pos = pos[..., :-1]
         x = x + F.gelu(pos, approximate="none").transpose(1, 2)
@@ -341,7 +369,8 @@ class TransformerEncoder(nn.Module):
 
 class WavLM(nn.Module):
     """(B, T) wav -> (B, T // 320, encoder_embed_dim) features: extractor,
-    post-extract LayerNorm, projection to the encoder's width, encoder."""
+    post-extract LayerNorm, projection to the encoder's width, encoder; f32
+    features in either compute dtype."""
 
     def __init__(self, cfg: WavLMConfig = WavLMConfig()):
         super().__init__()
@@ -360,10 +389,15 @@ class WavLM(nn.Module):
             self.post_proj_bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _dt(self.cfg)
+        if dt is not None:
+            x = x.to(dt)
         feats = self.post_extract_layer_norm(self.feature_extractor(x).transpose(1, 2))
         if hasattr(self, "post_proj_kernel"):
-            feats = F.linear(feats, self.post_proj_kernel, self.post_proj_bias)
-        return self.encoder(feats)
+            feats = F.linear(feats, _as(self.post_proj_kernel, feats),
+                             _as(self.post_proj_bias, feats))
+        out = self.encoder(feats)
+        return out.float() if dt is not None else out
 
 
 # ---------------------------------------------------------------------------

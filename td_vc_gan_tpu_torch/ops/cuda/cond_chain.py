@@ -27,6 +27,16 @@ the kernels (or raise for what they do not take), CPU tensors run
 :func:`cond_chain_plain` and :func:`cond_chain_bwd_plain`. Layouts are
 channels-last, as in the JAX package: ``exc (B, T, E)``, ``w0 (3, E, n*Cc)``,
 ``w1 (3, Cc, n*2C)``, output ``(B, T, n*2C)``.
+
+The operands are all float32 or all bfloat16 (the JAX package's bf16
+compute scope). bfloat16 operands take the kernels' bf16 instances, K1-bf16
+(``csrc/cond_chain_bf16.cu``) and K2-bf16 (``csrc/cond_chain_bwd_bf16.cu``),
+one bf16 ``mma.sync`` product each with f32 accumulation
+(``csrc/cond_chain_bf16.cuh``), and round where the Pallas kernels round
+their bf16 instance: lrelu(h) once before the second product, the output
+once; in the backward dh and dexc once each, and every weight and bias
+gradient summed in f32 and rounded once. The plain versions round at the
+same points.
 """
 
 from __future__ import annotations
@@ -49,16 +59,28 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCE = _CSRC / "cond_chain.cu"
 BWD_SOURCE = _CSRC / "cond_chain_bwd.cu"
 SOURCES = (SOURCE, BWD_SOURCE)
+BF16_SOURCES = (_CSRC / "cond_chain_bf16.cu", _CSRC / "cond_chain_bwd_bf16.cu")
+_LIBS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16")  # the libraries of SOURCES + BF16_SOURCES
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches since the last reset (forward: ``launches``, backward:
 # ``bwd_launches``, one per backward call of the chain however many CUDA
-# kernels it runs); chip_smoke.py reads them to show that the main path went
-# through the kernels.
+# kernels it runs; ``*_bf16`` for the bf16 instances); chip_smoke.py reads
+# them to show that the main path went through the kernels.
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
+
+
+def kernel_launches(compute_dtype: str = "float32") -> tuple[int, int]:
+    """(K1, K2) launches so far of the instances a ``train.compute_dtype``
+    runs."""
+    if compute_dtype == "bfloat16":
+        return launches_bf16, bwd_launches_bf16
+    return launches, bwd_launches
 
 _lib = None
 
@@ -100,13 +122,14 @@ def _lib_path(source: Path) -> Path:
 
 
 def build() -> tuple[list[Path], float, str]:
-    """Compile each kernel source into its own library in ``csrc/build/``
-    (keyed by the hash of the source and its headers), all ``nvcc`` runs
-    started together, unless a library built from the same files is there.
-    Returns (library paths, build seconds, nvcc's output); the seconds are 0
-    when nothing was built."""
-    libs = [_lib_path(src) for src in SOURCES]
-    todo = [(src, lib) for src, lib in zip(SOURCES, libs) if not lib.exists()]
+    """Compile each kernel source (``SOURCES``, then ``BF16_SOURCES``) into
+    its own library in ``csrc/build/`` (keyed by the hash of the source and
+    its headers), all ``nvcc`` runs started together, unless a library built
+    from the same files is there. Returns (library paths, build seconds,
+    nvcc's output); the seconds are 0 when nothing was built."""
+    sources = SOURCES + BF16_SOURCES
+    libs = [_lib_path(src) for src in sources]
+    todo = [(src, lib) for src, lib in zip(sources, libs) if not lib.exists()]
     if not todo:
         return libs, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -131,30 +154,46 @@ def build() -> tuple[list[Path], float, str]:
     return libs, time.perf_counter() - t0, "\n".join(log)
 
 
-def _library():
+def _library() -> dict:
+    """The four kernel libraries, built at first use: ``fwd`` (K1), ``bwd``
+    (K2), ``fwd_bf16`` and ``bwd_bf16`` (their bf16 instances)."""
     global _lib
     if _lib is None:
-        (fwd_path, bwd_path), _, _ = build()
+        paths, _, _ = build()
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fwd = ctypes.CDLL(str(fwd_path))
-        fwd.cond_chain_fwd_f32.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, p, p,
-                                           i, i, i, i, i, i, p]
-        fwd.cond_chain_fwd_f32.restype = i
-        fwd.cond_chain_fwd_tile.argtypes = [i, i, i]
-        fwd.cond_chain_fwd_tile.restype = i
-        fwd.cond_chain_error_string.argtypes = [i]
-        fwd.cond_chain_error_string.restype = ctypes.c_char_p
-        bwd = ctypes.CDLL(str(bwd_path))
+        ll = ctypes.c_longlong
+        libs = {name: ctypes.CDLL(str(path)) for name, path in zip(_LIBS, paths)}
+        for name, suffix in (("fwd", "f32"), ("fwd_bf16", "bf16")):
+            fwd = libs[name]
+            getattr(fwd, f"cond_chain_fwd_{suffix}").argtypes = [p, p, p, ll, p, p, p, p, p,
+                                                                 i, i, i, i, i, i, p]
+            getattr(fwd, f"cond_chain_fwd_{suffix}").restype = i
+            fwd.cond_chain_error_string.argtypes = [i]
+            fwd.cond_chain_error_string.restype = ctypes.c_char_p
+        libs["fwd"].cond_chain_fwd_tile.argtypes = [i, i, i]
+        libs["fwd"].cond_chain_fwd_tile.restype = i
+        libs["fwd_bf16"].cond_chain_fwd_bf16_tile.argtypes = [i, i, i]
+        libs["fwd_bf16"].cond_chain_fwd_bf16_tile.restype = i
+        bwd = libs["bwd"]
         bwd.cond_chain_bwd_rows.argtypes = [i, i, i, i, i, i]
         bwd.cond_chain_bwd_rows.restype = i
         bwd.cond_chain_bwd_workspace.argtypes = [i, i, i, i, i, i]
-        bwd.cond_chain_bwd_workspace.restype = ctypes.c_longlong
-        bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, p,
+        bwd.cond_chain_bwd_workspace.restype = ll
+        bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ll, p, p, p, p,
                                            p, p, p, p, p, p, p,
-                                           p, ctypes.c_longlong, i, i, i, i, i, i, p]
+                                           p, ll, i, i, i, i, i, i, p]
         bwd.cond_chain_bwd_f32.restype = i
-        _lib = (fwd, bwd)
+        bwd = libs["bwd_bf16"]
+        bwd.cond_chain_bwd_bf16_rows.argtypes = [i, i, i, i, i, i]
+        bwd.cond_chain_bwd_bf16_rows.restype = i
+        bwd.cond_chain_bwd_bf16_workspace.argtypes = [i, i, i, i, i, i]
+        bwd.cond_chain_bwd_bf16_workspace.restype = ll
+        bwd.cond_chain_bwd_bf16.argtypes = [p, p, p, ll, p, p, p, p,
+                                            p, p, p, p, p, p, p,
+                                            p, ll, i, i, i, i, i, i, p]
+        bwd.cond_chain_bwd_bf16.restype = i
+        _lib = libs
     return _lib
 
 
@@ -187,6 +226,16 @@ def _h_plain(exc, w0, hbias, edge0, edge_t, n, cc):
     return h
 
 
+def _f32(*xs):
+    """The operands in float32 (a no-op for float32 ones)."""
+    return [None if x is None else x.float() for x in xs]
+
+
+def _round_as(x, dtype):
+    """x rounded to ``dtype`` and held in float32 again (a no-op in f32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def cond_chain_plain(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
     """The chain in plain PyTorch: conv1d over ``exc``, bias and edge fixes,
     leaky_relu, then the n per-block convs as one grouped conv1d. Under
@@ -194,12 +243,16 @@ def cond_chain_plain(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
     package do.
 
     ``hbias`` is (B, n*Cc) or (n*Cc,); ``edge0``/``edge_t`` (B, n*Cc) are
-    subtracted at rows 0 and T-1 when given.
+    subtracted at rows 0 and T-1 when given. bfloat16 operands are computed
+    in f32 from their values and rounded where K1-bf16 rounds: lrelu(h) once,
+    the output once (bf16).
     """
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
+    dt = exc.dtype
+    exc, w0, hbias, w1, b1, edge0, edge_t = _f32(exc, w0, hbias, w1, b1, edge0, edge_t)
     a = leaky_relu(_h_plain(exc, w0, hbias, edge0, edge_t, n, cc), LEAKY_RELU_SLOPE)
-    out = F.conv1d(a, w1.permute(2, 1, 0), b1, padding=1, groups=n)
-    return out.transpose(1, 2).contiguous()
+    out = F.conv1d(_round_as(a, dt), w1.permute(2, 1, 0), b1, padding=1, groups=n)
+    return out.transpose(1, 2).contiguous().to(dt)
 
 
 def _taps(x, t):
@@ -218,13 +271,20 @@ def cond_chain_bwd_plain(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
     over every (batch row, time) pair. Returns a dict with ``exc``, ``w0``,
     ``hbias`` (shaped as ``hbias``), ``w1``, ``b1`` and, when the edges are
     given, ``edge0``/``edge_t`` (-dh at rows 0 and T-1).
+
+    bfloat16 operands are computed in f32 from their values and rounded where
+    K2-bf16 rounds: lrelu(h) (for dW1) and dh once each, dexc once, and every
+    weight and bias gradient summed in f32 and rounded once; each gradient
+    comes back in its operand's dtype.
     """
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
+    dt = exc.dtype
+    exc, w0, hbias, w1, g, edge0, edge_t = _f32(exc, w0, hbias, w1, g, edge0, edge_t)
     h = _h_plain(exc, w0, hbias, edge0, edge_t, n, cc)          # (B, n*Cc, T)
-    a = F.leaky_relu(h, LEAKY_RELU_SLOPE)
+    a = _round_as(F.leaky_relu(h, LEAKY_RELU_SLOPE), dt)
     gt = g.transpose(1, 2)                                       # (B, n*2C, T)
     da = F.conv_transpose1d(gt, w1.permute(2, 1, 0), padding=1, groups=n)
-    dh = torch.where(h >= 0, da, LEAKY_RELU_SLOPE * da)
+    dh = _round_as(torch.where(h >= 0, da, LEAKY_RELU_SLOPE * da), dt)
     dexc = F.conv_transpose1d(dh, w0.permute(2, 1, 0), padding=1)
     a_taps, x_taps = _taps(a, t), _taps(exc.transpose(1, 2), t)
     gb = gt.reshape(b, n, two_c, t)
@@ -236,21 +296,28 @@ def cond_chain_bwd_plain(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
                hbias=dhb if hbias.dim() == 2 else dhb.sum(0), w1=dw1, b1=gt.sum((0, 2)))
     if edge0 is not None:
         out.update(edge0=-dh[:, :, 0], edge_t=-dh[:, :, t - 1])
-    return out
+    return {k: v.to(dt) for k, v in out.items()}
 
 
-def _check_cuda(name, x, device):
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(name, x, device, dtype):
     if x.device != device:
         raise ValueError(f"cond chain: {name} is on {x.device}, exc on {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"cond chain kernel takes float32, {name} is {x.dtype}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"cond chain kernels take float32 or bfloat16, exc is {dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"cond chain kernels take operands of one dtype: {name} is "
+                        f"{x.dtype}, exc {dtype}")
     if not x.is_contiguous():
         raise ValueError(f"cond chain kernel takes contiguous tensors; {name} is not")
 
 
 def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
-    """Shapes, device, dtype and contiguity the kernels take; (B, T, E, n,
-    Cc, 2C). ``b1`` may be None (the backward does not read it)."""
+    """Shapes, device, dtype (all float32 or all bfloat16) and contiguity the
+    kernels take; (B, T, E, n, Cc, 2C). ``b1`` may be None (the backward does
+    not read it)."""
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
     if two_c % 4 or two_c > 1024 or cc % 4:
         raise ValueError(f"cond chain kernels take 2C a multiple of 4 up to 1024 and Cc a "
@@ -262,7 +329,7 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
     if edge0 is not None:
         ops.update(edge0=edge0, edge_t=edge_t)
     for name, x in ops.items():
-        _check_cuda(name, x, dev)
+        _check_cuda(name, x, dev, exc.dtype)
     if hbias.shape not in ((b, n * cc), (n * cc,)) or (
             b1 is not None and b1.shape != (n * two_c,)):
         raise ValueError(f"cond chain bias shapes {tuple(hbias.shape)} / "
@@ -289,17 +356,20 @@ def _error(lib, err):
 
 
 def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
-    """K1: the forward kernel, (B, T, n*2C)."""
-    global launches
+    """K1 (float32 operands) or K1-bf16 (bfloat16): the forward kernel,
+    (B, T, n*2C) in the operands' dtype."""
+    global launches, launches_bf16
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t)
-    if w1.data_ptr() % 16:
+    bf16 = exc.dtype == torch.bfloat16
+    if not bf16 and w1.data_ptr() % 16:
         raise ValueError("cond chain kernel copies w1 in 16-byte pieces: it must be "
                          "16-byte aligned")
-    fwd, _ = _library()
-    if not fwd.cond_chain_fwd_tile(e, cc, two_c):
+    fwd = _library()["fwd_bf16" if bf16 else "fwd"]
+    tile = fwd.cond_chain_fwd_bf16_tile if bf16 else fwd.cond_chain_fwd_tile
+    if not tile(e, cc, two_c):
         raise ValueError(_NO_TILE.format(cc=cc, e=e))
-    out = torch.empty((b, t, n * two_c), device=exc.device, dtype=torch.float32)
-    err = fwd.cond_chain_fwd_f32(
+    out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
+    err = (fwd.cond_chain_fwd_bf16 if bf16 else fwd.cond_chain_fwd_f32)(
         exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(),
         n * cc if hbias.dim() == 2 else 0,
         edge0.data_ptr() if edge0 is not None else None,
@@ -308,21 +378,28 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
         b, t, e, n, cc, two_c, _stream(exc.device))
     if err:
         raise RuntimeError("cond chain kernel launch failed: " + _error(fwd, err))
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
-    """K2: the backward kernels, the same dict as :func:`cond_chain_bwd_plain`."""
+    """K2 (float32 operands) or K2-bf16 (bfloat16): the backward kernels, the
+    same dict as :func:`cond_chain_bwd_plain`."""
     global bwd_launches
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, None, edge0, edge_t)
-    _check_cuda("g", g, exc.device)
+    _check_cuda("g", g, exc.device, exc.dtype)
     if g.shape != (b, t, n * two_c):
         raise ValueError(f"cond chain cotangent {tuple(g.shape)} is not {(b, t, n * two_c)}")
+    if exc.dtype == torch.bfloat16:
+        return _launch_bwd_bf16(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c)
     if (e % 4 == 0 and exc.data_ptr() % 16) or g.data_ptr() % 16:
         raise ValueError("cond chain backward kernels copy g, and exc when E is a multiple "
                          "of 4, in 16-byte pieces: they must be 16-byte aligned")
-    fwd, bwd = _library()
+    libs = _library()
+    fwd, bwd = libs["fwd"], libs["bwd"]
     if not bwd.cond_chain_bwd_rows(b, t, e, n, cc, two_c):
         raise ValueError(_NO_TILE.format(cc=cc, e=e))
     dev = exc.device
@@ -353,6 +430,41 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
     return out
 
 
+def _launch_bwd_bf16(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
+    """K2-bf16 on checked bf16 operands: the gradients in bf16."""
+    global bwd_launches_bf16
+    if w0.data_ptr() % 4 or w1.data_ptr() % 4 or g.data_ptr() % 4:
+        raise ValueError("cond chain bf16 backward reads w0, w1 and g in 4-byte pairs: they "
+                         "must be 4-byte aligned")
+    libs = _library()
+    fwd, bwd = libs["fwd_bf16"], libs["bwd_bf16"]
+    if not bwd.cond_chain_bwd_bf16_rows(b, t, e, n, cc, two_c):
+        raise ValueError(_NO_TILE.format(cc=cc, e=e))
+    dev = exc.device
+    ws = torch.empty(int(bwd.cond_chain_bwd_bf16_workspace(b, t, e, n, cc, two_c)),
+                     device=dev, dtype=torch.uint8)
+    out = dict(exc=torch.empty_like(exc), w0=torch.empty_like(w0),
+               hbias=torch.empty_like(hbias), w1=torch.empty_like(w1),
+               b1=torch.empty(n * two_c, device=dev, dtype=torch.bfloat16))
+    if edge0 is not None:
+        out.update(edge0=torch.empty_like(edge0), edge_t=torch.empty_like(edge_t))
+    err = bwd.cond_chain_bwd_bf16(
+        exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(),
+        n * cc if hbias.dim() == 2 else 0,
+        edge0.data_ptr() if edge0 is not None else None,
+        edge_t.data_ptr() if edge_t is not None else None,
+        w1.data_ptr(), g.data_ptr(),
+        out["exc"].data_ptr(), out["w0"].data_ptr(), out["hbias"].data_ptr(),
+        out["edge0"].data_ptr() if edge0 is not None else None,
+        out["edge_t"].data_ptr() if edge0 is not None else None,
+        out["w1"].data_ptr(), out["b1"].data_ptr(),
+        ws.data_ptr(), ws.numel(), b, t, e, n, cc, two_c, _stream(dev))
+    if err:
+        raise RuntimeError("cond chain bf16 backward kernel launch failed: " + _error(fwd, err))
+    bwd_launches_bf16 += 1
+    return out
+
+
 def _use_kernels(exc) -> bool:
     """True for CUDA tensors (the kernels), False for CPU tensors (the plain
     versions); any other device raises."""
@@ -365,7 +477,8 @@ def _use_kernels(exc) -> bool:
 
 class CondChain(torch.autograd.Function):
     """The chain with K1 as its forward and K2 as its backward on CUDA
-    tensors; the plain versions on CPU tensors."""
+    tensors (their bf16 instances for bfloat16 operands); the plain versions
+    on CPU tensors."""
 
     @staticmethod
     def forward(ctx, exc, w0, hbias, w1, b1, edge0, edge_t):

@@ -32,7 +32,7 @@ def dyadic(x: torch.Tensor, step: float) -> torch.Tensor:
 
 
 def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False, e: int = 8,
-                 device: str = "cuda"):
+                 device: str = "cuda", dtype=torch.float32):
     """Split-form and concat-form operands at a decoder stage, scaled like
     the seeded init, with E = ``e`` excitation channels (the decoder's 8 by
     default). ``exact_h`` rounds the conditioning to multiples of 1/8 and
@@ -49,6 +49,9 @@ def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False, e: int = 8,
     cuDNN's f32 backward as in the kernel's. The rounded operands of cond_0
     have at most 10 significant bits, so the kernels' 3xTF32 split takes
     them exactly (lo = 0).
+
+    ``dtype`` (bfloat16 for the kernels' bf16 instances) rounds every operand
+    once, after it is made in f32.
 
     Returns (split-form kwargs of ``cond_chain``, concat-form kwargs of
     ``film_cond_chain``, n, Cc)."""
@@ -74,6 +77,8 @@ def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False, e: int = 8,
                  w1=w1, b1=b1, edge0=spk @ w0_spk[0], edge_t=spk @ w0_spk[2])
     concat = dict(c=torch.cat([spk[:, None, :].expand(b, t, s), exc], -1).contiguous(),
                   w0=w0, b0=b0, w1=w1, b1=b1)
+    if dtype != torch.float32:
+        split, concat = ({k: v.to(dtype) for k, v in d.items()} for d in (split, concat))
     return split, concat, n, cc
 
 
@@ -127,6 +132,7 @@ def microsoft_wavlm_checkpoint(model) -> dict:
 
     cfg = model.cfg
     raw = dataclasses.asdict(cfg)
+    del raw["compute_dtype"]  # the port's own field, not in Microsoft's cfg
     raw["conv_feature_layers"] = microsoft_conv_layers(cfg.conv_feature_layers)
     raw.update(dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0, mask_prob=0.0)
     sd = model.state_dict()

@@ -35,15 +35,18 @@ def _state_file(path: str | Path, epoch: int) -> Path:
     return Path(path) / STATE_DIR / f"epoch_{epoch}.pt"
 
 
-def save_state(state: TrainState, path: str | Path, epoch: int) -> Path:
+def save_state(state: TrainState, path: str | Path, epoch: int,
+               compute_dtype: str = "float32") -> Path:
     """The whole train state at the end of ``epoch``: model weights, the
-    optimizers' moments and step counts, and the train step's counter."""
+    optimizers' moments and step counts, the train step's counter and the
+    run's ``train.compute_dtype``."""
     out = _state_file(path, epoch)
     out.parent.mkdir(parents=True, exist_ok=True)
     blob = {"step": state.step,
             "G": state.G.state_dict(), "D": state.D.state_dict(),
             "opt_g": state.opt_g.optimizer.state_dict(),
-            "opt_d": state.opt_d.optimizer.state_dict()}
+            "opt_d": state.opt_d.optimizer.state_dict(),
+            "compute_dtype": compute_dtype}
     if state.C is not None:
         blob.update(C=state.C.state_dict(), opt_c=state.opt_c.optimizer.state_dict())
     if (wavlm := backbone(state.G)) is not None:

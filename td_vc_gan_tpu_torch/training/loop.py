@@ -26,11 +26,14 @@ device through pinned memory.
 Each logged step line carries, besides the metrics, the step's wall time
 (``step_ms``, which ends in the metrics' copy to the host), the time the
 loop waited on the input pipeline (``data_wait_ms``) and the cond-chain
-kernel launches of that step (``k1``/``k2``, 0 on the CPU).
+kernel launches of that step (``k1``/``k2``, 0 on the CPU), f32 and bf16
+instances together; the final line counts the bf16 ones apart. As in the JAX
+loop, the sample dumps run G outside the compute scope (f32 convs).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import subprocess
 import sys
@@ -63,11 +66,13 @@ def build_models(cfg: Config, num_spk: int, device=None, seed: int | None = None
     """G, D and (when the config uses it) the latent classifier C, with
     weights made from ``seed`` (default ``train.seed``; D and C from the next
     seeds), on ``device``; ``wavlm_cfg`` sizes a WavLM encoder's backbone
-    (None: WavLM-Large). The port's modules hold their weights, so this is
-    also the JAX loop's ``init_params``; CREPE comes from :func:`build_crepe`."""
+    (None: WavLM-Large in ``train.compute_dtype``). The port's modules hold
+    their weights, so this is also the JAX loop's ``init_params``; CREPE
+    comes from :func:`build_crepe`."""
     seed = cfg.train.seed if seed is None else seed
     dev = resolve_device(device)
-    G = generator_from_config(cfg.model.generator, num_spk, dev, seed, wavlm_cfg=wavlm_cfg)
+    G = generator_from_config(cfg.model.generator, num_spk, dev, seed, wavlm_cfg=wavlm_cfg,
+                              compute_dtype=cfg.train.compute_dtype)
     D = discriminator_from_config(cfg, num_spk, dev, seed + 1)
     C = None
     if cfg.train.lambda_latcls != 0 or cfg.log.val_lat_cls:
@@ -143,7 +148,9 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 
 
 def _launches() -> tuple[int, int]:
-    return cc_mod.launches, cc_mod.bwd_launches
+    """(K1, K2) launches so far, f32 and bf16 instances together."""
+    f32, bf16 = cc_mod.kernel_launches("float32"), cc_mod.kernel_launches("bfloat16")
+    return f32[0] + bf16[0], f32[1] + bf16[1]
 
 
 def train(
@@ -162,9 +169,21 @@ def train(
     log_fn=print,
 ) -> state_mod.TrainState:
     """Run the training loop on ``device`` (default: the CUDA card; a
-    machine without one raises). Returns the final TrainState."""
+    machine without one raises). Returns the final TrainState. A resume
+    from a saved train state runs in the state's ``train.compute_dtype``."""
     dev = resolve_device(device)
     save_path, data_path = Path(save_path), Path(data_path)
+    state_epoch = None
+    if load_path is not None:
+        load_path = Path(load_path)
+        state_epoch = ckpt.latest_epoch(load_path) if epoch is None else (
+            int(epoch) if ckpt.has_state(load_path, int(epoch)) else None)
+    if state_epoch is not None:
+        saved = ckpt.load_state_file(load_path, state_epoch).get("compute_dtype")
+        if saved is not None and saved != cfg.train.compute_dtype:
+            log_fn(f"train.compute_dtype {saved} from the train state of epoch {state_epoch} "
+                   f"(the config said {cfg.train.compute_dtype})")
+            cfg.train.compute_dtype = saved
     _write_provenance(cfg, save_path, config_file)
 
     writer = None
@@ -191,6 +210,9 @@ def train(
     wavlm_cfg = wavlm_state = None
     if wavlm_checkpoint and cfg.model.generator.encoder_model == "wavlm":
         wavlm_cfg, wavlm_state = load_wavlm_checkpoint(wavlm_checkpoint)
+        # the file's config has no compute_dtype: the backbone takes the run's
+        if cfg.train.compute_dtype != "float32":
+            wavlm_cfg = dataclasses.replace(wavlm_cfg, compute_dtype=cfg.train.compute_dtype)
     G, D, C = build_models(cfg, train_ds.num_spk, dev, wavlm_cfg=wavlm_cfg)
     if wavlm_state is not None:
         ckpt.backbone(G).load_state_dict(wavlm_state)
@@ -203,9 +225,6 @@ def train(
     # resume (reference semantics: --load_path [+ --epoch], train.py:156-181)
     start_epoch = 0
     if load_path is not None:
-        load_path = Path(load_path)
-        state_epoch = ckpt.latest_epoch(load_path) if epoch is None else (
-            int(epoch) if ckpt.has_state(load_path, int(epoch)) else None)
         if state_epoch is not None:
             ckpt.restore_state(state, load_path, state_epoch)
             start_epoch = state_epoch + 1
@@ -240,6 +259,7 @@ def train(
     t0 = time.time()
     samples_done = 0
     k_start = _launches()
+    bf16_start = cc_mod.kernel_launches("bfloat16")
     k_val = k_gen = 0
     prof = None
     try:
@@ -311,7 +331,7 @@ def train(
             if ep % cfg.log.save_interval == 0:
                 log_fn("Saving checkpoint")
                 t_save = time.perf_counter()
-                path = ckpt.save_state(state, save_path, ep)
+                path = ckpt.save_state(state, save_path, ep, cfg.train.compute_dtype)
                 ckpt.export_torch(state, cfg, save_path, ep)
                 nbytes = path.stat().st_size + sum(
                     (save_path / f"step{ep}-{tag}.pt").stat().st_size
@@ -330,11 +350,13 @@ def train(
             prof.__exit__(None, None, None)
 
     k_end = _launches()
+    bf16_end = cc_mod.kernel_launches("bfloat16")
     peak = (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if dev.type == "cuda" else "")
     log_fn(f"Done at step {iter_count}: cond-chain launches K1 {k_end[0] - k_start[0]} "
-           f"(validation {k_val}, samples {k_gen}), K2 {k_end[1] - k_start[1]}{peak}"
-           f"{backbone_note(state.G)}")
+           f"(validation {k_val}, samples {k_gen}), K2 {k_end[1] - k_start[1]} (bf16 "
+           f"instances: K1 {bf16_end[0] - bf16_start[0]}, K2 {bf16_end[1] - bf16_start[1]})"
+           f"{peak}{backbone_note(state.G)}")
     if writer:
         writer.close()
     return state

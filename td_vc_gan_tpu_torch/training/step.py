@@ -14,6 +14,12 @@ Counterpart of ``td_vc_gan_tpu/training/step.py`` (``compute_pitch_features``,
 - With the WavLM encoder, the backbone runs without autograd and gets no
   gradient; the corrupted batch is encoded through ``encode_only``.
 
+``train.compute_dtype: bfloat16`` runs each step's body inside the models'
+compute scope (``models/layers.py``), as the JAX step does: the convs of G,
+D, C and CREPE take bf16 inputs and keep bf16 activations, while the
+parameters, their gradients, AdamW's moments, the STFT/mel, every loss and
+the global-norm clipping stay f32.
+
 The JAX step's XLA and TPU devices (weight-norm hoisting, remat, shard_map,
 ``lax.cond`` gating, the perf flags) are not carried over: they leave the math
 unchanged. Randomness comes from a ``torch.Generator`` on the batch's device;
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from td_vc_gan_tpu_torch.models import crepe as crepe_mod
+from td_vc_gan_tpu_torch.models.layers import compute_dtype_scope
 from td_vc_gan_tpu_torch.ops import dsp, losses
 from td_vc_gan_tpu_torch.training.state import TrainState
 
@@ -299,7 +306,12 @@ def build_train_step(cfg, state: TrainState) -> Callable:
         state.step += 1
         return metrics
 
-    return train_step
+    def scoped_train_step(batch: dict, generator: torch.Generator | None = None,
+                          draws: dict | None = None) -> dict:
+        with compute_dtype_scope(t.compute_dtype):
+            return train_step(batch, generator, draws)
+
+    return scoped_train_step
 
 
 def build_eval_step(cfg, state: TrainState) -> Callable:
@@ -345,4 +357,9 @@ def build_eval_step(cfg, state: TrainState) -> Callable:
             m["val_C_acc"] = torch.mean((torch.argmax(logits, -1) == label_src).float())
         return _as_metrics(m, dev)
 
-    return eval_step
+    def scoped_eval_step(batch: dict, generator: torch.Generator | None = None,
+                         draws: dict | None = None) -> dict:
+        with compute_dtype_scope(t.compute_dtype):
+            return eval_step(batch, generator, draws)
+
+    return scoped_eval_step
