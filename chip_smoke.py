@@ -11,7 +11,8 @@ and no weights: everything is made from seeds. Phases, one line or more each:
 2. build: nvcc compiles the four kernel sources (K1, the FiLM cond chain's
    forward; K2, its backward; both on the tensor cores as 3xTF32 through
    csrc/tf32x3.cuh; and their bf16 instances, K1-bf16 and K2-bf16, through
-   csrc/cond_chain_bf16.cuh), one nvcc per source, started together;
+   csrc/cond_chain_bf16.cuh and csrc/hopper_bf16.cuh), one nvcc per source,
+   started together, with each kernel's registers and spills;
 3. parity: K1 against its plain PyTorch version at the four decoder-stage
    shapes of an 8960-sample segment (B=2), split and concat forms;
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
@@ -72,15 +73,17 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    the resume and in the conversion CLI against the written file's, K1 and
    K2 in every step, save time and bytes.
 
-14. bf16 kernels: K1-bf16 and K2-bf16 (the bf16 instances, one bf16
-   mma.sync product each) against their plain bf16 versions (within one bf16
-   ulp but for a stated share of elements, and max|d| within 2^-7 of
-   max|plain|), every output, at the four training stages in both forms and
-   at widths that take the 64- and 32-row tiles, K2-bf16 bit for bit in a
-   second run; their times at the bf16 conversion's four stage shapes (K1)
-   and at the batch-64 train step's eight (K1, K2), each beside two bounds
-   (the dense bf16 tensor-core rate and the memory rate), the plain bf16
-   version, the f32 kernel and cuDNN's bf16 sequence (a yardstick);
+14. bf16 kernels: K1-bf16 and K2-bf16 (the bf16 instances: wgmma products
+   fed by TMA through mbarrier rings, csrc/hopper_bf16.cuh) against their
+   plain bf16 versions (within one bf16 ulp but for a stated share of
+   elements, and max|d| within 2^-7 of max|plain|), every output, at the four
+   training stages in both forms, at E = 6 and 10 and at Cc = 600, 1204 and
+   2000 (5, 9 and 15 passes of 136 columns), K2-bf16 bit for bit in a second
+   run, and both refusing a 2C over the wrappers' cap; their times at the
+   bf16 conversion's four stage shapes (K1) and at the batch-64 train step's
+   eight (K1, K2), each beside two bounds (the dense bf16 tensor-core rate
+   and the memory rate), the plain bf16 version, the f32 kernel and cuDNN's
+   bf16 sequence (a yardstick);
 15. bf16 convert: ``train.compute_dtype: bfloat16`` conversion of phase 4's
    batch with each encoder (the WavLM backbone in bf16): 4 K1-bf16 launches
    per call and no f32 K1, the output (f32, finite, max|y| <= 1), the
@@ -104,6 +107,15 @@ before them, each kernel's time beside the one recorded for its previous
 version in PERF.md. The script is the subreaper of every process it starts
 (the CLIs and what they start, the data pipeline's workers, ``nvcc``) and,
 pass or fail, ends and reaps each of them before it exits.
+
+    python3 chip_smoke.py --ab DIR
+
+runs the card and build phases, then only an A/B of the bf16 kernels: the
+earlier K1-bf16 and K2-bf16 built from their sources in DIR (the two .cu
+files and the headers they include) against this tree's, alternated for 5
+rounds at the bf16 conversion's and the batch-64 step's chain shapes, the
+two versions' outputs held to each other; its last line is a JSON object of
+each path's per-round totals.
 """
 
 from __future__ import annotations
@@ -187,12 +199,21 @@ WIDE_CASES = (("split", 256, 8), ("split", 130, 6), ("split", 126, 10))
 TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
                ("split", 1196, 8))
 REFUSED_CASE = ("concat", 696, 8)
-# The kernels' times before they took smaller time tiles at wide Cc (one
-# fixed 128-row tile), as recorded in PERF.md section 6 (NVIDIA H100 80GB
-# HBM3, 700 W). Printed beside this run's on a line of their own, never in
-# the JSON kernel table, which holds only this run's numbers.
-EARLIER_MS = {"cond_chain_fwd": (25.500, "convert call"),
-              "cond_chain_bwd": (38.872, "train step")}
+# Each kernel's time in its previous version, as recorded in PERF.md
+# section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before they took
+# smaller time tiles at wide Cc (one fixed 128-row tile); K1-bf16 and
+# K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
+# through L1). As (path in the row's by_path, or None for the row's own ms,
+# ms, per what, which version). Printed beside this run's on lines of their
+# own, never in the JSON kernel table, which holds only this run's numbers.
+EARLIER_MS = {
+    "cond_chain_fwd": [(None, 25.500, "convert call", "with one fixed 128-row tile")],
+    "cond_chain_bwd": [(None, 38.872, "train step", "with one fixed 128-row tile")],
+    "cond_chain_fwd_bf16": [
+        ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
+        ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version")],
+    "cond_chain_bwd_bf16": [
+        (None, 89.301, "batch-64 train step (8 calls)", "in their first bf16 version")]}
 # The CLI phases' corpus: speakers x utterances of 1.5-4 s; the first
 # TRAIN_UTT of each speaker train (80 files: 5 steps an epoch at batch 16),
 # the last of TEST_SPK speakers convert; FLAC_FILES are written as FLAC.
@@ -231,16 +252,18 @@ BF16_SNR_DB = 20.0
 # The bf16 step's first losses, kernel path vs plain-bf16-chain path.
 BF16_STEP_LOSS_RTOL = 1e-2
 # Widths off the decoder's for the bf16 instances, as (form, conditional_dim,
-# E), at all four stages: split Cc = 600 (K1-bf16 128 rows, K2-bf16 64: its
-# f32 h buffer is the larger) and Cc = 1204 (K1-bf16 64, K2-bf16 32, the
-# weight grads staged element by element: n*Cc is not a multiple of 8);
-# excitation widths 6 and 10 (not multiples of 8 or 16: padded k-steps,
-# dW0 staged element by element).
+# E), at all four stages: split Cc = 600 (5 passes of 136 columns of h) and
+# Cc = 1204 (9 passes, the last of 116 columns; the weight grads staged
+# element by element: n*Cc is not a multiple of 8); excitation widths 6 and
+# 10 (not multiples of 8 or 16: padded k-slices, two chunks of 8 in dexc's
+# product, dW0 staged element by element).
 BF16_TILED_CASES = (("split", 592, 8), ("split", 1196, 8), ("split", 130, 6),
                     ("split", 126, 10))
-# Split Cc = 2000: K1-bf16 takes its 32-row tile; K2-bf16 holds no tile and
-# refuses.
-BF16_K1_ONLY_CASE = ("split", 1992, 8)
+# Split Cc = 2000 (15 passes) at the first stage's shape, both kernels; the
+# kernels' shared memory no longer grows with Cc or E, and the cap that
+# stands is the wrappers' 2C <= 1024: both refuse 2C = 1032 (C = 516).
+BF16_WIDE_CASE = ("split", 1992, 8)
+BF16_REFUSED_C = 516
 
 
 def say(*parts):
@@ -1426,8 +1449,9 @@ def ulp_parity(label: str, got, want) -> tuple[float, float, float]:
 def bf16_chain_parity(cfg, card):
     """K1-bf16 and K2-bf16 against their plain bf16 versions at the four
     training stage shapes (B=2), split and concat forms, every output, K2-bf16
-    bit for bit in a second run; then at the widths whose shared memory needs
-    the 64- and 32-row tiles; returns (worst K1 max|d|, worst K2 max|d|). The
+    bit for bit in a second run; then at the wide widths (several passes of
+    136 columns of h) and excitation widths off 8, and their refusal of a
+    2C over the wrappers' cap; returns (worst K1 max|d|, worst K2 max|d|). The
     operands are those of ``chain_inputs(exact_h=True)`` rounded to bf16 (the
     rounded values are bf16 already), so h is exact in any summation order
     and the leaky_relu slope K2 takes at each element is the plain version's:
@@ -1474,38 +1498,56 @@ def bf16_chain_parity(cfg, card):
             worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
         del split, concat, fwd, bwd, got, again, want
     torch.cuda.synchronize()
-    # a width whose K1-bf16 plan needs the 32-row tile; K2-bf16's f32 buffer
-    # holds no tile there, and the kernel refuses it
-    form, s, e = BF16_K1_ONLY_CASE
+    # the widest case, both kernels in 15 passes; then the cap that stands
+    form, s, e = BF16_WIDE_CASE
     t, c = stage_shapes(SEG, cfg)[0]
     wcfg = copy.deepcopy(cfg)
     wcfg.model.generator.conditional_dim = s
     split, _, n, cc = chain_inputs(2, t, c, wcfg, seed=1600, e=e, exact_h=True,
                                    dtype=torch.bfloat16)
-    tile = libs["fwd_bf16"].cond_chain_fwd_bf16_tile(e, cc, 2 * c)
+    tiles.add((form, cc, e, libs["fwd_bf16"].cond_chain_fwd_bf16_tile(e, cc, 2 * c),
+               libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, e, n, cc, 2 * c)))
     sh, rel, d = ulp_parity(f"K1-bf16 split Cc={cc}", cc_mod.cond_chain(**split),
                             cc_mod.cond_chain_plain(**split))
     w1 = max(w1, d)
     worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
-    try:
-        cc_mod._launch_bwd(g=cotangent(split, 1601).to(torch.bfloat16),
-                           **{k: v for k, v in split.items() if k != "b1"})
-    except ValueError:
-        refused = True
-    else:
-        refused = False
-    if tile != 32 or not refused:
-        raise AssertionError(f"split Cc={cc}: K1-bf16 tile {tile} (expected 32), K2-bf16 "
-                             f"{'refused' if refused else 'ran'} (expected a refusal)")
-    used = sorted({(k1, k2) for _, _, _, k1, k2 in tiles} | {(tile, 0)})
-    if not {32, 64} <= {x for pair in used for x in pair}:
-        raise AssertionError(f"the parity cases took tiles {used}, not both 64 and 32 rows")
+    g = cotangent(split, 1601).to(torch.bfloat16)
+    bwd = {k: v for k, v in split.items() if k != "b1"}
+    got, again = cc_mod._launch_bwd(g=g, **bwd), cc_mod._launch_bwd(g=g, **bwd)
+    want = cc_mod.cond_chain_bwd_plain(g=g, **bwd)
+    for k in want:
+        sh, rel, d = ulp_parity(f"K2-bf16 split Cc={cc} d{k}", got[k], want[k])
+        if not torch.equal(got[k], again[k]):
+            raise AssertionError(f"K2-bf16 gave two different d{k} on the same inputs")
+        w2 = max(w2, d)
+        worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
+    del split, g, bwd, got, again, want
+    refused = []
+    split, _, n, cc = chain_inputs(2, SEG // 32, BF16_REFUSED_C, cfg, seed=1602,
+                                   dtype=torch.bfloat16)
+    for label, run in (("K1-bf16", lambda: cc_mod.cond_chain(**split)),
+                       ("K2-bf16", lambda: cc_mod._launch_bwd(
+                           g=torch.zeros_like(cc_mod.cond_chain_plain(**split)),
+                           **{k: v for k, v in split.items() if k != "b1"}))):
+        try:
+            run()
+        except ValueError:
+            refused.append(label)
+    if refused != ["K1-bf16", "K2-bf16"]:
+        raise AssertionError(f"2C={2 * BF16_REFUSED_C}: refused by {refused}, expected both")
+    # every case in one tile (124 rows), and the passes of 136 columns the
+    # wide cases take
+    if {(a, b) for _, _, _, a, b in tiles} != {(124, 124)}:
+        raise AssertionError(f"the parity cases took tiles {sorted(tiles)}, expected 124 rows")
+    passes = sorted({-(-cc // 136) for _, cc, _, _, _ in tiles})
+    if passes[0] != 1 or passes[-1] < 9:
+        raise AssertionError(f"the parity cases took {passes} passes of 136 columns")
     say(f"bf16 parity: K1-bf16 and K2-bf16 (every output, a second run bit for bit) against "
         f"their plain bf16 versions at the 4 training stages (B=2, split and concat) and at "
-        + ", ".join(f"{f} Cc={cc} E={ew} (K1 tile {a}, K2 rows {b})"
+        + ", ".join(f"{f} Cc={cc} E={ew} ({-(-cc // 136)} passes)"
                     for f, cc, ew, a, b in sorted(tiles) if f == "split" and
                     (cc, ew) != (cfg.model.generator.conditional_dim + 8, 8))
-        + f", split Cc={s + e} (K1 tile {tile}, K2 refused): worst share beyond one bf16 ulp "
+        + f"; 2C={2 * BF16_REFUSED_C} refused by both: worst share beyond one bf16 ulp "
         f"{worst_share:.2e} (limit {BF16_ULP_SHARE:.0e}), worst max|d| {worst_rel:.2e} of "
         f"max|plain| (limit {BF16_MAX_REL:.2e}) [{card}]")
     return w1, w2
@@ -1818,7 +1860,7 @@ def phase_bf16_train(cfg, card) -> tuple[int, int]:
             f"G_loss {float(metrics['G_loss']):.4f}; every trainable parameter changed, "
             f"parameters and AdamW moments f32; peak device memory {peak:.2f} GiB [{card}]")
         profile_call(lambda: step(batch, gen), f"one bf16 {enc} train step (batch {B64})",
-                     card, top=8)
+                     card, top=12)
         del state, step, trainable, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1887,12 +1929,147 @@ def phase_bf16_clis(root: Path, card: str) -> tuple[int, int, int]:
     return (sum(int(d[4]) for d in done), sum(int(d[5]) for d in done), int(gen_k1))
 
 
+# The A/B of ``python3 chip_smoke.py --ab DIR``: rounds of old and new,
+# alternated (old, new, then new, old, ...).
+AB_ROUNDS = 5
+
+
+def ab_libraries(src_dir: Path, out_dir: Path):
+    """The earlier bf16 libraries, built from their sources in ``src_dir``
+    (cond_chain_bf16.cu, cond_chain_bwd_bf16.cu and the headers they
+    include) into ``out_dir`` with the package's nvcc flags, both started
+    together; (K1-bf16's, K2-bf16's) ctypes libraries and nvcc's output."""
+    jobs = [(src_dir / s.name, out_dir / f"{s.stem}.so") for s in cc_mod.BF16_SOURCES]
+    procs = [subprocess.Popen([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-o", str(lib), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, lib in jobs]
+    log = []
+    for (src, _), proc in zip(jobs, procs):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        log.append(out)
+    fwd, bwd = (ctypes.CDLL(str(lib)) for _, lib in jobs)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fwd.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, i, i, i, i, i, i, p]
+    fwd.cond_chain_fwd_bf16.restype = i
+    bwd.cond_chain_bwd_bf16_workspace.argtypes = [i] * 6
+    bwd.cond_chain_bwd_bf16_workspace.restype = ll
+    bwd.cond_chain_bwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
+                                        i, i, i, i, i, i, p]
+    bwd.cond_chain_bwd_bf16.restype = i
+    return fwd, bwd, "\n".join(log)
+
+
+def ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def old_k1(fwd, split: dict):
+    """The earlier K1-bf16 on split-form operands (W1 in its own layout)."""
+    exc, w0, hbias, w1, b1 = (split[k] for k in ("exc", "w0", "hbias", "w1", "b1"))
+    b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
+    out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
+    err = fwd.cond_chain_fwd_bf16(ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]),
+                                  ptr(split["edge_t"]), ptr(w1), ptr(b1), ptr(out),
+                                  b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier K1-bf16 failed to launch ({err})")
+    return out
+
+
+def old_k2(bwd, args: dict, g):
+    """The earlier K2-bf16 on split-form operands: the gradients' dict."""
+    exc, w0, hbias, w1 = (args[k] for k in ("exc", "w0", "hbias", "w1"))
+    b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
+    ws = torch.empty(int(bwd.cond_chain_bwd_bf16_workspace(b, t, e, n, cc, two_c)),
+                     device=exc.device, dtype=torch.uint8)
+    out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")}
+    out["b1"] = torch.empty(n * two_c, device=exc.device, dtype=exc.dtype)
+    err = bwd.cond_chain_bwd_bf16(
+        ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(args["edge0"]), ptr(args["edge_t"]), ptr(w1),
+        ptr(g), ptr(out["exc"]), ptr(out["w0"]), ptr(out["hbias"]), ptr(out["edge0"]),
+        ptr(out["edge_t"]), ptr(out["w1"]), ptr(out["b1"]), ptr(ws), ws.numel(),
+        b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier K2-bf16 failed to launch ({err})")
+    return out
+
+
+def ab_times(old_fn, new_fn, iters: int) -> dict:
+    """{"old": [ms], "new": [ms]} over AB_ROUNDS rounds, alternated."""
+    fns, res = {"old": old_fn, "new": new_fn}, {"old": [], "new": []}
+    for r in range(AB_ROUNDS):
+        for k in ("old", "new") if r % 2 == 0 else ("new", "old"):
+            res[k].append(cuda_ms(fns[k], iters=iters, warmup=1))
+    return res
+
+
+def ab_summary(per_shape: list[dict]) -> dict:
+    """Per version: the per-round totals over the shapes, their median, min
+    and max."""
+    out = {}
+    for k in ("old", "new"):
+        tot = sorted(sum(x[k][r] for x in per_shape) for r in range(AB_ROUNDS))
+        out[k] = {"median": tot[len(tot) // 2], "min": tot[0], "max": tot[-1], "rounds": tot}
+    return out
+
+
+def phase_ab(cfg, card, src_dir: Path) -> dict:
+    """The earlier K1-bf16 and K2-bf16 (built from ``src_dir``) against this
+    tree's, alternated for AB_ROUNDS rounds, at the bf16 conversion's four
+    stage shapes (K1) and the batch-64 train step's eight (K1, K2), the
+    outputs of the two versions held to each other (one bf16 ulp, as
+    phase 14); returns the summaries by path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fwd, bwd, log = ab_libraries(src_dir, Path(tmp))
+        say(f"ab: the earlier libraries built in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(ptxas_summary(log)))
+        paths = {"k1 convert": [], "k1 train": [], "k2 train": []}
+        shapes = [("convert", B, t, c, 1700 + i) for i, (t, c) in enumerate(stage_shapes(UTT, cfg))]
+        shapes += [("train", bsz, t, c, 1750 + i) for bsz in (2 * B64, B64)
+                   for i, (t, c) in enumerate(stage_shapes(SEG, cfg))]
+        for path, b, t, c, seed in shapes:
+            split, _, n, cc = chain_inputs(b, t, c, cfg, seed=seed, exact_h=True,
+                                           dtype=torch.bfloat16)
+            ulp_parity(f"ab K1-bf16 B={b} T={t}", cc_mod.cond_chain(**split), old_k1(fwd, split))
+            k1 = ab_times(lambda: old_k1(fwd, split), lambda: cc_mod.cond_chain(**split), iters=3)
+            paths[f"k1 {path}"].append(k1)
+            line = (f"ab B={b} T={t} C={c}: K1-bf16 old {np.median(k1['old']):.3f} ms, new "
+                    f"{np.median(k1['new']):.3f} ms")
+            if path == "train":
+                g = cotangent(split, seed=seed + 50).to(torch.bfloat16)
+                args = {k: v for k, v in split.items() if k != "b1"}
+                new, old = cc_mod._launch_bwd(g=g, **args), old_k2(bwd, args, g)
+                for k in new:
+                    ulp_parity(f"ab K2-bf16 B={b} T={t} d{k}", new[k], old[k])
+                del new, old
+                k2 = ab_times(lambda: old_k2(bwd, args, g), lambda: cc_mod._launch_bwd(g=g, **args),
+                              iters=2)
+                paths["k2 train"].append(k2)
+                line += (f"; K2-bf16 old {np.median(k2['old']):.3f} ms, new "
+                         f"{np.median(k2['new']):.3f} ms")
+                del g, args
+            say(line + f" [{card}]")
+            del split
+            torch.cuda.empty_cache()
+    out = {k: ab_summary(v) for k, v in paths.items()}
+    for k, v in out.items():
+        say(f"ab {k} ({len(paths[k])} shapes, {AB_ROUNDS} rounds alternated): old median "
+            f"{v['old']['median']:.3f} ms (min {v['old']['min']:.3f}, max {v['old']['max']:.3f}), "
+            f"new median {v['new']['median']:.3f} ms (min {v['new']['min']:.3f}, max "
+            f"{v['new']['max']:.3f}); new/old {v['new']['median'] / v['old']['median']:.3f} "
+            f"[{card}]")
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?(cond_chain_fwd_kernel|k1_bf16_kernel|"
-                      r"k2b?_\w+?_kernel)"
+                      r"w_images_kernel|k2b?_\w+?_kernel)"
                       r"((?:I(?:L[ib]\d+E)+E)?)", ln)
         if m:
             targs = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -1906,15 +2083,16 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def say_earlier(rows):
-    """Each kernel's time in this run beside its EARLIER_MS entry."""
+    """Each kernel's time in this run beside its EARLIER_MS entries."""
     for row in rows:
-        ms, per = EARLIER_MS[row["name"]]
-        say(f"earlier: {row['name']} {row['ms']:.3f} ms per {per} in this run "
-            f"({row['ms'] / ms - 1:+.2%}); {ms:.3f} ms recorded in PERF.md for the "
-            f"kernels with one fixed 128-row tile (not measured here)")
+        for path, ms, per, version in EARLIER_MS[row["name"]]:
+            now = row["ms"] if path is None else row["by_path"][path]["ms"]
+            say(f"earlier: {row['name']} {now:.3f} ms per {per} in this run "
+                f"({now / ms - 1:+.2%}); {ms:.3f} ms recorded in PERF.md for the "
+                f"kernels {version} (not measured here)")
 
 
-def main() -> int:
+def main(ab_dir: Path | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
@@ -1932,6 +2110,9 @@ def main() -> int:
         f"in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
 
     cfg = Config()
+    if ab_dir is not None:
+        say(json.dumps({"ab": phase_ab(cfg, card, ab_dir), "card": card}))
+        return 0
     parity_err = phase_parity(cfg)
     convert_launches = phase_slice(cfg, card)
     k1_row = phase_kernel_times(cfg, card, convert_launches, parity_err)
@@ -1972,7 +2153,7 @@ def main() -> int:
     k1b_row["launches"] = sum(k1b_row["launches_by_path"].values())
     k2b_row["launches_by_path"] = {"train": bf16_train_k2, "train_cli": bf16_cli_k2}
     k2b_row["launches"] = sum(k2b_row["launches_by_path"].values())
-    say_earlier([k1_row, k2_row])
+    say_earlier([k1_row, k2_row, k1b_row, k2b_row])
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     say(json.dumps({"kernels": [k1_row, k2_row, k1b_row, k2b_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2032,9 +2213,15 @@ def end_children(grace_s: float = 10.0) -> None:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ab", type=Path, default=None, metavar="DIR",
+                        help="only the A/B of the bf16 kernels against earlier sources in DIR")
+    cli = parser.parse_args()
     adopt_orphans()
     try:
-        rc = main()
+        rc = main(cli.ab)
     finally:
         end_children()
     sys.exit(rc)

@@ -1,24 +1,30 @@
 // The bf16 instances of the FiLM cond-chain kernels (cond_chain_bf16.cu,
-// K1-bf16; cond_chain_bwd_bf16.cu, K2-bf16): bf16 products on Hopper's tensor
-// cores with f32 accumulators, and cond_0's recompute, which both share:
+// K1-bf16; cond_chain_bwd_bf16.cu, K2-bf16): what both share. Their CTAs
+// have the same shape, and both recompute cond_0's activation,
 //
 //   h[t] = sum_j exc[t+j-1] @ W0[j] + hbias - [t==0] edge0 - [t==T-1] edge_t
 //
-// with exc zero outside [0, T), every operand bf16 and h summed in f32.
+// with exc zero outside [0, T), every operand bf16 and h summed in f32, on
+// wgmma (hopper_bf16.cuh).
 //
-// The tile. mma.sync.aligned.m16n8k16 with bf16 inputs and f32 accumulators,
-// one warp, lane = 4 * grp + tig (grp = lane / 4, tig = lane % 4); each
-// 32-bit register holds two bf16 of consecutive k, the lower k in the low
-// half (so a 4-byte load of two neighbours in memory is a register):
-//   A (16 x 16, row-major): a0 = A[grp][2tig, 2tig+1],     a1 = A[grp+8][2tig, 2tig+1],
-//                           a2 = A[grp][2tig+8, 2tig+9],   a3 = A[grp+8][2tig+8, 2tig+9]
-//   B (16 x 8, k-major):    b0 = B[2tig, 2tig+1][grp],     b1 = B[2tig+8, 2tig+9][grp]
-//   D (16 x 8, f32):        d0 = D[grp][2tig], d1 = D[grp][2tig+1],
-//                           d2 = D[grp+8][2tig], d3 = D[grp+8][2tig+1]
-// One such product does the work of the f32 instances' three 3xTF32 ones at
-// twice the depth (k = 16), and bf16's 8 significant bits are exact in the
-// product, so the sums differ from an f32 sum of the same bf16 values only
-// by their order.
+// The CTA. Two consumer warpgroups and a producer warp. Consumer
+// warpgroup w holds 64 rows of h (wgmma's M) for the time rows
+// u0 + q, q < 64, u0 = t0 + 62 w - 1: its 62 own rows and a halo row each
+// side, which the k=3 conv of the next product needs. The CTA owns the
+// 124 rows [t0, t0 + 124); the two warpgroups overlap by two rows of h, so
+// that each reads only its own rows when it shifts them and neither waits
+// for the other but through the ring of stages they share. The producer is
+// one warp, one of whose threads keeps the TMA copies of the ring in
+// flight: with 288 threads a CTA a thread may hold 224 registers, which the
+// consumers need (h and da: 136 accumulators). (With a producer warpgroup
+// and setmaxnreg, 384 threads, ptxas allocated the kernels at 168
+// registers a thread and spilled 920 bytes a thread in K2-bf16's data
+// kernel: setmaxnreg moves registers at run time, but the compiler did not
+// allocate the consumers' code beyond the launch's share.)
+//
+// Columns of h go in passes of 136 (one m64n136 accumulator: 68 registers a
+// thread; Cc = 136 at the decoder's widths is one pass); the pass's K for
+// the next product is 144, 9 k-slices of 16, the last 8 columns zero.
 
 #pragma once
 
@@ -26,83 +32,39 @@
 
 #include <cstdint>
 
-namespace bf16mma {
+#include "hopper_bf16.cuh"
+
+namespace bf16chain {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr float kSlope = 0.2f;  // leaky_relu's negative slope
+constexpr float kSlope = 0.2f;    // leaky_relu's negative slope
+constexpr int kRows = 64;         // rows of h per consumer warpgroup
+constexpr int kOwn = kRows - 2;   // of which its own
+constexpr int kTile = 2 * kOwn;   // rows a CTA owns
+constexpr int kPass = 136;        // columns of h per pass
+constexpr int kPassSlices = 9;    // the pass as K: 144 = 9 x 16
+constexpr int kThreads = 288;     // two consumer warpgroups, one producer warp
+constexpr size_t kSmemMax = 227 * 1024;
 
-// -- primitives
+// -- bf16 helpers
 
-// d += a * b on one m16n8k16 bf16 tile
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two neighbouring bf16 as one register (p 4-byte aligned), through L1 for global memory
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg2(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-// one bf16's bits from global memory, 0 when !ok (nothing is read)
-__device__ __forceinline__ uint32_t ldg1(const bf16* p, bool ok) {
-  return ok ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) : 0u;
-}
-__device__ __forceinline__ uint32_t pack(uint32_t lo, uint32_t hi) { return lo | (hi << 16); }
-// two f32 rounded to bf16, nearest even, as one register
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+__device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
 // x rounded to bf16, nearest even, and back to f32
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
+// two f32 rounded to bf16, nearest even, as one register (lo in the low half)
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 __device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
-
-struct FragA {
-  uint32_t r[4];
-};
-
-// A fragment from p = &A[grp][2tig] in bf16 memory, rows ld apart (ld even)
-__device__ __forceinline__ FragA load_a(const bf16* p, int ld) {
-  FragA f;
-  f.r[0] = ld2(p);
-  f.r[1] = ld2(p + 8 * ld);
-  f.r[2] = ld2(p + 8);
-  f.r[3] = ld2(p + 8 * ld + 8);
-  return f;
-}
-
-// A fragment from p = &A[grp][2tig] in f32 memory holding bf16 values (ld even)
-__device__ __forceinline__ FragA load_a_f32(const float* p, int ld) {
-  FragA f;
-  const int off[4] = {0, 8 * ld, 8, 8 * ld + 8};
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const float2 x = *reinterpret_cast<const float2*>(p + off[v]);
-    f.r[v] = pack_rn(x.x, x.y);
-  }
-  return f;
-}
-
-// -- end primitives
-
-// bf16 row strides of a shared-memory array read as A fragments (4-byte
-// loads of (row grp, word tig)): a stride of 4 mod 8 words puts a warp's 32
-// loads in 32 banks
-__host__ __device__ constexpr int a_stride(int cols) {
-  return 2 * ((cols / 2 + 7) / 8 * 8 + 4);
+__device__ __forceinline__ uint32_t bits(bf16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x);
 }
 
 struct HArgs {
@@ -113,105 +75,303 @@ struct HArgs {
   const bf16* edge0;   // (B, n*Cc) or null
   const bf16* edge_t;  // (B, n*Cc) or null
   int T, E, n, cc;
-  int e_pad, cc_pad;   // E and Cc rounded up to 16
 };
 
-// xs[r][e] = exc[t0 - 2 + r][e] for r < rows, zero outside [0, T) and for
-// e >= E (up to the row stride ldx)
-__device__ __forceinline__ void stage_exc(const HArgs& h, bf16* xs, int ldx, int rows, int b,
-                                          int t0) {
-  const bf16* exc_b = h.exc + (size_t)b * h.T * h.E;
-  for (int idx = threadIdx.x; idx < rows * ldx; idx += blockDim.x) {
-    const int r = idx / ldx;
-    const int e = idx - r * ldx;
-    const int t = t0 - 2 + r;
-    xs[idx] = (t >= 0 && t < h.T && e < h.E) ? exc_b[(size_t)t * h.E + e]
-                                             : __ushort_as_bfloat16((unsigned short)0);
+// The warpgroup's thread index and its place in the accumulator layout
+struct Lane {
+  int wt;    // 0 .. 127
+  int row;   // its first row of h (q), the second is row + 8
+  int tig;   // its columns are 8k + 2 tig, + 1
+  __device__ __forceinline__ Lane() {
+    wt = threadIdx.x & 127;
+    const int lane = wt & 31;
+    row = (wt >> 5) * 16 + (lane >> 2);
+    tig = lane & 3;
   }
+};
+
+// cond_0 as one product: h = X @ Wh with, per row u of h and block i,
+//   X[u] = [exc[u-1] | exc[u] | exc[u+1] | 1 | -[u == 0] | -[u == T-1]]   (K = 3E + 3)
+//   Wh   = [W0_i[0]; W0_i[1]; W0_i[2]; hbias_i[b]; edge0_i[b]; edge_t_i[b]]
+// (exc zero outside [0, T); zero edge rows without edges): the bias and the
+// edge corrections are three more k of the wgmma's f32 sum, exact products
+// of bf16 values as the rest.
+//
+// The B images of the weights for one call, made once per launch by
+// w_images_kernel in the shared-memory layouts the products read, so that
+// the producer brings each with one bulk copy (K-major, no swizzle):
+//  - h's B, img_h[b][i][p][kc] (one image per batch row when hbias is, else
+//    one): the 136 columns c = 136 p + nn of block i's pass p as rows, the
+//    kc-th chunk of K = 3E + 3 (rounded up to 16; chunks of 64 above 64) as
+//    columns: element (nn, kk) at (nn / 8) KC 16 + (kk / 8) 128 + (nn % 8) 16
+//    + (kk % 8) 2 bytes;
+//  - dexc's B, img_x[i][p][ec]: for each tap j (2304 bytes apart), the 8
+//    rows e = 8 ec + el and the pass's 144 columns as K: element (el, cl) at
+//    j 2304 + (cl / 8) 128 + el 16 + (cl % 8) 2;
+// zeros beyond Cc, K, E and the pass's 136 columns.
+struct W0Geo {
+  int npass, kc, nkc, nec;
+  size_t h_chunk, h_image, x_bytes;  // bytes: one h chunk, one batch row's img_h, img_x
+};
+
+constexpr int kXChunk = 3 * 2 * kPassSlices * 8 * 8 * 2;  // 6912: one img_x chunk
+constexpr int kWSlot = kPass * 64 * 2;  // 17408: a slot of the weights ring holds any chunk
+
+__host__ __device__ inline W0Geo w0_geo(int E, int n, int cc) {
+  W0Geo g;
+  g.npass = (cc + kPass - 1) / kPass;
+  const int k16 = (3 * E + 3 + 15) / 16 * 16;
+  g.kc = k16 < 64 ? k16 : 64;
+  g.nkc = (k16 + g.kc - 1) / g.kc;
+  g.nec = (E + 7) / 8;
+  g.h_chunk = (size_t)kPass * g.kc * 2;
+  g.h_image = (size_t)n * g.npass * g.nkc * g.h_chunk;
+  g.x_bytes = (size_t)n * g.npass * g.nec * kXChunk;
+  return g;
 }
 
-// act[q][c] = lrelu(h_i)[t0 - 1 + q] for q < rows and c < Cc_pad, zero
-// outside [0, T) and for c >= Cc; block i's Cc columns of h, summed in f32.
-// kF32: act is f32 (the exact lrelu(h), for K2), else bf16 (rounded once,
-// K1's operand of the second product). An M = 16*MTH, N = Cc_pad, K = 3*E_pad
-// product: A from the staged exc rows (xs row q + j for tap j, so xs holds
-// 16*MTH + 2 rows), B = W0_i read through L1 as pairs of bf16 (k = e runs
-// down W0's rows). Warp w owns the n-tiles w, w + 8, ...; for each it holds
-// all MTH m-tiles' accumulators and walks K once. Needs 8 warps.
-template <int MTH, bool kF32>
-__device__ __forceinline__ void recompute_act(const HArgs& h, const bf16* xs, int ldx,
-                                              void* act, int lda, int rows, int b, int t0,
-                                              int i) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
+struct ImageArgs {
+  HArgs h;
+  const bf16* w1;  // (3, Cc, n*2C), for w1t
+  bf16* img_h;     // nimg images
+  bf16* img_x;     // or null
+  bf16* w1t;       // (n, 3, 2C, Cc8), or null
+  int nimg, two_c;
+};
+
+// Wh[k][c] of batch row b (c < Cc, k < 3E + 3: see above)
+__device__ __forceinline__ uint32_t wh_at(const HArgs& h, int b, int i, int c, int k) {
   const int n0 = h.n * h.cc;
-  const int ntiles = h.cc_pad / 8;
-  const int ks_tap = h.e_pad / 16;
-  for (int nt = warp; nt < ntiles; nt += 8) {
-    const int c = nt * 8 + grp;  // this lane's B column
-    const bool cok = c < h.cc;
-    float acc[MTH][4];
-#pragma unroll
-    for (int mt = 0; mt < MTH; ++mt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][v] = 0.f;
-    for (int j = 0; j < 3; ++j) {
-      const bf16* wj = h.w0 + (size_t)j * h.E * n0 + (size_t)i * h.cc + c;
-      for (int ks = 0; ks < ks_tap; ++ks) {
-        const int e = ks * 16 + 2 * tig;
-        uint32_t bb[2];
-        bb[0] = pack(ldg1(wj + (size_t)e * n0, cok && e < h.E),
-                     ldg1(wj + (size_t)(e + 1) * n0, cok && e + 1 < h.E));
-        bb[1] = pack(ldg1(wj + (size_t)(e + 8) * n0, cok && e + 8 < h.E),
-                     ldg1(wj + (size_t)(e + 9) * n0, cok && e + 9 < h.E));
-#pragma unroll
-        for (int mt = 0; mt < MTH; ++mt) {
-          const FragA fa = load_a(xs + (mt * 16 + grp + j) * ldx + ks * 16 + 2 * tig, ldx);
-          mma(acc[mt], fa.r, bb);
+  const size_t col = (size_t)i * h.cc + c;
+  if (k < 3 * h.E) {
+    const int j = k / h.E;
+    return bits(h.w0[((size_t)j * h.E + (k - j * h.E)) * n0 + col]);
+  }
+  if (k == 3 * h.E) return bits(h.hbias[(size_t)b * h.hbias_bstride + col]);
+  const bf16* edge = k == 3 * h.E + 1 ? h.edge0 : h.edge_t;
+  return edge ? bits(edge[(size_t)b * n0 + col]) : 0u;
+}
+
+// img_h, img_x (when given) and w1t = W1 transposed, (n, 3, 2C, Cc8) with
+// Cc8 = Cc rounded up to 8 and zeros beyond Cc (when given), 8 elements (16
+// bytes) a thread
+__global__ void w_images_kernel(ImageArgs a) {
+  const HArgs& h = a.h;
+  const W0Geo g = w0_geo(h.E, h.n, h.cc);
+  const int n0 = h.n * h.cc;
+  const long long uh = (long long)a.nimg * (long long)(g.h_image / 16);
+  const long long ux = a.img_x ? (long long)(g.x_bytes / 16) : 0;
+  const int cc8 = (h.cc + 7) / 8 * 8;
+  const long long uw = a.w1t ? (long long)h.n * 3 * a.two_c * (cc8 / 8) : 0;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < uh + ux + uw;
+       u += (long long)gridDim.x * blockDim.x) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (u < uh) {
+      const long long per = (long long)kPass * g.kc / 8;  // units a chunk
+      const long long ch = u / per;
+      const int r = (int)(u - ch * per);
+      const int kgs = g.kc / 8;
+      const int nn = r / (kgs * 8) * 8 + r % 8;
+      const int kk0 = (r % (kgs * 8)) / 8 * 8;
+      const int kci = (int)(ch % g.nkc);
+      const int p = (int)((ch / g.nkc) % g.npass);
+      const int i = (int)((ch / ((long long)g.nkc * g.npass)) % h.n);
+      const int b = (int)(ch / ((long long)g.nkc * g.npass * h.n));
+      const int c = p * kPass + nn;
+      for (int v = 0; v < 8; ++v) {
+        const int k = kci * g.kc + kk0 + v;
+        if (c < h.cc && k < 3 * h.E + 3) w[v / 2] |= wh_at(h, b, i, c, k) << (16 * (v & 1));
+      }
+      reinterpret_cast<uint4*>(a.img_h)[u] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if (u < uh + ux) {
+      const long long ux0 = u - uh;
+      const long long ch = ux0 / (kXChunk / 16);
+      const int r = (int)(ux0 - ch * (kXChunk / 16));
+      const int j = r / (2 * kPassSlices * 8);
+      const int cg = (r / 8) % (2 * kPassSlices);
+      const int e = (int)(ch % g.nec) * 8 + r % 8;
+      const int p = (int)((ch / g.nec) % g.npass);
+      const int i = (int)(ch / ((long long)g.nec * g.npass));
+      for (int v = 0; v < 8; ++v) {
+        const int cl = cg * 8 + v;
+        const int c = p * kPass + cl;
+        if (cl < kPass && c < h.cc && e < h.E) {
+          w[v / 2] |= bits(h.w0[((size_t)j * h.E + e) * n0 + (size_t)i * h.cc + c])
+                      << (16 * (v & 1));
         }
       }
-    }
-    const int col = nt * 8 + 2 * tig;
-    float hb[2], ed0[2], edt[2];
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const bool ok = col + v < h.cc;
-      const size_t gcol = (size_t)i * h.cc + col + v;
-      hb[v] = ok ? f32(h.hbias[(size_t)b * h.hbias_bstride + gcol]) : 0.f;
-      ed0[v] = ok && h.edge0 ? f32(h.edge0[(size_t)b * n0 + gcol]) : 0.f;
-      edt[v] = ok && h.edge_t ? f32(h.edge_t[(size_t)b * n0 + gcol]) : 0.f;
-    }
-#pragma unroll
-    for (int mt = 0; mt < MTH; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int q = mt * 16 + grp + 8 * half;
-        if (q >= rows) continue;
-        const int t = t0 - 1 + q;
-        float x[2];
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          x[v] = acc[mt][2 * half + v];
-          if (t >= 0 && t < h.T && col + v < h.cc) {
-            x[v] += hb[v];
-            if (t == 0) x[v] -= ed0[v];
-            if (t == h.T - 1) x[v] -= edt[v];
-            x[v] = x[v] >= 0.f ? x[v] : kSlope * x[v];
-          } else {
-            x[v] = 0.f;
-          }
-        }
-        if (kF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(act) + q * lda + col) =
-              make_float2(x[0], x[1]);
-        } else {
-          store2(static_cast<bf16*>(act) + q * lda + col, x[0], x[1]);
+      reinterpret_cast<uint4*>(a.img_x)[ux0] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      // w1t[i][j][o][c0 .. c0 + 8) = W1[j][c][i 2C + o]
+      const long long uw0 = u - uh - ux;
+      const int c0 = (int)(uw0 % (cc8 / 8)) * 8;
+      const long long row = uw0 / (cc8 / 8);  // (i, j, o)
+      const int o = (int)(row % a.two_c);
+      const int j = (int)((row / a.two_c) % 3);
+      const int i = (int)(row / (3LL * a.two_c));
+      const int n2 = h.n * a.two_c;
+      for (int v = 0; v < 8; ++v) {
+        const int c = c0 + v;
+        if (c < h.cc) {
+          w[v / 2] |= bits(a.w1[((size_t)j * h.cc + c) * n2 + (size_t)i * a.two_c + o])
+                      << (16 * (v & 1));
         }
       }
+      reinterpret_cast<uint4*>(a.w1t)[uw0] = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
 
-}  // namespace bf16mma
+inline cudaError_t launch_images(const ImageArgs& a, cudaStream_t stream) {
+  w_images_kernel<<<264, 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The weights ring, consumer side: two slots of kWSlot bytes, each with a
+// full and an empty barrier (one arrival per consumer warp), taken in the
+// order the producer fills them.
+struct WRing {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int k;
+  __device__ __forceinline__ uint32_t wait() {
+    mbar_wait(&full[k & 1], (uint32_t)((k >> 1) & 1));
+    return smem_u32(slots + (k & 1) * kWSlot);
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[k & 1]);
+    ++k;
+  }
+};
+
+// The producer's side: the next slot, once free, filled with `bytes` from `src`
+__device__ __forceinline__ void wring_put(const WRing& wr, int& k, const void* src,
+                                          uint32_t bytes) {
+  const int s = k & 1;
+  mbar_wait(&wr.empty[s], (uint32_t)(((k >> 1) & 1) ^ 1));
+  mbar_arrive_expect_tx(&wr.full[s], bytes);
+  bulk_load(wr.slots + s * kWSlot, src, bytes, &wr.full[s]);
+  ++k;
+}
+
+// X[u][k] (see above): exc[b][u + j - 1][e] for k = j E + e < 3E (0 outside
+// [0, T)), then 1, -[u == 0], -[u == T-1], then 0
+__device__ __forceinline__ uint32_t x_at(const HArgs& h, int b, int u, int k) {
+  constexpr uint32_t kOne = 0x3F80u, kMinusOne = 0xBF80u;  // bf16 1 and -1
+  if (k < 3 * h.E) {
+    const int j = k / h.E;
+    const int t = u + j - 1;
+    if (t < 0 || t >= h.T) return 0u;
+    return bits(h.exc[((size_t)b * h.T + t) * h.E + (k - j * h.E)]);
+  }
+  if (k == 3 * h.E) return kOne;
+  if (k == 3 * h.E + 1) return u == 0 ? kMinusOne : 0u;
+  if (k == 3 * h.E + 2) return u == h.T - 1 ? kMinusOne : 0u;
+  return 0u;
+}
+
+// The A registers of k-slice k0 of the h product: A[q][k] = X at h row u0 + q
+__device__ __forceinline__ void x_frag(const HArgs& h, uint32_t (&a)[4], int b, int u0,
+                                       const Lane& l, int k0) {
+  const int k = k0 + 2 * l.tig;
+  const int u = u0 + l.row;
+  a[0] = x_at(h, b, u, k) | (x_at(h, b, u, k + 1) << 16);
+  a[1] = x_at(h, b, u + 8, k) | (x_at(h, b, u + 8, k + 1) << 16);
+  a[2] = x_at(h, b, u, k + 8) | (x_at(h, b, u, k + 9) << 16);
+  a[3] = x_at(h, b, u + 8, k + 8) | (x_at(h, b, u + 8, k + 9) << 16);
+}
+
+// The A registers of the h product's first two k-slices, which the
+// warpgroup's rows keep for every block when K = 3E + 3 <= 32 (the
+// decoder's E = 8): `hoisted`
+struct XFrags {
+  uint32_t a[2][4];
+  bool hoisted;
+  __device__ __forceinline__ XFrags(const HArgs& h, const W0Geo& geo, int b, int u0) {
+    const Lane l;
+    hoisted = geo.nkc == 1 && geo.kc <= 32;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (hoisted && 16 * s < geo.kc) {
+        x_frag(h, a[s], b, u0, l, 16 * s);
+      } else {
+        a[s][0] = a[s][1] = a[s][2] = a[s][3] = 0u;
+      }
+    }
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) d[r] = 0.f;
+}
+
+// acc = lrelu(h_i) for the warpgroup's rows u0 + q and the pass's columns
+// c0 + c (c < 136), in the accumulator layout, in f32; 0 outside [0, T) and
+// beyond Cc, and +0 where h is -0, so that the sign of bf16(acc) is the sign
+// of h (the slope of the backward). An M = 64, N = 136, K = 3E + 3 product
+// on wgmma (A: X from registers, B: img_h's chunks from the weights ring).
+// The slope is taken from the f32 h, as the Pallas kernel takes it.
+__device__ __forceinline__ void act_pass(const HArgs& h, float (&acc)[68], WRing& wr,
+                                         const W0Geo& geo, const XFrags& xf, int b, int u0,
+                                         int c0) {
+  const Lane l;
+  zero(acc);
+  for (int kc = 0; kc < geo.nkc; ++kc) {
+    const int k0 = kc * geo.kc;
+    const int slices = geo.kc / 16;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (xf.hoisted && s < 2) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) a[s][v] = xf.a[s][v];
+      } else if (!xf.hoisted && s < slices) {
+        x_frag(h, a[s], b, u0, l, k0 + 16 * s);
+      } else {
+        a[s][0] = a[s][1] = a[s][2] = a[s][3] = 0u;
+      }
+      fence_regs(a[s]);
+    }
+    const uint32_t base = wr.wait();
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < slices) {
+        wgmma_rs_n136(acc, a[s], make_desc(base + 256 * s, 128, geo.kc * 16, kLayoutNone), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    wr.release();
+  }
+#pragma unroll
+  for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int u = u0 + l.row + 8 * (v >> 1);
+      const int c = c0 + nt * 8 + 2 * l.tig + (v & 1);
+      float& x = acc[nt * 4 + v];
+      x = c < h.cc && u >= 0 && u < h.T ? (x >= 0.f ? x + 0.f : kSlope * x) : 0.f;  // -0 + 0 = +0
+    }
+  }
+}
+
+// The ring's stage k: its slot and the parity of the phase to wait for
+struct Ring {
+  int stages;
+  __device__ __forceinline__ int slot(int k) const { return k % stages; }
+  __device__ __forceinline__ uint32_t parity(int k) const { return (uint32_t)((k / stages) & 1); }
+};
+
+// A consumer warp's release of a stage once its products have read it
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+}
+
+}  // namespace bf16chain

@@ -20,46 +20,74 @@
 // f32 and casts at the end. lrelu'(h) is 1 where h >= 0, as the JAX
 // package's leaky_relu VJP.
 //
-// What bounds it on an H100: as K2 (cond_chain_bwd.cu), hundreds of flops
-// per byte at the decoder's shapes, above the ridge of the card's dense bf16
-// tensor-core rate (295 flops per byte): bound by operations.
+// What bounds it on an H100: hundreds of flops per byte at the decoder's
+// shapes, above the ridge of the card's dense bf16 tensor-core rate (295
+// flops per byte): bound by operations; after the products, by the bytes
+// of the a and dh scratch it writes for the weight grads (2 x 2.8 GB at
+// B = 128, T = 8960, n Cc = 1224).
 //
-// What the design does about it: every product is one bf16 mma.sync
-// m16n8k16 (cond_chain_bf16.cuh) with f32 accumulators. As in K2, the work
-// is split into kernels that each own their outputs, and every sum runs in a
-// fixed order (the same result every run, no atomics):
+// What the design does about it: the work is split into kernels that each
+// own their outputs, and every sum runs in a fixed order (the same result
+// every run, no atomics):
 //
-//  (a) k2b_data_kernel, one CTA of 8 warps per (batch row, 126-row time tile;
-//      62 or 30 rows where a wide Cc or E passes a block's shared memory):
-//      stages the tile's excitation rows once; per block i it
-//       - recomputes a32 = lrelu(h_i) for the tile plus a halo row each side
-//         (128 rows), in f32, into shared memory (the slope is taken from
-//         the f32 value, as the Pallas kernel takes it);
-//       - forms da_i (M = 128, N = Cc, K = 3*2C) in passes of 144 channels:
-//         A = g_i's rows and B = W1_i, both read as pairs of bf16 through L1
-//         (g_i's neighbouring output channels, W1_i's as W1 is laid out);
-//       - turns da into dh in place (rounded to bf16, kept as f32 values),
-//         and writes a = bf16(a32) and dh of its own rows to scratch (bf16:
-//         the scratch is 2 x 2.8 GB at B = 128, T = 8960, n*Cc = 1224);
-//       - adds the tile's dexc (M = 128, N = E, K = 3*Cc: A = dh, B = W0_i as
-//         pairs) into an f32 sum over the blocks, rounded to bf16 after the
-//         last block;
-//       - sums dh over its own rows per channel (dhbias) and g_i over its own
-//         rows per channel (db1), in f32.
+//  (a) k2b_data_kernel, one CTA per (batch row, 124-row time tile)
+//      (cond_chain_bf16.cuh: two consumer warpgroups of 64 rows of h each,
+//      a producer warp), every product on wgmma with f32 accumulators in
+//      registers, every operand of them brought by the producer's TMA and
+//      bulk copies through mbarrier rings; per block i and pass of 136
+//      columns of h:
+//       - h_i on wgmma (M = 64, N = 136, K = 3E + 3: exc's taps, the bias
+//         and the edge corrections, A from registers; B a bulk copy of an
+//         image w_images_kernel makes at each launch), lrelu in f32, to
+//         shared memory as bf16 pairs (a);
+//       - da_i on wgmma in the same accumulator layout (M = 64, N = 136,
+//         K = 3 x 2C), both operands fed by TMA into a ring of 3 stages with
+//         full/empty mbarriers: a stage is 64 columns of g_i for one tap at
+//         each warpgroup's rows (the tap window t0 - j + 62 w: a 4-D tensor
+//         map over (2C, n, T, B) whose zero fill outside [0, T) gives the
+//         'same' conv's zero rows at both ends of every batch row, and past
+//         2C the zero columns of a ragged k-slice) and the matching 136 x 64
+//         tile of W1_i (a tensor map over (2C, n, Cc, 3)). The producer
+//         thread runs ahead across taps, passes and blocks, so block i+1's
+//         weights are in flight while block i finishes;
+//       - the slope where(h >= 0, 1, 0.2) is thread-local: each thread
+//         reads back the a it wrote, whose sign (lrelu(-0) = +0) is the
+//         sign of the f32 h, in da's layout; dh = bf16(slope da); no f32 h
+//         or dh buffer in shared memory, and a in shared memory rather than
+//         in registers, which da's accumulators need (ptxas caps the
+//         kernel at 168 registers a thread; spills overflow into L2, as the
+//         shared memory leaves L1 ~28 KB);
+//       - dh to shared memory in bf16; from there the own rows of a and dh
+//         go to the scratch (for (b)) in 16-byte pieces, a warp writing
+//         whole row segments, and dh is summed per column over them
+//         (dhbias, f32 partials per half tile);
+//       - the tile's dexc, an M = 64, N = 8 (E in chunks of 8), K = 3 x 144
+//         product on wgmma with both operands in shared memory (dh, and W0's
+//         image from the weights ring), added to an f32 sum over the blocks
+//         and passes (a scratch the CTA owns), rounded to bf16 after the
+//         last.
+//      The row shift of the dexc conv, route (b): dh lies in shared memory
+//      without swizzle, each 8-column chunk holding all its rows 16 bytes
+//      apart, so that tap j's window (dh one or two rows down) is the same
+//      descriptor 16 or 32 bytes further on.
 //  (b) k2b_wgrad_kernel, split-K weight grads as D = X^T Y(shifted): dW1_i^T
 //      (X = g_i, Y = the a scratch) and dW0^T (X = the dh scratch, Y = exc);
 //      a CTA owns one (group, output tile), all three taps and one chunk of
 //      the B*T rows; it stages 32 rows of X and the 34 rows of Y around them
 //      per stage, double-buffered (16-byte cp.async pieces at the decoder's
 //      widths, element by element through registers elsewhere), and reads
-//      both as transposed fragments with ldmatrix.trans. Rows are indexed with a
-//      zero row between batch rows, so that a tap never pairs two batch
-//      rows. It writes f32 partials.
-//  (c) k2b_reduce_kernel sums the partials over the chunks in order and
-//      rounds once; k2b_edge_kernel gives the edge grads.
+//      both as transposed fragments with ldmatrix.trans for bf16 mma.sync
+//      m16n8k16. Rows are indexed with a zero row between batch rows, so
+//      that a tap never pairs two batch rows. It writes f32 partials.
+//  (c) k2b_colsum_kernel sums g over chunks of rows (db1's partials);
+//      k2b_reduce_kernel sums every kind of partial over its chunks in order
+//      and rounds once; k2b_edge_kernel gives the edge grads.
 //
-// A simple first version: nothing of da's operands is staged in shared
-// memory and there is no wgmma or TMA (later work, PERF.md).
+// Every width goes in passes of 136 columns of h and chunks of 64 columns
+// of g, so the data kernel's shared memory does not grow with Cc or E: one
+// tile for every width. g and W1 need 2C a multiple of 8 (their tensor
+// maps' strides are multiples of 16 bytes): the wrapper pads other widths
+// with zero columns.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (td_vc_gan_tpu_torch/ops/cuda/cond_chain.py does this at first use).
@@ -71,206 +99,278 @@
 
 namespace {
 
-using namespace bf16mma;
+using namespace bf16chain;
 
-constexpr int kThreads = 256;  // data kernel: 8 warps
 constexpr int kWRows = 32;     // weight-grad kernel: rows per stage
-constexpr size_t kSmemMax = 227 * 1024;
 constexpr int kTargetCtas = 4 * 132;  // split-K aims at four CTAs per SM
 
-// The data kernel's shape for R rows of h / dh per CTA (its time tile and a
-// halo row each side): at R = 128 and 64 the warps are 4 (rows) x 2
-// (channels), each owning 72 channels of a pass; at R = 32, 2 x 4, each
-// owning 32.
-template <int R>
-struct DataGeom {
-  static constexpr int kTile = R - 2;           // the CTA's own rows
-  static constexpr int kWNShift = R >= 64 ? 1 : 2;
-  static constexpr int kWN = 1 << kWNShift;     // warps along da's channels
-  static constexpr int kWM = 8 / kWN;           // warps along its rows
-  static constexpr int kMT = R / (16 * kWM);    // m-tiles (16 rows) per warp
-  static constexpr int kDaNT = R >= 64 ? 9 : 4;  // 8-channel n-tiles of da per warp and pass
-  static constexpr int kDaCols = kWN * kDaNT * 8;
-  static_assert(kMT >= 1 && kMT * 16 * kWM == R, "warps must cover the rows");
-};
-constexpr int kDataRows[] = {128, 64, 32};
+// The data kernel's shared memory: a ring of kStages stages of (64 rows of g
+// for each consumer warpgroup, 136 rows of W1), each 128-byte swizzled rows
+// of 64 columns; the weights ring (two slots); per warpgroup dh (19 chunks
+// of 8 columns x 64 rows x 16 bytes: the pass's 144 columns and a zero
+// chunk, which the last tap's window reads two rows into), a in the same
+// layout (17 chunks) and a reduction buffer; the barriers.
+constexpr int kStages = 3;
+constexpr int kGBytes = kRows * 128;     // 8192
+constexpr int kW1Bytes = kPass * 128;    // 17408
+constexpr int kStageBytes = 2 * kGBytes + kW1Bytes;
+constexpr int kDhChunk = kRows * 16;     // 1024: the LBO of the dh operand
+constexpr int kDhBytes = (2 * kPassSlices + 1) * kDhChunk;
+constexpr int kABytes = (kPass / 8) * kDhChunk;
+constexpr int kRowGroups = 7;            // copy-out: 7 x 17 threads of 8 columns
+constexpr int kRedBytes = kRowGroups * kPass * 4;
+constexpr int kW0xTap = 2 * kPassSlices * 128;  // 2304: one tap of an img_x chunk
+constexpr size_t kDataSmem = (size_t)kStages * kStageBytes + 2 * kWSlot +
+                             2 * (size_t)(kDhBytes + kABytes + kRedBytes) +
+                             16 * (kStages + 2) + 1024;
+static_assert(kDataSmem <= kSmemMax, "K2-bf16's data kernel's shared memory");
 
 struct DataArgs {
   HArgs h;
-  const bf16* w1;    // (3, Cc, n*2C)
-  const bf16* g;     // (B, T, n*2C)
-  bf16* a_out;       // (B, T, n*Cc) scratch: bf16(lrelu(h))
-  bf16* dh_out;      // (B, T, n*Cc) scratch: dh
-  float* dexc_acc;   // (B, T, E) scratch: dexc summed over the blocks so far
-  bf16* dexc;        // (B, T, E)
-  float* phb;        // (B, ntiles, n*Cc) partial sums of dh
-  float* pb1;        // (B, ntiles, n*2C) partial sums of g
-  int two_c, ntiles;
-  int lda, ldx;      // shared-memory row strides: f32 buffer (floats), exc (bf16)
+  const bf16* img_h;   // cond_0's weights as h's B (cond_chain_bf16.cuh), per batch row
+  const bf16* img_x;   // ... and as dexc's B
+  bf16* a_out;         // (B, T, n*Cc) scratch: bf16(lrelu(h))
+  bf16* dh_out;        // (B, T, n*Cc) scratch: dh
+  float* dexc_acc;     // (B, T, E) scratch: dexc summed over the blocks and passes so far
+  bf16* dexc;          // (B, T, E)
+  float* phb;          // (B, 2 ntiles, n*Cc) partial sums of dh per half tile
+  int two_c, noc, ntiles;
+  W0Geo geo;
+  CUtensorMap g_map;   // g as (o: 2C, i: n, t: T, b: B), box (64, 1, 64, 1)
+  CUtensorMap w1_map;  // w1 as (o: 2C, i: n, c: Cc, j: 3), box (64, 1, 136, 1)
 };
 
-// sum over r < kTile of p[(r0 + r) * ld], by one warp, in a fixed order; the
-// result in every lane
-template <int kTile>
-__device__ __forceinline__ float own_rows_sum(const float* p, int ld, int r0) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int r = lane; r < kTile; r += 32) s += p[(r0 + r) * ld];
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  return s;
-}
+__global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_constant__ DataArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* ring = smem;
+  unsigned char* wslots = ring + kStages * kStageBytes;
+  unsigned char* dhs_all = wslots + 2 * kWSlot;
+  unsigned char* as_all = dhs_all + 2 * kDhBytes;
+  float* red_all = reinterpret_cast<float*>(as_all + 2 * kABytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red_all + 2 * kRedBytes / 4);
+  uint64_t* empty = full + kStages;
+  uint64_t* wfull = empty + kStages;
+  uint64_t* wempty = wfull + 2;
 
-// two CTAs an SM: at most 128 registers a thread
-template <int R>
-__global__ void __launch_bounds__(kThreads, 2) k2b_data_kernel(DataArgs a) {
-  using Geo = DataGeom<R>;
-  constexpr int kTile = Geo::kTile;
-  constexpr int kMT = Geo::kMT;
-  constexpr int kDaNT = Geo::kDaNT;
-  constexpr int kDaCols = Geo::kDaCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const HArgs& h = a.h;
-  float* buf = reinterpret_cast<float*>(smem_raw);                 // [R + 2][lda]: a32, then dh
-  bf16* xs = reinterpret_cast<bf16*>(buf + (R + 2) * a.lda);       // [R + 2][ldx]: exc rows t0-2 ..
-  float2* red = reinterpret_cast<float2*>(
-      smem_raw + (((size_t)(R + 2) * a.lda * 4 + (size_t)(R + 2) * a.ldx * 2 + 15) / 16 * 16));
-
+  const W0Geo& geo = a.geo;
   const int b = blockIdx.y;
   const int tix = blockIdx.x;
   const int t0 = tix * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  const int wm = warp >> Geo::kWNShift;
-  const int wn = warp & (Geo::kWN - 1);
-  const int n0 = h.n * h.cc;
-  const int n2 = h.n * a.two_c;
-  const int npass = (h.cc + kDaCols - 1) / kDaCols;
-  const int ks_o = (a.two_c + 15) / 16;
-  const int ks_c = h.cc_pad / 16;
-  const int etiles = (h.E + 7) / 8;
+  const int warp = threadIdx.x >> 5;
+  const Ring rg{kStages};
 
-  stage_exc(h, xs, a.ldx, R + 2, b, t0);
-  // rows R, R+1 of buf stay zero: the dexc product's last m-tile reads them
-  for (int idx = tid; idx < 2 * a.lda; idx += kThreads) buf[R * a.lda + idx] = 0.f;
-
-  for (int i = 0; i < h.n; ++i) {
-    const bf16* g_i = a.g + (size_t)b * h.T * n2 + i * a.two_c;
-    __syncthreads();  // xs staged; the previous block's buf fully read
-    recompute_act<R / 16, true>(h, xs, a.ldx, buf, a.lda, R, b, t0, i);
-    __syncthreads();
-
-    // da[q][c] = sum_j sum_o g[t0 + q - j][o] W1_i[j][c][o] for h row t0 - 1 + q
-    for (int ps = 0; ps < npass; ++ps) {
-      const int cp0 = ps * kDaCols;
-      float acc[kMT][kDaNT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kDaNT; ++nt)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-      for (int j = 0; j < 3; ++j) {
-        for (int ks = 0; ks < ks_o; ++ks) {
-          const int o = ks * 16 + 2 * tig;  // this lane's k (output channel) pairs
-          FragA fa[kMT];
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              const int t = t0 + wm * 16 * kMT + mt * 16 + grp + 8 * (v & 1) - j;
-              const int oo = o + 8 * (v >> 1);
-              fa[mt].r[v] = (t >= 0 && t < h.T && oo < a.two_c)
-                                ? ldg2(g_i + (size_t)t * n2 + oo) : 0u;
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < kDaNT; ++nt) {
-            const int c = cp0 + wn * kDaNT * 8 + nt * 8 + grp;  // this lane's B column
-            const bool cok = c < h.cc;
-            const bf16* wp = a.w1 + ((size_t)j * h.cc + c) * n2 + i * a.two_c;
-            uint32_t bb[2];
-            bb[0] = cok && o < a.two_c ? ldg2(wp + o) : 0u;
-            bb[1] = cok && o + 8 < a.two_c ? ldg2(wp + o + 8) : 0u;
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma(acc[mt][nt], fa[mt].r, bb);
-          }
-        }
-      }
-
-      // dh = bf16(lrelu'(h) da) in place (each element read and written by its
-      // owner only); a and dh of the tile's own rows to scratch
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < kDaNT; ++nt) {
-          const int c = cp0 + wn * kDaNT * 8 + nt * 8 + 2 * tig;
-          if (c >= h.cc) continue;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int q = wm * 16 * kMT + mt * 16 + grp + 8 * half;
-            const int u = t0 - 1 + q;
-            const bool valid = u >= 0 && u < h.T;
-            float* slot = buf + q * a.lda + c;
-            const float a0 = slot[0];
-            const float a1 = slot[1];
-            const float da0 = acc[mt][nt][2 * half];
-            const float da1 = acc[mt][nt][2 * half + 1];
-            const float d0 = valid ? round_bf16(a0 >= 0.f ? da0 : kSlope * da0) : 0.f;
-            const float d1 = valid ? round_bf16(a1 >= 0.f ? da1 : kSlope * da1) : 0.f;
-            slot[0] = d0;
-            slot[1] = d1;
-            if (valid && q >= 1 && q <= kTile) {
-              const size_t off = ((size_t)b * h.T + u) * n0 + i * h.cc + c;
-              store2(a.a_out + off, a0, a1);
-              store2(a.dh_out + off, d0, d1);
-            }
-          }
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    __syncthreads();
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  // dh's columns 136..143, and the chunk after them, stay zero
+  for (int idx = threadIdx.x; idx < 2 * kDhBytes / 16; idx += kThreads) {
+    reinterpret_cast<uint4*>(dhs_all)[idx] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
 
-    // dexc[t0 + r] += sum_j sum_c dh[t0 + r - j + 1][c] W0[j][e][i*Cc + c]: buf row r + 2 - j
-    for (int item = warp; item < (R / 16) * etiles; item += kThreads / 32) {
-      const int mt = item / etiles;
-      const int et = item - mt * etiles;
-      const int e = et * 8 + grp;  // this lane's B column
-      const bool eok = e < h.E;
-      float dj[3][4];
+  if (warp == 8) {
+    // the producer, per block i and pass p: h's weights, then (tap j, chunk
+    // oc of g's 2C columns) stages, then dexc's weights, in the order the
+    // consumers take them
+    if (threadIdx.x == 256) {
+      prefetch_map(&a.g_map);
+      prefetch_map(&a.w1_map);
+      const unsigned char* img_h = reinterpret_cast<const unsigned char*>(a.img_h) +
+                                   (h.hbias_bstride ? (size_t)b * geo.h_image : 0);
+      const WRing pw{wslots, wfull, wempty, 0};
+      int k = 0, wk = 0;
+      for (int i = 0; i < h.n; ++i)
+        for (int p = 0; p < geo.npass; ++p) {
+          const size_t unit = (size_t)i * geo.npass + p;
+          for (int kc = 0; kc < geo.nkc; ++kc) {
+            wring_put(pw, wk, img_h + (unit * geo.nkc + kc) * geo.h_chunk,
+                      (uint32_t)geo.h_chunk);
+          }
+          for (int j = 0; j < 3; ++j)
+            for (int oc = 0; oc < a.noc; ++oc, ++k) {
+              const int s = rg.slot(k);
+              unsigned char* st = ring + s * kStageBytes;
+              mbar_wait(&empty[s], rg.parity(k) ^ 1);
+              mbar_arrive_expect_tx(&full[s], kStageBytes);
+              // warpgroup w's A row q is h row t0 + 62 w - 1 + q: tap j reads g row t0 + 62 w - j + q
+              tma_load_4d(st, &a.g_map, &full[s], oc * 64, i, t0 - j, b);
+              tma_load_4d(st + kGBytes, &a.g_map, &full[s], oc * 64, i, t0 + kOwn - j, b);
+              tma_load_4d(st + 2 * kGBytes, &a.w1_map, &full[s], oc * 64, i, p * kPass, j);
+            }
+          for (int ec = 0; ec < geo.nec; ++ec) {
+            wring_put(pw, wk,
+                      reinterpret_cast<const unsigned char*>(a.img_x) +
+                          (unit * geo.nec + ec) * kXChunk,
+                      (uint32_t)kXChunk);
+          }
+        }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int bar = 1 + wg;
+  const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
+  const int u0 = tb - 1;          // its h row q = 0
+  const Lane l;
+  unsigned char* dhs = dhs_all + wg * kDhBytes;
+  unsigned char* as = as_all + wg * kABytes;
+  float* red = red_all + wg * (kRedBytes / 4);
+  const uint32_t dhs_u = smem_u32(dhs);
+  const int n0 = h.n * h.cc;
+  const bool vec16 = h.cc % 8 == 0;  // scratch rows and block offsets 16-byte aligned
+  const int half_tile = 2 * tix + wg;
+  const XFrags xf(h, geo, b, u0);
+  WRing wr{wslots, wfull, wempty, 0};
+
+  float dd[68];  // h, then da, then dh
+  int k = 0;
+  for (int i = 0; i < h.n; ++i) {
+    for (int p = 0; p < geo.npass; ++p) {
+      const int c0 = p * kPass;
+      // a = bf16(lrelu(h)) to shared memory (chunk c / 8, row q), where the
+      // slope step reads its sign (h's) back and the copy-out its values
+      act_pass(h, dd, wr, geo, xf, b, u0, c0);
+      bar_sync(bar, 128);  // the last unit's reads of dhs and as are done
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
+      for (int nt = 0; nt < kPass / 8; ++nt) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) dj[j][v] = 0.f;
-      for (int ks = 0; ks < ks_c; ++ks) {
-        const int c = ks * 16 + 2 * tig;
+        for (int half = 0; half < 2; ++half) {
+          const int v = nt * 4 + 2 * half;
+          *reinterpret_cast<uint32_t*>(as + nt * kDhChunk + (l.row + 8 * half) * 16 +
+                                       4 * l.tig) = pack_rn(dd[v], dd[v + 1]);
+        }
+      }
+
+      // da[q][c] = sum_j sum_o g[u0 + q - j + 1][o] W1_i[j][c][o]
+      zero(dd);
+      int prev = -1;
+      for (int j = 0; j < 3; ++j) {
+        for (int oc = 0; oc < a.noc; ++oc, ++k) {
+          const int s = rg.slot(k);
+          const int slices = (min(64, a.two_c - oc * 64) + 15) / 16;
+          mbar_wait(&full[s], rg.parity(k));
+          const uint32_t gbase = smem_u32(ring + s * kStageBytes + wg * kGBytes);
+          const uint32_t wbase = smem_u32(ring + s * kStageBytes + 2 * kGBytes);
+          wgmma_fence();
+          for (int sl = 0; sl < slices; ++sl) {
+            wgmma_ss_n136(dd, desc_sw128(gbase + 32 * sl), desc_sw128(wbase + 32 * sl), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (prev >= 0) release(&empty[prev]);
+          prev = s;
+        }
+      }
+      wgmma_wait<0>();
+      release(&empty[prev]);
+      fence_regs(dd);
+
+      // dh = bf16(lrelu'(h) da), zero outside [0, T), to shared memory
+#pragma unroll
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = l.row + 8 * half;
+          const int u = u0 + q;
+          const bool valid = u >= 0 && u < h.T;
+          const int v = nt * 4 + 2 * half;
+          const int off = nt * kDhChunk + q * 16 + 4 * l.tig;
+          const uint32_t av = *reinterpret_cast<const uint32_t*>(as + off);
+          const float d0 = valid ? round_bf16(av & 0x8000u ? kSlope * dd[v] : dd[v]) : 0.f;
+          const float d1 =
+              valid ? round_bf16(av & 0x80000000u ? kSlope * dd[v + 1] : dd[v + 1]) : 0.f;
+          *reinterpret_cast<uint32_t*>(dhs + off) = pack_rn(d0, d1);
+        }
+      }
+      fence_proxy_async();
+      bar_sync(bar, 128);
+
+      // a and dh of the own rows (q = 1 .. 62) to the scratch, 8 columns a
+      // thread and row; dh of its rows summed per column in the same pass
+      // (thread (rg, ch): rows 1 + rg, 8 + rg, ...), then over the 7 row
+      // groups in order (dhbias)
+      if (l.wt < kRowGroups * (kPass / 8)) {
+        const int rgp = l.wt / (kPass / 8);
+        const int ch = l.wt % (kPass / 8);
+        const int c = c0 + ch * 8;
+        float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int q = 1 + rgp; q <= kOwn && u0 + q < h.T; q += kRowGroups) {
+          const uint4 dv = *reinterpret_cast<const uint4*>(dhs + ch * kDhChunk + q * 16);
+          const uint4 av = *reinterpret_cast<const uint4*>(as + ch * kDhChunk + q * 16);
+          const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            cs[e] += __uint_as_float((e & 1 ? dw[e / 2] >> 16 : dw[e / 2] & 0xFFFFu) << 16);
+          }
+          if (c < h.cc) {
+            const size_t off = ((size_t)b * h.T + u0 + q) * n0 + (size_t)i * h.cc + c;
+            if (vec16) {
+              *reinterpret_cast<uint4*>(a.a_out + off) = av;
+              *reinterpret_cast<uint4*>(a.dh_out + off) = dv;
+            } else {  // Cc a multiple of 4: 8-byte pieces
+              *reinterpret_cast<uint2*>(a.a_out + off) = make_uint2(av.x, av.y);
+              *reinterpret_cast<uint2*>(a.dh_out + off) = make_uint2(dv.x, dv.y);
+              if (c + 4 < h.cc) {
+                *reinterpret_cast<uint2*>(a.a_out + off + 4) = make_uint2(av.z, av.w);
+                *reinterpret_cast<uint2*>(a.dh_out + off + 4) = make_uint2(dv.z, dv.w);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[rgp * kPass + ch * 8 + e] = cs[e];
+      }
+      bar_sync(bar, 128);
+      for (int cl = l.wt; cl < kPass; cl += 128) {
+        if (c0 + cl >= h.cc) continue;
+        float s = 0.f;
+        for (int r = 0; r < kRowGroups; ++r) s += red[r * kPass + cl];
+        a.phb[((size_t)b * 2 * a.ntiles + half_tile) * n0 + (size_t)i * h.cc + c0 + cl] = s;
+      }
+
+      // dexc[tb + r] += sum_j sum_c dh[q = r + 2 - j][c] W0[j][e][i Cc + c]
+      const bool first = i == 0 && p == 0;
+      const bool last = i == h.n - 1 && p == geo.npass - 1;
+      for (int ec = 0; ec < geo.nec; ++ec) {
+        float dx[4];
+        zero(dx);
+        const uint32_t xbase = wr.wait();
+        wgmma_fence();
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const FragA fa = load_a_f32(buf + (mt * 16 + grp + 2 - j) * a.lda + c, a.lda);
-          const bf16* wp = h.w0 + ((size_t)j * h.E + e) * n0 + (size_t)i * h.cc;
-          uint32_t bb[2];
-          bb[0] = eok && c < h.cc ? ldg2(wp + c) : 0u;
-          bb[1] = eok && c + 8 < h.cc ? ldg2(wp + c + 8) : 0u;
-          mma(dj[j], fa.r, bb);
+#pragma unroll
+          for (int sl = 0; sl < kPassSlices; ++sl) {
+            wgmma_ss_n8(dx,
+                        make_desc(dhs_u + 2 * sl * kDhChunk + (2 - j) * 16, kDhChunk, 128,
+                                  kLayoutNone),
+                        make_desc(xbase + j * kW0xTap + 256 * sl, 128, 256, kLayoutNone), 1);
+          }
         }
-      }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dx);
+        wr.release();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt * 16 + grp + 8 * half;
-        const int t = t0 + r;
-        if (r >= kTile || t >= h.T) continue;
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int ec = et * 8 + 2 * tig + u;
-          if (ec >= h.E) continue;
-          const int v = 2 * half + u;
-          const size_t idx = ((size_t)b * h.T + t) * h.E + ec;
-          float d = (dj[0][v] + dj[1][v]) + dj[2][v];
-          if (i > 0) d += a.dexc_acc[idx];
-          if (i == h.n - 1) {
+        for (int v = 0; v < 4; ++v) {
+          const int r = l.row + 8 * (v >> 1);
+          const int t = tb + r;
+          const int e = ec * 8 + 2 * l.tig + (v & 1);
+          if (r >= kOwn || t >= h.T || e >= h.E) continue;
+          const size_t idx = ((size_t)b * h.T + t) * h.E + e;
+          const float d = first ? dx[v] : a.dexc_acc[idx] + dx[v];
+          if (last) {
             a.dexc[idx] = __float2bfloat16_rn(d);
           } else {
             a.dexc_acc[idx] = d;
@@ -278,43 +378,37 @@ __global__ void __launch_bounds__(kThreads, 2) k2b_data_kernel(DataArgs a) {
         }
       }
     }
-    // dh of the tile's own rows (buf rows 1 .. kTile) summed per channel, for dhbias
-    for (int c = warp; c < h.cc; c += kThreads / 32) {
-      const float s = own_rows_sum<kTile>(buf + c, a.lda, 1);
-      if (lane == 0) a.phb[((size_t)b * a.ntiles + tix) * n0 + i * h.cc + c] = s;
-    }
-    // g_i of the tile's own rows summed per channel, for db1: each thread sums
-    // a channel pair over every s-th row, then the s partials in order
-    const int P = a.two_c / 2;
-    for (int p0 = 0; p0 < P; p0 += kThreads) {
-      const int np = min(P - p0, kThreads);
-      const int S = kThreads / np;
-      const int p = p0 + tid % np;
-      const int part = tid / np;
-      float2 s = make_float2(0.f, 0.f);
-      if (part < S) {
-        for (int r = part; r < kTile && t0 + r < h.T; r += S) {
-          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-              g_i + (size_t)(t0 + r) * n2 + 2 * p);
-          s.x += __low2float(v);
-          s.y += __high2float(v);
-        }
-      }
-      red[tid] = s;
-      __syncthreads();
-      if (tid < np) {
-        float2 tot = make_float2(0.f, 0.f);
-        for (int k = 0; k < S; ++k) {
-          tot.x += red[k * np + tid].x;
-          tot.y += red[k * np + tid].y;
-        }
-        float* dst = a.pb1 + ((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + 2 * (p0 + tid);
-        dst[0] = tot.x;
-        dst[1] = tot.y;
-      }
-      __syncthreads();
-    }
   }
+}
+
+// part[s][2m .. 2m+1] = sum of g's rows [s rows, (s + 1) rows) in columns
+// 2m, 2m + 1, in order (db1's partials)
+__global__ void k2b_colsum_kernel(const bf16* g, float* part, long long nrows, int rows,
+                                  int cols) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.y;
+  if (2 * m >= cols) return;
+  float2 acc = make_float2(0.f, 0.f);
+  const long long end = min(nrows, (long long)(s + 1) * rows);
+  for (long long r = (long long)s * rows; r < end; ++r) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(g + r * cols + 2 * m);
+    acc.x += __low2float(v);
+    acc.y += __high2float(v);
+  }
+  *reinterpret_cast<float2*>(part + (size_t)s * cols + 2 * m) = acc;
+}
+
+// d += a * b on one m16n8k16 bf16 tile (mma.sync; the weight-grad kernel's
+// product). A (16 x 16, row-major): a0 = A[grp][2tig, 2tig+1], a1 = A[grp+8][..],
+// a2 = A[grp][2tig+8, +9], a3 = A[grp+8][2tig+8, +9]; B (16 x 8, k-major):
+// b0 = B[2tig, 2tig+1][grp], b1 = B[2tig+8, +9][grp]; D as wgmma's n8 chunk.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 struct WgradArgs {
@@ -593,57 +687,50 @@ size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 // the kernels do not take. Offsets are in bytes of the workspace.
 struct Plan {
   bool ok;
-  int rows, ntiles, lda, ldx;
-  size_t smem;
+  int noc, ntiles, gchunks, grows;  // grows: rows of g per db1 partial
+  W0Geo geo;
   Wgrad w1, w0;
-  size_t off_a, off_dh, off_dexc, off_phb, off_pb1, off_pw1, off_pw0, total;
+  size_t off_a, off_dh, off_dexc, off_phb, off_pb1, off_pw1, off_pw0, off_imh, off_imx, total;
 };
 
 Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   Plan p{};
   p.ok = false;
   if (B <= 0 || B > 65535 || T <= 0 || E <= 0 || n <= 0 || cc <= 0 || two_c <= 0 ||
-      cc % 4 || two_c % 4 || (long long)B * (T + 1) > (1LL << 30)) {
+      cc % 4 || two_c % 8 || (long long)B * (T + 1) > (1LL << 30)) {
     return p;
   }
-  const int cc_pad = (cc + 15) / 16 * 16, e_pad = (E + 15) / 16 * 16;
-  p.lda = (cc_pad + 31) / 32 * 32 + 8;  // floats: float2 fragment loads free of conflicts
-  p.ldx = a_stride(e_pad);
-  p.rows = 0;
-  for (int r : kDataRows) {  // the largest tile whose shared memory fits
-    p.smem = ((size_t)(r + 2) * p.lda * 4 + (size_t)(r + 2) * p.ldx * 2 + 15) / 16 * 16 +
-             kThreads * sizeof(float2);
-    if (p.smem <= kSmemMax) {
-      p.rows = r;
-      break;
-    }
-  }
-  if (p.rows == 0) return p;
-  p.ntiles = (T + p.rows - 3) / (p.rows - 2);
+  p.geo = w0_geo(E, n, cc);
+  p.noc = (two_c + 63) / 64;
+  p.ntiles = (T + kTile - 1) / kTile;
   const size_t R = (size_t)B * T;
+  p.grows = (int)((R + 2 * 132 - 1) / (2 * 132));
+  p.gchunks = (int)((R + p.grows - 1) / p.grows);
   const size_t n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.w1 = wgrad_plan(two_c, cc, n, B, T);
   p.w0 = wgrad_plan((int)n0, E, 1, B, T);
   if (p.w1.smem > kSmemMax || p.w0.smem > kSmemMax) return p;
+  const size_t halves = (size_t)B * 2 * p.ntiles;
   p.off_a = 0;
   p.off_dh = align256(p.off_a + R * n0 * 2);
   p.off_dexc = align256(p.off_dh + R * n0 * 2);
-  p.off_phb = align256(p.off_dexc + (n > 1 ? R * E * 4 : 0));
-  p.off_pb1 = align256(p.off_phb + (size_t)B * p.ntiles * n0 * 4);
-  p.off_pw1 = align256(p.off_pb1 + (size_t)B * p.ntiles * n2 * 4);
+  p.off_phb = align256(p.off_dexc + ((size_t)n * p.geo.npass > 1 ? R * E * 4 : 0));
+  p.off_pb1 = align256(p.off_phb + halves * n0 * 4);
+  p.off_pw1 = align256(p.off_pb1 + (size_t)p.gchunks * n2 * 4);
   p.off_pw0 = align256(p.off_pw1 + (size_t)p.w1.S * 3 * cc * n2 * 4);
-  p.total = align256(p.off_pw0 + (size_t)p.w0.S * 3 * E * n0 * 4);
+  p.off_imh = align256(p.off_pw0 + (size_t)p.w0.S * 3 * E * n0 * 4);
+  p.off_imx = align256(p.off_imh + (size_t)B * p.geo.h_image);
+  p.total = align256(p.off_imx + p.geo.x_bytes);
   p.ok = true;
   return p;
 }
 
-template <int R>
 cudaError_t launch_data(const DataArgs& d, const Plan& p, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(k2b_data_kernel<R>,
+  cudaError_t e = cudaFuncSetAttribute(k2b_data_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)p.smem);
+                                       (int)kDataSmem);
   if (e != cudaSuccess) return e;
-  k2b_data_kernel<R><<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, p.smem, stream>>>(d);
+  k2b_data_kernel<<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, kDataSmem, stream>>>(d);
   return cudaGetLastError();
 }
 
@@ -704,11 +791,11 @@ cudaError_t launch_edge(const bf16* dh, bf16* out, long long len, int outer, lon
 
 }  // namespace
 
-// The rows of h / dh per data-kernel CTA at these widths (128, 64 or 32), or
-// 0 for shapes the kernels do not take.
+// The rows of the data kernel's time tile at these widths (124: every width
+// goes in passes of 136 columns), or 0 for shapes the kernels do not take.
 extern "C" int cond_chain_bwd_bf16_rows(int B, int T, int E, int n, int cc, int two_c) {
   const Plan p = make_plan(B, T, E, n, cc, two_c);
-  return p.ok ? p.rows : 0;
+  return p.ok ? kTile : 0;
 }
 
 // Bytes of device scratch cond_chain_bwd_bf16 needs for these shapes (0 for
@@ -720,10 +807,12 @@ extern "C" long long cond_chain_bwd_bf16_workspace(int B, int T, int E, int n, i
 }
 
 // Launches K2-bf16's kernels on `stream` and returns the first CUDA error (0
-// on success); shapes the kernels do not take, or too little workspace, give
-// cudaErrorInvalidValue. Every tensor is bf16; w1 is in its own (3, Cc,
-// n*2C) layout. dhbias is (B, n*Cc), or (n*Cc) when hbias_bstride is 0;
-// dedge0/dedge_t are written when edge0 is given.
+// on success); shapes the kernels do not take (2C not a multiple of 8, Cc
+// not a multiple of 4), too little workspace, g or w1 not 16-byte aligned,
+// or a tensor map cuTensorMapEncodeTiled refuses give cudaErrorInvalidValue. Every
+// tensor is bf16; w1 is in its own (3, Cc, n*2C) layout. dhbias is (B,
+// n*Cc), or (n*Cc) when hbias_bstride is 0; dedge0/dedge_t are written when
+// edge0 is given.
 extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* hbias,
                                    long long hbias_bstride, const void* edge0,
                                    const void* edge_t, const void* w1, const void* g,
@@ -732,7 +821,8 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
                                    long long ws_bytes, int B, int T, int E, int n, int cc,
                                    int two_c, void* stream_ptr) {
   const Plan p = make_plan(B, T, E, n, cc, two_c);
-  if (!p.ok || ws_bytes < (long long)p.total || (edge0 == nullptr) != (dedge0 == nullptr)) {
+  if (!p.ok || ws_bytes < (long long)p.total || (edge0 == nullptr) != (dedge0 == nullptr) ||
+      (uintptr_t)w1 % 16 || (uintptr_t)g % 16) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -757,44 +847,58 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   d.h.E = E;
   d.h.n = n;
   d.h.cc = cc;
-  d.h.e_pad = (E + 15) / 16 * 16;
-  d.h.cc_pad = (cc + 15) / 16 * 16;
-  d.w1 = static_cast<const bf16*>(w1);
-  d.g = static_cast<const bf16*>(g);
+  d.img_h = reinterpret_cast<const bf16*>(wsb + p.off_imh);
+  d.img_x = reinterpret_cast<const bf16*>(wsb + p.off_imx);
   d.a_out = a_s;
   d.dh_out = dh_s;
   d.dexc_acc = reinterpret_cast<float*>(wsb + p.off_dexc);
   d.dexc = static_cast<bf16*>(dexc);
   d.phb = phb;
-  d.pb1 = pb1;
   d.two_c = two_c;
+  d.noc = p.noc;
   d.ntiles = p.ntiles;
-  d.lda = p.lda;
-  d.ldx = p.ldx;
-  cudaError_t e = p.rows == 128 ? launch_data<128>(d, p, B, stream)
-                  : p.rows == 64 ? launch_data<64>(d, p, B, stream)
-                                 : launch_data<32>(d, p, B, stream);
+  d.geo = p.geo;
+  const bf16* gp = static_cast<const bf16*>(g);
+  const cuuint64_t o = (cuuint64_t)two_c, nn = (cuuint64_t)n;
+  const cuuint64_t g_dims[4] = {o, nn, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t g_strides[3] = {o * 2, o * 2 * nn, o * 2 * nn * T};
+  const cuuint32_t g_box[4] = {64, 1, (cuuint32_t)kRows, 1};
+  const cuuint64_t w_dims[4] = {o, nn, (cuuint64_t)cc, 3};
+  const cuuint64_t w_strides[3] = {o * 2, o * 2 * nn, o * 2 * nn * cc};
+  const cuuint32_t w_box[4] = {64, 1, (cuuint32_t)kPass, 1};
+  if (!make_map(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
+      !make_map(&d.w1_map, w1, 4, w_dims, w_strides, w_box)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ImageArgs im{d.h, nullptr, reinterpret_cast<bf16*>(wsb + p.off_imh),
+               reinterpret_cast<bf16*>(wsb + p.off_imx), nullptr, hbias_bstride ? B : 1, two_c};
+  cudaError_t e = launch_images(im, stream);
   if (e != cudaSuccess) return (int)e;
+  if ((e = launch_data(d, p, B, stream)) != cudaSuccess) return (int)e;
+  k2b_colsum_kernel<<<dim3((unsigned)((n2 / 2 + 127) / 128), (unsigned)p.gchunks), 128, 0,
+                      stream>>>(gp, pb1, (long long)B * T, p.grows, n2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // dW1^T from g and a (shifted); dW0^T from dh and exc (shifted)
-  if ((e = launch_wgrad(p.w1, d.g, n2, two_c, two_c, a_s, n0, cc, cc, n, B, T, pw1,
+  if ((e = launch_wgrad(p.w1, gp, n2, two_c, two_c, a_s, n0, cc, cc, n, B, T, pw1,
                         stream)) != cudaSuccess) return (int)e;
   if ((e = launch_wgrad(p.w0, dh_s, n0, 0, n0, d.h.exc, E, 0, E, 1, B, T, pw0,
                         stream)) != cudaSuccess) return (int)e;
 
   const long long len1 = 3LL * cc * n2;
   const long long len0 = 3LL * E * n0;
+  const int halves = 2 * p.ntiles;
   if ((e = launch_reduce(pw1, static_cast<bf16*>(dw1), len1, 1, p.w1.S, len1, 0, stream)) !=
       cudaSuccess) return (int)e;
   if ((e = launch_reduce(pw0, static_cast<bf16*>(dw0), len0, 1, p.w0.S, len0, 0, stream)) !=
       cudaSuccess) return (int)e;
-  if ((e = launch_reduce(pb1, static_cast<bf16*>(db1), n2, 1, B * p.ntiles, n2, 0, stream)) !=
+  if ((e = launch_reduce(pb1, static_cast<bf16*>(db1), n2, 1, p.gchunks, n2, 0, stream)) !=
       cudaSuccess) return (int)e;
   if (hbias_bstride) {
-    e = launch_reduce(phb, static_cast<bf16*>(dhbias), n0, B, p.ntiles, n0,
-                      (long long)p.ntiles * n0, stream);
+    e = launch_reduce(phb, static_cast<bf16*>(dhbias), n0, B, halves, n0,
+                      (long long)halves * n0, stream);
   } else {
-    e = launch_reduce(phb, static_cast<bf16*>(dhbias), n0, 1, B * p.ntiles, n0, 0, stream);
+    e = launch_reduce(phb, static_cast<bf16*>(dhbias), n0, 1, B * halves, n0, 0, stream);
   }
   if (e != cudaSuccess) return (int)e;
   if (edge0) {

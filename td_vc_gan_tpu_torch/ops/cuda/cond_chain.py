@@ -30,13 +30,18 @@ channels-last, as in the JAX package: ``exc (B, T, E)``, ``w0 (3, E, n*Cc)``,
 
 The operands are all float32 or all bfloat16 (the JAX package's bf16
 compute scope). bfloat16 operands take the kernels' bf16 instances, K1-bf16
-(``csrc/cond_chain_bf16.cu``) and K2-bf16 (``csrc/cond_chain_bwd_bf16.cu``),
-one bf16 ``mma.sync`` product each with f32 accumulation
-(``csrc/cond_chain_bf16.cuh``), and round where the Pallas kernels round
-their bf16 instance: lrelu(h) once before the second product, the output
-once; in the backward dh and dexc once each, and every weight and bias
-gradient summed in f32 and rounded once. The plain versions round at the
-same points.
+(``csrc/cond_chain_bf16.cu``) and K2-bf16 (``csrc/cond_chain_bwd_bf16.cu``):
+Hopper kernels whose products run on ``wgmma`` with f32 accumulators and
+whose operands come by TMA through a ring of ``mbarrier`` stages
+(``csrc/hopper_bf16.cuh``; what both share, ``csrc/cond_chain_bf16.cuh``),
+with tensor maps the libraries encode at each launch and images of the
+weights they make in a workspace the wrapper allocates. They round where the
+Pallas kernels round their bf16 instance: lrelu(h) once before the second
+product, the output once; in the backward dh and dexc once each, and every
+weight and bias gradient summed in f32 and rounded once. The plain versions
+round at the same points. K2-bf16 reads g and W1 through tensor maps that
+need 2C a multiple of 8; the wrapper pads other widths with zero columns per
+block (:func:`_pad_blocks`).
 """
 
 from __future__ import annotations
@@ -164,13 +169,17 @@ def _library() -> dict:
         i = ctypes.c_int
         ll = ctypes.c_longlong
         libs = {name: ctypes.CDLL(str(path)) for name, path in zip(_LIBS, paths)}
-        for name, suffix in (("fwd", "f32"), ("fwd_bf16", "bf16")):
-            fwd = libs[name]
-            getattr(fwd, f"cond_chain_fwd_{suffix}").argtypes = [p, p, p, ll, p, p, p, p, p,
-                                                                 i, i, i, i, i, i, p]
-            getattr(fwd, f"cond_chain_fwd_{suffix}").restype = i
-            fwd.cond_chain_error_string.argtypes = [i]
-            fwd.cond_chain_error_string.restype = ctypes.c_char_p
+        for name in ("fwd", "fwd_bf16"):
+            libs[name].cond_chain_error_string.argtypes = [i]
+            libs[name].cond_chain_error_string.restype = ctypes.c_char_p
+        libs["fwd"].cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p,
+                                                   i, i, i, i, i, i, p]
+        libs["fwd"].cond_chain_fwd_f32.restype = i
+        libs["fwd_bf16"].cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll,
+                                                         i, i, i, i, i, i, p]
+        libs["fwd_bf16"].cond_chain_fwd_bf16.restype = i
+        libs["fwd_bf16"].cond_chain_fwd_bf16_workspace.argtypes = [i, i, i, i, i]
+        libs["fwd_bf16"].cond_chain_fwd_bf16_workspace.restype = ll
         libs["fwd"].cond_chain_fwd_tile.argtypes = [i, i, i]
         libs["fwd"].cond_chain_fwd_tile.restype = i
         libs["fwd_bf16"].cond_chain_fwd_bf16_tile.argtypes = [i, i, i]
@@ -339,9 +348,10 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
     return b, t, e, n, cc, two_c
 
 
-# The kernels take a 128-row time tile, else a 64- or 32-row one where a
+# The f32 kernels take a 128-row time tile, else a 64- or 32-row one where a
 # wide Cc or E leaves the larger tile's shared memory over a block's 227 KB;
-# each library says which tile it takes (0: none fits).
+# the bf16 ones one 124-row tile at every width (in passes of 136 columns).
+# Each library says which tile it takes (0: none fits).
 _NO_TILE = ("cond chain kernels: even a 32-row time tile at Cc={cc}, E={e} needs more "
             "than a block's 227 KB of shared memory")
 
@@ -369,13 +379,18 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
     if not tile(e, cc, two_c):
         raise ValueError(_NO_TILE.format(cc=cc, e=e))
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
-    err = (fwd.cond_chain_fwd_bf16 if bf16 else fwd.cond_chain_fwd_f32)(
-        exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(),
-        n * cc if hbias.dim() == 2 else 0,
-        edge0.data_ptr() if edge0 is not None else None,
-        edge_t.data_ptr() if edge_t is not None else None,
-        w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-        b, t, e, n, cc, two_c, _stream(exc.device))
+    args = (exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(), n * cc if hbias.dim() == 2 else 0,
+            edge0.data_ptr() if edge0 is not None else None,
+            edge_t.data_ptr() if edge_t is not None else None,
+            w1.data_ptr(), b1.data_ptr(), out.data_ptr())
+    if bf16:
+        # the images of W0 and W1 the kernel makes at each launch
+        ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
+                         device=exc.device, dtype=torch.uint8)
+        err = fwd.cond_chain_fwd_bf16(*args, ws.data_ptr(), ws.numel(),
+                                      b, t, e, n, cc, two_c, _stream(exc.device))
+    else:
+        err = fwd.cond_chain_fwd_f32(*args, b, t, e, n, cc, two_c, _stream(exc.device))
     if err:
         raise RuntimeError("cond chain kernel launch failed: " + _error(fwd, err))
     if bf16:
@@ -430,12 +445,34 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
     return out
 
 
+def _pad_blocks(x, n, two_c, width):
+    """x (..., n*2C) with each block's 2C columns padded to ``width`` with
+    zeros: (..., n*width), contiguous."""
+    out = x.new_zeros((*x.shape[:-1], n, width))
+    out[..., :two_c] = x.reshape(*x.shape[:-1], n, two_c)
+    return out.reshape(*x.shape[:-1], n * width)
+
+
+def _aligned16(x):
+    """x, or a copy of it at a 16-byte aligned address."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch_bwd_bf16(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
-    """K2-bf16 on checked bf16 operands: the gradients in bf16."""
+    """K2-bf16 on checked bf16 operands: the gradients in bf16. 2C not a
+    multiple of 8 runs at the next multiple, g and W1 padded with zero
+    columns per block (their columns contribute nothing), and dW1 and db1
+    are cut back."""
     global bwd_launches_bf16
-    if w0.data_ptr() % 4 or w1.data_ptr() % 4 or g.data_ptr() % 4:
-        raise ValueError("cond chain bf16 backward reads w0, w1 and g in 4-byte pairs: they "
-                         "must be 4-byte aligned")
+    width = (two_c + 7) // 8 * 8
+    if width != two_c:
+        out = _launch_bwd_bf16(exc, w0, hbias, _pad_blocks(w1, n, two_c, width),
+                               _pad_blocks(g, n, two_c, width), edge0, edge_t,
+                               b, t, e, n, cc, width)
+        out["w1"] = out["w1"].reshape(3, cc, n, width)[..., :two_c].reshape(3, cc, n * two_c)
+        out["b1"] = out["b1"].reshape(n, width)[:, :two_c].reshape(n * two_c)
+        return out
+    w1, g = _aligned16(w1), _aligned16(g)
     libs = _library()
     fwd, bwd = libs["fwd_bf16"], libs["bwd_bf16"]
     if not bwd.cond_chain_bwd_bf16_rows(b, t, e, n, cc, two_c):

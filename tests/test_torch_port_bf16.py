@@ -298,10 +298,11 @@ def bf16_round(x):
 
 
 def k1_bf16_emulated(exc, w0, hbias, w1, b1, edge0, edge_t):
-    """K1-bf16's arithmetic in numpy: bf16 operands, products summed in f32
-    one m16n8k16 depth (16 terms) at a time, tap by tap as the kernel walks
-    K, the bias and edges added in f32, lrelu(h) rounded to bf16 once, the
-    output b1 + sum rounded once."""
+    """K1-bf16's arithmetic in numpy as its first version took it: bf16
+    operands, products summed in f32 one m16n8k16 depth (16 terms) at a
+    time, tap by tap, the bias and edges added in f32, lrelu(h) rounded to
+    bf16 once, the output b1 + sum rounded once. (The Hopper kernels' tiling
+    and order: tests/test_torch_port_bf16_tiles.py.)"""
     b, t, e = exc.shape
     cc = w1.shape[1]
     n = w0.shape[2] // cc
@@ -398,7 +399,7 @@ def test_dispatch_takes_the_instance_of_the_dtype(mocked_kernels, dtype, suffix)
     assert out.dtype == dtype
     out.float().sum().backward()
     entries = [entry for lib, entry in calls if entry.startswith("cond_chain_fwd")
-               and not entry.endswith("_tile")] + [
+               and not entry.endswith(("_tile", "_workspace"))] + [
         entry for lib, entry in calls if entry.startswith("cond_chain_bwd")
         and not entry.endswith(("_rows", "_workspace"))]
     want = ["cond_chain_fwd_bf16", "cond_chain_bwd_bf16"] if suffix else [
@@ -432,9 +433,9 @@ def test_bf16_libraries_are_keyed_on_their_headers(tmp_path):
         shutil.copy(src, tmp_path / src.name)
     fwd, bwd = (tmp_path / s.name for s in cond_chain.BF16_SOURCES)
     assert {p.name for p in cond_chain._sources_of(fwd)} == {
-        "cond_chain_bf16.cu", "cond_chain_bf16.cuh"}
+        "cond_chain_bf16.cu", "cond_chain_bf16.cuh", "hopper_bf16.cuh"}
     assert {p.name for p in cond_chain._sources_of(bwd)} == {
-        "cond_chain_bwd_bf16.cu", "cond_chain_bf16.cuh", "tf32x3.cuh"}
+        "cond_chain_bwd_bf16.cu", "cond_chain_bf16.cuh", "hopper_bf16.cuh", "tf32x3.cuh"}
     f32 = [tmp_path / s.name for s in cond_chain.SOURCES]
     before = [cond_chain._lib_path(x) for x in (fwd, bwd, *f32)]
     (tmp_path / "cond_chain_bf16.cuh").write_text(
