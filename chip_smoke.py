@@ -62,10 +62,9 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    the plain-chain path, the backbone's features on the card against the
    CPU's (one 1 s utterance), convert ms, RTF, pitch ms, the backbone alone
    and its share of a profiled call;
-12. wavlm train: the full-width wavlm-stage2_2 train step on 16 x 8960: its
-   first step against the plain-chain step, timed steps with 8 K1 and 8 K2
-   launches each, the backbone bit-identical after them and every other G
-   tensor changed, peak memory, a profile;
+12. wavlm train: the full-width wavlm-stage2_2 train step on 16 x 8960, as
+   phase 7's (one function, ``phase_step``, runs phases 7, 12 and 18), the
+   backbone bit-identical after the timed steps, with no gradient;
 13. the wavlm CLIs: WavLM-Large from a seed written as a Microsoft
    ``WavLM-Large.pt``; the train CLI with ``--wavlm_checkpoint`` on phase
    9's corpus (epoch 0 with a save, then a resume for 2 steps), then the
@@ -97,9 +96,31 @@ and no weights: everything is made from seeds. Phases, one line or more each:
 17. the CLIs in bf16: the train CLI with ``--override
    train.compute_dtype=bfloat16`` (conv encoder; epoch 0 with a save, then a
    resume without the override, which takes bf16 from the train state), then
-   the conversion CLI on that run, with the bf16 kernels.
+   the conversion CLI on that run, with the bf16 kernels;
+18. stage steps: the full-width f32 train step (16 x 8960) at the
+   curriculum's first stages: S1 (conv_enc-stage1: no cycle pass, the
+   converted contrastive term encoding the fake batch, the latent
+   classifier) and S21 (stage 2-1) with the conv encoder, W1 (wavlm-stage1's
+   settings: no_conv, jitter) with WavLM-Large from a seed; each one's first
+   step against the plain-chain step (losses and first moments), timed steps
+   with 4 K1 and 4 K2 launches each (one decode, no cycle pass), every
+   trainable tensor changed, W1's backbone bit-identical, peak memory, a
+   profile;
+19. the curriculum through the CLIs, conv encoder, each a subprocess: phase
+   9's utterances as raw speaker folders (all WAV); ``prepare_dataset``,
+   ``preprocess_dataset`` (-30 dB, in place), ``subset_dataset`` (4 x 1 of
+   the test manifest), ``precorrupt_dataset`` (2 variants); stage 1 (S1
+   without the latent classifier, epochs 0 and 1, a save each), then stage
+   2-1 from stage 1's epoch 0 (``--load_path --epoch 0``, C from the seed,
+   the stored variants) for one epoch with a save; on that run
+   ``generate_with_target``, ``generate_from_list`` (4 pairs),
+   ``generate_from_dataset`` (zero excitation, then ``--use_source_pitch``),
+   ``sample_f0`` on the first one's output and ``get_model_info`` on stage
+   1's run; every logged loss, 4 K1 + 4 K2 launches per step, 4 K1 per
+   convert call, the hand-off, each output's max|y| and file names, each
+   CLI's wall time.
 
-Phases 1-13 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
+Phases 1-13 and 18-19 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
 the same), as the JAX package's default. Any failed check raises, and the
 script then exits non-zero without its result lines. The last two lines are
 the JSON kernel table (this run's numbers only) and the result object;
@@ -134,20 +155,20 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from td_vc_gan_tpu_torch.config import Config, load_config
+from td_vc_gan_tpu_torch.config import Config, load_config, parse_overrides
 from td_vc_gan_tpu_torch.data import corruption
 from td_vc_gan_tpu_torch.data.audio_io import read_audio, write_audio
 from td_vc_gan_tpu_torch.data.dataset import WaveDataset, collate, make_train_iterator
 from td_vc_gan_tpu_torch.data.flac import write_flac
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
-from td_vc_gan_tpu_torch.models.discriminator import discriminator_from_config
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
 from td_vc_gan_tpu_torch.models.wavlm import WavLM, WavLMConfig, backbone_digest, key_table
@@ -160,7 +181,7 @@ from td_vc_gan_tpu_torch.testing import (
     stage_shapes,
 )
 from td_vc_gan_tpu_torch.training import checkpoint as ckpt
-from td_vc_gan_tpu_torch.training.loop import _pad_bucket
+from td_vc_gan_tpu_torch.training.loop import _pad_bucket, build_models
 from td_vc_gan_tpu_torch.training.state import create_train_state
 from td_vc_gan_tpu_torch.training.step import build_train_step
 
@@ -705,30 +726,38 @@ def train_batch(seed: int) -> dict:
 
 
 def train_state(cfg):
-    """The full-width stage-2 models (random weights from seeds) and their
-    optimizers; a WavLM backbone in ``train.compute_dtype``."""
-    g = generator_from_config(cfg.model.generator, NUM_SPK, seed=0,
-                              compute_dtype=cfg.train.compute_dtype)
-    d = discriminator_from_config(cfg, NUM_SPK, seed=1)
-    return create_train_state(cfg, g, d, None, crepe_from_seed(2).cuda())
+    """The full-width models of ``cfg`` (G, D and, when its losses use it,
+    the latent classifier C; random weights from seeds, as the train loop
+    builds them) and their optimizers; a WavLM backbone in
+    ``train.compute_dtype``."""
+    g, d, c = build_models(cfg, NUM_SPK, "cuda", seed=0)
+    return create_train_state(cfg, g, d, c, crepe_from_seed(2).cuda())
 
 
-def phase_train(cfg, card):
-    """The full-width stage-2 GAN train step: its first step against the
-    same step with the plain chain, then timed steps with the launch counts
-    of each, and one step's kernels by device time."""
+def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], float]:
+    """The full-width f32 train step of ``cfg`` on 16 x 8960: its first step
+    against the same step with the plain chain (every loss, and the first
+    moments of every trainable tensor), then a warm-up and timed steps
+    (CUDA events) with ``per_step`` K1 and K2 launches each; every trainable
+    tensor changed, a WavLM backbone bit-identical and without gradients;
+    peak memory, and one step's kernels by device time. Returns the timed
+    steps' (K1, K2) launches and their median ms."""
     t0 = time.perf_counter()
     state = train_state(cfg)
     step = build_train_step(cfg, state)
     batch = train_batch(10)
-    n_g = sum(p.numel() for p in state.G.parameters())
-    n_d = sum(p.numel() for p in state.D.parameters())
-    before = {f"G.{k}": v.clone() for k, v in state.G.state_dict().items()}
-    before.update({f"D.{k}": v.clone() for k, v in state.D.state_dict().items()})
-    say(f"train: G {n_g} and D {n_d} parameters, batch {B} x {SEG}, "
-        f"set up in {time.perf_counter() - t0:.1f} s")
+    nets = [("G", state.G, state.opt_g), ("D", state.D, state.opt_d)]
+    if state.C is not None:
+        nets.append(("C", state.C, state.opt_c))
+    trainable = {f"{tag}.{n}": p.detach().clone() for tag, net, _ in nets
+                 for n, p in net.named_parameters() if p.requires_grad}
+    wavlm = ckpt.backbone(state.G)
+    backbone = None if wavlm is None else {k: v.clone() for k, v in wavlm.state_dict().items()}
+    say(f"{label}: " + ", ".join(f"{tag} {sum(p.numel() for p in net.parameters())}"
+                                 for tag, net, _ in nets)
+        + f" parameters ({sum(v.numel() for v in trainable.values())} trainable), batch "
+        f"{B} x {SEG}, set up in {time.perf_counter() - t0:.1f} s")
 
-    # the first step, with the kernels and with the plain chain swapped in
     m_kernel = step(batch, torch.Generator(device="cuda").manual_seed(5))
     twin = train_state(cfg)
     twin_step = build_train_step(cfg, twin)
@@ -738,23 +767,29 @@ def phase_train(cfg, card):
         m_plain = twin_step(batch, torch.Generator(device="cuda").manual_seed(5))
     finally:
         cc_mod.cond_chain = kernel_op
+    if set(m_kernel) != set(m_plain):
+        raise AssertionError(f"{label}: the two paths log other losses")
     worst_loss = max(abs(float(m_kernel[k]) - float(m_plain[k])) /
                      max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
+    twins = [(twin.G, twin.opt_g), (twin.D, twin.opt_d)]
+    if twin.C is not None:
+        twins.append((twin.C, twin.opt_c))
     worst_mu = 0.0
-    for net, twin_net, opt, twin_opt in ((state.G, twin.G, state.opt_g, twin.opt_g),
-                                         (state.D, twin.D, state.opt_d, twin.opt_d)):
+    for (_, net, opt), (twin_net, twin_opt) in zip(nets, twins):
         for p, q in zip(net.parameters(), twin_net.parameters()):
-            a = opt.optimizer.state[p]["exp_avg"]
-            b = twin_opt.optimizer.state[q]["exp_avg"]
-            worst_mu = max(worst_mu, float((a - b).abs().max()) /
-                           max(float(b.abs().max()), 1e-30))
-    say(f"train: first step, kernel path vs plain-chain path: losses worst relative "
-        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); G and D first "
-        f"moments worst max|d| {worst_mu:.2e} of the tensor's max|ref| "
-        f"(tolerance {STEP_MU_RTOL:.0e})")
+            if p.requires_grad:
+                a = opt.optimizer.state[p]["exp_avg"]
+                b = twin_opt.optimizer.state[q]["exp_avg"]
+                worst_mu = max(worst_mu, float((a - b).abs().max()) /
+                               max(float(b.abs().max()), 1e-30))
+    say(f"{label}: first step, kernel path vs plain-chain path: losses worst relative "
+        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); first moments "
+        f"worst max|d| {worst_mu:.2e} of the tensor's max|ref| (tolerance {STEP_MU_RTOL:.0e})")
     if not (worst_loss <= STEP_LOSS_RTOL and worst_mu <= STEP_MU_RTOL):
-        raise AssertionError("the train step with the kernels disagrees with the plain chain")
-    del twin, twin_step
+        raise AssertionError(f"{label}: the step with the kernels disagrees with the plain "
+                             f"chain")
+    del twin, twin_step, twins
+    gc.collect()
     torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -777,22 +812,32 @@ def phase_train(cfg, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
     if bad:
-        raise AssertionError(f"non-finite losses after {TRAIN_STEPS + 2} steps: {bad}")
-    if any(c != (STAGES * 2, STAGES * 2) for c in counts):
-        raise AssertionError(f"expected {STAGES * 2} K1 and {STAGES * 2} K2 launches per "
+        raise AssertionError(f"{label}: non-finite losses after {TRAIN_STEPS + 2} steps: {bad}")
+    if any(c != (per_step, per_step) for c in counts):
+        raise AssertionError(f"{label}: expected {per_step} K1 and {per_step} K2 launches per "
                              f"step, got {counts}")
-    after = {f"G.{k}": v for k, v in state.G.state_dict().items()}
-    after.update({f"D.{k}": v for k, v in state.D.state_dict().items()})
-    still = [k for k, v in before.items() if torch.equal(v, after[k])]
-    if still:
-        raise AssertionError(f"parameters that did not change: {still[:5]}")
+    params = {f"{tag}.{n}": p for tag, net, _ in nets for n, p in net.named_parameters()}
+    still = [k for k, v in trainable.items() if torch.equal(v, params[k])]
+    moved = [] if backbone is None else [
+        k for k, v in wavlm.state_dict().items() if not torch.equal(v, backbone[k])]
+    if still or moved:
+        raise AssertionError(f"{label}: trainable tensors that did not change {still[:5]}; "
+                             f"backbone tensors that did {moved[:5]}")
+    if backbone is not None and any(p.grad is not None for p in wavlm.parameters()):
+        raise AssertionError(f"{label}: the frozen backbone has gradients")
     median = ms[len(ms) // 2]
-    say(f"train: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
-        f"{ms[0]:.2f}, max {ms[-1]:.2f}), {1e3 / median:.3f} steps/s, "
-        f"{B * 1e3 / median:.2f} segments/s; K1/K2 launches per step {counts[0]}; "
-        f"G_loss {float(metrics['G_loss']):.4f}, D_loss {float(metrics['D_loss']):.4f}; "
-        f"every G and D parameter changed; peak device memory {peak:.2f} GiB [{card}]")
-    profile_call(lambda: step(batch, gen), "one train step", card)
+    say(f"{label}: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
+        f"{ms[0]:.2f}, max {ms[-1]:.2f}), {B * 1e3 / median:.2f} segments/s; K1/K2 launches "
+        f"per step {counts[0]}; G_loss {float(metrics['G_loss']):.4f}"
+        + (f", C_loss {float(metrics['C_loss']):.4f}" if "C_loss" in metrics else "")
+        + "; every trainable tensor changed"
+        + ("" if backbone is None else
+           f", the backbone bit-identical after {TRAIN_STEPS + 2} steps, with no gradient")
+        + f"; peak device memory {peak:.2f} GiB [{card}]")
+    profile_call(lambda: step(batch, gen), f"one {label} step", card)
+    del state, step, trainable, backbone, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, median
 
 
@@ -926,6 +971,32 @@ def one_line(lines: list[str], prefix: str) -> list[str]:
     if not found:
         raise AssertionError(f"no line starting {prefix!r} in the CLI's output")
     return found
+
+
+class Conversion(NamedTuple):
+    calls: int
+    audio_s: float
+    conv_s: float  # inside the CLI
+    rtf: float
+    k1: int
+    peak: float
+
+
+def convert_summary(lines: list[str], dtype: str = "float32") -> Conversion:
+    """The numbers of a conversion CLI's ``Converted ...`` line; its outputs must be finite with max|y| <= 1, and each convert
+    call must have launched K1 once per decoder stage."""
+    summary = one_line(lines, "Converted ")[0]
+    m = re.search(r"in (\d+) convert(?:_batch)? calls: ([\d.]+) s of audio in ([\d.]+) s "
+                  rf"\(RTF ([\d.]+)x.*K1 launches (\d+) \({dtype}\); outputs "
+                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
+    if m is None:
+        raise AssertionError(f"no conversion summary in: {summary}")
+    calls, audio_s, conv_s, rtf, k1, finite, peak = m.groups()
+    if finite != "finite" or float(peak) > 1.0 or int(k1) != STAGES * int(calls):
+        raise AssertionError(f"conversion: outputs {finite}, max|y| {peak}, {k1} K1 launches "
+                             f"in {calls} calls (expected {STAGES} each)")
+    return Conversion(int(calls), float(audio_s), float(conv_s), float(rtf), int(k1),
+                      float(peak))
 
 
 def corruption_ms(root: Path) -> float:
@@ -1092,11 +1163,7 @@ def phase_generate_cli(root: Path, card: str) -> int:
     lines, wall = run_cli("td_vc_gan_tpu_torch.cli.generate_with_target",
                           ["--save_path", str(out), "--load_path", str(root / "run"),
                            "--data_path", str(root)])
-    summary = one_line(lines, "Converted ")[0]
-    m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
-                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(float32\); outputs "
-                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
-    calls, audio_s, conv_s, rtf, k1, finite, peak = m.groups()
+    calls, audio_s, conv_s, rtf, k1, peak = convert_summary(lines)
     n_utt = len(TEST_SPK)
     convs = sorted(out.glob("*-conv.wav"))
     origs = sorted(out.glob("*-X-orig.wav"))
@@ -1105,11 +1172,8 @@ def phase_generate_cli(root: Path, card: str) -> int:
         raise AssertionError(f"{len(convs)} conversions, {len(origs)} originals, "
                              f"{len(log)} log lines; expected {n_utt * n_utt}, {n_utt}, "
                              f"{n_utt * n_utt}")
-    if finite != "finite" or float(peak) > 1.0:
-        raise AssertionError(f"conversion outputs {finite}, max|y| {peak}")
-    if int(k1) != STAGES * int(calls) or int(calls) != n_utt:
-        raise AssertionError(f"{k1} K1 launches in {calls} convert_batch calls, expected "
-                             f"{STAGES} per call and {n_utt} calls")
+    if calls != n_utt:
+        raise AssertionError(f"{calls} convert_batch calls, expected {n_utt}")
     say(f"generate cli: {n_utt} utterances x {n_utt} speakers, {len(convs)} conversions, "
         f"{len(origs)} originals, conv_log.txt of {len(log)} lines; outputs finite, max|y| "
         f"{float(peak):.4f}; K1 launches {k1} in {calls} convert_batch calls ({STAGES} each); "
@@ -1243,87 +1307,6 @@ def phase_wavlm_convert(cfg, card):
     return launches
 
 
-def phase_wavlm_train(cfg, card):
-    """The full-width wavlm-stage2_2 train step (16 x 8960): its first step
-    against the plain-chain step, then timed steps with the launch counts of
-    each; the backbone bit-identical after them, every other G tensor moved."""
-    wcfg = wavlm_cfg(cfg)
-    t0 = time.perf_counter()
-    state = train_state(wcfg)
-    step = build_train_step(wcfg, state)
-    batch = train_batch(10)
-    backbone = {k: v.clone() for k, v in state.G.encoder.wavlm.state_dict().items()}
-    rest = {k: v.clone() for k, v in state.G.state_dict().items()
-            if not k.startswith("encoder.wavlm.")}
-    say(f"wavlm train: G {sum(p.numel() for p in state.G.parameters())} parameters "
-        f"({sum(p.numel() for p in state.opt_g.params)} trainable), batch {B} x {SEG}, set up "
-        f"in {time.perf_counter() - t0:.1f} s")
-
-    m_kernel = step(batch, torch.Generator(device="cuda").manual_seed(5))
-    twin = train_state(wcfg)
-    twin_step = build_train_step(wcfg, twin)
-    kernel_op = cc_mod.cond_chain
-    cc_mod.cond_chain = cc_mod.cond_chain_plain
-    try:
-        m_plain = twin_step(batch, torch.Generator(device="cuda").manual_seed(5))
-    finally:
-        cc_mod.cond_chain = kernel_op
-    worst_loss = max(abs(float(m_kernel[k]) - float(m_plain[k])) /
-                     max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
-    say(f"wavlm train: first step, kernel path vs plain-chain path: losses worst relative "
-        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e})")
-    if not worst_loss <= STEP_LOSS_RTOL:
-        raise AssertionError("the wavlm train step with the kernels disagrees with the plain "
-                             "chain")
-    del twin, twin_step
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    step(batch, gen)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, counts = [], []
-    cc_mod.launches = cc_mod.bwd_launches = 0
-    for _ in range(TRAIN_STEPS):
-        k1, k2 = cc_mod.launches, cc_mod.bwd_launches
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step(batch, gen)
-        end.record()
-        counts.append((cc_mod.launches - k1, cc_mod.bwd_launches - k2))
-        times.append((start, end))
-    torch.cuda.synchronize()
-    launches = (cc_mod.launches, cc_mod.bwd_launches)
-    ms = sorted(s.elapsed_time(e) for s, e in times)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
-    if bad:
-        raise AssertionError(f"non-finite losses in the wavlm train step: {bad}")
-    if any(c != (STAGES * 2, STAGES * 2) for c in counts):
-        raise AssertionError(f"expected {STAGES * 2} K1 and {STAGES * 2} K2 launches per "
-                             f"wavlm step, got {counts}")
-    after = state.G.state_dict()
-    moved = [k for k, v in backbone.items() if not torch.equal(v, after[f"encoder.wavlm.{k}"])]
-    still = [k for k, v in rest.items() if torch.equal(v, after[k])]
-    if moved or still:
-        raise AssertionError(f"backbone tensors that changed: {moved[:5]}; other G tensors "
-                             f"that did not: {still[:5]}")
-    if any(p.grad is not None for p in state.G.encoder.wavlm.parameters()):
-        raise AssertionError("the frozen backbone has gradients")
-    median = ms[len(ms) // 2]
-    say(f"wavlm train: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
-        f"{ms[0]:.2f}, max {ms[-1]:.2f}), {B * 1e3 / median:.2f} segments/s; K1/K2 launches "
-        f"per step {counts[0]}; G_loss {float(metrics['G_loss']):.4f}; the backbone "
-        f"bit-identical after {TRAIN_STEPS + 2} steps, with no gradient, every other G tensor "
-        f"changed; peak device memory {peak:.2f} GiB [{card}]")
-    profile_call(lambda: step(batch, gen), "one wavlm train step", card)
-    del state, step
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, median
-
-
 def write_wavlm_checkpoint(root: Path) -> tuple[Path, str, float]:
     """WavLM-Large from a seed, written as a Microsoft ``WavLM-Large.pt``;
     (its path, the digest of its tensors in the loader's table order, the
@@ -1373,14 +1356,7 @@ def phase_wavlm_clis(root: Path, card: str) -> tuple[int, int, int]:
     if wrong:
         raise AssertionError(f"the backbone's digest differs from the written file's "
                              f"({digest}) at {sorted(wrong)}: {list(wrong.values())[:2]}")
-    summary = one_line(gen_lines, "Converted ")[0]
-    m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
-                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(float32\); outputs "
-                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
-    calls, audio_s, conv_s, rtf, gen_k1, finite, peak_y = m.groups()
-    if finite != "finite" or float(peak_y) > 1.0 or int(gen_k1) != STAGES * int(calls):
-        raise AssertionError(f"wavlm conversion CLI: outputs {finite}, max|y| {peak_y}, "
-                             f"{gen_k1} K1 launches in {calls} calls")
+    calls, audio_s, conv_s, rtf, gen_k1, peak_y = convert_summary(gen_lines)
     saved = one_line(first, "Saved epoch ")[0]
     save_s, save_b = re.search(r"in ([\d.]+) s, (\d+) bytes", saved).groups()
     peak = re.search(r"peak device memory ([\d.]+) GiB", one_line(first, "Done at step")[0])
@@ -1906,16 +1882,7 @@ def phase_bf16_clis(root: Path, card: str) -> tuple[int, int, int]:
     gen_lines, gen_wall = run_cli("td_vc_gan_tpu_torch.cli.generate_with_target",
                                   ["--save_path", str(root / "bf16_converted"),
                                    "--load_path", str(run), "--data_path", str(root)])
-    summary = one_line(gen_lines, "Converted ")[0]
-    m = re.search(r"in (\d+) convert_batch calls: ([\d.]+) s of audio in ([\d.]+) s "
-                  r"\(RTF ([\d.]+)x.*K1 launches (\d+) \(bfloat16\); outputs "
-                  r"(finite|NOT finite), max\|y\| ([\d.]+)", summary)
-    if m is None:
-        raise AssertionError(f"bf16 conversion CLI: {summary}")
-    calls, audio_s, conv_s, rtf, gen_k1, finite, peak_y = m.groups()
-    if finite != "finite" or float(peak_y) > 1.0 or int(gen_k1) != STAGES * int(calls):
-        raise AssertionError(f"bf16 conversion CLI: outputs {finite}, max|y| {peak_y}, "
-                             f"{gen_k1} K1-bf16 launches in {calls} calls")
+    calls, _, _, rtf, gen_k1, peak_y = convert_summary(gen_lines, "bfloat16")
     loop_ms = sorted(s["step_ms"] for s in steps if s["Itt"] >= 1)
     say(f"bf16 cli: train CLI --override train.compute_dtype=bfloat16: {len(steps)} steps "
         f"(epoch 0) in {wall1:.1f} s of wall time, loop step median of steps 1-4 "
@@ -1927,6 +1894,207 @@ def phase_bf16_clis(root: Path, card: str) -> tuple[int, int, int]:
         f"calls, K1-bf16 {gen_k1}, outputs finite, max|y| {float(peak_y):.4f}, RTF "
         f"{float(rtf):.1f}x inside the CLI, {gen_wall:.1f} s of wall time [{card}]")
     return (sum(int(d[4]) for d in done), sum(int(d[5]) for d in done), int(gen_k1))
+
+
+# ---------------------------------------------------------------------------
+# the curriculum's first stages: phases 18-19
+# ---------------------------------------------------------------------------
+
+
+# The stage settings, as the train CLI's --override lines. S1,
+# conv_enc-stage1: the JAX suite's stage-1 weights (tests/test_train_step.py:
+# 87-88) with the converted contrastive term on; with lambda_rec 0 it encodes
+# the fake batch itself. S21, stage 2-1: the defaults with lambda_rec 0 and
+# the latent classifier on. W1, wavlm-stage1's settings: no_conv (the target
+# is the source), with the pitch and contrastive losses kept on and jitter.
+STAGE_S1 = ("train.no_conv=false", "train.lambda_rec=0", "train.lambda_idt=5",
+            "train.lambda_f0=10", "train.lambda_cont_emb=1", "train.lambda_latcls=1",
+            "train.lambda_converted=0.5")
+STAGE_S21 = ("train.lambda_rec=0", "train.lambda_latcls=1")
+STAGE_W1 = ("model.generator.encoder_model=wavlm", "train.no_conv=true", "train.lambda_rec=0",
+            "train.lambda_idt=20", "train.lambda_f0=10", "train.lambda_cont_emb=1",
+            "train.jitter_amp=40")
+
+
+def stage_cfg(overrides) -> Config:
+    return load_config(None, parse_overrides(["model.generator.encoder_model=conv",
+                                              *overrides]))
+
+
+def write_raw_corpus(root: Path) -> Path:
+    """Phase 9's utterances (the same draws) as a tree of speaker folders,
+    all 16-bit WAV, for prepare_dataset."""
+    rng = np.random.default_rng(20)
+    for spk in range(CORPUS_SPK):
+        folder = root / f"s{spk:02d}"
+        folder.mkdir(parents=True)
+        for j in range(CORPUS_UTT):
+            write_audio(folder / f"s{spk:02d}_{j:03d}.wav",
+                        utterance(rng, int(rng.uniform(1.5, 4.0) * 16000)), 16000)
+    return root
+
+
+def curriculum_train(args: list[str], label: str, itts: list[int],
+                     with_c: bool) -> tuple[list[str], float]:
+    """A train CLI run of the curriculum: its logged steps are ``itts``,
+    every logged value finite, K1/K2 STAGES each per step, the latent
+    classifier's losses logged when ``with_c``."""
+    lines, wall = run_cli("td_vc_gan_tpu_torch.cli.train", args)
+    steps = step_lines(lines)
+    bad = [(s["Itt"], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+    counts = {(int(s["k1"]), int(s["k2"])) for s in steps}
+    has_c = {"C_loss" in s and "C_acc" in s for s in steps}
+    if [s["Itt"] for s in steps] != itts or bad or counts != {(STAGES, STAGES)} or \
+            has_c != {with_c} or not all(s["G_loss_lat_cls"] > 0 for s in steps if with_c):
+        raise AssertionError(f"{label}: steps {[s['Itt'] for s in steps]} (expected {itts}), "
+                             f"non-finite {bad[:5]}, K1/K2 per step {sorted(counts)}, C "
+                             f"logged {has_c}")
+    return lines, wall
+
+
+def phase_curriculum_clis(root: Path, card: str) -> tuple[int, int, int]:
+    """Phase 19: the dataset CLIs on raw speaker folders, stage 1 (S1 without
+    the latent classifier) for two epochs, the hand-off to stage 2-1 from
+    stage 1's epoch 0 (C from the seed), then every conversion and
+    inspection CLI on the result. Returns (train K1, train K2, convert K1)."""
+    walls = {}
+
+    def cli(name, args, variant=""):
+        lines, walls[name + variant] = run_cli(f"td_vc_gan_tpu_torch.cli.{name}", args)
+        return lines
+
+    raw, data, sub = root / "raw", root / "curriculum", root / "curriculum_sub"
+    write_raw_corpus(raw)
+    cli("prepare_dataset", [str(raw), "--save_folder", str(data), "--ext", ".wav",
+                            "--test_size", "1"])
+    train = (data / "train_files").read_text().split()
+    test = (data / "test_files").read_text().split()
+    with open(data / "speakers", "rb") as f:
+        speakers = pickle.load(f)
+    # 6 utterances a speaker, 6 > 5 * 1: its first (sorted) to test, 5 to train
+    if (len(speakers), len(train), len(test)) != (CORPUS_SPK, CORPUS_SPK * 5, CORPUS_SPK) or \
+            any(not ln.split("|")[0].endswith("_000.wav") for ln in test):
+        raise AssertionError(f"prepare_dataset: {len(speakers)} speakers, {len(train)} train "
+                             f"and {len(test)} test files")
+    cli("preprocess_dataset", [str(raw), "--normalization_db", "-30"])
+    levels = [20 * np.log10(np.sqrt(np.mean(read_audio(ln.split("|")[0])[0].astype(np.float64)
+                                            ** 2))) for ln in train[::16]]
+    if max(abs(v + 30) for v in levels) > 0.05:
+        raise AssertionError(f"preprocess_dataset: RMS levels {levels} dB, expected -30")
+    cli("subset_dataset", [str(data), str(sub), "--num_speakers", "4",
+                           "--utts_per_speaker", "1", "--seed", "3"])
+    sub_test = (sub / "test_files").read_text().split()
+    if len(sub_test) != 4 or len({ln.split("|")[1] for ln in sub_test}) != 4:
+        raise AssertionError(f"subset_dataset: {sub_test}")
+    paths = [ln.split("|")[0] for ln in sub_test]
+    (sub / "pairs").write_text("".join(f"pair{k}|{paths[k]}|{paths[(k + 1) % 4]}\n"
+                                       for k in range(4)))
+    pre = cli("precorrupt_dataset", [str(data / "train_files"), "--save_folder",
+                                     str(root / "precorrupted"), "--variants", "2",
+                                     "--normalization_db", "-30"])
+    with open(root / "precorrupted" / "precorrupt_index.pkl", "rb") as f:
+        index = pickle.load(f)
+    if sorted(index) != sorted(ln.split("|")[0] for ln in train) or \
+            any(len(v) != 2 or not all(Path(p).exists() for p in v) for v in index.values()):
+        raise AssertionError("precorrupt_dataset: the index does not cover the manifest")
+
+    # stage 1, S1 without the latent classifier, two epochs with a save each
+    stage1, stage21 = root / "stage1", root / "stage2_1"
+    base = ["--data_path", str(data)]
+    for o in CLI_OVERRIDES + ("log.gen_interval=100",):
+        base += ["--override", o]
+    s1 = [o.replace("lambda_latcls=1", "lambda_latcls=0") for o in STAGE_S1]
+    first, walls["train (stage 1)"] = curriculum_train(
+        base + ["--save_path", str(stage1), "--override", "train.num_epoch=1"]
+        + [a for o in s1 for a in ("--override", o)], "stage 1", list(range(10)), False)
+    if (stage1 / "step0-C.pt").exists() or not (stage1 / "step1-G.pt").exists():
+        raise AssertionError("stage 1 saved a latent classifier, or no epoch 1")
+    # stage 2-1 from stage 1's epoch 0, with the stored corruption variants
+    second, walls["train (stage 2-1)"] = curriculum_train(
+        base + ["--save_path", str(stage21), "--load_path", str(stage1), "--epoch", "0",
+                "--precorrupted_index", str(root / "precorrupted" / "precorrupt_index.pkl"),
+                "--override", "train.num_epoch=1"]
+        + [a for o in STAGE_S21 for a in ("--override", o)], "stage 2-1", list(range(5, 10)),
+        True)
+    handoff = one_line(second, "Resumed train state epoch 0")[0]
+    if "(step 5," not in handoff or "restored G+D, C from the seed)" not in handoff:
+        raise AssertionError(f"the hand-off: {handoff}")
+    for name in ("step1-G.pt", "step1-D.pt", "step1-C.pt"):
+        if not (stage21 / name).exists():
+            raise AssertionError(f"stage 2-1 saved no {name}")
+    done = [re.search(r"K1 (\d+) \(validation (\d+), samples (\d+)\), K2 (\d+)",
+                      one_line(lines, "Done at step")[0]).groups() for lines in (first, second)]
+
+    # conversion and inspection on stage 2-1's run
+    load = ["--load_path", str(stage21), "--data_path", str(sub)]
+    out = {name: root / f"curriculum_{name}" for name in
+           ("target", "list", "dataset", "source_pitch")}
+    gen = {"generate_with_target": convert_summary(cli(
+        "generate_with_target", load + ["--save_path", str(out["target"])]))}
+    gen["generate_from_list"] = convert_summary(cli(
+        "generate_from_list", load + ["--save_path", str(out["list"])]))
+    gen["generate_from_dataset"] = convert_summary(cli(
+        "generate_from_dataset", load + ["--save_path", str(out["dataset"])]))
+    gen["generate_from_dataset --use_source_pitch"] = convert_summary(cli(
+        "generate_from_dataset", load + ["--save_path", str(out["source_pitch"]),
+                                         "--use_source_pitch"], " --use_source_pitch"))
+    spk = [ln.split("|")[1] for ln in sub_test]
+    ids = [speakers[s] for s in spk]  # in the manifest's order
+    want = {
+        "target": {f"000-{a}-{b}-conv.wav" for a in spk for b in spk}
+        | {f"000-{a}-X-orig.wav" for a in spk} | {"conv_log.txt"},
+        "list": {f"pair{k}.wav" for k in range(4)},
+        "dataset": {f"sig{i:02d}_{ids[i]}-{t}_conv.wav" for i in range(4) for t in ids}
+        | {f"sig{i:02d}_{ids[i]}-X_orig.wav" for i in range(4)},
+    }
+    want["source_pitch"] = want["dataset"]
+    for name, files in want.items():
+        got = {p.name for p in out[name].iterdir()}
+        if got != files:
+            raise AssertionError(f"{name}: files {sorted(got ^ files)[:6]} differ")
+    calls = {k: v.calls for k, v in gen.items()}
+    if calls != {"generate_with_target": 4, "generate_from_list": 4,
+                 "generate_from_dataset": 16, "generate_from_dataset --use_source_pitch": 16}:
+        raise AssertionError(f"convert calls {calls}")
+    f0 = cli("sample_f0", [str(out["target"]), "--out", str(root / "f0.png")])
+    ratios = json.loads((out["target"] / "f0_ratios.json").read_text())
+    if not ratios or not all(np.isfinite(r["f0_ratio"]) and r["f0_ratio"] > 0
+                             for r in ratios.values()):
+        raise AssertionError(f"sample_f0: {len(ratios)} pairs, {list(ratios.values())[:2]}")
+    plot = "plot written" if (root / "f0.png").exists() else one_line(f0, "matplotlib")[0]
+    info = cli("get_model_info", [str(stage1)])
+    facts = dict(ln.split(": ", 1) for ln in info if ": " in ln)
+    if facts.get("checkpoints") != "4" or facts.get("epoch_range") != "(0, 1)":
+        raise AssertionError(f"get_model_info: {info}")
+
+    train_k1 = sum(int(d[0]) for d in done)
+    train_k2 = sum(int(d[3]) for d in done)
+    gen_k1 = sum(v.k1 for v in gen.values())
+    s1_ms = sorted(s["step_ms"] for s in step_lines(first) if s["Itt"] >= 1)
+    s21_ms = sorted(s["step_ms"] for s in step_lines(second) if s["Itt"] >= 6)
+    pre_s = pre[-1].split(" in ")[1].split(" with")[0]
+    say(f"curriculum cli: prepare_dataset {CORPUS_SPK} speakers, {len(train)} train and "
+        f"{len(test)} test files; preprocess_dataset to -30 dB (RMS {min(levels):.3f} to "
+        f"{max(levels):.3f} dB); subset_dataset 4 x 1; precorrupt_dataset {len(index)} "
+        f"utterances x 2 variants ({pre_s} inside the CLI)")
+    say(f"curriculum cli: stage 1 (S1, no C) steps 0-9 and stage 2-1 (S21) steps 5-9 from "
+        f"stage 1's epoch 0 ({handoff.split('; ')[-1][:-1]}), with the stored variants: every "
+        f"logged loss finite, K1/K2 {STAGES}/{STAGES} in every step, C_loss, C_acc and "
+        f"G_loss_lat_cls in stage 2-1; loop step ms, median of steps 1-9 "
+        f"{s1_ms[len(s1_ms) // 2]:.2f} (stage 1) and of steps 6-9 "
+        f"{s21_ms[len(s21_ms) // 2]:.2f} (stage 2-1); K1 launches (all, of them "
+        f"validation, sample dumps) {[(int(d[0]), int(d[1]), int(d[2])) for d in done]}, K2 "
+        f"{[int(d[3]) for d in done]}")
+    say("curriculum cli: " + "; ".join(
+        f"{k} {v.calls} calls, K1 {v.k1}, max|y| {v.peak:.4f}, RTF {v.rtf:.1f}x "
+        f"inside the CLI" for k, v in gen.items())
+        + f"; every output finite, its files named as the JAX CLI's; sample_f0 "
+        f"{len(ratios)} pairs, ratios {min(r['f0_ratio'] for r in ratios.values()):.3f} to "
+        f"{max(r['f0_ratio'] for r in ratios.values()):.3f} ({plot}); get_model_info "
+        f"{facts['checkpoints']} checkpoints, epochs {facts['epoch_range']}")
+    say("curriculum cli: wall time per CLI process: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" [{card}]")
+    return train_k1, train_k2, gen_k1
 
 
 # The A/B of ``python3 chip_smoke.py --ab DIR``: rounds of old and new,
@@ -2118,7 +2286,7 @@ def main(ab_dir: Path | None = None) -> int:
     k1_row = phase_kernel_times(cfg, card, convert_launches, parity_err)
     k2_err = phase_k2_parity(cfg)
     wide_parity(cfg, card)
-    (train_k1, train_k2), bare_median = phase_train(cfg, card)
+    (train_k1, train_k2), bare_median = phase_step("train", cfg, card, STAGES * 2)
     k2_row = phase_k2_times(cfg, card, train_k2, k2_err)
     with tempfile.TemporaryDirectory() as tmp:
         root = write_corpus(Path(tmp))
@@ -2127,23 +2295,36 @@ def main(ab_dir: Path | None = None) -> int:
         gen_k1 = phase_generate_cli(root, card)
         k1_row["max_abs_err"] = max(k1_row["max_abs_err"], cli_chain_parity(cfg, root, card))
         wavlm_convert_k1 = phase_wavlm_convert(cfg, card)
-        (wavlm_train_k1, wavlm_train_k2), _ = phase_wavlm_train(cfg, card)
+        (wavlm_train_k1, wavlm_train_k2), _ = phase_step("wavlm train", wavlm_cfg(cfg), card,
+                                                         STAGES * 2)
         wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = phase_wavlm_clis(root, card)
         k1b_row, k2b_row = phase_bf16_kernels(cfg, card)
         bf16_convert_k1 = phase_bf16_convert(cfg, card)
         bf16_train_k1, bf16_train_k2 = phase_bf16_train(cfg, card)
         bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = phase_bf16_clis(root, card)
+        # no cycle pass at these stages: one decode (at 2B, or at B under
+        # no_conv), so one K1 and one K2 launch per decoder stage
+        stage_k = []
+        for name, overrides in (("S1", STAGE_S1), ("S21", STAGE_S21), ("W1", STAGE_W1)):
+            say(f"stage {name}: {' '.join(o.split('.', 1)[1] for o in overrides)}")
+            stage_k.append(phase_step(f"stage {name}", stage_cfg(overrides), card, STAGES)[0])
+        cur_k1, cur_k2, cur_gen_k1 = phase_curriculum_clis(root, card)
     # K1 runs on every main path: conversion (phases 4 and 11), the train
-    # step (phases 7 and 12) and the CLIs (phases 9, 10 and 13); K2 on the
-    # training paths
+    # step (phases 7, 12 and 18) and the CLIs (phases 9, 10, 13 and 19); K2
+    # on the training paths
     k1_row["launches_by_path"] = {"convert": convert_launches, "train": train_k1,
                                   "train_cli": cli_k1, "generate_cli": gen_k1,
                                   "wavlm_convert": wavlm_convert_k1,
                                   "wavlm_train": wavlm_train_k1, "wavlm_train_cli": wavlm_cli_k1,
-                                  "wavlm_generate_cli": wavlm_gen_k1}
+                                  "wavlm_generate_cli": wavlm_gen_k1,
+                                  "stage_train": sum(k[0] for k in stage_k),
+                                  "curriculum_train_cli": cur_k1,
+                                  "curriculum_generate_clis": cur_gen_k1}
     k1_row["launches"] = sum(k1_row["launches_by_path"].values())
     k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
-                                  "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2}
+                                  "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2,
+                                  "stage_train": sum(k[1] for k in stage_k),
+                                  "curriculum_train_cli": cur_k2}
     k2_row["launches"] = sum(k2_row["launches_by_path"].values())
     # the bf16 instances on the bf16 paths: conversion (phase 15, both
     # encoders), the batch-64 train step (phase 16, both encoders), the CLIs

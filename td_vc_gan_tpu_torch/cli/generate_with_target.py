@@ -108,6 +108,44 @@ def load_generator(cfg, load_path: Path, epoch, num_spk: int, device=None):
     return G
 
 
+def load_crepe(crepe_weights: str | None):
+    """The pitch net: a torchcrepe ``.pth`` when given, else from seed 0."""
+    if crepe_weights:
+        from td_vc_gan_tpu_torch.training.torch_import import load_torchcrepe
+
+        return load_torchcrepe(crepe_weights)
+    return crepe_from_seed(0)
+
+
+class ConversionTally:
+    """What a conversion CLI prints at its end: the seconds, finiteness and
+    peak of the audio it converted, its convert calls, the cond-chain K1
+    launches and the wall time since the tally was made."""
+
+    def __init__(self, conv: Converter):
+        self.dtype = conv.compute_dtype
+        self.sr = conv.cfg.model.sample_rate
+        self.t0 = time.perf_counter()
+        self.k0 = cc_mod.kernel_launches(self.dtype)[0]
+        self.calls, self.audio_s, self.peak, self.finite = 0, 0.0, 0.0, True
+
+    def add(self, wavs: np.ndarray) -> None:
+        """The outputs of one convert call, (T,) or (B, T)."""
+        self.calls += 1
+        self.audio_s += wavs.size / self.sr
+        self.finite = self.finite and bool(np.isfinite(wavs).all())
+        self.peak = max(self.peak, float(np.abs(wavs).max()))
+
+    def summary(self, what: str, call: str) -> str:
+        wall = time.perf_counter() - self.t0
+        k1 = cc_mod.kernel_launches(self.dtype)[0] - self.k0
+        return (f"Converted {what} in {self.calls} {call} calls: {self.audio_s:.2f} s of audio "
+                f"in {wall:.2f} s (RTF {self.audio_s / max(wall, 1e-9):.1f}x, file I/O and "
+                f"pitch included); cond-chain K1 launches {k1} ({self.dtype}); outputs "
+                f"{'finite' if self.finite else 'NOT finite'}, max|y| {self.peak:.4f} before "
+                f"writing")
+
+
 def generate_signals(save_path, data_path, load_path, config_file=None,
                      data_file="test_files", epoch=None, dataset_format="vctk",
                      crepe_weights=None, device=None):
@@ -137,19 +175,9 @@ def generate_signals(save_path, data_path, load_path, config_file=None,
     }
 
     G = load_generator(cfg, load_path, epoch, test_ds.num_spk, dev)
-    if crepe_weights:
-        from td_vc_gan_tpu_torch.training.torch_import import load_torchcrepe
+    conv = Converter(cfg, G, load_crepe(crepe_weights), decoder="viterbi", device=dev)
 
-        crepe = load_torchcrepe(crepe_weights)
-    else:
-        crepe = crepe_from_seed(0)
-    conv = Converter(cfg, G, crepe, decoder="viterbi", device=dev)
-
-    t0 = time.perf_counter()
-    k0 = cc_mod.kernel_launches(conv.compute_dtype)[0]
-    calls = 0
-    audio_s = 0.0
-    peak, finite = 0.0, True
+    tally = ConversionTally(conv)
     conv_log = []
     for i in range(len(test_ds)):
         item = test_ds.__getitem__(i)
@@ -181,10 +209,7 @@ def generate_signals(save_path, data_path, load_path, config_file=None,
             np.stack(mu_tgts),
             seed=i,
         )[:, :n]
-        calls += 1
-        audio_s += b * n / cfg.model.sample_rate
-        finite = finite and bool(np.isfinite(wavs).all())
-        peak = max(peak, float(np.abs(wavs).max()))
+        tally.add(wavs)
 
         for j, tgt in enumerate(ds_spks):
             spk_tgt = test_ds.spk_reverse_dict[tgt]
@@ -195,13 +220,8 @@ def generate_signals(save_path, data_path, load_path, config_file=None,
         write_audio(save_path / f"{phrase_id}-{spk_src}-X-orig.wav", signal,
                     cfg.model.sample_rate)
     (save_path / "conv_log.txt").write_text("\n".join(conv_log) + "\n")
-    wall = time.perf_counter() - t0
-    print(f"Converted {len(test_ds)} utterances to {len(ds_spks)} speakers in {calls} "
-          f"convert_batch calls: {audio_s:.2f} s of audio in {wall:.2f} s "
-          f"(RTF {audio_s / max(wall, 1e-9):.1f}x, file I/O and pitch included); "
-          f"cond-chain K1 launches {cc_mod.kernel_launches(conv.compute_dtype)[0] - k0} "
-          f"({conv.compute_dtype}); outputs "
-          f"{'finite' if finite else 'NOT finite'}, max|y| {peak:.4f} before writing")
+    print(tally.summary(f"{len(test_ds)} utterances to {len(ds_spks)} speakers",
+                        "convert_batch"))
 
 
 def main(argv=None):

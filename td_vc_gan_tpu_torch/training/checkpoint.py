@@ -92,9 +92,13 @@ def has_state(path: str | Path, epoch: int) -> bool:
     return _state_file(path, epoch).exists()
 
 
-def restore_state(state: TrainState, path: str | Path, epoch: int | None = None) -> TrainState:
-    """Load a saved train state into ``state`` (in place; the modules and
-    optimizers must have been built for the same config)."""
+def restore_state(state: TrainState, path: str | Path, epoch: int | None = None) -> list[str]:
+    """Load a saved train state into ``state`` (in place; G and D must have
+    been built for the same architecture) and return the names of the nets
+    it restored. A latent classifier that the saved state lacks (a stage-1
+    run handing off to stage 2-1) keeps its weights from the seed and a fresh
+    optimizer, as in the reference's ``train.py``, which loads whichever of
+    ``step{E}-{G,D,C}.pt`` exist."""
     if epoch is None:
         epoch = latest_epoch(path)
         if epoch is None:
@@ -104,11 +108,13 @@ def restore_state(state: TrainState, path: str | Path, epoch: int | None = None)
     state.D.load_state_dict(blob["D"])
     state.opt_g.optimizer.load_state_dict(blob["opt_g"])
     state.opt_d.optimizer.load_state_dict(blob["opt_d"])
+    restored = ["G", "D"]
     if state.C is not None and "C" in blob:
         state.C.load_state_dict(blob["C"])
         state.opt_c.optimizer.load_state_dict(blob["opt_c"])
+        restored.append("C")
     state.step = int(blob["step"])
-    return state
+    return restored
 
 
 # ---------------------------------------------------------------------------

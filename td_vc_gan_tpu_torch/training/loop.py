@@ -226,10 +226,12 @@ def train(
     start_epoch = 0
     if load_path is not None:
         if state_epoch is not None:
-            ckpt.restore_state(state, load_path, state_epoch)
+            restored = ckpt.restore_state(state, load_path, state_epoch)
             start_epoch = state_epoch + 1
+            seeded = ", C from the seed" if C is not None and "C" not in restored else ""
             log_fn(f"Resumed train state epoch {state_epoch} (step {state.step}, "
-                   f"digest {state_digest(state)}{backbone_note(G)})")
+                   f"digest {state_digest(state)}{backbone_note(G)}; restored "
+                   f"{'+'.join(restored)}{seeded})")
         else:
             base = f"step{epoch}" if epoch is not None else "latest"
             g_file = load_path / f"{base}-G.pt"
