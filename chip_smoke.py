@@ -106,7 +106,9 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    with 4 K1 and 4 K2 launches each (one decode, no cycle pass), every
    trainable tensor changed, W1's backbone bit-identical, peak memory, a
    profile;
-19. the curriculum through the CLIs, conv encoder, each a subprocess: phase
+19. the curriculum through the CLIs, conv encoder (the two train runs each a
+   subprocess, the other CLIs' ``main`` in turn in one child process, which
+   imports torch once): phase
    9's utterances as raw speaker folders (all WAV); ``prepare_dataset``,
    ``preprocess_dataset`` (-30 dB, in place), ``subset_dataset`` (4 x 1 of
    the test manifest), ``precorrupt_dataset`` (2 variants); stage 1 (S1
@@ -118,9 +120,21 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    ``sample_f0`` on the first one's output and ``get_model_info`` on stage
    1's run; every logged loss, 4 K1 + 4 K2 launches per step, 4 K1 per
    convert call, the hand-off, each output's max|y| and file names, each
-   CLI's wall time.
+   CLI's wall time;
+20. evaluation: which of transformers, h5py and matplotlib are importable;
+   ECAPA-TDNN and MOSNet at their published widths from seeded checkpoints
+   (a speechbrain-layout ``embedding_model.ckpt``, a MOSNet ``.npz``) on
+   phase 19's 16 test utterances, card against CPU, ms per utterance, peak
+   memory, parameter counts; WORLD's and the DTW's host seconds per
+   utterance pair; then ``python -m td_vc_gan_tpu_torch.cli.run_test`` (a
+   subprocess) on phase 19's stage-2-1 run (4 test utterances to 4
+   speakers): generation (4 K1 per convert call), MCD, ECAPA speaker
+   similarity, MOS, ASR with a tiny Whisper written from a seed when
+   transformers is there (else a line saying why it did not run), info and
+   the HTML report; every result pickle, a finite orig-vs-orig MCD
+   baseline, the count of finite conversion MCDs.
 
-Phases 1-13 and 18-19 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
+Phases 1-13 and 18-20 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
 the same), as the JAX package's default. Any failed check raises, and the
 script then exits non-zero without its result lines. The last two lines are
 the JSON kernel table (this run's numbers only) and the result object;
@@ -144,11 +158,14 @@ from __future__ import annotations
 import copy
 import ctypes
 import gc
+import importlib.metadata
+import importlib.util
 import inspect
 import json
 import os
 import pickle
 import re
+import select
 import signal
 import subprocess
 import sys
@@ -162,12 +179,15 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from td_vc_gan_tpu_torch import testing
 from td_vc_gan_tpu_torch.config import Config, load_config, parse_overrides
 from td_vc_gan_tpu_torch.data import corruption
 from td_vc_gan_tpu_torch.data.audio_io import read_audio, write_audio
 from td_vc_gan_tpu_torch.data.dataset import WaveDataset, collate, make_train_iterator
 from td_vc_gan_tpu_torch.data.flac import write_flac
+from td_vc_gan_tpu_torch.eval import mcd
 from td_vc_gan_tpu_torch.inference import Converter
+from td_vc_gan_tpu_torch.models import ecapa, mosnet
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
@@ -953,6 +973,71 @@ def run_cli(module: str, args: list[str]) -> tuple[list[str], float]:
         print("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]), file=sys.stderr)
         raise AssertionError(f"{module} exited with {proc.returncode}")
     return proc.stdout.splitlines(), wall
+
+
+class CliProcess:
+    """One child process that runs CLI modules' ``main(argv)`` in turn, so
+    that torch is imported once for all of them (``serve_clis`` is its
+    loop). ``run`` returns what ``run_cli`` returns: the CLI's output lines
+    (stdout and stderr) and its wall time inside the child. A CLI whose
+    ``main`` raises, exits non-zero or returns a non-zero int fails."""
+
+    def __init__(self):
+        env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.serve_clis()"], cwd=REPO,
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def run(self, module: str, args: list[str]) -> tuple[list[str], float]:
+        self.proc.stdin.write(json.dumps({"module": module, "args": args}) + "\n")
+        self.proc.stdin.flush()
+        ready, _, _ = select.select([self.proc.stdout], [], [], CLI_TIMEOUT)
+        reply = self.proc.stdout.readline() if ready else ""
+        if not reply:
+            raise AssertionError(f"{module}: no reply from the CLI process within "
+                                 f"{CLI_TIMEOUT} s (exit code {self.proc.poll()})")
+        reply = json.loads(reply)
+        lines = reply["out"].splitlines()
+        if reply["rc"] != 0:
+            print("\n".join(lines[-40:]), file=sys.stderr)
+            raise AssertionError(f"{module} {' '.join(args[:2])}... failed with {reply['rc']}")
+        return lines, reply["wall"]
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        if self.proc.wait(timeout=60) != 0:
+            raise AssertionError(f"the CLI process exited with {self.proc.returncode}")
+
+
+def serve_clis() -> None:
+    """The loop of ``CliProcess``'s child: one JSON request per line on
+    stdin, ``{"module", "args"}``; one JSON reply per line, ``{"rc", "out",
+    "wall"}``, on the original stdout. The CLIs' own output is captured; the
+    process's fd 1 goes to stderr meanwhile, so that what a CLI's worker
+    processes write there cannot mix with the replies."""
+    import contextlib
+    import importlib
+    import io
+    import traceback
+
+    replies = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)
+    for request in sys.stdin:
+        req = json.loads(request)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            try:
+                ret = importlib.import_module(req["module"]).main(req["args"])
+                rc = ret if isinstance(ret, int) and not isinstance(ret, bool) else 0
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+            except Exception:  # reported to the parent, which fails the phase
+                traceback.print_exc()
+                rc = 1
+        replies.write(json.dumps({"rc": rc, "out": buf.getvalue(),
+                                  "wall": time.perf_counter() - t0}) + "\n")
+        replies.flush()
 
 
 def step_lines(lines: list[str]) -> list[dict]:
@@ -1957,10 +2042,15 @@ def phase_curriculum_clis(root: Path, card: str) -> tuple[int, int, int]:
     the latent classifier) for two epochs, the hand-off to stage 2-1 from
     stage 1's epoch 0 (C from the seed), then every conversion and
     inspection CLI on the result. Returns (train K1, train K2, convert K1)."""
+    t_phase = time.perf_counter()
     walls = {}
+    # the nine dataset, conversion and inspection CLIs run in one process,
+    # which imports torch once; the two train runs are processes of their
+    # own, as the hand-off between them is a resume across processes
+    clis = CliProcess()
 
     def cli(name, args, variant=""):
-        lines, walls[name + variant] = run_cli(f"td_vc_gan_tpu_torch.cli.{name}", args)
+        lines, walls[name + variant] = clis.run(f"td_vc_gan_tpu_torch.cli.{name}", args)
         return lines
 
     raw, data, sub = root / "raw", root / "curriculum", root / "curriculum_sub"
@@ -2063,6 +2153,7 @@ def phase_curriculum_clis(root: Path, card: str) -> tuple[int, int, int]:
         raise AssertionError(f"sample_f0: {len(ratios)} pairs, {list(ratios.values())[:2]}")
     plot = "plot written" if (root / "f0.png").exists() else one_line(f0, "matplotlib")[0]
     info = cli("get_model_info", [str(stage1)])
+    clis.close()
     facts = dict(ln.split(": ", 1) for ln in info if ": " in ln)
     if facts.get("checkpoints") != "4" or facts.get("epoch_range") != "(0, 1)":
         raise AssertionError(f"get_model_info: {info}")
@@ -2092,9 +2183,175 @@ def phase_curriculum_clis(root: Path, card: str) -> tuple[int, int, int]:
         f"{len(ratios)} pairs, ratios {min(r['f0_ratio'] for r in ratios.values()):.3f} to "
         f"{max(r['f0_ratio'] for r in ratios.values()):.3f} ({plot}); get_model_info "
         f"{facts['checkpoints']} checkpoints, epochs {facts['epoch_range']}")
-    say("curriculum cli: wall time per CLI process: "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" [{card}]")
+    say("curriculum cli: wall time per CLI (train: its own process; the others: main() "
+        "in one process): " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; phase 19 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return train_k1, train_k2, gen_k1
+
+
+# ---------------------------------------------------------------------------
+# the evaluation harness: phase 20
+# ---------------------------------------------------------------------------
+
+
+# The evaluation models on the card against the CPU, f32 with TF32 off: of
+# max|ref| (ECAPA's embeddings, MOSNet's frame scores).
+EVAL_RTOL = 1e-4
+EVAL_SEED = 13
+
+
+def phase_eval(root: Path, card: str) -> int:
+    """Phase 20: ECAPA-TDNN and MOSNet at their published widths from seeded
+    checkpoints on phase 19's 16 test utterances, card against CPU; the
+    WORLD analysis and the DTW's host time; then ``run_test`` as a process
+    on phase 19's stage-2-1 run (its 4 test utterances to 4 speakers), every
+    stage with the models above. Returns run_test's K1 launches."""
+    t_phase = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("transformers", "h5py", "matplotlib")}
+    say("eval: optional packages importable on this machine: "
+        + ", ".join(f"{m} {importlib.metadata.version(m) if v else 'no'}"
+                    for m, v in have.items()))
+    ev = root / "eval"
+    ev.mkdir()
+    utts = [read_audio(ln.split("|")[0], 16000)[0].astype(np.float32) for ln in
+            (root / "curriculum" / "test_files").read_text().split()]
+
+    ecapa_ckpt = ev / "embedding_model.ckpt"
+    torch.save({k: torch.from_numpy(v) for k, v in ecapa.init_ecapa_params(EVAL_SEED).items()},
+               ecapa_ckpt)
+    on = {dev: ecapa.EcapaEmbedder.from_speechbrain(str(ecapa_ckpt), device=dev)
+          for dev in ("cpu", "cuda")}
+    n_ecapa = sum(t.numel() for t in on["cuda"].model.state_dict().values())
+    on["cuda"].embed(utts[0])  # cuDNN's first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = [on["cuda"].embed(w) for w in utts]
+    ecapa_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
+    ecapa_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = [on["cpu"].embed(w) for w in utts]
+    ecapa_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+    if not all(np.isfinite(g).all() and g.shape == (ecapa.LIN_NEURONS,) for g in got) or \
+            ecapa_err > EVAL_RTOL:
+        raise AssertionError(f"ECAPA: card against CPU {ecapa_err:.3e} of max|ref| "
+                             f"(tolerance {EVAL_RTOL})")
+    del on
+    parts = {"ECAPA (card and CPU)": time.perf_counter() - t_phase}
+    say(f"eval ecapa: published width (channels {ecapa.CHANNELS}, scale {ecapa.RES2NET_SCALE}, "
+        f"{ecapa.LIN_NEURONS}-d; {n_ecapa:,} tensor elements with BN statistics) from a seeded "
+        f"speechbrain-layout embedding_model.ckpt; {len(utts)} utterances "
+        f"({min(map(len, utts)) / 16000:.2f}-{max(map(len, utts)) / 16000:.2f} s), card "
+        f"against CPU {ecapa_err:.3e} of max|ref| (tolerance {EVAL_RTOL}); {ecapa_ms:.2f} ms "
+        f"per utterance on the card (one utterance per call, fbank on the host included), "
+        f"peak {ecapa_peak:.2f} GiB [{card}]")
+
+    slots = mosnet.init_mosnet_params(EVAL_SEED)
+    rng = np.random.default_rng(EVAL_SEED)
+    for k in slots:
+        if k.endswith(".bias"):
+            slots[k] = (0.1 * rng.standard_normal(slots[k].shape)).astype(np.float32)
+    mos_ckpt = ev / "mosnet.npz"
+    np.savez(mos_ckpt, **slots)
+    pred = {dev: mosnet.MOSPredictor(mosnet.load_mosnet(str(mos_ckpt)), dev)
+            for dev in ("cpu", "cuda")}
+    mags = [torch.from_numpy(mosnet.spectrogram(w)[None]) for w in utts]
+    with torch.no_grad():
+        pred["cuda"].model(mags[0].cuda())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = [pred["cuda"].model(m.cuda())[1].cpu().numpy() for m in mags]
+        mos_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
+        want = [pred["cpu"].model(m)[1].numpy() for m in mags]
+    mos_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mos_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+    if not all(np.isfinite(g).all() for g in got) or mos_err > EVAL_RTOL:
+        raise AssertionError(f"MOSNet: card against CPU {mos_err:.3e} of max|ref| "
+                             f"(tolerance {EVAL_RTOL})")
+    n_slots = sum(v.size for v in slots.values())
+    scores = [pred["cuda"].score(w) for w in utts[:2]]
+    del pred
+    parts["MOSNet (card and CPU)"] = time.perf_counter() - t_phase - sum(parts.values())
+    say(f"eval mosnet: published width ({n_slots:,} parameters in the Keras slots; torch's "
+        f"LSTM adds {2 * 4 * mosnet.LSTM_UNITS:,} zero b_hh) from a seeded .npz; frame scores "
+        f"of {len(utts)} utterances, card against CPU {mos_err:.3e} of max|ref| (tolerance "
+        f"{EVAL_RTOL}); {mos_ms:.2f} ms per utterance on the card (model only), peak "
+        f"{mos_peak:.2f} GiB; MOS of the first two {scores[0]:.4f}, {scores[1]:.4f} [{card}]")
+
+    t0 = time.perf_counter()
+    mceps = [mcd.world_mcep(w) for w in utts]
+    world_s = (time.perf_counter() - t0) / len(utts)
+    t0 = time.perf_counter()
+    pairs = [mcd.mcd_from_mceps(mceps[i][0], mceps[(i + 1) % len(utts)][0])
+             for i in range(len(utts))]
+    dtw_s = (time.perf_counter() - t0) / len(utts)
+    if not all(np.isfinite(pairs)):
+        raise AssertionError(f"MCD between the test utterances: {pairs}")
+    cells = [len(mceps[i][0]) * len(mceps[(i + 1) % len(utts)][0]) for i in range(len(utts))]
+    parts["WORLD and the DTW"] = time.perf_counter() - t_phase - sum(parts.values())
+    say(f"eval host: WORLD analysis (dio, stonemask, cheaptrick, sp2mc) {world_s:.3f} s per "
+        f"utterance, {2 * world_s:.3f} s per utterance pair; the exact DTW with its distance "
+        f"matrix {dtw_s:.3f} s per pair ({min(cells):,}-{max(cells):,} cells); MCD between "
+        f"neighbouring test utterances {min(pairs):.3f}-{max(pairs):.3f}")
+
+    stages = "mcd,spkrec,mosnet,info,html"
+    args = ["--save_path", str(ev / "run_test"), "--load_path", str(root / "stage2_1"),
+            "--data_path", str(root / "curriculum_sub"), "--ecapa_checkpoint", str(ecapa_ckpt),
+            "--mosnet_ckpt", str(mos_ckpt)]
+    if have["transformers"]:
+        stages += ",asr"
+        args += ["--asr_model", testing.tiny_whisper_checkpoint(ev / "whisper")]
+    parts["the tiny Whisper written"] = time.perf_counter() - t_phase - sum(parts.values())
+    lines, wall = run_cli("td_vc_gan_tpu_torch.cli.run_test", args + ["--stages", stages])
+    parts["run_test"] = wall
+    conv = convert_summary(lines)
+    out = ev / "run_test"
+    results = ["mcd_results", "spkrec_results", "mosnet_results", "info"]
+    results += ["asr_results"] if have["transformers"] else []
+    missing = [r for r in results + ["index.html", "index.json"] if not (out / r).exists()]
+    if missing or conv.calls != 4 or len(list((out / "signals").glob("*-conv.wav"))) != 16:
+        raise AssertionError(f"run_test: missing {missing}, {conv.calls} convert calls")
+    with open(out / "mcd_results", "rb") as f:
+        mcds = pickle.load(f)
+    with open(out / "spkrec_results", "rb") as f:
+        spk = pickle.load(f)
+    with open(out / "mosnet_results", "rb") as f:
+        mos = pickle.load(f)
+    base = [v for s_, row in mcds["mcd_result_orig"].items() for t_, vs in row.items()
+            for v in vs if s_ != t_]
+    conv_mcd = [v for row in mcds["mcd_result_conv"].values() for vs in row.values() for v in vs]
+    sims = [v for row in spk["emb_dist"].values() for vs in row.values() for v in vs]
+    mos_conv = [v for row in mos["mos_result_conv"].values() for vs in row.values() for v in vs]
+    if len(base) != 12 or not all(np.isfinite(base)) or len(conv_mcd) != 16 or \
+            spk["backend"] != "ecapa" or len(sims) != 16 or not all(np.isfinite(sims)) or \
+            len(mos_conv) != 16 or not all(np.isfinite(mos_conv)):
+        raise AssertionError(f"run_test: orig-vs-orig MCD {base}, {len(conv_mcd)} conversion "
+                             f"MCDs, speaker backend {spk['backend']}, {len(sims)} "
+                             f"similarities, {len(mos_conv)} MOS")
+    asr_line = "the ASR stage did not run on this machine: transformers is not importable " \
+        "here, so run_test ran without --asr_model, as the JAX CLI does with no model " \
+        "(the stage is held by the CPU tests)"
+    if have["transformers"]:
+        with open(out / "asr_results", "rb") as f:
+            asr = pickle.load(f)
+        if not (np.isfinite(asr["asr_results_wer"]) and np.isfinite(asr["asr_results_cer"])):
+            raise AssertionError(f"run_test: ASR {asr}")
+        asr_line = (f"ASR on the card with a tiny Whisper written from a seed: WER "
+                    f"{asr['asr_results_wer']:.3f}, CER {asr['asr_results_cer']:.3f} of the "
+                    f"conversions against the originals' transcripts")
+    say(f"eval run_test: stages {stages} on stage 2-1's run, 4 utterances x 4 speakers: "
+        f"{conv.calls} convert calls, K1 launches {conv.k1} ({STAGES} a call), outputs "
+        f"finite, max|y| {conv.peak:.4f}; orig-vs-orig MCD finite in all {len(base)} pairs "
+        f"(mean {np.mean(base):.3f}); {int(np.isfinite(conv_mcd).sum())} of {len(conv_mcd)} "
+        f"conversion MCDs finite (not required: a 15-step G may convert to near-noise, where "
+        f"the guard of fewer than 10 voiced frames gives NaN); ECAPA similarity mean {np.mean(sims):.3f}; MOS mean "
+        f"{np.mean(mos_conv):.4f}; {asr_line}; result pickles and index.html written; "
+        f"{wall:.1f} s of wall time for the process")
+    say(f"eval: phase 20 {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + f" (its generation {conv.conv_s:.1f} s inside the process) [{card}]")
+    return conv.k1
 
 
 # The A/B of ``python3 chip_smoke.py --ab DIR``: rounds of old and new,
@@ -2309,6 +2566,7 @@ def main(ab_dir: Path | None = None) -> int:
             say(f"stage {name}: {' '.join(o.split('.', 1)[1] for o in overrides)}")
             stage_k.append(phase_step(f"stage {name}", stage_cfg(overrides), card, STAGES)[0])
         cur_k1, cur_k2, cur_gen_k1 = phase_curriculum_clis(root, card)
+        eval_k1 = phase_eval(root, card)
     # K1 runs on every main path: conversion (phases 4 and 11), the train
     # step (phases 7, 12 and 18) and the CLIs (phases 9, 10, 13 and 19); K2
     # on the training paths
@@ -2319,7 +2577,8 @@ def main(ab_dir: Path | None = None) -> int:
                                   "wavlm_generate_cli": wavlm_gen_k1,
                                   "stage_train": sum(k[0] for k in stage_k),
                                   "curriculum_train_cli": cur_k1,
-                                  "curriculum_generate_clis": cur_gen_k1}
+                                  "curriculum_generate_clis": cur_gen_k1,
+                                  "eval_cli": eval_k1}
     k1_row["launches"] = sum(k1_row["launches_by_path"].values())
     k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
                                   "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2,

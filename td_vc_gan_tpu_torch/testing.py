@@ -2,8 +2,9 @@
 
 The decoder's stage shapes and seeded cond-chain operands at one stage,
 optionally rounded so that cond_0's products are exact; a CREPE-tiny
-state dict in torchcrepe's layout, and a WavLM checkpoint in the Microsoft
-layout, for the loaders of both packages.
+state dict in torchcrepe's layout, a WavLM checkpoint in the Microsoft
+layout, and a tiny Whisper checkpoint directory for transformers, for the
+loaders of both packages.
 """
 
 from __future__ import annotations
@@ -142,3 +143,50 @@ def microsoft_wavlm_checkpoint(model) -> dict:
         out[ms] = t.reshape(1, 1, -1) if ms.endswith("weight_g") else t
     out["mask_emb"] = torch.zeros(cfg.encoder_embed_dim)
     return {"cfg": raw, "model": out}
+
+
+def tiny_whisper_checkpoint(d, seed: int = 0) -> str:
+    """Write a 2-layer Whisper (d_model 32, a character vocabulary, greedy
+    decoding of at most 24 tokens) with its processor into directory ``d``,
+    for transformers' ASR pipeline; returns ``d``. transformers is imported
+    here only."""
+    import json
+    import os
+
+    from transformers import (WhisperConfig, WhisperFeatureExtractor,
+                              WhisperForConditionalGeneration, WhisperProcessor,
+                              WhisperTokenizer)
+
+    d = str(d)
+    os.makedirs(d, exist_ok=True)
+    specials = ["<|endoftext|>", "<|startoftranscript|>", "<|en|>", "<|transcribe|>",
+                "<|translate|>", "<|notimestamps|>", "<|nospeech|>"]
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + ["'", ".", ","]
+    vocab = {t: i for i, t in enumerate(specials + chars)}
+    vocab["\u0120"] = len(vocab)  # byte-level BPE space marker
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    eot = "<|endoftext|>"
+    tok = WhisperTokenizer(os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt"),
+                           unk_token=eot, bos_token=eot, eos_token=eot, pad_token=eot)
+    proc = WhisperProcessor(feature_extractor=WhisperFeatureExtractor(feature_size=80),
+                            tokenizer=tok)
+    cfg = WhisperConfig(
+        vocab_size=len(vocab), num_mel_bins=80, encoder_layers=2, encoder_attention_heads=2,
+        decoder_layers=2, decoder_attention_heads=2, d_model=32, encoder_ffn_dim=64,
+        decoder_ffn_dim=64, max_source_positions=1500, max_target_positions=448,
+        decoder_start_token_id=vocab["<|startoftranscript|>"], eos_token_id=vocab[eot],
+        pad_token_id=vocab[eot], bos_token_id=vocab[eot])
+    torch.manual_seed(seed)
+    model = WhisperForConditionalGeneration(cfg)
+    gc = model.generation_config
+    gc.forced_decoder_ids = None
+    gc.begin_suppress_tokens = None
+    gc.suppress_tokens = None
+    gc.max_length = 24
+    gc.no_timestamps_token_id = vocab["<|notimestamps|>"]
+    model.save_pretrained(d)
+    proc.save_pretrained(d)
+    return d

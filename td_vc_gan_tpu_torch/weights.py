@@ -17,6 +17,11 @@ mapping is by name; only the layouts differ:
 
 Every parameter and buffer must be matched exactly once; anything missing,
 left over or of the wrong shape raises.
+
+The evaluation models' JAX parameters are flat dicts: ECAPA's are keyed by
+speechbrain's names with conv kernels (k, in, out), which go back to
+(out, in, k); MOSNet's are its Keras slots, which ``models.mosnet.load_slots``
+reads.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from td_vc_gan_tpu_torch.models import mosnet
 from td_vc_gan_tpu_torch.models.crepe import Crepe
+from td_vc_gan_tpu_torch.models.ecapa import ECAPA, from_torch_state_dict
 from td_vc_gan_tpu_torch.models.layers import Linear, WNConv1d
 from td_vc_gan_tpu_torch.models.wavlm import (
     ConvFeatureExtractor,
@@ -120,3 +127,23 @@ def crepe_from_jax(net: Crepe, params_np: Mapping) -> Crepe:
         return a
 
     return _load(net, _params(params_np), layout)
+
+
+def ecapa_from_jax(model: ECAPA, params_np: Mapping) -> ECAPA:
+    """Fill the port's ECAPA from the JAX package's ECAPA parameters (the
+    flat dict of ``from_torch_state_dict`` in ``td_vc_gan_tpu/models/ecapa.py``, numpy
+    leaves), ``classifier.weight`` included when present."""
+    sd = {}
+    for key, a in params_np.items():
+        a = np.asarray(a, dtype=np.float32)
+        if key.endswith("conv.weight") and a.ndim == 3:
+            a = a.transpose(2, 1, 0)
+        sd[key] = np.ascontiguousarray(a)
+    csd = {"weight": sd["classifier.weight"]} if "classifier.weight" in sd else None
+    return from_torch_state_dict(model, sd, csd)
+
+
+def mosnet_from_jax(model: mosnet.MOSNet, params_np: Mapping) -> mosnet.MOSNet:
+    """Fill the port's MOSNet from the JAX package's MOSNet parameters (its
+    Keras slot dict, numpy leaves)."""
+    return mosnet.load_slots(model, {k: np.asarray(v) for k, v in params_np.items()})

@@ -168,6 +168,12 @@ sys.modules["yaml"] = None  # the card's machine has no PyYAML
 import td_vc_gan_tpu_torch
 for m in pkgutil.walk_packages(td_vc_gan_tpu_torch.__path__, "td_vc_gan_tpu_torch."):
     importlib.import_module(m.name)
+for name in ("eval.dtw", "eval.world", "eval.mcd", "eval.speaker_rec", "eval.mosnet",
+             "eval.asr", "eval.report", "eval.presets", "models.ecapa", "models.mosnet",
+             "ops.yin", "cli.run_test", "cli.import_pretrained", "cli.gen_boxplots"):
+    assert "td_vc_gan_tpu_torch." + name in sys.modules, name
+# the evaluation's optional packages are imported where they are used only
+assert not {"h5py", "transformers", "matplotlib", "resemblyzer"} & set(sys.modules)
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
