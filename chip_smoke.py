@@ -132,9 +132,21 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    similarity, MOS, ASR with a tiny Whisper written from a seed when
    transformers is there (else a line saying why it did not run), info and
    the HTML report; every result pickle, a finite orig-vs-orig MCD
-   baseline, the count of finite conversion MCDs.
+   baseline, the count of finite conversion MCDs;
+21. data parallelism (``td_vc_gan_tpu_torch.parallel``): the full-width
+   stage-2 step (16 x 8960, conv encoder) on two ranks over gloo sharing
+   cuda:0 (8 items each, two processes), then on every visible card over
+   NCCL (one process each; with one card the NCCL path at W = 1), each
+   against the one-rank step on the 16 items in this process with the same
+   weights and global draws (losses, first moments, parameters; replicas
+   and generators bit-identical), each rank's step ms, the mean of G's and
+   D's gradients (MB, ms) and its 8 K1 + 8 K2 launches a step; with two or
+   more cards the train CLI, one process per card, and a resume (segments
+   per second, in all and per rank); then ``convert_long_sharded`` of a
+   60 s utterance on [cuda:0], [cuda:0, cuda:0] and every card, against the
+   one-device output, RTF, 4 K1 launches per shard call.
 
-Phases 1-13 and 18-20 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
+Phases 1-13 and 18-21 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
 the same), as the JAX package's default. Any failed check raises, and the
 script then exits non-zero without its result lines. The last two lines are
 the JSON kernel table (this run's numbers only) and the result object;
@@ -179,7 +191,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from td_vc_gan_tpu_torch import testing
+from td_vc_gan_tpu_torch import parallel, testing
 from td_vc_gan_tpu_torch.config import Config, load_config, parse_overrides
 from td_vc_gan_tpu_torch.data import corruption
 from td_vc_gan_tpu_torch.data.audio_io import read_audio, write_audio
@@ -2356,6 +2368,261 @@ def phase_eval(root: Path, card: str) -> int:
 
 # The A/B of ``python3 chip_smoke.py --ab DIR``: rounds of old and new,
 # alternated (old, new, then new, old, ...).
+# Phase 21: data parallelism. The ranks' first step against one rank's on
+# the whole batch (same weights, same global draws): losses and first
+# moments within phase 7's twin tolerances (the mean of the ranks' gradients
+# sums in another order, and cuDNN picks its algorithms per batch size,
+# which moves the leaky_relu slope where h is within rounding of 0, as the
+# plain chain does); parameters within DP_PARAM_ATOL where the first
+# moment's sign is settled (above STEP_MU_RTOL of the tensor's max|ref|),
+# elsewhere within AdamW's first step, 2 lr. The ranks' replicas equal bit
+# for bit (one all-reduce gives every rank the same sums).
+DP_STEPS = 3              # steps on each rank: the first compared, the rest timed
+DP_PARAM_ATOL = 1e-6
+# convert_long_sharded on several devices against one device: each shard is
+# a batch of another size, for which cuDNN may pick another algorithm; the
+# JAX package's own tolerance for its sharded conversion
+# (tests/test_inference.py).
+SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-5
+LONG_S = 60               # seconds of the sharded conversion's utterance
+DP_TIMEOUT = 600
+
+
+def dp_compare(label: str, results: list[dict], ref: dict) -> tuple[float, float, float]:
+    """Rank 0's first step against the one-rank step ``ref`` (metrics,
+    first moments, parameters, with the tolerances above); every rank's
+    replica and generator against rank 0's, bit for bit. Returns (worst
+    loss, worst moment, worst settled parameter) difference."""
+    r0 = results[0]
+    for r, res in enumerate(results[1:], 1):
+        for tag, kinds in r0["state"].items():
+            for kind, tensors in kinds.items():
+                diff = [n for n, v in tensors.items()
+                        if not torch.equal(v, res["state"][tag][kind][n])]
+                if diff:
+                    raise AssertionError(f"{label}: rank {r}'s {tag} {kind} differ from rank "
+                                         f"0's: {diff[:5]}")
+        if not torch.equal(res["generator"], r0["generator"]):
+            raise AssertionError(f"{label}: rank {r}'s generator differs from rank 0's")
+    if not torch.equal(r0["generator"], ref["generator"]):
+        raise AssertionError(f"{label}: the ranks' generator differs from the one-rank step's")
+    m, m_ref = r0["metrics"][0], ref["metrics"]
+    if set(m) != set(m_ref):
+        raise AssertionError(f"{label}: other metrics than the one-rank step's")
+    worst_loss = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-6) for k in m_ref)
+    worst_mu = worst_p = 0.0
+    for tag, kinds in ref["state"].items():
+        lr = ref["lr"][tag]
+        for n, want in kinds["exp_avg"].items():
+            got = r0["state"][tag]["exp_avg"][n]
+            scale = max(float(want.abs().max()), 1e-30)
+            worst_mu = max(worst_mu, float((got - want).abs().max()) / scale)
+            settled = want.abs() > STEP_MU_RTOL * scale
+            d = (r0["state"][tag]["params"][n] - kinds["params"][n]).abs()
+            if d.numel() and float(d.max()) > 2 * lr + DP_PARAM_ATOL:
+                raise AssertionError(f"{label}: {tag}.{n} moved {float(d.max()):.2e} from the "
+                                     f"one-rank step's, over 2 lr")
+            if settled.any():
+                worst_p = max(worst_p, float(d[settled].max()))
+    say(f"{label}: first step against one rank's on the {B} items: losses worst relative "
+        f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); first moments worst "
+        f"max|d| {worst_mu:.2e} of the tensor's max|ref| (tolerance {STEP_MU_RTOL:.0e}); "
+        f"parameters worst |d| {worst_p:.2e} where the moment's sign is settled (tolerance "
+        f"{DP_PARAM_ATOL:.0e}), within 2 lr elsewhere; {len(results)} replicas and "
+        f"generators bit-identical")
+    if not (worst_loss <= STEP_LOSS_RTOL and worst_mu <= STEP_MU_RTOL
+            and worst_p <= DP_PARAM_ATOL):
+        raise AssertionError(f"{label}: the ranks' step disagrees with the one-rank step")
+    return worst_loss, worst_mu, worst_p
+
+
+def dp_ranks(label: str, world: int, payload: Path, out: Path, device: str, backend: str,
+             ref: dict, card: str) -> tuple[int, int]:
+    """The payload's steps on ``world`` ranks (``testing.step_rank``, one
+    process each); checks and prints them; returns their (K1, K2) launches,
+    all ranks together."""
+    out.mkdir()
+    t0 = time.perf_counter()
+    testing.run_ranks(world, testing.call("td_vc_gan_tpu_torch.testing:step_rank",
+                                          str(payload), str(out), device, backend),
+                      timeout=DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    results = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    dp_compare(label, results, ref)
+    per = STAGES * 2
+    for r, res in enumerate(results):
+        if any(c != (per, per) for c in res["launches"]):
+            raise AssertionError(f"{label}: rank {r} launched (K1, K2) {res['launches']} in "
+                                 f"its steps, expected ({per}, {per}) each")
+        bad = [k for m in res["metrics"] for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label}: rank {r} logged non-finite {bad[:5]}")
+        timed = sorted(res["ms"][1:])
+        say(f"{label}: rank {r}/{world}: step median {timed[len(timed) // 2]:.2f} ms over "
+            f"{len(timed)} steps (first {res['ms'][0]:.2f} ms), mean of G's and D's gradients "
+            f"{res['all_reduce']['bytes'] / 1e6:.1f} MB in {res['all_reduce']['ms']:.2f} ms, "
+            f"(K1, K2) launches per step {res['launches'][0]} [{card}]")
+    say(f"{label}: {world} processes in {wall:.1f} s wall (start-up, load, steps)")
+    return (sum(sum(c[0] for c in res["launches"]) for res in results),
+            sum(sum(c[1] for c in res["launches"]) for res in results))
+
+
+def phase_data_parallel(cfg, root: Path, card: str) -> dict:
+    """Phase 21: (a) the full-width stage-2 step (16 x 8960, conv encoder,
+    f32) on two ranks over gloo on cuda:0, 8 items each, against the
+    one-rank step on the 16 items with the same weights and global draws;
+    (b) the same on every visible card over NCCL, and with two or more the
+    train CLI, one process per card, then a resume; (c) convert_long_sharded
+    of a 60 s utterance on [cuda:0], [cuda:0, cuda:0] and every card,
+    against the one-device output. Returns the launches for the kernel
+    table."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        g, d, c = build_models(cfg, NUM_SPK, "cpu", seed=0)
+        batch = {k: v.cpu().numpy() for k, v in train_batch(10).items()}
+        payload = tmp / "payload.pt"
+        torch.save(dict(cfg=cfg, G=g, D=d, C=c, crepe=crepe_from_seed(2), batch=batch,
+                        draws=None, seed=5, steps=DP_STEPS), payload)
+        del g, d, c
+
+        # the one-rank step on the 16 items, no process group
+        blob = torch.load(payload, weights_only=False)
+        state = create_train_state(cfg, *(None if blob[k] is None else blob[k].cuda()
+                                          for k in ("G", "D", "C", "crepe")))
+        step = build_train_step(cfg, state)
+        gen = torch.Generator(device="cuda").manual_seed(blob["seed"])
+        full = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        nets = [(tag, net, opt) for tag, net, opt in (
+            ("G", state.G, state.opt_g), ("D", state.D, state.opt_d), ("C", state.C, state.opt_c))
+            if net is not None]
+        ref = {"metrics": {k: float(v) for k, v in step(full, gen).items()},
+               "lr": {tag: opt.optimizer.param_groups[0]["lr"] for tag, _, opt in nets},
+               "state": {tag: {"params": {n: p.detach().cpu().clone()
+                                          for n, p in net.named_parameters()},
+                               "exp_avg": {n: opt.optimizer.state[p]["exp_avg"].cpu().clone()
+                                           for n, p in net.named_parameters()
+                                           if p in opt.optimizer.state}}
+                         for tag, net, opt in nets}}
+        ms = []
+        for _ in range(DP_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(full, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ref["generator"] = gen.get_state()
+        one_ms = sorted(ms)[len(ms) // 2]
+        say(f"data parallel: one rank, no group: step median {one_ms:.2f} ms over {len(ms)} "
+            f"steps, {B * 1e3 / one_ms:.2f} segments/s [{card}]")
+        del state, step, full, blob
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        k1, k2 = dp_ranks("data parallel (a), 2 ranks over gloo on cuda:0", 2, payload,
+                          tmp / "a", "cuda:0", "gloo", ref, card)
+        world = torch.cuda.device_count()
+        kb = dp_ranks(f"data parallel (b), {world} rank(s) over NCCL", world, payload,
+                      tmp / "b", "cuda", "nccl", ref, card)
+        k1, k2 = k1 + kb[0], k2 + kb[1]
+        if world == 1:
+            say("data parallel (b): one card, so this is the NCCL path at W = 1; it gives no "
+                "scaling number")
+        else:
+            cli = dp_train_cli(root, world, card)
+            k1, k2 = k1 + cli[0], k2 + cli[1]
+
+    convert_k1 = dp_sharded_convert(cfg, card, world)
+    say(f"data parallel: phase total {time.perf_counter() - t_phase:.1f} s")
+    return {"train": (k1, k2), "convert": convert_k1}
+
+
+def dp_train_cli(root: Path, world: int, card: str) -> tuple[int, int]:
+    """The train CLI on ``world`` cards, one process each (epoch 0: 5 steps
+    of 16 / world items on each rank, validation, a save, samples), then a
+    resume for 2 steps; segments per second from rank 0's step lines.
+    Returns the ranks' (K1, K2) launches (read from their Done lines)."""
+    run = root / "run_dp"
+
+    def command(extra):
+        return lambda rank, world, address: [
+            sys.executable, "-m", "td_vc_gan_tpu_torch.cli.train", "--save_path", str(run),
+            "--data_path", str(root), "--num_processes", str(world), "--process_id", str(rank),
+            "--coordinator_address", address,
+            *[a for o in CLI_OVERRIDES for a in ("--override", o)], *extra]
+
+    outs = [testing.run_ranks(world, command([]), timeout=DP_TIMEOUT),
+            testing.run_ranks(world, command(["--load_path", str(run), "--max_steps", "7",
+                                              "--override", "train.num_epoch=1"]),
+                              timeout=DP_TIMEOUT)]
+    first, second = ([out.splitlines() for out in run_outs] for run_outs in outs)
+    steps = step_lines(first[0]) + step_lines(second[0])
+    if [s["Itt"] for s in steps] != list(range(7)):
+        raise AssertionError(f"multi-card CLI: logged steps {[s['Itt'] for s in steps]}")
+    digest = re.search(r"digest (\w+)", one_line(first[0], "Saved epoch 0")[0]).group(1)
+    k1 = k2 = 0
+    for r in range(world):
+        one_line(second[r], f"[rank {r}/{world}] Resumed train state epoch 0 (step 5, digest "
+                            f"{digest}")
+        for lines in (first[r], second[r]):
+            done = one_line(lines, f"[rank {r}/{world}] Done at step")[0]
+            k1 += int(re.search(r"K1 (\d+)", done).group(1))
+            k2 += int(re.search(r"K2 (\d+)", done).group(1))
+    counts = {(int(s["k1"]), int(s["k2"])) for s in steps}
+    if counts != {(STAGES * 2, STAGES * 2)}:
+        raise AssertionError(f"multi-card CLI: (K1, K2) per step {sorted(counts)}")
+    ms = sorted(s["step_ms"] for s in steps if s["Itt"] not in (0, 5))
+    median = ms[len(ms) // 2]
+    say(f"data parallel (b): the train CLI on {world} cards (one process each, local batch "
+        f"{B // world}): step median {median:.2f} ms, {B * 1e3 / median:.2f} segments/s in "
+        f"all, {B * 1e3 / median / world:.2f} per rank; resumed on every rank from the state "
+        f"saved at epoch 0 (digest {digest}) [{card}]")
+    return k1, k2
+
+
+def dp_sharded_convert(cfg, card: str, world: int) -> int:
+    """convert_long_sharded of a LONG_S s utterance (17 chunks of 71680
+    samples, overlap 12800) on [cuda:0], [cuda:0, cuda:0] and, with more
+    cards, on every card: each output against the one-device output, RTF, K1
+    launches (4 per shard call). Returns the K1 launches of the timed
+    calls."""
+    g = generator_from_config(cfg.model.generator, num_classes=NUM_SPK, seed=0)
+    conv = Converter(cfg, g, crepe_from_seed(1), decoder="viterbi")
+    sig = signals(3, LONG_S * 16000)[0]
+    lists = [["cuda:0"], ["cuda:0", "cuda:0"]]
+    if world > 1:
+        lists.append(parallel.local_devices())
+    for devices in lists:  # first calls: replicas, cuDNN's plans
+        conv.convert_long_sharded(sig, 7, np.log(180.0), devices, seed=4)
+    outs, total = [], 0
+    for devices in lists:
+        cc_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = conv.convert_long_sharded(sig, 7, np.log(180.0), devices, seed=4)
+        wall = time.perf_counter() - t0
+        launches = cc_mod.launches
+        total += launches
+        if launches != STAGES * len(devices):
+            raise AssertionError(f"sharded convert on {devices}: {launches} K1 launches, "
+                                 f"expected {STAGES} per shard call")
+        if y.shape != sig.shape or not np.isfinite(y).all():
+            raise AssertionError(f"sharded convert on {devices}: shape {y.shape} or non-finite")
+        line = (f"sharded convert: {LONG_S} s on {devices}: {wall * 1e3:.1f} ms, RTF "
+                f"{LONG_S / wall:.1f}x, K1 launches {launches} ({STAGES} per shard call), "
+                f"max|y| {float(np.abs(y).max()):.4f}")
+        if outs:
+            d = np.abs(y - outs[0])
+            worst = float((d / (SHARD_ATOL + SHARD_RTOL * np.abs(outs[0]))).max())
+            line += (f"; against one device max|d| {float(d.max()):.2e} ({worst:.2f} of the "
+                     f"tolerance atol {SHARD_ATOL:.0e} + rtol {SHARD_RTOL:.0e})")
+            if worst > 1.0:
+                raise AssertionError(f"sharded convert on {devices} differs from one device")
+        outs.append(y)
+        say(line + f" [{card}]")
+    return total
+
+
 AB_ROUNDS = 5
 
 
@@ -2567,6 +2834,7 @@ def main(ab_dir: Path | None = None) -> int:
             stage_k.append(phase_step(f"stage {name}", stage_cfg(overrides), card, STAGES)[0])
         cur_k1, cur_k2, cur_gen_k1 = phase_curriculum_clis(root, card)
         eval_k1 = phase_eval(root, card)
+        dp = phase_data_parallel(cfg, root, card)
     # K1 runs on every main path: conversion (phases 4 and 11), the train
     # step (phases 7, 12 and 18) and the CLIs (phases 9, 10, 13 and 19); K2
     # on the training paths
@@ -2578,12 +2846,15 @@ def main(ab_dir: Path | None = None) -> int:
                                   "stage_train": sum(k[0] for k in stage_k),
                                   "curriculum_train_cli": cur_k1,
                                   "curriculum_generate_clis": cur_gen_k1,
-                                  "eval_cli": eval_k1}
+                                  "eval_cli": eval_k1,
+                                  "data_parallel_train": dp["train"][0],
+                                  "sharded_convert": dp["convert"]}
     k1_row["launches"] = sum(k1_row["launches_by_path"].values())
     k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
                                   "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2,
                                   "stage_train": sum(k[1] for k in stage_k),
-                                  "curriculum_train_cli": cur_k2}
+                                  "curriculum_train_cli": cur_k2,
+                                  "data_parallel_train": dp["train"][1]}
     k2_row["launches"] = sum(k2_row["launches_by_path"].values())
     # the bf16 instances on the bf16 paths: conversion (phase 15, both
     # encoders), the batch-64 train step (phase 16, both encoders), the CLIs

@@ -9,6 +9,9 @@ JAX package measured as "conversion RTF".
 
 from __future__ import annotations
 
+import copy
+import math
+
 import numpy as np
 import torch
 
@@ -35,6 +38,8 @@ class Converter:
         self.num_classes = G.num_classes
         self.compute_dtype = (compute_dtype if compute_dtype is not None
                               else cfg.train.compute_dtype)
+        # (G, CREPE) on each device of convert_long_sharded, made once
+        self._replicas = {next(self.G.parameters()).device: (self.G, self.crepe)}
 
     def pad_to_bucket(self, signal: np.ndarray) -> tuple[np.ndarray, int]:
         n = signal.shape[-1]
@@ -52,24 +57,26 @@ class Converter:
 
     @torch.inference_mode()
     def convert_tensors(self, signals, f0_src, mu_src, mu_tgt, labels_tgt,
-                        seed: int = 0, start_phase=None, noise=None) -> torch.Tensor:
+                        seed: int = 0, start_phase=None, noise=None, G=None) -> torch.Tensor:
         """One call on the device: shift the voiced F0 to the target's
-        log-mean, synthesise the excitation, run G. (B, T) -> (B, T).
+        log-mean, synthesise the excitation, run G (default: this
+        Converter's; a replica of it on the inputs' device). (B, T) -> (B, T).
 
-        ``start_phase`` and ``noise`` inject the excitation's random draws;
-        otherwise they come from a ``torch.Generator`` seeded with ``seed``.
+        ``start_phase`` (a scalar, or (B, 1) for a phase per row) and
+        ``noise`` inject the excitation's random draws; otherwise they come
+        from a ``torch.Generator`` seeded with ``seed``.
         """
         f0_conv = torch.where(
             f0_src > 0, torch.exp(torch.log(f0_src + 1e-6) + mu_tgt - mu_src), 0.0)
         gen = None
         if start_phase is None or noise is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+            gen = torch.Generator(device=signals.device).manual_seed(seed)
         exc = dsp.f0_to_excitation(f0_conv, 64, self.cfg.model.sample_rate,
                                    start_phase=start_phase, noise=noise, generator=gen)
         onehot = torch.nn.functional.one_hot(labels_tgt.to(torch.int64),
                                              self.num_classes).to(torch.float32)
         with compute_dtype_scope(self.compute_dtype):
-            wav, _, _ = self.G(signals[..., None], onehot, exc[..., None])
+            wav, _, _ = (G or self.G)(signals[..., None], onehot, exc[..., None])
         return wav[..., 0]
 
     def pitch(self, signal: np.ndarray):
@@ -140,22 +147,109 @@ class Converter:
         mu_src = np.mean(mus, axis=0)
         mu_t = np.full_like(mu_src, float(mu_tgt)) if np.isscalar(mu_tgt) else mu_tgt
 
-        out = np.zeros(len(signal), dtype=np.float32)
-        weight = np.zeros(len(signal), dtype=np.float32)
-        fade = 0.5 - 0.5 * np.cos(np.pi * np.arange(overlap) / overlap)
-        for n_chunks, start in enumerate(range(0, max(len(signal) - overlap, 1), hop)):
+        starts = range(0, max(len(signal) - overlap, 1), hop)
+        ys = []
+        for n_chunks, start in enumerate(starts):
             seg = signal[start:start + chunk]
             if len(seg) < chunk:
                 seg = np.pad(seg, (0, chunk - len(seg)))
             f0, _ = self.pitch(seg)
-            y = self.convert(seg, label_tgt, f0, mu_src, mu_t, seed + n_chunks,
-                             *chunk_draws(n_chunks))
-            w = np.ones(chunk, dtype=np.float32)
-            if start > 0:
-                w[:overlap] = fade
-            if start + chunk < len(signal):
-                w[-overlap:] = fade[::-1]
-            end = min(start + chunk, len(signal))
-            out[start:end] += (y * w)[:end - start]
-            weight[start:end] += w[:end - start]
-        return out / np.maximum(weight, 1e-6)
+            ys.append(self.convert(seg, label_tgt, f0, mu_src, mu_t, seed + n_chunks,
+                                   *chunk_draws(n_chunks)))
+        return _overlap_add(ys, starts, len(signal), overlap)
+
+    def _replica(self, device) -> tuple:
+        """(G, CREPE) on ``device``: this Converter's own on its device, else a
+        copy made at the first call and kept."""
+        device = torch.device(device)
+        if device not in self._replicas:
+            self._replicas[device] = (copy.deepcopy(self.G).to(device),
+                                      copy.deepcopy(self.crepe).to(device))
+        return self._replicas[device]
+
+    def convert_long_sharded(self, signal: np.ndarray, label_tgt: int,
+                             mu_tgt: np.ndarray | float, devices, chunk: int = 71680,
+                             overlap: int = 12800, seed: int = 0, draws=None) -> np.ndarray:
+        """Device-parallel unbounded-length conversion, the counterpart of the
+        JAX package's: every overlap-add chunk of the utterance is stacked
+        into one (n_pad, chunk) batch, its count padded to a multiple of
+        ``len(devices)``, and shard k of n_pad / len(devices) chunks runs on
+        ``devices[k]`` with that device's replica of G and CREPE: pitch, then
+        one convert call per shard; the overlap-add is on the host. The
+        source pitch statistic is the voiced-weighted mean over the real
+        chunks (not :meth:`convert_long`'s disjoint re-segmentation).
+
+        Chunk i draws its excitation from ``seed + i`` (as
+        :meth:`convert_long` does), or takes ``draws[i]``, a (start_phase,
+        noise (1, chunk)) pair, so that the output does not depend on the
+        number of devices. Inputs no longer than one chunk go to
+        :meth:`convert_long`.
+        """
+        chunk = -(-chunk // self.bucket) * self.bucket  # a multiple of the model's stride
+        if len(signal) <= chunk:
+            return self.convert_long(signal, label_tgt, mu_tgt, chunk, overlap, seed, draws)
+        hop = chunk - overlap
+        starts = list(range(0, max(len(signal) - overlap, 1), hop))
+        n = len(starts)
+        devices = [torch.device(d) for d in devices]
+        n_pad = -(-n // len(devices)) * len(devices)
+        per = n_pad // len(devices)
+        segs = np.zeros((n_pad, chunk), dtype=np.float32)
+        for i, start in enumerate(starts):
+            seg = signal[start:start + chunk]
+            segs[i, :len(seg)] = seg
+
+        shards = []
+        for k, dev in enumerate(devices):
+            G, crepe = self._replica(dev)
+            x = torch.tensor(segs[k * per:(k + 1) * per], device=dev)
+            with torch.inference_mode():
+                f0, _ = crepe_mod.filtered_pitch(crepe, x, self.decoder)
+            shards.append((dev, G, x, f0))
+        f0_all = np.concatenate([f0.cpu().numpy() for *_, f0 in shards])
+        mu = crepe_mod.log_f0_mean(torch.from_numpy(f0_all)).numpy()
+        voiced = (f0_all[:n] > 0).sum(axis=1)
+        mu_src = float((mu[:n, 0] * voiced).sum() / max(voiced.sum(), 1))
+        mu_t = float(mu_tgt) if np.isscalar(mu_tgt) else float(np.asarray(mu_tgt).reshape(()))
+
+        ys = []
+        for k, (dev, G, x, f0) in enumerate(shards):
+            starts_k, noise_k = [], []
+            for i in range(k * per, (k + 1) * per):
+                if draws is not None and i < len(draws):
+                    start, noise = draws[i]
+                    start = torch.tensor(float(start), device=dev)
+                    noise = torch.tensor(np.asarray(noise, np.float32), device=dev)
+                else:
+                    gen = torch.Generator(device=dev).manual_seed(seed + i)
+                    start = torch.rand((), generator=gen, device=dev) * 2.0 * math.pi
+                    noise = torch.randn((1, chunk), generator=gen, device=dev)
+                starts_k.append(start)
+                noise_k.append(noise.reshape(1, chunk))
+            ys.append(self.convert_tensors(
+                x, f0, torch.full((per, 1), mu_src, device=dev),
+                torch.full((per, 1), mu_t, device=dev),
+                torch.full((per,), label_tgt, dtype=torch.int64, device=dev),
+                start_phase=torch.stack(starts_k)[:, None], noise=torch.cat(noise_k), G=G))
+        return _overlap_add(np.concatenate([y.cpu().numpy() for y in ys]), starts,
+                            len(signal), overlap)
+
+
+def _overlap_add(ys, starts, n: int, overlap: int) -> np.ndarray:
+    """The n samples of chunks ``ys[i]`` (each of one length) placed at
+    ``starts[i]`` and cross-faded over ``overlap`` samples with a raised
+    cosine."""
+    out = np.zeros(n, dtype=np.float32)
+    weight = np.zeros(n, dtype=np.float32)
+    fade = 0.5 - 0.5 * np.cos(np.pi * np.arange(overlap) / overlap)
+    for y, start in zip(ys, starts):
+        chunk = len(y)
+        w = np.ones(chunk, dtype=np.float32)
+        if start > 0:
+            w[:overlap] = fade
+        if start + chunk < n:
+            w[-overlap:] = fade[::-1]
+        end = min(start + chunk, n)
+        out[start:end] += (y * w)[:end - start]
+        weight[start:end] += w[:end - start]
+    return out / np.maximum(weight, 1e-6)

@@ -4,10 +4,21 @@ The decoder's stage shapes and seeded cond-chain operands at one stage,
 optionally rounded so that cond_0's products are exact; a CREPE-tiny
 state dict in torchcrepe's layout, a WavLM checkpoint in the Microsoft
 layout, and a tiny Whisper checkpoint directory for transformers, for the
-loaders of both packages.
+loaders of both packages. And a way to run W ranks, each its own process
+in one process group (:func:`run_ranks`, :func:`call`), with the train step
+on ranks (:func:`step_rank`) and the collectives' check
+(:func:`collectives_probe`).
 """
 
 from __future__ import annotations
+
+import contextlib
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -190,3 +201,187 @@ def tiny_whisper_checkpoint(d, seed: int = 0) -> str:
     model.save_pretrained(d)
     proc.save_pretrained(d)
     return d
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+_CALL = ("import importlib, sys; mod, fn = sys.argv[1].split(':'); "
+         "getattr(importlib.import_module(mod), fn)(*sys.argv[2:])")
+
+
+def call(target: str, *args: str):
+    """The command of :func:`run_ranks` that calls ``target``
+    (``"module:function"``) as ``function(rank, world, address, *args)``."""
+    return lambda rank, world, address: [sys.executable, "-c", _CALL, target, str(rank),
+                                         str(world), address, *args]
+
+
+def run_ranks(world: int, command, timeout: float = 300.0) -> list[str]:
+    """Run ``command(rank, world, address)`` (an argv) for each of ``world``
+    ranks, each its own process, started together from this package's
+    parent directory; ``address`` is a free ``127.0.0.1:port`` for the
+    process group. Returns each rank's output (stdout and stderr). If a rank
+    fails or the time runs out, the others (which may wait in a collective
+    for it) are ended and this raises with every rank's output."""
+    address = f"127.0.0.1:{free_port()}"
+    with contextlib.ExitStack() as files:
+        logs = [files.enter_context(tempfile.TemporaryFile("w+")) for _ in range(world)]
+        procs = [subprocess.Popen(command(rank, world, address),
+                                  cwd=Path(__file__).resolve().parents[1], stdout=log,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for rank, log in enumerate(logs)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("ranks failed: " + "".join(
+            f"\n--- rank {r} (exit {p.returncode}):\n{out}"
+            for r, (p, out) in enumerate(zip(procs, outs))))
+    return outs
+
+
+def _join(rank: int, world: int, address: str, device: str, backend: str) -> torch.device:
+    """Join a process group of ``world`` ranks (one too) at ``address`` on
+    ``device`` ("cuda": the rank's own card, ``cuda:{rank % count}``)."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if device == "cuda":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world,
+                            rank=rank)
+    return dev
+
+
+def step_rank(rank, world, address, payload: str, out: str, device: str = "cpu",
+              backend: str = "gloo") -> None:
+    """One rank of the train step, for :func:`run_ranks` through :func:`call`. ``payload`` (a
+    ``torch.save`` file) holds cfg, the modules G, D, C (or None) and crepe,
+    the global batch (numpy), ``draws`` for the first step (global-shaped, or
+    None), ``seed`` of the generator the other steps draw from, and
+    ``steps``. The rank takes its rows of the batch, runs the steps under the
+    process group (f32 with TF32 off, as the train CLI), on ``device``
+    ("cuda": its own card), and writes ``out/rank{r}.pt``: each step's metrics,
+    milliseconds and (K1, K2) launches, the state after the first step
+    (parameters and first moments of G, D and C), the generator's state, and
+    the time of one mean of G's and D's gradients across the ranks (``ms``
+    and bytes)."""
+    import torch.distributed as dist
+
+    from td_vc_gan_tpu_torch import parallel
+    from td_vc_gan_tpu_torch.ops.cuda import cond_chain as cc_mod
+    from td_vc_gan_tpu_torch.training import state as state_mod
+    from td_vc_gan_tpu_torch.training import step as step_mod
+
+    dev = _join(int(rank), int(world), address, device, backend)
+    rank, world = parallel.rank_world()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blob = torch.load(payload, weights_only=False)
+    cfg = blob["cfg"]
+    nets = {k: None if blob[k] is None else blob[k].to(dev) for k in ("G", "D", "C", "crepe")}
+    state = state_mod.create_train_state(cfg, nets["G"], nets["D"], nets["C"], nets["crepe"])
+    step = step_mod.build_train_step(cfg, state, dist.group.WORLD)
+    b = parallel.local_batch(len(blob["batch"]["signal"]), world)
+    batch = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(dev)
+             for k, v in blob["batch"].items()}
+    gen = torch.Generator(device=dev).manual_seed(blob["seed"])
+    result = {"metrics": [], "ms": [], "launches": []}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for i in range(blob["steps"]):
+        k0 = cc_mod.kernel_launches(cfg.train.compute_dtype)
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(batch, gen, blob["draws"] if i == 0 else None)
+        sync()
+        result["ms"].append((time.perf_counter() - t0) * 1e3)
+        k1 = cc_mod.kernel_launches(cfg.train.compute_dtype)
+        result["launches"].append((k1[0] - k0[0], k1[1] - k0[1]))
+        result["metrics"].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            result["state"] = {
+                tag: {"params": {n: p.detach().cpu().clone() for n, p in net.named_parameters()},
+                      "exp_avg": {n: opt.optimizer.state[p]["exp_avg"].cpu().clone()
+                                  for n, p in net.named_parameters()
+                                  if p in opt.optimizer.state}}
+                for tag, net, opt in (("G", state.G, state.opt_g), ("D", state.D, state.opt_d),
+                                      ("C", state.C, state.opt_c)) if net is not None}
+    result["generator"] = gen.get_state()
+    grads = [p.grad for p in state.opt_g.params + state.opt_d.params]
+    ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        parallel.mean_(grads)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    result["all_reduce"] = {"ms": sorted(ms)[1], "bytes": 4 * sum(g.numel() for g in grads)}
+    torch.save(result, Path(out) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def collectives_probe(rank, world, address) -> None:
+    """For :func:`run_ranks` through :func:`call`, on the CPU: every collective of ``parallel``
+    over gloo, each against the value it must give exactly, which every rank
+    computes from all ranks' seeded inputs; prints ``ok``."""
+    import torch.distributed as dist
+
+    from td_vc_gan_tpu_torch import parallel
+    from td_vc_gan_tpu_torch.parallel import mesh
+
+    rank, world = int(rank), int(world)
+    _join(rank, world, address, "cpu", "gloo")
+    assert parallel.rank_world() == (rank, world)
+
+    def inputs(r):
+        g = torch.Generator().manual_seed(r)
+        return [torch.randn(shape, generator=g) for shape in ((3, 5), (7,), (2, 2, 4), ())]
+
+    mesh.BUCKET = 20  # several buckets, one tensor alone in its own
+    got = inputs(rank)
+    parallel.mean_(got)
+    for i, t in enumerate(got):
+        want = sum(inputs(r)[i] for r in range(world)) / world
+        assert torch.equal(t, want), i
+    metrics = parallel.mean_metrics({"a": torch.tensor(float(rank)), "b": torch.tensor(2.0)})
+    assert float(metrics["a"]) == sum(range(world)) / world and float(metrics["b"]) == 2.0
+    labels = torch.arange(3) + 10 * rank
+    assert torch.equal(parallel.gather_rows(labels),
+                       torch.cat([torch.arange(3) + 10 * r for r in range(world)]))
+    rows = parallel.gather_rows(inputs(rank)[0])
+    assert torch.equal(rows, torch.cat([inputs(r)[0] for r in range(world)]))
+    parallel.check_replicas("ab" * 32, "cpu")
+    try:
+        parallel.check_replicas(("ab" if rank else "cd") * 32, "cpu")
+    except RuntimeError as err:
+        assert "differs" in str(err)
+    else:
+        raise AssertionError("check_replicas let differing states pass")
+    parallel.barrier("cpu")
+    dist.destroy_process_group()
+    print("ok")
+

@@ -18,10 +18,22 @@ conversions, each at its interval, with the JAX loop's semantics:
   seed. The loop logs the backbone's digest (:func:`wavlm.wavlm_digest`)
   after loading it, after a resume and at the end.
 
-Multi-host training, the device mesh, jit caches and the JAX compilation
-cache have no counterpart here. The host side (decoding, augmentation,
-corruption) runs in the data pipeline's worker processes; batches go to the
-device through pinned memory.
+In a process group of W ranks (``parallel.initialize_multihost``, one
+process per GPU), every rank runs this loop in lockstep, as every host runs
+the JAX loop: rank r serves its 1/W slice of the train manifest with the
+seed ``train.seed + r`` and a local batch of ``batch_size // W``, and the
+train step averages across ranks; validation runs the same batches on every
+rank. Only rank 0 writes (provenance, TensorBoard, saves, the reference
+``.pt`` export, samples, the step lines); every rank meets it at a barrier
+after its saves and samples. Every rank resumes from the same files, and
+the loop checks that all ranks start from the same train state. Rank 0
+builds the kernel libraries before the others load them. The device mesh,
+jit caches and the JAX compilation cache have no counterpart here.
+
+The host side (decoding, augmentation, corruption) runs in the data
+pipeline's worker processes, forked from a fork server that starts as a new
+process (no CUDA or NCCL state); batches go to the device through pinned
+memory.
 
 Each logged step line carries, besides the metrics, the step's wall time
 (``step_ms``, which ends in the metrics' copy to the host), the time the
@@ -44,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from td_vc_gan_tpu_torch import resolve_device
+from td_vc_gan_tpu_torch import parallel, resolve_device
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.data.audio_io import write_audio
 from td_vc_gan_tpu_torch.data.dataset import WaveDataset, make_train_iterator
@@ -169,9 +181,16 @@ def train(
     log_fn=print,
 ) -> state_mod.TrainState:
     """Run the training loop on ``device`` (default: the CUDA card; a
-    machine without one raises). Returns the final TrainState. A resume
-    from a saved train state runs in the state's ``train.compute_dtype``."""
+    machine without one raises), as one rank of the process group when one
+    was joined. Returns the final TrainState. A resume from a saved train
+    state runs in the state's ``train.compute_dtype``."""
     dev = resolve_device(device)
+    rank, world = parallel.rank_world()
+    group = None if world == 1 else torch.distributed.group.WORLD
+    is_main = rank == 0
+    batch_size = parallel.local_batch(cfg.train.batch_size, world)
+    log_main = log_fn if is_main else (lambda *_: None)
+    who = "" if world == 1 else f"[rank {rank}/{world}] "
     save_path, data_path = Path(save_path), Path(data_path)
     state_epoch = None
     if load_path is not None:
@@ -181,18 +200,18 @@ def train(
     if state_epoch is not None:
         saved = ckpt.load_state_file(load_path, state_epoch).get("compute_dtype")
         if saved is not None and saved != cfg.train.compute_dtype:
-            log_fn(f"train.compute_dtype {saved} from the train state of epoch {state_epoch} "
-                   f"(the config said {cfg.train.compute_dtype})")
+            log_main(f"train.compute_dtype {saved} from the train state of epoch "
+                     f"{state_epoch} (the config said {cfg.train.compute_dtype})")
             cfg.train.compute_dtype = saved
-    _write_provenance(cfg, save_path, config_file)
-
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
+    if is_main:
+        _write_provenance(cfg, save_path, config_file)
+        try:
+            from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(str(save_path / "logs"))
-    except ImportError:
-        pass
+            writer = SummaryWriter(str(save_path / "logs"))
+        except ImportError:
+            pass
 
     train_ds = WaveDataset(
         data_path / "train_files", data_path / "speakers",
@@ -206,6 +225,15 @@ def train(
         sample_rate=cfg.model.sample_rate, max_segment_size=cfg.test.max_segment,
         normalization_db=cfg.train.normalization_db, seed=cfg.train.seed,
     )
+    if world > 1:
+        # equal slices keep every rank's step count the same
+        per = len(train_ds.entries) // world
+        train_ds.entries = train_ds.entries[rank * per:(rank + 1) * per]
+        log_fn(f"[host {rank}/{world}] serving {per} of the manifest, local batch {batch_size}")
+        if dev.type == "cuda":
+            if is_main:
+                cc_mod.build()
+            parallel.barrier(dev, group)
 
     wavlm_cfg = wavlm_state = None
     if wavlm_checkpoint and cfg.model.generator.encoder_model == "wavlm":
@@ -216,8 +244,9 @@ def train(
     G, D, C = build_models(cfg, train_ds.num_spk, dev, wavlm_cfg=wavlm_cfg)
     if wavlm_state is not None:
         ckpt.backbone(G).load_state_dict(wavlm_state)
-        log_fn(f"Loaded WavLM backbone from {wavlm_checkpoint} ({len(wavlm_state)} tensors, "
-               f"{sum(t.numel() for t in wavlm_state.values())} parameters{backbone_note(G)})")
+        log_main(f"Loaded WavLM backbone from {wavlm_checkpoint} ({len(wavlm_state)} tensors, "
+                 f"{sum(t.numel() for t in wavlm_state.values())} parameters"
+                 f"{backbone_note(G)})")
         del wavlm_state
     crepe = build_crepe(cfg, crepe_weights, dev)
     state = state_mod.create_train_state(cfg, G, D, C, crepe)
@@ -229,7 +258,7 @@ def train(
             restored = ckpt.restore_state(state, load_path, state_epoch)
             start_epoch = state_epoch + 1
             seeded = ", C from the seed" if C is not None and "C" not in restored else ""
-            log_fn(f"Resumed train state epoch {state_epoch} (step {state.step}, "
+            log_fn(f"{who}Resumed train state epoch {state_epoch} (step {state.step}, "
                    f"digest {state_digest(state)}{backbone_note(G)}; restored "
                    f"{'+'.join(restored)}{seeded})")
         else:
@@ -237,7 +266,7 @@ def train(
             g_file = load_path / f"{base}-G.pt"
             if g_file.exists():
                 msg = ckpt.import_torch_generator(cfg, g_file, G)
-                log_fn(f"Loaded {g_file}: {len(msg['matched'])} matched")
+                log_main(f"Loaded {g_file}: {len(msg['matched'])} matched")
                 d_file = load_path / f"{base}-D.pt"
                 if d_file.exists():
                     ckpt.import_torch_discriminator(cfg, d_file, D)
@@ -247,11 +276,15 @@ def train(
                 if epoch is not None:
                     start_epoch = int(epoch) + 1
 
-    train_step = step_mod.build_train_step(cfg, state)
+    if world > 1:
+        digest = state_digest(state)
+        parallel.check_replicas(digest, dev, group)
+        log_main(f"{world} ranks start from the same train state (digest {digest})")
+
+    train_step = step_mod.build_train_step(cfg, state, group)
     eval_step = step_mod.build_eval_step(cfg, state)
-    batch_size = cfg.train.batch_size
     it = make_train_iterator(train_ds, batch_size, num_workers=int(cfg.train.num_workers),
-                             seed=cfg.train.seed)
+                             seed=cfg.train.seed + rank)
     steps_per_epoch = len(train_ds) // batch_size
     rng = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     if dev.type == "cuda":
@@ -271,7 +304,7 @@ def train(
                 _, batch = next(it)
                 t_step = time.perf_counter()
                 batch = _to_device(batch, dev)
-                if profile_dir and iter_count == 10:
+                if profile_dir and iter_count == 10 and is_main:
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -289,9 +322,9 @@ def train(
                     prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
                     prof = None
                     log_fn(f"profiler trace written to {profile_dir}")
-                samples_done += batch["signal"].shape[0] * batch["signal"].shape[1]
+                samples_done += world * batch["signal"].shape[0] * batch["signal"].shape[1]
 
-                if iter_count % cfg.log.log_interval == 0:
+                if iter_count % cfg.log.log_interval == 0 and is_main:
                     values = {k: float(v) for k, v in sorted(metrics.items())}  # syncs
                     line = f"Epoch {ep}/{cfg.train.num_epoch}, Itt {iter_count}"
                     for k, v in values.items():
@@ -328,9 +361,11 @@ def train(
                         writer.add_scalar(k, v / n_val, iter_count)
                     line += f", {k}: {v / n_val:.4f}"
                 k_val += _launches()[0] - k0[0]
-                log_fn(line + f", k1: {_launches()[0] - k0[0]}")
+                log_main(line + f", k1: {_launches()[0] - k0[0]}")
 
-            if ep % cfg.log.save_interval == 0:
+            save = ep % cfg.log.save_interval == 0
+            samples = ep % cfg.log.gen_interval == 0 and len(test_ds)
+            if save and is_main:
                 log_fn("Saving checkpoint")
                 t_save = time.perf_counter()
                 path = ckpt.save_state(state, save_path, ep, cfg.train.compute_dtype)
@@ -342,10 +377,15 @@ def train(
                        f"{nbytes} bytes (train state and step{ep}-*.pt), "
                        f"digest {state_digest(state)}")
 
-            if ep % cfg.log.gen_interval == 0 and len(test_ds):
+            if samples and is_main:
                 k0 = _launches()
-                _generate_samples(cfg, state, test_ds, save_path, ep, rng, log_fn)
+                # rank 0 alone draws for the samples: from a copy of the
+                # stream under a group, which the other ranks share
+                _generate_samples(cfg, state, test_ds, save_path, ep,
+                                  rng if world == 1 else _copy(rng), log_fn)
                 k_gen += _launches()[0] - k0[0]
+            if world > 1 and (save or samples):
+                parallel.barrier(dev, group)
     finally:
         it.close()
         if prof is not None:
@@ -355,13 +395,20 @@ def train(
     bf16_end = cc_mod.kernel_launches("bfloat16")
     peak = (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if dev.type == "cuda" else "")
-    log_fn(f"Done at step {iter_count}: cond-chain launches K1 {k_end[0] - k_start[0]} "
+    log_fn(f"{who}Done at step {iter_count}: cond-chain launches K1 {k_end[0] - k_start[0]} "
            f"(validation {k_val}, samples {k_gen}), K2 {k_end[1] - k_start[1]} (bf16 "
            f"instances: K1 {bf16_end[0] - bf16_start[0]}, K2 {bf16_end[1] - bf16_start[1]})"
            f"{peak}{backbone_note(state.G)}")
     if writer:
         writer.close()
     return state
+
+
+def _copy(rng: torch.Generator) -> torch.Generator:
+    """A generator at ``rng``'s state, which draws without moving ``rng``."""
+    out = torch.Generator(device=rng.device)
+    out.set_state(rng.get_state())
+    return out
 
 
 def _pad_bucket(signal: np.ndarray, cap: int, quantum: int = 8960) -> np.ndarray:

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from td_vc_gan_tpu_torch import parallel
+
 
 class Updater:
     """One network's optimizer step: optional global-norm clipping of the
@@ -21,7 +23,10 @@ class Updater:
     A trainable parameter the loss does not reach gets a zero gradient, so
     that it decays and its moments advance as in optax (torch would skip
     it). Parameters under a frozen prefix are not in the optimizer and get
-    no update."""
+    no update. Under a process ``group`` the gradients are averaged across
+    its ranks after the zero fill and before the clip, so that every rank
+    clips and applies the same gradients, as ``optax.clip_by_global_norm``
+    sees the psum of the JAX package's sharded step."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, max_norm: float | None = None):
         self.optimizer = optimizer
@@ -31,12 +36,14 @@ class Updater:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def step(self, group=None) -> None:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        if group is not None:
+            parallel.mean_(grads, group)
         if self.max_norm is not None:
-            grads = [p.grad for p in self.params]
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
                                                          for g in grads]))
             scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)

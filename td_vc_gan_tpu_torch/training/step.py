@@ -24,16 +24,27 @@ The JAX step's XLA and TPU devices (weight-norm hoisting, remat, shard_map,
 ``lax.cond`` gating, the perf flags) are not carried over: they leave the math
 unchanged. Randomness comes from a ``torch.Generator`` on the batch's device;
 ``draws`` injects any of it instead (see :func:`build_train_step`).
+
+Under a process group of W ranks (``parallel``), each rank steps on its b
+items of the global batch of B = W * b and the step computes what the JAX
+package's sharded step computes, the step on the global batch: every random
+draw is made at the global shape and each rank keeps its rows; the
+permutation is global, so the labels and voiced log-F0 means it reads are
+gathered from all ranks; the gradients are averaged across ranks before each
+update and the metrics after the step (the mean of equal-sized batch means
+is the global mean).
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from td_vc_gan_tpu_torch import parallel
 from td_vc_gan_tpu_torch.models import crepe as crepe_mod
 from td_vc_gan_tpu_torch.models.layers import compute_dtype_scope
 from td_vc_gan_tpu_torch.ops import dsp, losses
@@ -43,18 +54,20 @@ HOP = 64
 
 
 def compute_pitch_features(crepe, signal, perm, sample_rate: int, no_conv: bool,
-                           draws: dict, generator=None) -> dict:
+                           draws: dict, generator=None, gather=None) -> dict:
     """F0s, the pitch-shifted CREPE activation targets and the two
     excitations of a (B, T) batch: f0_src, f0_conv, act_conv_tgt, exc_conv
     and exc_src ((B, T, 1)). ``draws["exc_conv"]``/``draws["exc_src"]`` are
-    (start_phase, noise) pairs."""
+    (start_phase, noise) pairs. ``perm`` indexes the rows that ``gather``
+    (default: none) returns for the per-item voiced log-F0 means: every
+    rank's, under a process group."""
     with torch.no_grad():
         f0_src, act_src = crepe_mod.filtered_pitch(crepe, signal)
     if no_conv:
         f0_conv, act_conv_tgt = f0_src, act_src
     else:
-        mu_tgt = crepe_mod.log_f0_mean(f0_src[perm])
         mu_src = crepe_mod.log_f0_mean(f0_src)
+        mu_tgt = (mu_src if gather is None else gather(mu_src))[perm]
         f0_conv = torch.where(f0_src > 0,
                               torch.exp(torch.log(f0_src + 1e-6) + mu_tgt - mu_src), 0.0)
         shift = crepe_mod.get_shift(torch.exp(mu_src)[:, 0], torch.exp(mu_tgt)[:, 0])
@@ -84,6 +97,52 @@ def _on_device(draws: dict | None, device) -> dict:
     return {k: conv(v) for k, v in (draws or {}).items()}
 
 
+class _Draws:
+    """The step's random draws, each made at the global batch's shape (n =
+    world * b rows, b on each rank): taken from ``injected`` when it holds
+    the name, else drawn from ``generator`` in the order the step meets
+    them; each rank keeps its own rows. So every rank draws the same numbers
+    and holds the same generator state after the step, and on one rank the
+    step draws what a step on the whole batch draws."""
+
+    def __init__(self, injected: dict | None, generator, device, b: int, rank: int,
+                 world: int):
+        self.injected = _on_device(injected, device)
+        self.gen, self.dev = generator, device
+        self.b, self.lo, self.n = b, rank * b, world * b
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] != self.n:
+            raise ValueError(f"a draw of {x.shape[0]} rows for a global batch of {self.n}")
+        return x[self.lo:self.lo + self.b]
+
+    def _get(self, name: str, make):
+        return self.injected[name] if name in self.injected else make()
+
+    def perm(self) -> torch.Tensor:
+        """This rank's rows of a permutation of the global batch."""
+        return self.rows(self._get("perm", lambda: torch.randperm(
+            self.n, generator=self.gen, device=self.dev)).to(torch.int64))
+
+    def excitation(self, name: str, length: int) -> tuple:
+        """(start phase, shared by the batch; this rank's noise rows)."""
+        start, noise = self._get(name, lambda: (
+            torch.rand((), generator=self.gen, device=self.dev) * 2.0 * math.pi,
+            torch.randn((self.n, length), generator=self.gen, device=self.dev)))
+        return start, self.rows(noise)
+
+    def jitter(self, amp: int) -> torch.Tensor:
+        return self.rows(self._get("jitter", lambda: torch.randint(
+            -amp, amp + 1, (self.n,), generator=self.gen, device=self.dev)))
+
+    def negatives(self, name: str, t: int, n_neg: int) -> tuple:
+        """Both directions' negative indices of a (b, t, C) contrastive pair."""
+        idx = self._get(name, lambda: tuple(torch.randint(
+            0, t - 1, (self.n, t, n_neg), generator=self.gen, device=self.dev)
+            for _ in range(2)))
+        return tuple(self.rows(i) for i in idx)
+
+
 def _zeroed(metrics: dict) -> dict:
     return {k: torch.zeros_like(v) for k, v in metrics.items()}
 
@@ -93,16 +152,19 @@ def _as_metrics(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
-def build_train_step(cfg, state: TrainState) -> Callable:
+def build_train_step(cfg, state: TrainState, group=None) -> Callable:
     """Returns ``train_step(batch, generator=None, draws=None) -> metrics``,
     which updates ``state`` in place (D, then C when used, then G) and
     returns the JAX step's metrics as 0-d tensors on the device.
 
-    ``batch``: signal (B, T) float32, label (B,) int, corrupted (B, T)
-    optional. ``draws`` may hold: ``perm`` (B,), ``exc_conv`` and ``exc_src``
+    ``batch``: signal (b, T) float32, label (b,) int, corrupted (b, T)
+    optional: the whole batch, or under a process ``group`` of W ranks this
+    rank's b items of the global batch of B = W * b. ``draws`` may hold, at
+    the global batch's shape: ``perm`` (B,), ``exc_conv`` and ``exc_src``
     ((start_phase, noise (B, T))), ``jitter`` (B,) shifts, and
     ``neg_corrupted``/``neg_converted`` ((idx_x, idx_y), each (B, T', 100)
-    draws from [0, T'-1)); the rest comes from ``generator``.
+    draws from [0, T'-1)); the rest comes from ``generator``, which every
+    rank seeds alike. Every rank returns the metrics of the global batch.
     """
     t = cfg.train
     G, D, C, crepe = state.G, state.D, state.C, state.crepe
@@ -113,28 +175,32 @@ def build_train_step(cfg, state: TrainState) -> Callable:
     fft_sizes = tuple(t.mel_fft_sizes)
     # the frozen WavLM backbone has requires_grad=False and takes no gradient
     g_params = [p for p in G.parameters() if p.requires_grad]
+    rank, world = (0, 1) if group is None else parallel.rank_world(group)
+    gather = None if group is None else (lambda x: parallel.gather_rows(x, group))
 
     def train_step(batch: dict, generator: torch.Generator | None = None,
                    draws: dict | None = None) -> dict:
         signal = batch["signal"]
         dev = signal.device
-        draws = _on_device(draws, dev)
         label_src = batch["label"].to(dev, torch.int64)
         x = signal[..., None]
         b = signal.shape[0]
+        rnd = _Draws(draws, generator, dev, b, rank, world)
         metrics = {}
 
         c_src = F.one_hot(label_src, num_classes).to(signal.dtype)
         if t.no_conv:
             perm = torch.arange(b, device=dev)
-        elif "perm" in draws:
-            perm = draws["perm"].to(torch.int64)
+            label_tgt = label_src
         else:
-            perm = torch.randperm(b, generator=generator, device=dev)
-        label_tgt = label_src[perm]
+            perm = rnd.perm()  # global indices of this rank's targets
+            label_tgt = (label_src if gather is None else gather(label_src))[perm]
         c_tgt = F.one_hot(label_tgt, num_classes).to(signal.dtype)
 
-        pf = compute_pitch_features(crepe, signal, perm, sr, t.no_conv, draws, generator)
+        length = signal.shape[-1] // HOP * HOP  # CREPE's (T // HOP + 1) frames, less one
+        exc_draws = {name: rnd.excitation(name, length) for name in ("exc_conv", "exc_src")}
+        pf = compute_pitch_features(crepe, signal, perm, sr, t.no_conv, exc_draws,
+                                    gather=gather)
         exc_conv, exc_src, act_conv_tgt = pf["exc_conv"], pf["exc_src"], pf["act_conv_tgt"]
 
         # ---- G once: encode the source once, decode conversion + identity at 2B
@@ -168,7 +234,7 @@ def build_train_step(cfg, state: TrainState) -> Callable:
             d_aux = d_loss()
             state.opt_d.zero_grad()
             d_aux["D_loss"].backward()
-            state.opt_d.step()
+            state.opt_d.step(group)
             metrics.update(_as_metrics(d_aux, dev))
         else:
             with torch.no_grad():
@@ -181,7 +247,7 @@ def build_train_step(cfg, state: TrainState) -> Callable:
                 c_loss = losses.cross_entropy_loss(logits, label_src)
                 state.opt_c.zero_grad()
                 c_loss.backward()
-                state.opt_c.step()
+                state.opt_c.step(group)
                 acc = torch.mean((torch.argmax(logits, -1) == label_src).to(torch.float32))
                 metrics.update(_as_metrics({"C_loss": c_loss, "C_acc": acc}, dev))
             else:
@@ -195,8 +261,8 @@ def build_train_step(cfg, state: TrainState) -> Callable:
             use_idt = t.lambda_idt > 0
             real_j = x
             if (t.lambda_rec > 0 or t.lambda_idt > 0) and t.jitter_amp > 0:
-                real_j = dsp.add_jitter(signal, t.jitter_amp, draws.get("jitter"),
-                                        generator)[..., None]
+                real_j = dsp.add_jitter(signal, t.jitter_amp,
+                                        rnd.jitter(t.jitter_amp))[..., None]
             parts = [("adv", fake, label_tgt, subs)]
             if t.lambda_feat > 0 and (use_rec or use_idt):
                 with torch.no_grad():
@@ -270,11 +336,13 @@ def build_train_step(cfg, state: TrainState) -> Callable:
                 if corrupted:
                     i_enc = 1
                     g_cont = g_cont + t.lambda_corrupted * losses.contrastive_loss(
-                        cont, embs[:b], 100, 0.1, draws.get("neg_corrupted"), generator)
+                        cont, embs[:b], 100, 0.1, rnd.negatives("neg_corrupted", cont.shape[1],
+                                                                100))
                 if t.lambda_converted:
                     emb_conv = cont_rec if reuse else embs[i_enc * b:(i_enc + 1) * b]
                     g_cont = g_cont + t.lambda_converted * losses.contrastive_loss(
-                        cont, emb_conv, 100, 0.1, draws.get("neg_converted"), generator)
+                        cont, emb_conv, 100, 0.1, rnd.negatives("neg_converted", cont.shape[1],
+                                                                100))
             aux["G_loss_cont_emb"] = g_cont
             total = total + t.lambda_cont_emb * g_cont
 
@@ -298,13 +366,13 @@ def build_train_step(cfg, state: TrainState) -> Callable:
             state.opt_g.zero_grad()
             # only G's parameters: D's and C's take nothing from the G loss
             g_aux["G_loss"].backward(inputs=g_params)
-            state.opt_g.step()
+            state.opt_g.step(group)
             metrics.update(_as_metrics(g_aux, dev))
         else:
             with torch.no_grad():
                 metrics.update(_zeroed(_as_metrics(g_loss(), dev)))
         state.step += 1
-        return metrics
+        return metrics if group is None else parallel.mean_metrics(metrics, group)
 
     def scoped_train_step(batch: dict, generator: torch.Generator | None = None,
                           draws: dict | None = None) -> dict:

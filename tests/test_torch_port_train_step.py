@@ -20,7 +20,17 @@ lr * g / (|g| + 1e-8), nearly lr * sign(g), so where |g| lies inside the
 gradients' tolerance band its sign, and the update, may differ: there the
 weights are held to 2 lr and the gradients themselves to the moments'
 tolerance.
+
+The same step on two ranks of a gloo process group (two processes on the
+CPU, two items each, the JAX draws given at the global batch's shape) is
+held to the same tolerances against the JAX step on the whole batch: the
+ranks' mean of per-rank gradients differs from the one-rank gradient by the
+order of its sums only. A second step from a seeded generator is held
+against the same step on one rank (metrics, METRIC_TOL), and the two ranks
+end with bit-identical replicas and generator states.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +48,7 @@ from td_vc_gan_tpu.ops import dsp as jdsp
 from td_vc_gan_tpu.ops import losses as jl
 from td_vc_gan_tpu.training import state as jstate
 from td_vc_gan_tpu.training import step as jstep
-from td_vc_gan_tpu_torch import weights
+from td_vc_gan_tpu_torch import testing, weights
 from td_vc_gan_tpu_torch.config import Config
 from td_vc_gan_tpu_torch.models.crepe import Crepe, crepe_from_seed
 from td_vc_gan_tpu_torch.models.discriminator import CollaborativeMultibandDiscriminator
@@ -157,13 +167,15 @@ def stepped():
     tD = weights.discriminator_from_jax(
         CollaborativeMultibandDiscriminator(3, NUM_SPK, num_channels_base=4), pd)
     crepe = weights.crepe_from_jax(Crepe("tiny"), jax.tree_util.tree_map(np.asarray, cp))
+    initial = copy.deepcopy(dict(G=tG, D=tD, crepe=crepe))
     state = tstate.create_train_state(cfg, tG, tD, None, crepe)
     train_step = tstep.build_train_step(cfg, state)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    metrics = train_step(tbatch, draws=jax_draws(rng, B, SEG // int(np.prod(RATIOS))))
+    draws = jax_draws(rng, B, SEG // int(np.prod(RATIOS)))
+    metrics = train_step(tbatch, draws=draws)
     return dict(jmetrics={k: float(v) for k, v in jmetrics.items()},
                 metrics={k: float(v) for k, v in metrics.items()},
-                jax_state=st2, state=state)
+                jax_state=st2, state=state, cfg=cfg, initial=initial, batch=batch, draws=draws)
 
 
 def test_metrics_match(stepped):
@@ -183,17 +195,39 @@ def _nets(stepped, net):
     return module, opt, params, opt_state
 
 
+def check_first_moments(module, exp_avg: dict, opt_state):
+    """exp_avg ({name: array}) = (1 - beta1) * grad after one step: the
+    gradients agree with the JAX step's."""
+    want = torch_layout(module, {"params": adam_mu(opt_state)["params"]})
+    assert set(exp_avg) == set(want)
+    for name, got in exp_avg.items():
+        scale = float(np.abs(want[name]).max())
+        np.testing.assert_allclose(got, want[name], rtol=0, atol=1e-4 * scale + 1e-9,
+                                   err_msg=name)
+
+
+def check_updated_parameters(module, got_params: dict, lr: float, params, opt_state):
+    """``got_params`` ({name: array}) within PARAM_ATOL of the JAX step's
+    where the gradient's sign is settled, else within 2 lr (see
+    test_updated_parameters_match)."""
+    want = torch_layout(module, params)
+    mu = torch_layout(module, {"params": adam_mu(opt_state)["params"]})
+    assert set(want) == set(got_params) == {name for name, _ in module.named_parameters()}
+    for name, got in got_params.items():
+        settled = np.abs(mu[name]) > 1e-4 * np.abs(mu[name]).max() + 1e-9
+        np.testing.assert_allclose(got[settled], want[name][settled], rtol=0, atol=PARAM_ATOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(got, want[name], rtol=0, atol=2 * lr + PARAM_ATOL,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("net", ["G", "D"])
 def test_first_moments_match(stepped, net):
     """exp_avg = (1 - beta1) * grad after one step: the gradients agree."""
     module, opt, _, opt_state = _nets(stepped, net)
-    want = torch_layout(module, {"params": adam_mu(opt_state)["params"]})
     state = opt.optimizer.state
-    for name, p in module.named_parameters():
-        got = state[p]["exp_avg"].numpy()
-        scale = float(np.abs(want[name]).max())
-        np.testing.assert_allclose(got, want[name], rtol=0, atol=1e-4 * scale + 1e-9,
-                                   err_msg=name)
+    check_first_moments(module, {name: state[p]["exp_avg"].numpy()
+                                 for name, p in module.named_parameters()}, opt_state)
 
 
 @pytest.mark.parametrize("net", ["G", "D"])
@@ -203,17 +237,74 @@ def test_updated_parameters_match(stepped, net):
     lr * g / (|g| + eps) may take either sign, and the weights agree within
     that step, 2 lr."""
     module, opt, params, opt_state = _nets(stepped, net)
-    want = torch_layout(module, params)
-    mu = torch_layout(module, {"params": adam_mu(opt_state)["params"]})
-    lr = opt.optimizer.param_groups[0]["lr"]
-    assert set(want) == {name for name, _ in module.named_parameters()}
-    for name, p in module.named_parameters():
-        got = p.detach().numpy()
-        settled = np.abs(mu[name]) > 1e-4 * np.abs(mu[name]).max() + 1e-9
-        np.testing.assert_allclose(got[settled], want[name][settled], rtol=0, atol=PARAM_ATOL,
-                                   err_msg=name)
-        np.testing.assert_allclose(got, want[name], rtol=0, atol=2 * lr + PARAM_ATOL,
-                                   err_msg=name)
+    check_updated_parameters(module, {name: p.detach().numpy()
+                                      for name, p in module.named_parameters()},
+                             opt.optimizer.param_groups[0]["lr"], params, opt_state)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(stepped, tmp_path_factory):
+    """The step of ``stepped`` on two gloo ranks (two processes, 2 items
+    each, from the same weights and the JAX draws), then a second step
+    drawn from a generator seeded 7; and that second step on one rank,
+    without a group, from the one-rank state of ``stepped``."""
+    out = tmp_path_factory.mktemp("ranks")
+    torch.save(dict(cfg=stepped["cfg"], C=None, batch=stepped["batch"], draws=stepped["draws"],
+                    seed=7, steps=2, **stepped["initial"]), out / "payload.pt")
+    testing.run_ranks(2, testing.call("td_vc_gan_tpu_torch.testing:step_rank",
+                                      str(out / "payload.pt"), str(out)))
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    one = copy.deepcopy(stepped["state"])
+    gen = torch.Generator().manual_seed(7)
+    second = tstep.build_train_step(stepped["cfg"], one)(
+        {k: torch.from_numpy(v) for k, v in stepped["batch"].items()}, gen)
+    return dict(ranks=ranks, second={k: float(v) for k, v in second.items()},
+                generator=gen.get_state())
+
+
+def test_two_ranks_metrics_match(stepped, two_ranks):
+    """Each rank reports the metrics of the global batch: the JAX step's."""
+    jm = stepped["jmetrics"]
+    for result in two_ranks["ranks"]:
+        m = result["metrics"][0]
+        assert set(m) == set(jm)
+        for k in sorted(jm):
+            np.testing.assert_allclose(m[k], jm[k], err_msg=k, **METRIC_TOL)
+    assert [r["launches"] for r in two_ranks["ranks"]] == [[(0, 0), (0, 0)]] * 2  # CPU
+
+
+@pytest.mark.parametrize("net", ["G", "D"])
+def test_two_ranks_first_moments_match(stepped, two_ranks, net):
+    module, _, _, opt_state = _nets(stepped, net)
+    got = two_ranks["ranks"][0]["state"][net]["exp_avg"]
+    check_first_moments(module, {n: v.numpy() for n, v in got.items()}, opt_state)
+
+
+@pytest.mark.parametrize("net", ["G", "D"])
+def test_two_ranks_updated_parameters_match(stepped, two_ranks, net):
+    module, opt, params, opt_state = _nets(stepped, net)
+    got = two_ranks["ranks"][0]["state"][net]["params"]
+    check_updated_parameters(module, {n: v.numpy() for n, v in got.items()},
+                             opt.optimizer.param_groups[0]["lr"], params, opt_state)
+
+
+def test_two_ranks_stay_replicas(two_ranks):
+    """Both ranks hold bit-identical parameters, moments and generator
+    states; their second step (global draws from the generator) gives the
+    one-rank step's metrics, and leaves the generator where one rank's
+    does."""
+    r0, r1 = two_ranks["ranks"]
+    for net in r0["state"]:
+        for kind in ("params", "exp_avg"):
+            for name, v in r0["state"][net][kind].items():
+                assert torch.equal(v, r1["state"][net][kind][name]), (net, kind, name)
+    assert r0["metrics"] == r1["metrics"]
+    assert torch.equal(r0["generator"], r1["generator"])
+    assert torch.equal(r0["generator"], two_ranks["generator"])
+    want = two_ranks["second"]
+    assert set(r0["metrics"][1]) == set(want)
+    for k in sorted(want):
+        np.testing.assert_allclose(r0["metrics"][1][k], want[k], err_msg=k, **METRIC_TOL)
 
 
 def test_g_loss_leaves_no_gradient_in_d(stepped):
