@@ -144,14 +144,29 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    more cards the train CLI, one process per card, and a resume (segments
    per second, in all and per rank); then ``convert_long_sharded`` of a
    60 s utterance on [cuda:0], [cuda:0, cuda:0] and every card, against the
-   one-device output, RTF, 4 K1 launches per shard call.
+   one-device output, RTF, 4 K1 launches per shard call;
+22. generator options: the config defaults plus a bottleneck of two FiLM
+   blocks on the target speaker, instance norm in the encoder and
+   conditional instance norm in the decoder. (a) K1, K2, K1-bf16 and
+   K2-bf16 against their plain versions at the bottleneck's chain shapes
+   (the concat form, n = 1, B = 16, E = Cc = 128 and 256, 2C = 256, T = 28
+   and 224), the backward kernels bit for bit in a second run, each one's
+   time beside its bound, plain version and cuDNN; (b) f32 conversion of
+   phase 4's batch: K1 launches (4 decoder stages + 2 bottleneck blocks),
+   the plain-chain path, a small input against the CPU, ms and RTF beside
+   phase 4's, a profile; (c) the f32 train step at 16 x 8960 as phase 7's
+   (``phase_step``, 3 timed steps, 12 K1 + 12 K2 a step: two decodes); (d)
+   bf16 conversion (6 K1-bf16 launches, no f32 K1, SNR against f32); (e)
+   F0Estimator on the card against the CPU.
 
-Phases 1-13 and 18-21 run in float32, with TF32 off in cuDNN and matmul (the CLIs set
-the same), as the JAX package's default. Any failed check raises, and the
-script then exits non-zero without its result lines. The last two lines are
-the JSON kernel table (this run's numbers only) and the result object;
-before them, each kernel's time beside the one recorded for its previous
-version in PERF.md. The script is the subreaper of every process it starts
+Phases 1-13 and 18-22 run in float32 (22 also in bf16), with TF32 off in
+cuDNN and matmul (the CLIs set the same), as the JAX package's default. Any
+failed check raises, and the script then exits non-zero without its result
+lines. The last two lines are the JSON kernel table (this run's numbers
+only) and the result object; before them, one summary line per phase (its
+wall time and headline numbers, read from what it printed), so that the end
+of the output holds every phase's numbers, and before those each kernel's
+time beside the one recorded for its previous version in PERF.md. The script is the subreaper of every process it starts
 (the CLIs and what they start, the data pipeline's workers, ``nvcc``) and,
 pass or fail, ends and reaps each of them before it exits.
 
@@ -167,12 +182,14 @@ each path's per-round totals.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import gc
 import importlib.metadata
 import importlib.util
 import inspect
+import io
 import json
 import os
 import pickle
@@ -201,6 +218,7 @@ from td_vc_gan_tpu_torch.eval import mcd
 from td_vc_gan_tpu_torch.inference import Converter
 from td_vc_gan_tpu_torch.models import ecapa, mosnet
 from td_vc_gan_tpu_torch.models.crepe import crepe_from_seed
+from td_vc_gan_tpu_torch.models.f0_estimator import F0Estimator
 from td_vc_gan_tpu_torch.models.generator import generator_from_config
 from td_vc_gan_tpu_torch.models.layers import MRFBlock, init_weights
 from td_vc_gan_tpu_torch.models.wavlm import WavLM, WavLMConfig, backbone_digest, key_table
@@ -587,13 +605,18 @@ def signals(seed: int, n: int = UTT) -> np.ndarray:
     return (0.2 * x + 0.01 * rng.standard_normal((B, n))).astype(np.float32)
 
 
-def phase_slice(cfg, card):
+def phase_slice(cfg, card, label: str = "slice") -> tuple[int, float]:
+    """Full-width conversion of 16 x 71680 samples with the conv-encoder G
+    of ``cfg``: K1 launches (one a decoder stage and one a bottleneck
+    block), output checks, the plain-chain path, a small input against the
+    CPU, ms per call and RTF, a profile. Returns the launches and the ms."""
     t0 = time.perf_counter()
-    g = generator_from_config(cfg.model.generator, num_classes=100, seed=0)
+    gcfg = cfg.model.generator
+    g = generator_from_config(gcfg, num_classes=100, seed=0)
     conv = Converter(cfg, g, crepe_from_seed(1), decoder="viterbi")
     sigs = signals(0)
     labels = np.arange(B) % 100
-    say(f"slice: full-width conv-encoder G ({sum(p.numel() for p in g.parameters())} "
+    say(f"{label}: full-width conv-encoder G ({sum(p.numel() for p in g.parameters())} "
         f"parameters) and CREPE-tiny on {conv.device}, built in {time.perf_counter() - t0:.1f} s")
 
     # the main path: counts from 0, read right after
@@ -606,11 +629,12 @@ def phase_slice(cfg, card):
     wav = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
     convert_s = time.perf_counter() - t0
     launches = cc_mod.launches
-    say(f"slice: pitch_batch {pitch_s:.2f} s (first call), convert_batch {convert_s:.2f} s "
+    say(f"{label}: pitch_batch {pitch_s:.2f} s (first call), convert_batch {convert_s:.2f} s "
         f"(first call); voiced frames {float((f0 > 0).mean()):.3f}; cond-chain kernel "
         f"launches in pitch_batch + convert_batch: {launches}")
-    if launches != len(cfg.model.generator.decoder_ratios):
-        raise AssertionError(f"expected one cond-chain launch per decoder stage, got {launches}")
+    if launches != len(gcfg.decoder_ratios) + gcfg.num_bottleneck_layers:
+        raise AssertionError(f"expected one cond-chain launch per decoder stage and bottleneck "
+                             f"block, got {launches}")
     if wav.shape != (B, UTT) or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
         raise AssertionError(f"bad conversion output: shape {wav.shape}, "
                              f"finite {np.isfinite(wav).all()}, max|y| {np.abs(wav).max()}")
@@ -623,12 +647,13 @@ def phase_slice(cfg, card):
     finally:
         cc_mod.cond_chain = kernel_op
     d_plain = float(np.abs(wav - wav_plain).max())
-    say(f"slice: kernel path vs plain-chain path max|d|={d_plain:.3e} (tolerance {AUDIO_ATOL})")
+    say(f"{label}: kernel path vs plain-chain path max|d|={d_plain:.3e} (tolerance "
+        f"{AUDIO_ATOL})")
     if d_plain > AUDIO_ATOL:
         raise AssertionError("the kernel path and the plain path disagree")
 
     # a small input against the CPU path (which the tests hold against JAX)
-    cpu = Converter(cfg, generator_from_config(cfg.model.generator, 100, device="cpu", seed=0),
+    cpu = Converter(cfg, generator_from_config(gcfg, 100, device="cpu", seed=0),
                     crepe_from_seed(1), decoder="viterbi", device="cpu")
     small = sigs[:1, :SEG]
     sf0, smu = cpu.pitch_batch(small)
@@ -639,7 +664,7 @@ def phase_slice(cfg, card):
     y_gpu = conv.convert_batch(small, labels[:1], sf0, smu, smu, **draws)
     d_cpu = float(np.abs(y_cpu - y_gpu).max())
     f0_agree = float(np.mean(np.isclose(sf0, gf0, rtol=1e-4)))
-    say(f"slice: small input (1 x {SEG}) card vs CPU: audio max|d|={d_cpu:.3e} "
+    say(f"{label}: small input (1 x {SEG}) card vs CPU: audio max|d|={d_cpu:.3e} "
         f"(tolerance {AUDIO_ATOL}), f0 frames agreeing {f0_agree:.3f}")
     if d_cpu > AUDIO_ATOL:
         raise AssertionError("the card's conversion disagrees with the CPU path")
@@ -651,12 +676,12 @@ def phase_slice(cfg, card):
     ms = cuda_ms(lambda: conv.convert_tensors(*args, lab, seed=1), iters=5, warmup=2)
     pitch_ms = cuda_ms(lambda: conv.pitch_tensors(args[0]), iters=2, warmup=1)
     audio_s = B * UTT / cfg.model.sample_rate
-    say(f"slice: convert_tensors {ms:.2f} ms per call for {B} x {UTT} samples "
+    say(f"{label}: convert_tensors {ms:.2f} ms per call for {B} x {UTT} samples "
         f"({audio_s:.1f} s of audio): conversion RTF {audio_s / (ms / 1e3):.1f}x real time; "
         f"pitch_tensors (Viterbi) {pitch_ms:.2f} ms; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    profile_call(lambda: conv.convert_tensors(*args, lab, seed=1), "one convert call", card)
-    return launches
+    profile_call(lambda: conv.convert_tensors(*args, lab, seed=1), f"one {label} call", card)
+    return launches, ms
 
 
 def profile_call(fn, label, card, top: int = 10):
@@ -766,13 +791,17 @@ def train_state(cfg):
     return create_train_state(cfg, g, d, c, crepe_from_seed(2).cuda())
 
 
-def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], float]:
+def phase_step(label: str, cfg, card, per_step: int, steps: int = TRAIN_STEPS,
+               mu_floor: float = 0.0) -> tuple[tuple[int, int], float]:
     """The full-width f32 train step of ``cfg`` on 16 x 8960: its first step
     against the same step with the plain chain (every loss, and the first
     moments of every trainable tensor), then a warm-up and timed steps
     (CUDA events) with ``per_step`` K1 and K2 launches each; every trainable
     tensor changed, a WavLM backbone bit-identical and without gradients;
-    peak memory, and one step's kernels by device time. Returns the timed
+    peak memory, and one step's kernels by device time. Each first moment is
+    held to STEP_MU_RTOL of its own max|ref|, or of ``mu_floor`` times its
+    net's largest where that is larger; one that a norm slot cancels, to
+    STEP_MU_RTOL of its net's largest. Returns the timed
     steps' (K1, K2) launches and their median ms."""
     t0 = time.perf_counter()
     state = train_state(cfg)
@@ -806,20 +835,33 @@ def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], f
     twins = [(twin.G, twin.opt_g), (twin.D, twin.opt_d)]
     if twin.C is not None:
         twins.append((twin.C, twin.opt_c))
-    worst_mu = 0.0
-    for (_, net, opt), (twin_net, twin_opt) in zip(nets, twins):
-        for p, q in zip(net.parameters(), twin_net.parameters()):
-            if p.requires_grad:
-                a = opt.optimizer.state[p]["exp_avg"]
-                b = twin_opt.optimizer.state[q]["exp_avg"]
-                worst_mu = max(worst_mu, float((a - b).abs().max()) /
-                               max(float(b.abs().max()), 1e-30))
+    # a gradient that a norm slot cancels is rounding noise in both paths:
+    # held to the tolerance of G's largest first moment, not its own
+    invariant = {f"G.{n}" for n in testing.norm_invariant(state.G)}
+    rel = []  # (max|d| of the scale, name, the tensor's max|ref| of its net's largest)
+    for (tag, net, opt), (twin_net, twin_opt) in zip(nets, twins):
+        moments = [(f"{tag}.{n}", opt.optimizer.state[p]["exp_avg"],
+                    twin_opt.optimizer.state[q]["exp_avg"])
+                   for (n, p), q in zip(net.named_parameters(), twin_net.parameters())
+                   if p.requires_grad]
+        top = max(float(b.abs().max()) for _, _, b in moments)
+        for name, a, b in moments:
+            own = float(b.abs().max())
+            scale = top if name in invariant else max(own, mu_floor * top)
+            rel.append((float((a - b).abs().max()) / max(scale, 1e-30), name, own / top))
+    rel.sort(reverse=True)
+    worst_mu, worst_name = rel[0][:2]
     say(f"{label}: first step, kernel path vs plain-chain path: losses worst relative "
         f"difference {worst_loss:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); first moments "
-        f"worst max|d| {worst_mu:.2e} of the tensor's max|ref| (tolerance {STEP_MU_RTOL:.0e})")
+        f"worst max|d| {worst_mu:.2e} of the tensor's max|ref| ({worst_name}; "
+        f"{len(invariant)} tensors a norm cancels, of G's largest"
+        + (f"; at least {mu_floor:.0e} of the net's largest" if mu_floor else "")
+        + f") (tolerance {STEP_MU_RTOL:.0e})")
     if not (worst_loss <= STEP_LOSS_RTOL and worst_mu <= STEP_MU_RTOL):
         raise AssertionError(f"{label}: the step with the kernels disagrees with the plain "
-                             f"chain")
+                             f"chain; worst first moments (max|d| of max|ref|, tensor, its "
+                             f"max|ref| of its net's largest): "
+                             + ", ".join(f"{r:.2e} {n} {o:.1e}" for r, n, o in rel[:12]))
     del twin, twin_step, twins
     gc.collect()
     torch.cuda.empty_cache()
@@ -830,7 +872,7 @@ def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], f
     torch.cuda.reset_peak_memory_stats()
     times, counts = [], []
     cc_mod.launches = cc_mod.bwd_launches = 0
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         k1, k2 = cc_mod.launches, cc_mod.bwd_launches
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -844,7 +886,7 @@ def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], f
     peak = torch.cuda.max_memory_allocated() / 2**30
     bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
     if bad:
-        raise AssertionError(f"{label}: non-finite losses after {TRAIN_STEPS + 2} steps: {bad}")
+        raise AssertionError(f"{label}: non-finite losses after {steps + 2} steps: {bad}")
     if any(c != (per_step, per_step) for c in counts):
         raise AssertionError(f"{label}: expected {per_step} K1 and {per_step} K2 launches per "
                              f"step, got {counts}")
@@ -858,13 +900,13 @@ def phase_step(label: str, cfg, card, per_step: int) -> tuple[tuple[int, int], f
     if backbone is not None and any(p.grad is not None for p in wavlm.parameters()):
         raise AssertionError(f"{label}: the frozen backbone has gradients")
     median = ms[len(ms) // 2]
-    say(f"{label}: {TRAIN_STEPS} timed steps: median {median:.2f} ms per step (min "
+    say(f"{label}: {steps} timed steps: median {median:.2f} ms per step (min "
         f"{ms[0]:.2f}, max {ms[-1]:.2f}), {B * 1e3 / median:.2f} segments/s; K1/K2 launches "
         f"per step {counts[0]}; G_loss {float(metrics['G_loss']):.4f}"
         + (f", C_loss {float(metrics['C_loss']):.4f}" if "C_loss" in metrics else "")
         + "; every trainable tensor changed"
         + ("" if backbone is None else
-           f", the backbone bit-identical after {TRAIN_STEPS + 2} steps, with no gradient")
+           f", the backbone bit-identical after {steps + 2} steps, with no gradient")
         + f"; peak device memory {peak:.2f} GiB [{card}]")
     profile_call(lambda: step(batch, gen), f"one {label} step", card)
     del state, step, trainable, backbone, params
@@ -1765,15 +1807,17 @@ def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
                                / max(np.sum((got - ref).astype(np.float64) ** 2), 1e-30)))
 
 
-def phase_bf16_convert(cfg, card) -> int:
+def phase_bf16_convert(cfg, card, encoders=("conv", "wavlm"), label="bf16 convert",
+                       plain_atol: float = BF16_AUDIO_ATOL) -> int:
     """Phase 15: bf16 conversion of phase 4's batch with each encoder: K1-bf16
-    launches, output checks, the plain-bf16-chain path, the f32 conversion
-    with the same weights and draws, RTF, pitch, peak memory. Returns the
-    K1-bf16 launches of both encoders' calls."""
+    launches (one a decoder stage and one a bottleneck block, no f32 K1),
+    output checks, the plain-bf16-chain path, the f32 conversion with the
+    same weights and draws, RTF, pitch, peak memory. Returns the K1-bf16
+    launches of every encoder's calls."""
     total = 0
     sigs = signals(0)
     labels = np.arange(B) % 100
-    for enc in ("conv", "wavlm"):
+    for enc in encoders:
         bcfg = bf16_cfg(cfg, enc)
         t0 = time.perf_counter()
         g = generator_from_config(bcfg.model.generator, num_classes=100, seed=0,
@@ -1787,15 +1831,17 @@ def phase_bf16_convert(cfg, card) -> int:
         wav = conv.convert_batch(sigs, labels, f0, mu, mu_tgt, seed=0)
         k1_bf16, k1_f32 = cc_mod.launches_bf16, cc_mod.launches
         total += k1_bf16
-        if (k1_bf16, k1_f32) != (STAGES, 0):
-            raise AssertionError(f"bf16 {enc} conversion: {k1_bf16} K1-bf16 and {k1_f32} K1 "
-                                 f"launches, expected {STAGES} and 0")
+        gcfg = bcfg.model.generator
+        expected = len(gcfg.decoder_ratios) + gcfg.num_bottleneck_layers
+        if (k1_bf16, k1_f32) != (expected, 0):
+            raise AssertionError(f"{label} ({enc}): {k1_bf16} K1-bf16 and {k1_f32} K1 "
+                                 f"launches, expected {expected} and 0")
         args = [conv._tensor(a) for a in (sigs, f0, mu, mu_tgt)]
         lab = conv._tensor(labels, torch.int64)
         out_dtype = conv.convert_tensors(*args, lab, seed=0).dtype
         if (wav.shape != (B, UTT) or out_dtype != torch.float32 or not np.isfinite(wav).all()
                 or np.abs(wav).max() > 1.0):
-            raise AssertionError(f"bad bf16 {enc} conversion: shape {wav.shape}, dtype "
+            raise AssertionError(f"bad {label} ({enc}): shape {wav.shape}, dtype "
                                  f"{out_dtype}, finite {np.isfinite(wav).all()}, max|y| "
                                  f"{np.abs(wav).max()}")
         kernel_op = cc_mod.cond_chain
@@ -1805,8 +1851,8 @@ def phase_bf16_convert(cfg, card) -> int:
         finally:
             cc_mod.cond_chain = kernel_op
         d_plain = float(np.abs(wav - wav_plain).max())
-        if d_plain > BF16_AUDIO_ATOL:
-            raise AssertionError(f"bf16 {enc} conversion: the kernel path and the plain-bf16 "
+        if d_plain > plain_atol:
+            raise AssertionError(f"{label} ({enc}): the kernel path and the plain-bf16 "
                                  f"path differ by {d_plain:.3e}")
         g32 = generator_from_config(cfg.model.generator if enc == "conv" else
                                     wavlm_cfg(cfg).model.generator, num_classes=100, seed=0)
@@ -1816,22 +1862,22 @@ def phase_bf16_convert(cfg, card) -> int:
         d32 = float(np.abs(wav - wav32).max())
         snr = snr_db(wav32, wav)
         if not snr >= BF16_SNR_DB:
-            raise AssertionError(f"bf16 {enc} conversion against f32: SNR {snr:.1f} dB")
+            raise AssertionError(f"{label} ({enc}) against f32: SNR {snr:.1f} dB")
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: conv.convert_tensors(*args, lab, seed=1), iters=5, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2**30
         pitch_ms = cuda_ms(lambda: conv.pitch_tensors(args[0]), iters=2, warmup=1)
         audio_s = B * UTT / bcfg.model.sample_rate
-        say(f"bf16 convert ({enc}): G built in {build_s:.1f} s; K1-bf16 launches {k1_bf16}, K1 "
+        say(f"{label} ({enc}): G built in {build_s:.1f} s; K1-bf16 launches {k1_bf16}, K1 "
             f"(f32) {k1_f32}; output f32, finite, max|y| {np.abs(wav).max():.4f}; kernel path vs "
-            f"plain-bf16-chain path max|d| {d_plain:.3e} (tolerance {BF16_AUDIO_ATOL}); against "
+            f"plain-bf16-chain path max|d| {d_plain:.3e} (tolerance {plain_atol}); against "
             f"the f32 conversion (same weights and draws) max|d| {d32:.3e} "
             f"({d32 / float(np.abs(wav32).max()):.2e} of max|ref|), SNR {snr:.1f} dB (at least "
             f"{BF16_SNR_DB:.0f}); convert_tensors {ms:.2f} ms per call: RTF "
             f"{audio_s / (ms / 1e3):.1f}x; pitch_tensors (Viterbi, f32) {pitch_ms:.2f} ms; peak "
             f"device memory {peak:.2f} GiB [{card}]")
         profile_call(lambda: conv.convert_tensors(*args, lab, seed=1),
-                     f"one bf16 {enc} convert call", card, top=6)
+                     f"one {label} ({enc}) call", card, top=6)
         del conv, g, args
         gc.collect()
         torch.cuda.empty_cache()
@@ -2623,6 +2669,183 @@ def dp_sharded_convert(cfg, card: str, world: int) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the generator's options: phase 22
+# ---------------------------------------------------------------------------
+
+# The options configuration: the config defaults plus a bottleneck of two
+# FiLM blocks on the target speaker, instance norm in the encoder and
+# conditional instance norm in the decoder.
+OPTIONS = {"model": {"generator": {
+    "num_bottleneck_layers": 2,
+    "norm_layer": {"encoder": "instance_norm", "decoder": "conditional_instance_norm"}}}}
+# The bottleneck's chain: the concat form at n = 1, E = Cc = 128 (on the
+# target speaker; 256 on source and target), 2C = 256 (content width 128),
+# T = 28 (a training segment) and 224 (a conversion utterance), B = 16.
+BOTTLENECK_SHAPES = ((128, 28), (128, 224), (256, 28), (256, 224))
+# The options step's first moments, kernel path vs plain-chain path: with
+# norm slots in both stacks, tens of tensors (in the decoder's first MRF and
+# the encoder's MRFs) have first moments of only 1e-4 to 1e-3 of G's
+# largest, sums that the norms nearly cancel, and the two paths' rounding
+# differs by up to ~1.2e-5 of G's largest there, 1-2e-2 of their own size
+# (NVIDIA H100 80GB HBM3, 700 W; two runs). Each tensor is held to
+# STEP_MU_RTOL of its own max|ref| or of this share of its net's largest,
+# whichever is larger: to 1e-4 of the net's largest at least.
+OPTIONS_MU_FLOOR = 1e-2
+# The options G's bf16 conversion, kernel path vs plain-bf16-chain path: its
+# output is near full scale (max|y| 0.99; the default G's, for which
+# BF16_AUDIO_ATOL was set, is 0.03-0.05), and its CIN slots renormalise the
+# one-ulp differences of the chain outputs at every scale; 2.64e-2 measured
+# (NVIDIA H100 80GB HBM3, 700 W). Held to 5% of full scale; its SNR against
+# the f32 conversion is held to BF16_SNR_DB as the default G's is.
+OPTIONS_BF16_AUDIO_ATOL = 5e-2
+OPTIONS_F0_RTOL = 1e-4    # F0Estimator on the card against the CPU, of max|ref|
+
+
+def options_cfg() -> Config:
+    return load_config(None, OPTIONS)
+
+
+def bottleneck_operands(b: int, t: int, cc: int, seed: int, dtype) -> dict:
+    """The concat-form operands of one bottleneck block's chain: a cond that
+    is one (B, Cc) vector broadcast over T, as the block's, and n = 1; dyadic
+    as ``chain_inputs(exact_h=True)`` makes them."""
+    cfg = Config()
+    g = cfg.model.generator
+    g.conditional_dim, g.mrf_kernel_sizes, g.mrf_dilations = cc, [3], [1]
+    _, concat, _, _ = chain_inputs(b, t, 128, cfg, seed, exact_h=True, e=0, dtype=dtype)
+    return concat
+
+
+def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
+    """K1, K2, K1-bf16 and K2-bf16 at one bottleneck shape: each against its
+    plain version (f32: PARITY_RTOL of max|ref|; bf16: ``ulp_parity``), the
+    backward kernels bit for bit in a second run; then each one's time beside
+    its bound, its plain version and cuDNN's calls for the same chain (a
+    yardstick). Returns {kernel name: (max|d|, numbers for Totals)}."""
+    out = {}
+    two_c = 256
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        ops = bottleneck_operands(b, t, cc, seed, dtype)
+        c, w0, b0, w1, b1 = (ops[k] for k in ("c", "w0", "b0", "w1", "b1"))
+        gen = torch.Generator(device=c.device).manual_seed(seed + 1)
+        g = torch.randn((b, t, two_c), generator=gen, device=c.device).to(dtype)
+        bwd_args = dict(exc=c, w0=w0, hbias=b0, w1=w1, g=g, edge0=None, edge_t=None)
+        fwd = lambda: cc_mod.film_cond_chain(c, w0, b0, w1, b1)  # noqa: E731
+        fwd_plain = lambda: cc_mod.cond_chain_plain(c, w0, b0, w1, b1)  # noqa: E731
+        bwd = lambda: cc_mod._launch_bwd(**bwd_args)  # noqa: E731
+        bwd_plain = lambda: cc_mod.cond_chain_bwd_plain(**bwd_args)  # noqa: E731
+        label = f"B={b} T={t} Cc=E={cc} 2C={two_c} n=1"
+        pairs = [("fwd", fwd(), fwd_plain())]
+        got, again, want = bwd(), bwd(), bwd_plain()
+        for k in want:
+            if not torch.equal(got[k], again[k]):
+                raise AssertionError(f"K2{suffix} gave two different d{k} at {label}")
+            pairs.append((f"d{k}", got[k], want[k]))
+        errs = {}
+        for part, a, w in pairs:
+            kernel = "fwd" if part == "fwd" else "bwd"
+            if dtype == torch.float32:
+                d, r = rel_err(a, w)
+                if not r <= PARITY_RTOL:
+                    raise AssertionError(f"bottleneck {kernel} kernel at {label}, {part}: "
+                                         f"{r:.2e} of max|ref|")
+            else:
+                _, _, d = ulp_parity(f"bottleneck {kernel}{suffix} at {label}, {part}", a, w)
+            errs[kernel] = max(errs.get(kernel, 0.0), d)
+        cin = c.transpose(1, 2).contiguous()
+        w0c, w1c = w0.permute(2, 1, 0), w1.permute(2, 1, 0)
+
+        def cudnn_fwd(*xs):
+            x, a0, c0, a1, c1 = xs or (cin, w0c, b0, w1c, b1)
+            return F.conv1d(F.leaky_relu(F.conv1d(x, a0, c0, padding=1), 0.2), a1, c1,
+                            padding=1)
+
+        leaves = [x.clone().requires_grad_() for x in (cin, w0c, b0, w1c, b1)]
+        lout, gt = cudnn_fwd(*leaves), g.transpose(1, 2)
+        cudnn_bwd = lambda: torch.autograd.grad(lout, leaves, gt, retain_graph=True)  # noqa: E731
+        size = 4 if dtype == torch.float32 else 2
+        weights_ = 3 * cc * cc + cc + 3 * cc * two_c + two_c
+        work = {"fwd": (2.0 * b * t * 3 * cc * (cc + two_c),
+                        size * (b * t * cc + weights_ + b * t * two_c)),
+                "bwd": (2.0 * b * t * 3 * cc * (3 * cc + 2 * two_c),
+                        size * (2 * b * t * cc + 2 * weights_ - two_c + b * t * two_c))}
+        for kernel, fn, plain, lib in (("fwd", fwd, fwd_plain, cudnn_fwd),
+                                       ("bwd", bwd, bwd_plain, cudnn_bwd)):
+            k_ms = cuda_ms(fn, iters=20, warmup=3)
+            p_ms = cuda_ms(plain, iters=5)
+            l_ms = cuda_ms(lib, iters=5)
+            flops, nbytes = work[kernel]
+            if dtype == torch.float32:
+                bound, bound_simt, by = bounds(flops, nbytes)
+                bound_text = (f"bound {bound:.4f} ms ({by}, 3xTF32) / {bound_simt:.4f} ms (f32 "
+                              f"CUDA cores)")
+            else:
+                (bound, by), bound_simt = bf16_bounds(flops, nbytes), 0.0
+                bound_text = f"bound {bound:.4f} ms ({by}, bf16 tensor cores)"
+            name = f"cond_chain_{kernel}{suffix}"
+            say(f"options {name} {label}: kernel {k_ms:.4f} ms, {bound_text}, plain "
+                f"{p_ms:.4f} ms, cuDNN {l_ms:.4f} ms; max|d| vs plain {errs[kernel]:.2e} "
+                f"[{card}]")
+            out[name] = (errs[kernel], dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                            bound_simt_ms=bound_simt, library_ms=l_ms,
+                                            flops=flops, bytes=nbytes))
+        del ops, c, w0, b0, w1, b1, g, bwd_args, pairs, got, again, want, leaves, lout
+        torch.cuda.empty_cache()
+    return out
+
+
+def options_f0_estimator(card) -> float:
+    """(e): F0Estimator at its default width from a seed, on the card against
+    the CPU on 4 x 8960 samples; returns max|d| of max|ref|."""
+    net = init_weights(F0Estimator(), seed=3)
+    x = torch.from_numpy(signals(4, SEG)[:4, :, None])
+    with torch.no_grad():
+        ref = net(x)
+        got = net.cuda()(x.cuda())
+    worst = max(rel_err(a.cpu(), b)[1] for a, b in zip(got, ref))
+    if not worst <= OPTIONS_F0_RTOL:
+        raise AssertionError(f"F0Estimator: card vs CPU {worst:.2e} of max|ref|")
+    say(f"options F0Estimator: {sum(p.numel() for p in net.parameters())} parameters, "
+        f"(f0, voiced) {tuple(got[0].shape)} each from {len(x)} x {SEG}; card vs CPU worst "
+        f"{worst:.2e} of max|ref| (tolerance {OPTIONS_F0_RTOL:.0e}) [{card}]")
+    return worst
+
+
+def phase_options(card, convert_ms: float, step_ms: float) -> dict:
+    """Phase 22: the options configuration at full width. (a) K1, K2,
+    K1-bf16 and K2-bf16 at the bottleneck's shapes; (b) f32 conversion of
+    phase 4's batch; (c) the f32 train step at 16 x 8960 (two decodes of
+    decoder stages + bottleneck blocks a step); (d) bf16 conversion; (e)
+    F0Estimator. Returns the launches by path and the bottleneck's kernel
+    numbers by kernel name and shape."""
+    t_phase = time.perf_counter()
+    ocfg = options_cfg()
+    gcfg = ocfg.model.generator
+    say(f"options: the config defaults plus num_bottleneck_layers={gcfg.num_bottleneck_layers}, "
+        f"norm_layer.encoder={gcfg.norm_layer.encoder}, "
+        f"norm_layer.decoder={gcfg.norm_layer.decoder}")
+    kernels: dict = {}
+    for i, (cc, t) in enumerate(BOTTLENECK_SHAPES):
+        for name, (err, nums) in bottleneck_kernels(card, B, t, cc, 2200 + i).items():
+            kernels.setdefault(name, {})[f"Cc{cc}_T{t}"] = dict(max_abs_err=err, **nums)
+    convert_k1, ms = phase_slice(ocfg, card, "options convert")
+    say(f"options convert: {ms:.2f} ms per call against phase 4's {convert_ms:.2f} ms "
+        f"({ms / convert_ms - 1:+.1%}) [{card}]")
+    per_step = 2 * (len(gcfg.decoder_ratios) + gcfg.num_bottleneck_layers)
+    (train_k1, train_k2), median = phase_step("options train", ocfg, card, per_step, steps=3,
+                                              mu_floor=OPTIONS_MU_FLOOR)
+    say(f"options train: median {median:.2f} ms per step against phase 7's {step_ms:.2f} ms "
+        f"({median / step_ms - 1:+.1%}) [{card}]")
+    bf16_k1 = phase_bf16_convert(ocfg, card, ("conv",), "options bf16 convert",
+                                 OPTIONS_BF16_AUDIO_ATOL)
+    options_f0_estimator(card)
+    say(f"options: phase 22 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": {"options_convert": convert_k1, "options_train": (train_k1, train_k2),
+                         "options_bf16_convert": bf16_k1},
+            "bottleneck": kernels}
+
+
 AB_ROUNDS = 5
 
 
@@ -2784,6 +3007,109 @@ def say_earlier(rows):
                 f"kernels {version} (not measured here)")
 
 
+class _Tee:
+    """A text stream that writes to two."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+# Each phase's headline in the summary: (name, pattern with one group, how the
+# matches are shown: "first", "all", or "max" of the numbers).
+HEADLINES = {
+    "2 build": [("nvcc", r"in ([\d.]+ s);", "first")],
+    "3 K1 parity": [("worst of max|ref|", r"max\|d\|=[\d.e+-]+ \(([\d.e+-]+)", "max")],
+    "4 convert": [("ms per call", r"convert_tensors ([\d.]+) ms per call", "first"),
+                  ("RTF", r"RTF ([\d.]+x)", "first")],
+    "5 K1 times": [("K1 ms per convert call", r"k1 per convert call \(4 calls\): ([\d.]+) ms",
+                    "first"),
+                   ("per train step", r"k1 per train step \(8 calls\): ([\d.]+) ms", "first")],
+    "6 K2 parity, wide and tiled": [("worst of max|ref|",
+                                     r"(?:split|concat)\.\w+ ([\d.e+-]+)", "max")],
+    "7 train": [("ms per step", r"median ([\d.]+) ms per step", "first"),
+                ("peak GiB", r"peak device memory ([\d.]+) GiB", "first")],
+    "8 K2 times": [("K2 ms per step", r"k2 per train step \(8 calls\): ([\d.]+) ms", "first")],
+    "9 train CLI": [("loop ms per step", r"median of steps 1-4: ([\d.]+) ms", "first")],
+    "10 generate CLI": [("RTF in the CLI", r"\(RTF ([\d.]+x), pitch", "first"),
+                        ("K1 at the CLIs' shapes, worst max|d|",
+                         r"worst max\|d\| ([\d.e+-]+); tolerance", "first")],
+    "11 wavlm convert": [("ms per call", r"convert_tensors ([\d.]+) ms per call", "first"),
+                         ("RTF", r"RTF ([\d.]+x)", "first")],
+    "12 wavlm train": [("ms per step", r"median ([\d.]+) ms per step", "first"),
+                       ("peak GiB", r"peak device memory ([\d.]+) GiB", "first")],
+    "13 wavlm CLIs": [("loop ms per step", r"median of steps 1-4 ([\d.]+) ms", "first")],
+    "14 bf16 kernels": [("K1-bf16 ms per convert call",
+                         r"k1-bf16 per bf16 convert call \(4 calls\): ([\d.]+) ms", "first"),
+                        ("K2-bf16 ms per b64 step",
+                         r"k2-bf16 per batch-64 train step \(8 calls\): ([\d.]+) ms", "first")],
+    "15 bf16 convert": [("ms per call (conv, wavlm)",
+                         r"bf16 convert \(\w+\):.*?convert_tensors ([\d.]+) ms", "all"),
+                        ("SNR dB", r"SNR ([\d.]+) dB", "all")],
+    "16 bf16 train": [("ms per b64 step (wavlm, conv)", r"steps: median ([\d.]+) ms", "all")],
+    "17 bf16 CLIs": [("loop ms per step", r"loop step median of steps 1-4 ([\d.]+) ms", "first")],
+    "18 stage steps": [("ms per step (S1, S21, W1)", r"median ([\d.]+) ms per step", "all")],
+    "19 curriculum CLIs": [],
+    "20 evaluation": [("ECAPA ms per utterance", r"([\d.]+) ms per utterance on the card",
+                       "first"),
+                      ("run_test process s", r"([\d.]+) s of wall time for the process",
+                       "first")],
+    "21 data parallel": [("one-rank ms per step", r"one rank, no group: step median ([\d.]+) ms",
+                          "first")],
+    "22 options": [("convert ms per call",
+                    r"options convert: convert_tensors ([\d.]+) ms", "first"),
+                   ("ms per step", r"median ([\d.]+) ms per step", "first"),
+                   ("bf16 convert ms",
+                    r"options bf16 convert \(conv\):.*?convert_tensors ([\d.]+) ms", "first"),
+                   ("bf16 SNR dB", r"SNR ([\d.]+) dB", "first")],
+}
+
+
+class Phases:
+    """Each phase's wall time and headline numbers, read from what it
+    prints (a tee of stdout), for the summary printed before the kernel
+    table: one line a phase, so that the end of the output, all that may
+    come back from a run, holds every phase's numbers."""
+
+    def __init__(self):
+        self.rows: list[tuple[str, float, str]] = []
+        self.text: dict[str, str] = {}
+
+    def run(self, label: str, fn, *args, **kw):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            out = fn(*args, **kw)
+        self.text[label] = buf.getvalue()
+        self.rows.append((label, time.perf_counter() - t0, self.headline(label)))
+        return out
+
+    def headline(self, label: str) -> str:
+        parts = []
+        for name, pattern, how in HEADLINES[label]:
+            found = re.findall(pattern, self.text[label])
+            if not found:
+                parts.append(f"{name} not printed")
+            elif how == "max":
+                parts.append(f"{name} {max(float(x) for x in found):.2e}")
+            else:
+                parts.append(f"{name} {found[0] if how == 'first' else ', '.join(found)}")
+        return "; ".join(parts)
+
+    def say_summary(self, card: str):
+        for label, wall, head in self.rows:
+            say(f"summary: phase {label}: {wall:.1f} s" + (f"; {head}" if head else ""))
+        say(f"summary: phases {sum(r[1] for r in self.rows):.1f} s in all [{card}]")
+
+
 def main(ab_dir: Path | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2795,48 +3121,68 @@ def main(ab_dir: Path | None = None) -> int:
         f"device 0 {torch.cuda.get_device_name(0)} of {torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    phases = Phases()
 
-    _, build_s, log = cc_mod.build()
-    say(f"build: {', '.join(src.name for src in cc_mod.SOURCES + cc_mod.BF16_SOURCES)} with "
-        f"nvcc, in parallel, "
-        f"in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
+    def build():
+        _, build_s, log = cc_mod.build()
+        say(f"build: {', '.join(src.name for src in cc_mod.SOURCES + cc_mod.BF16_SOURCES)} "
+            f"with nvcc, in parallel, in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
 
+    phases.run("2 build", build)
     cfg = Config()
     if ab_dir is not None:
         say(json.dumps({"ab": phase_ab(cfg, card, ab_dir), "card": card}))
         return 0
-    parity_err = phase_parity(cfg)
-    convert_launches = phase_slice(cfg, card)
-    k1_row = phase_kernel_times(cfg, card, convert_launches, parity_err)
-    k2_err = phase_k2_parity(cfg)
-    wide_parity(cfg, card)
-    (train_k1, train_k2), bare_median = phase_step("train", cfg, card, STAGES * 2)
-    k2_row = phase_k2_times(cfg, card, train_k2, k2_err)
+    run = phases.run
+    parity_err = run("3 K1 parity", phase_parity, cfg)
+    convert_launches, convert_ms = run("4 convert", phase_slice, cfg, card)
+    k1_row = run("5 K1 times", phase_kernel_times, cfg, card, convert_launches, parity_err)
+    k2_err = run("6 K2 parity, wide and tiled",
+                 lambda: (phase_k2_parity(cfg), wide_parity(cfg, card))[0])
+    (train_k1, train_k2), bare_median = run("7 train", phase_step, "train", cfg, card,
+                                            STAGES * 2)
+    k2_row = run("8 K2 times", phase_k2_times, cfg, card, train_k2, k2_err)
     with tempfile.TemporaryDirectory() as tmp:
         root = write_corpus(Path(tmp))
-        cli_k1, cli_k2 = phase_train_cli(root, card, bare_median)
-        pipeline_beside_step(cfg, root, card)
-        gen_k1 = phase_generate_cli(root, card)
-        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], cli_chain_parity(cfg, root, card))
-        wavlm_convert_k1 = phase_wavlm_convert(cfg, card)
-        (wavlm_train_k1, wavlm_train_k2), _ = phase_step("wavlm train", wavlm_cfg(cfg), card,
-                                                         STAGES * 2)
-        wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = phase_wavlm_clis(root, card)
-        k1b_row, k2b_row = phase_bf16_kernels(cfg, card)
-        bf16_convert_k1 = phase_bf16_convert(cfg, card)
-        bf16_train_k1, bf16_train_k2 = phase_bf16_train(cfg, card)
-        bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = phase_bf16_clis(root, card)
+
+        def train_cli():
+            out = phase_train_cli(root, card, bare_median)
+            pipeline_beside_step(cfg, root, card)
+            return out
+
+        def generate_cli():
+            return phase_generate_cli(root, card), cli_chain_parity(cfg, root, card)
+
+        cli_k1, cli_k2 = run("9 train CLI", train_cli)
+        gen_k1, cli_err = run("10 generate CLI", generate_cli)
+        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], cli_err)
+        wavlm_convert_k1 = run("11 wavlm convert", phase_wavlm_convert, cfg, card)
+        (wavlm_train_k1, wavlm_train_k2), _ = run("12 wavlm train", phase_step, "wavlm train",
+                                                  wavlm_cfg(cfg), card, STAGES * 2)
+        wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = run("13 wavlm CLIs", phase_wavlm_clis, root,
+                                                       card)
+        k1b_row, k2b_row = run("14 bf16 kernels", phase_bf16_kernels, cfg, card)
+        bf16_convert_k1 = run("15 bf16 convert", phase_bf16_convert, cfg, card)
+        bf16_train_k1, bf16_train_k2 = run("16 bf16 train", phase_bf16_train, cfg, card)
+        bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = run("17 bf16 CLIs", phase_bf16_clis, root, card)
+
         # no cycle pass at these stages: one decode (at 2B, or at B under
         # no_conv), so one K1 and one K2 launch per decoder stage
-        stage_k = []
-        for name, overrides in (("S1", STAGE_S1), ("S21", STAGE_S21), ("W1", STAGE_W1)):
-            say(f"stage {name}: {' '.join(o.split('.', 1)[1] for o in overrides)}")
-            stage_k.append(phase_step(f"stage {name}", stage_cfg(overrides), card, STAGES)[0])
-        cur_k1, cur_k2, cur_gen_k1 = phase_curriculum_clis(root, card)
-        eval_k1 = phase_eval(root, card)
-        dp = phase_data_parallel(cfg, root, card)
-    # K1 runs on every main path: conversion (phases 4 and 11), the train
-    # step (phases 7, 12 and 18) and the CLIs (phases 9, 10, 13 and 19); K2
+        def stage_steps():
+            out = []
+            for name, overrides in (("S1", STAGE_S1), ("S21", STAGE_S21), ("W1", STAGE_W1)):
+                say(f"stage {name}: {' '.join(o.split('.', 1)[1] for o in overrides)}")
+                out.append(phase_step(f"stage {name}", stage_cfg(overrides), card, STAGES)[0])
+            return out
+
+        stage_k = run("18 stage steps", stage_steps)
+        cur_k1, cur_k2, cur_gen_k1 = run("19 curriculum CLIs", phase_curriculum_clis, root, card)
+        eval_k1 = run("20 evaluation", phase_eval, root, card)
+        dp = run("21 data parallel", phase_data_parallel, cfg, root, card)
+    options = run("22 options", phase_options, card, convert_ms, bare_median)
+    opt = options["launches"]
+    # K1 runs on every main path: conversion (phases 4, 11 and 22), the train
+    # step (phases 7, 12, 18 and 22) and the CLIs (phases 9, 10, 13 and 19); K2
     # on the training paths
     k1_row["launches_by_path"] = {"convert": convert_launches, "train": train_k1,
                                   "train_cli": cli_k1, "generate_cli": gen_k1,
@@ -2848,23 +3194,35 @@ def main(ab_dir: Path | None = None) -> int:
                                   "curriculum_generate_clis": cur_gen_k1,
                                   "eval_cli": eval_k1,
                                   "data_parallel_train": dp["train"][0],
-                                  "sharded_convert": dp["convert"]}
+                                  "sharded_convert": dp["convert"],
+                                  "options_convert": opt["options_convert"],
+                                  "options_train": opt["options_train"][0]}
     k1_row["launches"] = sum(k1_row["launches_by_path"].values())
     k2_row["launches_by_path"] = {"train": train_k2, "train_cli": cli_k2,
                                   "wavlm_train": wavlm_train_k2, "wavlm_train_cli": wavlm_cli_k2,
                                   "stage_train": sum(k[1] for k in stage_k),
                                   "curriculum_train_cli": cur_k2,
-                                  "data_parallel_train": dp["train"][1]}
+                                  "data_parallel_train": dp["train"][1],
+                                  "options_train": opt["options_train"][1]}
     k2_row["launches"] = sum(k2_row["launches_by_path"].values())
-    # the bf16 instances on the bf16 paths: conversion (phase 15, both
-    # encoders), the batch-64 train step (phase 16, both encoders), the CLIs
-    # (phase 17)
+    # the bf16 instances on the bf16 paths: conversion (phases 15 and 22),
+    # the batch-64 train step (phase 16, both encoders), the CLIs (phase 17)
     k1b_row["launches_by_path"] = {"convert": bf16_convert_k1, "train": bf16_train_k1,
-                                   "train_cli": bf16_cli_k1, "generate_cli": bf16_gen_k1}
+                                   "train_cli": bf16_cli_k1, "generate_cli": bf16_gen_k1,
+                                   "options_bf16_convert": opt["options_bf16_convert"]}
     k1b_row["launches"] = sum(k1b_row["launches_by_path"].values())
     k2b_row["launches_by_path"] = {"train": bf16_train_k2, "train_cli": bf16_cli_k2}
     k2b_row["launches"] = sum(k2b_row["launches_by_path"].values())
+    # the bottleneck's shapes (phase 22), each kernel's numbers by shape
+    for row, name in ((k1_row, "cond_chain_fwd"), (k2_row, "cond_chain_bwd"),
+                      (k1b_row, "cond_chain_fwd_bf16"), (k2b_row, "cond_chain_bwd_bf16")):
+        row["max_abs_err"] = max(row["max_abs_err"], *(
+            v["max_abs_err"] for v in options["bottleneck"][name].values()))
+        row["bottleneck"] = {shape: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "library_ms")}
+                             for shape, v in options["bottleneck"][name].items()}
     say_earlier([k1_row, k2_row, k1b_row, k2b_row])
+    phases.say_summary(card)
     say(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     say(json.dumps({"kernels": [k1_row, k2_row, k1b_row, k2b_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -260,6 +260,13 @@ def validate(cfg: Config) -> None:
             f"the total decoder ratio {g.total_ratio}")
     if g.encoder_model not in ("conv", "wavlm"):
         raise ValueError(f"unknown encoder_model {g.encoder_model!r}")
+    for sub in ("encoder", "decoder", "bottleneck"):
+        nl = getattr(g.norm_layer, sub)
+        if nl not in (None, "instance_norm", "conditional_instance_norm"):
+            raise ValueError(f"unknown norm_layer.{sub}={nl!r}")
+        wn = getattr(g.weight_norm, sub)
+        if wn not in (None, "weight_norm"):
+            raise ValueError(f"unknown weight_norm.{sub}={wn!r}")
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train.compute_dtype must be 'float32' or 'bfloat16', got "
                          f"{cfg.train.compute_dtype!r}")

@@ -253,14 +253,116 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
+def _norm_stats(x: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """Non-affine instance norm of x (B, C, T) over T, in f32: population
+    variance, ``(x - mean) * rsqrt(var + eps)``. The JAX package reduces in
+    f32 and, allowed excess precision by XLA, rounds a bf16 input's result
+    once, at the end; its callers round as it does."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + epsilon)
+
+
+class InstanceNorm(nn.Module):
+    """Non-affine InstanceNorm1d over time (eps 1e-5): statistics per (batch,
+    channel) over T. No parameters."""
+
+    def __init__(self, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _norm_stats(x, self.epsilon).to(x.dtype)
+
+
+class ConditionalInstanceNorm(nn.Module):
+    """(1 + gamma) * IN(x) + beta, (gamma, beta) predicted from the cond: a
+    2-D cond (B, Cc) through a Linear, a per-frame cond (B, Cc, T) through a
+    k=5 'same' conv without weight norm (``per_frame``). The submodules keep
+    flax's automatic names, ``Linear_0`` and ``WNConv1d_0``. A 2-D cond's
+    Linear does not cast to the compute scope's dtype, so under a bf16 scope
+    the output is f32, as in the JAX package."""
+
+    def __init__(self, features: int, cond_channels: int, per_frame: bool = False):
+        super().__init__()
+        self.per_frame = per_frame
+        if per_frame:
+            self.WNConv1d_0 = WNConv1d(cond_channels, 2 * features, 5, padding="same",
+                                       use_weight_norm=False)
+        else:
+            self.Linear_0 = Linear(cond_channels, 2 * features)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor | None) -> torch.Tensor:
+        if c is None or c.dim() != (3 if self.per_frame else 2):
+            raise ValueError("conditional instance norm needs a "
+                             + ("per-frame (B, Cc, T)" if self.per_frame else "2-D (B, Cc)")
+                             + f" cond, got {None if c is None else tuple(c.shape)}")
+        h = self.WNConv1d_0(c) if self.per_frame else self.Linear_0(c)[..., None]
+        gamma, beta = h.float().chunk(2, dim=1)
+        out = (1 + gamma) * _norm_stats(x, 1e-5) + beta
+        return out.to(torch.promote_types(x.dtype, h.dtype))
+
+
+def make_norm(norm: str | None, features: int, cond_channels: int = 0,
+              per_frame: bool = False) -> nn.Module | None:
+    """The module of a norm slot (None: the slot is the identity)."""
+    if norm is None:
+        return None
+    if norm == "instance_norm":
+        return InstanceNorm()
+    if norm == "conditional_instance_norm":
+        return ConditionalInstanceNorm(features, cond_channels, per_frame)
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def _chain_weights(blocks) -> tuple:
+    """The FiLM blocks' cond_0 and cond_1 weights concatenated in the JAX
+    package's WIO layout: w0 (3, Cc, n*Cc), b0 (n*Cc,), w1 (3, Cc, n*2C),
+    b1 (n*2C,)."""
+    w0 = torch.cat([blk.cond_0.weight() for blk in blocks], 0).permute(2, 1, 0)
+    b0 = torch.cat([blk.cond_0.bias for blk in blocks])
+    w1 = torch.cat([blk.cond_1.weight() for blk in blocks], 0).permute(2, 1, 0)
+    b1 = torch.cat([blk.cond_1.bias for blk in blocks])
+    return w0, b0, w1, b1
+
+
+def _split_films(gb: torch.Tensor, n: int, c: int) -> list[tuple]:
+    """(B, n*2C, T) -> n blocks' (gamma, beta), (B, C, T) each."""
+    return [(gb[:, i * 2 * c:i * 2 * c + c], gb[:, i * 2 * c + c:(i + 1) * 2 * c])
+            for i in range(n)]
+
+
+def concat_films(blocks, cond: torch.Tensor, t: int) -> list[tuple]:
+    """Every block's (gamma, beta), (B, C, T) each, from one call of the
+    cond-chain op's concat form (``film_cond_chain``): ``cond`` is per-frame
+    (B, Cc, T), or 2-D (B, Cc) and broadcast over the t frames. In a compute
+    scope the chain's operands are cast first, as the JAX package's
+    ``_batched_film`` casts them."""
+    w0, b0, w1, b1 = _chain_weights(blocks)
+    if cond.dim() == 2:
+        c = cond[:, None, :].expand(-1, t, -1)
+    else:
+        c = cond.transpose(1, 2)
+    if (dt := get_compute_dtype()) is not None:
+        c, w0, b0, w1, b1 = (a.to(dt) for a in (c, w0, b0, w1, b1))
+    gb = cond_chain_op.film_cond_chain(c.contiguous(), w0.contiguous(), b0,
+                                       w1.contiguous(), b1).transpose(1, 2)
+    return _split_films(gb, len(blocks), blocks[0].channels)
+
+
 class FiLMResnetBlock(nn.Module):
     """lrelu -> reflect dilated conv -> FiLM (h * (1 + gamma) + beta) ->
-    lrelu -> 1x1 conv, plus the identity. (gamma, beta) come precomputed from
-    the stage's cond chain; ``cond_0``/``cond_1`` hold that chain's weights."""
+    lrelu -> 1x1 conv, plus the identity. (gamma, beta) come precomputed
+    (``film``, from an MRF stage's cond chain) or from the block's own
+    ``cond_0`` -> lrelu -> ``cond_1`` chain on a cond ``c``, 2-D (B, Cc) and
+    broadcast over time, or per-frame (B, Cc, T); that chain runs through the
+    cond-chain op's concat form with n = 1."""
 
     def __init__(self, channels: int, cond_channels: int = 0, dilation: int = 1,
                  kernel_size: int = 3, use_weight_norm: bool = True):
         super().__init__()
+        self.channels = channels
         self.conv = WNConv1d(channels, channels, kernel_size, dilation=dilation,
                              padding=(kernel_size * dilation - dilation) // 2,
                              pad_mode="reflect", use_weight_norm=use_weight_norm)
@@ -271,7 +373,10 @@ class FiLMResnetBlock(nn.Module):
             self.cond_1 = WNConv1d(cond_channels, 2 * channels, 3, padding="same",
                                    use_weight_norm=use_weight_norm)
 
-    def forward(self, x: torch.Tensor, film: tuple | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, film: tuple | None = None,
+                c: torch.Tensor | None = None) -> torch.Tensor:
+        if film is None and c is not None:
+            film = concat_films([self], c, x.shape[-1])[0]
         h = self.conv(leaky_relu(x))
         if film is not None:
             gamma, beta = film
@@ -282,7 +387,9 @@ class FiLMResnetBlock(nn.Module):
 class MRFBlock(nn.Module):
     """HiFi-GAN multi-receptive-field fusion: per kernel size a chain of FiLM
     blocks over the dilations, outputs averaged. With conditioning, every
-    block's (gamma, beta) comes from one call of the cond-chain op."""
+    block's (gamma, beta) comes from one call of the cond-chain op: the split
+    form for a ``(spk, exc)`` tuple, the concat form for a per-frame
+    (B, Cc, T) or a 2-D (B, Cc) cond, broadcast over time."""
 
     def __init__(self, channels: int, cond_channels: int = 0,
                  dilations: tuple[int, ...] = (1, 3, 5),
@@ -313,11 +420,7 @@ class MRFBlock(nn.Module):
         are computed in that dtype too."""
         blocks = self.blocks()
         s = spk.shape[-1]
-        # (3, Cc, n*Cc) and (3, Cc, n*2C): the JAX package's WIO layout
-        w0 = torch.cat([blk.cond_0.weight() for blk in blocks], 0).permute(2, 1, 0)
-        b0 = torch.cat([blk.cond_0.bias for blk in blocks])
-        w1 = torch.cat([blk.cond_1.weight() for blk in blocks], 0).permute(2, 1, 0)
-        b1 = torch.cat([blk.cond_1.bias for blk in blocks])
+        w0, b0, w1, b1 = _chain_weights(blocks)
         if (dt := get_compute_dtype()) is not None:
             spk, exc, w0, b0, w1, b1 = (a.to(dt) for a in (spk, exc, w0, b0, w1, b1))
         w0_spk, w0_exc = w0[:, :s], w0[:, s:]
@@ -327,12 +430,13 @@ class MRFBlock(nn.Module):
         gb = cond_chain_op.cond_chain(
             exc.transpose(1, 2).contiguous(), w0_exc.contiguous(), hbias,
             w1.contiguous(), b1, edge0, edge_t).transpose(1, 2)
-        c = self.channels
-        return [(gb[:, i * 2 * c:i * 2 * c + c], gb[:, i * 2 * c + c:(i + 1) * 2 * c])
-                for i in range(len(blocks))]
+        return _split_films(gb, len(blocks), self.channels)
 
-    def forward(self, x: torch.Tensor, cond: tuple | None = None) -> torch.Tensor:
-        films = self.films(*cond) if self.cond_channels and cond is not None else None
+    def forward(self, x: torch.Tensor, cond=None) -> torch.Tensor:
+        films = None
+        if self.cond_channels and cond is not None:
+            films = (self.films(*cond) if isinstance(cond, tuple)
+                     else concat_films(self.blocks(), cond, x.shape[-1]))
         y = 0.0
         blocks = self.blocks()
         for k in range(self.n_kernels):
@@ -342,3 +446,85 @@ class MRFBlock(nn.Module):
                 xs = blocks[i](xs, films[i] if films is not None else None)
             y = y + xs
         return y / self.n_kernels
+
+
+class ResnetBlock(nn.Module):
+    """norm -> lrelu -> dilated reflect conv (pad = dilation) -> norm ->
+    lrelu -> 1x1 conv, plus the identity; the norm is instance norm when
+    ``norm == 'instance_norm'``, else the identity. Dead code in the
+    reference, kept for its inventory; flax's names ``WNConv1d_0/1``."""
+
+    def __init__(self, channels: int, dilation: int = 1, kernel_size: int = 3,
+                 norm: str | None = None, use_weight_norm: bool = True):
+        super().__init__()
+        self.norm = InstanceNorm() if norm == "instance_norm" else nn.Identity()
+        self.WNConv1d_0 = WNConv1d(channels, channels, kernel_size, dilation=dilation,
+                                   padding=dilation, pad_mode="reflect",
+                                   use_weight_norm=use_weight_norm)
+        self.WNConv1d_1 = WNConv1d(channels, channels, 1, use_weight_norm=use_weight_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.WNConv1d_0(leaky_relu(self.norm(x)))
+        return self.WNConv1d_1(leaky_relu(self.norm(h))) + x
+
+
+class DecoderResnetBlock(nn.Module):
+    """lrelu -> weight-normed dilated reflect conv (pad = dilation) -> lrelu
+    -> weight-normed 1x1 conv, plus a weight-normed 1x1 shortcut. Dead code
+    in the reference, kept for its inventory."""
+
+    def __init__(self, channels: int, dilation: int = 1, kernel_size: int = 3,
+                 in_channels: int | None = None):
+        super().__init__()
+        cin = in_channels or channels
+        self.conv = WNConv1d(cin, channels, kernel_size, dilation=dilation, padding=dilation,
+                             pad_mode="reflect")
+        self.posconv = WNConv1d(channels, channels, 1)
+        self.shortcut = WNConv1d(cin, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.posconv(leaky_relu(self.conv(leaky_relu(x))))
+        return h + self.shortcut(x)
+
+
+class TranformResnetBlock(nn.Module):
+    """lrelu -> dilated reflect conv -> IN -> lrelu -> 1x1 conv -> IN, plus a
+    1x1 shortcut, all convs plain. Dead code in the reference (its spelling
+    kept), kept for its inventory."""
+
+    def __init__(self, channels: int, dilation: int = 1, kernel_size: int = 3,
+                 in_channels: int | None = None):
+        super().__init__()
+        cin = in_channels or channels
+        self.conv = WNConv1d(cin, channels, kernel_size, dilation=dilation, padding=dilation,
+                             pad_mode="reflect", use_weight_norm=False)
+        self.posconv = WNConv1d(channels, channels, 1, use_weight_norm=False)
+        self.shortcut = WNConv1d(cin, channels, 1, use_weight_norm=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv(leaky_relu(x))
+        h = _norm_stats(h, 1e-5).to(h.dtype)
+        h = self.posconv(leaky_relu(h))
+        return _norm_stats(h, 1e-5).to(h.dtype) + self.shortcut(x)
+
+
+class CINResnetBlock(nn.Module):
+    """CIN -> lrelu -> dilated reflect 'same' conv -> CIN -> lrelu -> 1x1
+    conv, plus a 1x1 shortcut, convs plain; the cond is 2-D, or per-frame
+    with ``per_frame``. Dead code in the reference, kept for its inventory."""
+
+    def __init__(self, channels: int, cond_channels: int, dilation: int = 1,
+                 kernel_size: int = 3, per_frame: bool = False):
+        super().__init__()
+        self.cin0 = ConditionalInstanceNorm(channels, cond_channels, per_frame)
+        self.conv = WNConv1d(channels, channels, kernel_size, dilation=dilation,
+                             padding=(kernel_size * dilation - dilation) // 2,
+                             pad_mode="reflect", use_weight_norm=False)
+        self.cin1 = ConditionalInstanceNorm(channels, cond_channels, per_frame)
+        self.posconv = WNConv1d(channels, channels, 1, use_weight_norm=False)
+        self.shortcut = WNConv1d(channels, channels, 1, use_weight_norm=False)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        h = self.conv(leaky_relu(self.cin0(x, c)))
+        h = self.posconv(leaky_relu(self.cin1(h, c)))
+        return h + self.shortcut(x)

@@ -7,7 +7,9 @@ layout, and a tiny Whisper checkpoint directory for transformers, for the
 loaders of both packages. And a way to run W ranks, each its own process
 in one process group (:func:`run_ranks`, :func:`call`), with the train step
 on ranks (:func:`step_rank`) and the collectives' check
-(:func:`collectives_probe`).
+(:func:`collectives_probe`). And the generator parameters whose gradient a
+norm slot cancels (:func:`norm_invariant`), which gradient checks hold to
+vanish instead of to their own scale.
 """
 
 from __future__ import annotations
@@ -92,6 +94,32 @@ def chain_inputs(b, t, c, cfg, seed, exact_h: bool = False, e: int = 8,
     if dtype != torch.float32:
         split, concat = ({k: v.to(dtype) for k, v in d.items()} for d in (split, concat))
     return split, concat, n, cc
+
+
+def norm_invariant(G) -> set[str]:
+    """The names of a Generator's parameters that only shift or scale a
+    channel that a norm slot then normalises per channel over time: the
+    input conv's bias and weight-norm gain ahead of a stack's first slot, and
+    the bias of each MRF chain's last 1x1 conv ahead of the next slot (a
+    constant over time). Their true gradient is 0 but for the norm's eps, so
+    what a gradient check sees of them is rounding noise."""
+    from td_vc_gan_tpu_torch.models.generator import Decoder, Encoder
+
+    names = set()
+    for stack in ("encoder", "decoder"):
+        mod = getattr(G, stack)
+        if not isinstance(mod, (Encoder, Decoder)) or mod.norm is None:
+            continue
+        names |= {f"{stack}.input_conv.{leaf}" for leaf in ("bias", "g")
+                  if hasattr(mod.input_conv, leaf)}
+        n = len(mod.ratios)
+        for i in range(n):
+            if not hasattr(mod, f"stage_{i + 1}_norm" if i + 1 < n else "final_norm"):
+                continue
+            mrf = getattr(mod, f"stage_{i}_mrf")
+            names |= {f"{stack}.stage_{i}_mrf.{name}.posconv.bias" for name in mrf.block_names
+                      if name.endswith(f"_{mrf.nd - 1}")}
+    return names
 
 
 def torchcrepe_state_dict(seed: int) -> dict:

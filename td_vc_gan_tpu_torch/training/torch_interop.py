@@ -10,6 +10,11 @@ port's modules carry the JAX package's flax names, so an entry's
 ``flax_path`` joined with dots is the port's module path
 (``decoder.stage_0_mrf.block_0_0.cond_0``). The port keeps torch's own
 layouts, so only ``weight_g`` changes shape ((out, 1, 1) there, (out,) here).
+
+Like the JAX package's, the tables have no rows for the norm layers: the
+``.pt`` of a configuration with conditional instance norm holds none of its
+CIN parameters, and importing one reports them missing (instance norm has
+none). The bottleneck's rows (``bottleneck.{i}``) follow the reference.
 """
 
 from __future__ import annotations

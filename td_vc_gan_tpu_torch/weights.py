@@ -7,7 +7,9 @@ mapping is by name; only the layouts differ:
 - weight-normed conv ``v`` (k, in, out) -> (out, in, k), ``g`` per output;
 - transposed conv ``v`` (in, out, k) stays, ``g`` per input;
 - plain conv ``kernel`` (k, in, out) -> (out, in, k);
-- Linear ``kernel`` (in, out) -> (out, in);
+- Linear ``kernel`` (in, out) -> (out, in) (the speaker embedding, and a
+  conditional instance norm's ``Linear_0`` on a 2-D cond; its per-frame
+  ``WNConv1d_0`` is a plain conv);
 - the WavLM backbone's bare arrays (``models/wavlm.py``), kept in the
   Microsoft checkpoint's torch layouts: extractor ``conv_i`` (k, in, out)
   -> (out, in, k); every ``*_kernel`` (in, out) -> (out, in), applied as
@@ -35,6 +37,7 @@ from torch import nn
 from td_vc_gan_tpu_torch.models import mosnet
 from td_vc_gan_tpu_torch.models.crepe import Crepe
 from td_vc_gan_tpu_torch.models.ecapa import ECAPA, from_torch_state_dict
+from td_vc_gan_tpu_torch.models.f0_estimator import F0Estimator
 from td_vc_gan_tpu_torch.models.layers import Linear, WNConv1d
 from td_vc_gan_tpu_torch.models.wavlm import (
     ConvFeatureExtractor,
@@ -113,6 +116,11 @@ def discriminator_from_jax(D: nn.Module, params_np: Mapping) -> nn.Module:
 def classifier_from_jax(C: nn.Module, params_np: Mapping) -> nn.Module:
     """Fill the port's LatentClassifier from the JAX module's parameter tree."""
     return _load(C, _params(params_np), _conv_layout(C))
+
+
+def f0_estimator_from_jax(net: F0Estimator, params_np: Mapping) -> F0Estimator:
+    """Fill the port's F0Estimator from the JAX F0Estimator's parameter tree."""
+    return _load(net, _params(params_np), _conv_layout(net))
 
 
 def crepe_from_jax(net: Crepe, params_np: Mapping) -> Crepe:

@@ -7,6 +7,8 @@ excitation come from the same seed. Tolerance: atol = 1e-4, rtol = 1e-4
 another order compounds).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,9 +142,18 @@ def test_generator_from_config_full_width_shapes():
 
 
 def test_unsupported_configs_raise():
-    cfg = GeneratorConfig(num_bottleneck_layers=2)
-    with pytest.raises(NotImplementedError, match="bottleneck"):
-        tg.generator_from_config(cfg, 4, device="cpu")
+    """The port refuses what the JAX package cannot run: a decoder without
+    speaker conditioning (the JAX decoder sizes its MRF cond for the
+    excitation alone, then raises in a conv) and an unknown encoder_model
+    (which the JAX validate refuses); the options it runs build."""
+    cfg = GeneratorConfig()
+    for bad, match in ((dict(conditioning=dataclasses.replace(cfg.conditioning, decoder=None)),
+                        "decoder=None"), (dict(encoder_model="hubert"), "encoder_model")):
+        with pytest.raises(ValueError, match=match):
+            tg.generator_from_config(dataclasses.replace(cfg, **bad), 4, device="cpu")
+    small = dict(decoder_channels=[16, 16, 8, 8, 4], content_dim=8, conditional_dim=8)
+    tg.generator_from_config(dataclasses.replace(cfg, num_bottleneck_layers=2, **small), 4,
+                             device="cpu")
 
 
 def test_load_config_matches_jax(tmp_path):
@@ -170,7 +181,7 @@ def test_load_config_matches_jax(tmp_path):
 
 def test_generator_encode_only_content_and_c_src(generators):
     """The train step's calls: encode_only, decoding from a given content,
-    and a source speaker (read by no supported configuration) all as in the
+    and a source speaker (which this configuration does not read) all as in the
     JAX Generator."""
     jax_g, params, port = generators
     rng = np.random.default_rng(6)

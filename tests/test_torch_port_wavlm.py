@@ -342,8 +342,8 @@ def test_wavlm_generator(generators):
 def test_wavlm_generator_from_config_full_width():
     """wavlm-stage2_2 at full width: WavLM-Large (24 x 1024, 16 heads, FFN
     4096) and 16 WN layers, 128 wide; the parameter shapes the JAX package
-    gives it, the backbone frozen and from the seed, the options it does not
-    have refused."""
+    gives it, the backbone frozen and from the seed, and the configs the JAX
+    package cannot run refused."""
     cfg = GeneratorConfig(encoder_model="wavlm")
     port = tg.generator_from_config(cfg, num_classes=4, device="cpu", seed=0)
     jax_g = jg.generator_from_config(cfg, 4)
@@ -359,9 +359,9 @@ def test_wavlm_generator_from_config_full_width():
     assert 3.1e8 < n_backbone < 3.2e8
     assert not any(p.requires_grad for p in port.encoder.wavlm.parameters())
     assert port.encoder.posterior.enc.n_layers == 16
-    for bad in (dict(num_bottleneck_layers=1), dict(conditioning=dataclasses.replace(
-            cfg.conditioning, encoder="source"))):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(encoder_model="hubert"), dict(conditioning=dataclasses.replace(
+            cfg.conditioning, decoder=None))):
+        with pytest.raises(ValueError):
             tg.generator_from_config(dataclasses.replace(cfg, **bad), 4, device="cpu")
 
 
