@@ -82,7 +82,9 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    bf16 conversion's four stage shapes (K1) and at the batch-64 train step's
    eight (K1, K2), each beside two bounds (the dense bf16 tensor-core rate
    and the memory rate), the plain bf16 version, the f32 kernel and cuDNN's
-   bf16 sequence (a yardstick);
+   bf16 sequence (a yardstick); K2-bf16's device time by kernel at each of
+   the eight shapes and per step (torch.profiler), its launches per call,
+   and its workspace at the step's largest call;
 15. bf16 convert: ``train.compute_dtype: bfloat16`` conversion of phase 4's
    batch with each encoder (the WavLM backbone in bf16): 4 K1-bf16 launches
    per call and no f32 K1, the output (f32, finite, max|y| <= 1), the
@@ -176,8 +178,9 @@ runs the card and build phases, then only an A/B of the bf16 kernels: the
 earlier K1-bf16 and K2-bf16 built from their sources in DIR (the two .cu
 files and the headers they include) against this tree's, alternated for 5
 rounds at the bf16 conversion's and the batch-64 step's chain shapes, the
-two versions' outputs held to each other; its last line is a JSON object of
-each path's per-round totals.
+two versions' outputs held to each other, K2-bf16's time by kernel and
+workspace for each version; its last line is a JSON object of each path's
+per-round totals.
 """
 
 from __future__ import annotations
@@ -274,7 +277,8 @@ REFUSED_CASE = ("concat", 696, 8)
 # section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before they took
 # smaller time tiles at wide Cc (one fixed 128-row tile); K1-bf16 and
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
-# through L1). As (path in the row's by_path, or None for the row's own ms,
+# through L1), and K2-bf16 before its weight grads moved to wgmma. As (path
+# in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
 EARLIER_MS = {
@@ -284,7 +288,9 @@ EARLIER_MS = {
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
         ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version")],
     "cond_chain_bwd_bf16": [
-        (None, 89.301, "batch-64 train step (8 calls)", "in their first bf16 version")]}
+        (None, 89.301, "batch-64 train step (8 calls)", "in their first bf16 version"),
+        (None, 41.269, "batch-64 train step (8 calls)",
+         "with the mma.sync weight grads and the a scratch (PR 15's proof)")]}
 # The CLI phases' corpus: speakers x utterances of 1.5-4 s; the first
 # TRAIN_UTT of each speaker train (80 files: 5 steps an epoch at batch 16),
 # the last of TEST_SPK speakers convert; FLAC_FILES are written as FLAC.
@@ -1736,6 +1742,8 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
     gt = g.transpose(1, 2)
     l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True), iters=2)
     del h, out, leaves
+    parts = k2b_event_times(lambda: cc_mod._launch_bwd(g=g, **args))
+    say(f"k2-bf16 kernels B={b} T={t} C={c}: {breakdown_line(parts)} [{card}]")
     flops, nbytes4 = k2_work(b, t, e, n, cc, 2 * c)
     nbytes = nbytes4 / 2  # every input and output is bf16
     bound, by = bf16_bounds(flops, nbytes)
@@ -1749,7 +1757,102 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
     del split, g, args
     torch.cuda.empty_cache()
     return worst_d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, library_ms=l_ms, f32_ms=f_ms,
-                         flops=flops, bytes=nbytes)
+                         flops=flops, bytes=nbytes, parts=parts)
+
+
+# K2-bf16's kernels, by the names the profiler gives them (demangled, or
+# not: "...15k2b_data_kernelENS_8DataArgsE"), template arguments kept
+K2B_KERNELS = re.compile(r"(w_images_kernel|k2b_[A-Za-z0-9]+?_kernel)(<[^>]*>|I(?:L[ib]\d+E)+E)?")
+# the batch-64 step's largest K2-bf16 call, whose workspace phase 14 prints
+K2B_WS_SHAPE = (2 * B64, SEG, 8, 9, 136, 32)
+
+
+def k2b_label(name: str) -> str | None:
+    """'k2b_wgrad_kernel<3,1>' for a profiler kernel name of K2-bf16's, else None."""
+    m = K2B_KERNELS.search(name)
+    if m is None:
+        return None
+    targs = [{"true": "1", "false": "0"}.get(x, x)
+             for x in re.findall(r"\d+|true|false", m.group(2) or "")]
+    return m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+
+
+# K2-bf16's launches in a call, as cond_chain_bwd_bf16_kernel_ms orders them
+K2B_LAUNCHES = ("w_images_kernel", "k2b_data_kernel", "k2b_w1_kernel", "k2b_xdh_kernel",
+                "k2b_reduce_kernel")
+
+
+def k2b_event_times(fn) -> dict:
+    """{kernel: [device ms, launches]} of one call of ``fn`` (this tree's
+    K2-bf16, warm) from the events its library records between its launches
+    (each kernel's time from the end of the launch before it). Late in the
+    full run a torch.profiler session could record no device event at all,
+    so phase 14 does not depend on it."""
+    lib = cc_mod._library()["bwd_bf16"]
+    lib.cond_chain_bwd_bf16_time_kernels.argtypes = [ctypes.c_int]
+    lib.cond_chain_bwd_bf16_kernel_ms.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    ms = (ctypes.c_float * len(K2B_LAUNCHES))()
+    if lib.cond_chain_bwd_bf16_time_kernels(1):
+        raise RuntimeError("K2-bf16 could not make its timing events")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        if lib.cond_chain_bwd_bf16_kernel_ms(ms):
+            raise RuntimeError("K2-bf16's timing events gave no time")
+    finally:
+        lib.cond_chain_bwd_bf16_time_kernels(0)
+    return {name: [float(ms[k]), 1] for k, name in enumerate(K2B_LAUNCHES)}
+
+
+def kernel_breakdown(fn, attempts: int = 3) -> dict:
+    """{kernel: [device ms, launches]} of K2-bf16's kernels in one call of
+    ``fn`` (torch.profiler; ``fn`` warm), for ``--ab``, whose earlier
+    library has no timing events; it runs first in its process, where the
+    profiler works. The profiler starts tracing the card some time after its
+    session opens and can lose the last records (a short call lost its
+    first kernels, once its last two): the call sits between two spins of
+    the card (the first ~20 ms, 4x longer at each retry), and a session
+    counts only when its first and last device events are those spins."""
+    seen: list[str] = []
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(35e6 * 4 ** attempt))
+            fn()
+            torch.cuda._sleep(int(1e6))
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        seen = [ev.name for ev in evs]
+        if len(evs) < 3 or k2b_label(seen[0]) or k2b_label(seen[-1]):
+            continue
+        out: dict[str, list] = {}
+        for ev in evs:
+            label = k2b_label(ev.name)
+            if label:
+                acc = out.setdefault(label, [0.0, 0])
+                acc[0] += ev.time_range.elapsed_us() / 1e3
+                acc[1] += 1
+        if out:
+            return out
+    raise AssertionError(f"the profiler did not record K2-bf16's call whole in {attempts} "
+                         f"sessions; the last saw {len(seen)} device events: "
+                         f"{[x[:80] for x in seen[:8]]}")
+
+
+def add_breakdown(total: dict, part: dict) -> None:
+    for name, (ms, count) in part.items():
+        acc = total.setdefault(name, [0.0, 0])
+        acc[0] += ms
+        acc[1] += count
+
+
+def breakdown_line(parts: dict, calls: int = 1) -> str:
+    """'kernel ms xN, ...' by time, then the launches per call."""
+    return (", ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in
+                      sorted(parts.items(), key=lambda kv: -kv[1][0]))
+            + f"; {sum(n for _, n in parts.values()) // calls} launches a call")
 
 
 def bf16_row(name, source, replaces, sums: dict, err: float) -> dict:
@@ -1770,6 +1873,7 @@ def phase_bf16_kernels(cfg, card):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "f32_ms", "flops", "bytes")
     k1 = {"convert": dict.fromkeys(keys, 0.0), "train": dict.fromkeys(keys, 0.0)}
     k2 = dict.fromkeys(keys, 0.0)
+    k2_parts: dict = {}
     for i, (t, c) in enumerate(stage_shapes(UTT, cfg)):
         d, v = k1_bf16_stage(cfg, card, B, t, c, 1700 + i, "convert")
         w1 = max(w1, d)
@@ -1785,6 +1889,10 @@ def phase_bf16_kernels(cfg, card):
             w2 = max(w2, d)
             for k in keys:
                 k2[k] += v[k]
+            add_breakdown(k2_parts, v["parts"])
+    ws = cc_mod._library()["bwd_bf16"].cond_chain_bwd_bf16_workspace(*K2B_WS_SHAPE)
+    say(f"k2-bf16 kernels per batch-64 train step (8 calls): {breakdown_line(k2_parts, 8)}; "
+        f"workspace at (B, T, E, n, Cc, 2C) = {K2B_WS_SHAPE}: {ws / 1e9:.3f} GB [{card}]")
     for label, sums, per in (("k1-bf16", k1["convert"], "bf16 convert call (4 calls)"),
                              ("k1-bf16", k1["train"], "batch-64 train step (8 calls)"),
                              ("k2-bf16", k2, "batch-64 train step (8 calls)")):
@@ -2866,8 +2974,10 @@ def ab_libraries(src_dir: Path, out_dir: Path):
         log.append(out)
     fwd, bwd = (ctypes.CDLL(str(lib)) for _, lib in jobs)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fwd.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, i, i, i, i, i, i, p]
+    fwd.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
     fwd.cond_chain_fwd_bf16.restype = i
+    fwd.cond_chain_fwd_bf16_workspace.argtypes = [i] * 5
+    fwd.cond_chain_fwd_bf16_workspace.restype = ll
     bwd.cond_chain_bwd_bf16_workspace.argtypes = [i] * 6
     bwd.cond_chain_bwd_bf16_workspace.restype = ll
     bwd.cond_chain_bwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
@@ -2885,9 +2995,12 @@ def old_k1(fwd, split: dict):
     exc, w0, hbias, w1, b1 = (split[k] for k in ("exc", "w0", "hbias", "w1", "b1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
+    ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
+                     device=exc.device, dtype=torch.uint8)
     err = fwd.cond_chain_fwd_bf16(ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]),
-                                  ptr(split["edge_t"]), ptr(w1), ptr(b1), ptr(out),
-                                  b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
+                                  ptr(split["edge_t"]), ptr(w1), ptr(b1), ptr(out), ptr(ws),
+                                  ws.numel(), b, t, e, n, cc, two_c,
+                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the earlier K1-bf16 failed to launch ({err})")
     return out
@@ -2942,6 +3055,7 @@ def phase_ab(cfg, card, src_dir: Path) -> dict:
         say(f"ab: the earlier libraries built in {time.perf_counter() - t0:.1f} s; "
             + " | ".join(ptxas_summary(log)))
         paths = {"k1 convert": [], "k1 train": [], "k2 train": []}
+        parts: dict = {"old": {}, "new": {}}
         shapes = [("convert", B, t, c, 1700 + i) for i, (t, c) in enumerate(stage_shapes(UTT, cfg))]
         shapes += [("train", bsz, t, c, 1750 + i) for bsz in (2 * B64, B64)
                    for i, (t, c) in enumerate(stage_shapes(SEG, cfg))]
@@ -2965,10 +3079,21 @@ def phase_ab(cfg, card, src_dir: Path) -> dict:
                 paths["k2 train"].append(k2)
                 line += (f"; K2-bf16 old {np.median(k2['old']):.3f} ms, new "
                          f"{np.median(k2['new']):.3f} ms")
+                for version, fn in (("old", lambda: old_k2(bwd, args, g)),
+                                    ("new", lambda: cc_mod._launch_bwd(g=g, **args))):
+                    part = kernel_breakdown(fn)
+                    add_breakdown(parts[version], part)
+                    say(f"ab k2-bf16 kernels ({version}) B={b} T={t} C={c}: "
+                        f"{breakdown_line(part)} [{card}]")
                 del g, args
             say(line + f" [{card}]")
             del split
             torch.cuda.empty_cache()
+        for version, lib in (("old", bwd), ("new", cc_mod._library()["bwd_bf16"])):
+            say(f"ab k2-bf16 kernels ({version}) per batch-64 train step (8 calls): "
+                f"{breakdown_line(parts[version], 8)}; workspace at (B, T, E, n, Cc, 2C) = "
+                f"{K2B_WS_SHAPE}: {lib.cond_chain_bwd_bf16_workspace(*K2B_WS_SHAPE) / 1e9:.3f} GB "
+                f"[{card}]")
     out = {k: ab_summary(v) for k, v in paths.items()}
     for k, v in out.items():
         say(f"ab {k} ({len(paths[k])} shapes, {AB_ROUNDS} rounds alternated): old median "
@@ -3050,7 +3175,9 @@ HEADLINES = {
     "14 bf16 kernels": [("K1-bf16 ms per convert call",
                          r"k1-bf16 per bf16 convert call \(4 calls\): ([\d.]+) ms", "first"),
                         ("K2-bf16 ms per b64 step",
-                         r"k2-bf16 per batch-64 train step \(8 calls\): ([\d.]+) ms", "first")],
+                         r"k2-bf16 per batch-64 train step \(8 calls\): ([\d.]+) ms", "first"),
+                        ("K2-bf16 by kernel per b64 step",
+                         r"k2-bf16 kernels per batch-64 train step \(8 calls\): (.*?) \[", "first")],
     "15 bf16 convert": [("ms per call (conv, wavlm)",
                          r"bf16 convert \(\w+\):.*?convert_tensors ([\d.]+) ms", "all"),
                         ("SNR dB", r"SNR ([\d.]+) dB", "all")],

@@ -261,7 +261,7 @@ __device__ __forceinline__ void wring_put(const WRing& wr, int& k, const void* s
 __device__ __forceinline__ uint32_t x_at(const HArgs& h, int b, int u, int k) {
   constexpr uint32_t kOne = 0x3F80u, kMinusOne = 0xBF80u;  // bf16 1 and -1
   if (k < 3 * h.E) {
-    const int j = k / h.E;
+    const int j = (k >= h.E) + (k >= 2 * h.E);  // k / E, without the division
     const int t = u + j - 1;
     if (t < 0 || t >= h.T) return 0u;
     return bits(h.exc[((size_t)b * h.T + t) * h.E + (k - j * h.E)]);

@@ -1,6 +1,6 @@
 // Hopper building blocks of the FiLM cond chain's bf16 kernels (K1-bf16 in
-// cond_chain_bf16.cu, K2-bf16's data kernel in cond_chain_bwd_bf16.cu), in
-// PTX for sm_90a:
+// cond_chain_bf16.cu, K2-bf16's kernels in cond_chain_bwd_bf16.cu), in PTX
+// for sm_90a:
 //
 //  - TMA: one thread asks for a tile of a bf16 tensor (a tensor map made on
 //    the host, passed to the kernel as a __grid_constant__ parameter) to be
@@ -37,6 +37,16 @@
 //      bytes apart. With LBO = 16 x rows (each 8-column chunk of the
 //      operand holding all its rows, 16 bytes each) and SBO = 128, a start
 //      address 16 bytes further down is the same operand one row down.
+//  - Descriptors of MN-major operands (the operand's M or N elements
+//    contiguous; the instruction's transpose bit set, which bf16 wgmma takes
+//    for A and B in shared memory):
+//      128-byte swizzle (what a TMA copy writes for a box whose 64-element
+//      rows run along M or N): the K rows 128 bytes apart in 1024-byte
+//      groups of 8 (SBO = 1024), LBO the stride between blocks of 64
+//      elements of M or N; k-slice s starts 2048 s bytes in.
+//      No swizzle: each 8-element chunk of M or N holds its K rows 16 bytes
+//      apart (LBO = 128, between groups of 8 rows; SBO, between chunks), so
+//      that a start address 16 bytes further on is the operand one K row on.
 //
 // Host side: cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
 // so that the ctypes library needs no -lcuda.
@@ -164,14 +174,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
   for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[r])::"memory");
 }
 
-// d (64 x 8) += A (64 x 16, shared memory) B (8 x 16, shared memory, K-major)
+// d (64 x 8) += A (64 x 16) B (16 x 8), both in shared memory, each K-major (0) or
+// MN-major (1)
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db,
                                              int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // d (64 x 136) += A (64 x 16, shared memory) B (136 x 16, shared memory, K-major)
@@ -264,6 +276,37 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) += A (64 x 16) B (16 x 32), both in shared memory, each K-major (0)
+// or MN-major (1)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 72) += A (64 x 16) B (16 x 72), both in shared memory, each K-major (0)
+// or MN-major (1)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n72(float (&d)[36], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, %36, %37, p, 1, 1, %39, %40;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // -- host

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -159,8 +160,10 @@ def _ffmpeg_decode(path: Path, target_sr: int | None):
 
     This is the same real decode path the reference uses for mp3: librosa
     falls through to audioread, whose default backend shells out to ffmpeg
-    (data/dataset.py:112-115). The decode rate is pinned so the output is a
-    deterministic f32 mono stream regardless of the container.
+    (data/dataset.py:112-115). The output is an f32 mono stream at
+    ``target_sr``, or at the file's own rate when ``target_sr`` is None (read
+    from what ffmpeg prints of the input's first audio stream), as the wav
+    and flac branches return their native rate.
     """
     import shutil
     import subprocess
@@ -168,7 +171,15 @@ def _ffmpeg_decode(path: Path, target_sr: int | None):
     ffmpeg = os.environ.get("TDVC_FFMPEG") or shutil.which("ffmpeg")
     if not ffmpeg:
         return None
-    sr = target_sr or 16000
+    sr = target_sr
+    if sr is None:
+        probe = subprocess.run([ffmpeg, "-hide_banner", "-i", str(path)],
+                               capture_output=True, timeout=300)
+        found = re.search(r"Stream #\S+.*?Audio:.*?(\d+) Hz", probe.stderr.decode(errors="replace"))
+        if found is None:
+            raise RuntimeError(f"ffmpeg found no audio stream in {path}: "
+                               f"{probe.stderr.decode(errors='replace')[-500:]}")
+        sr = int(found.group(1))
     proc = subprocess.run(
         [ffmpeg, "-v", "error", "-i", str(path), "-f", "f32le", "-acodec",
          "pcm_f32le", "-ac", "1", "-ar", str(sr), "-"],
@@ -180,6 +191,24 @@ def _ffmpeg_decode(path: Path, target_sr: int | None):
     return np.frombuffer(proc.stdout, dtype=np.float32).astype(np.float64), sr
 
 
+def _decode_without_soundfile(path: Path, ext: str, target_sr: int | None, why: str):
+    """(signal, sr) from the port's FLAC decoder (flac) or ffmpeg (anything
+    else), for a file soundfile does not decode (``why``: it is not
+    installed, or it failed on the file)."""
+    if ext == "flac":
+        from td_vc_gan_tpu_torch.data.flac import read_flac
+
+        return read_flac(path)
+    got = _ffmpeg_decode(path, target_sr)
+    if got is None:
+        raise RuntimeError(
+            f"cannot decode {path.suffix} files: {why} and no ffmpeg on PATH; "
+            "install either, or convert the corpus to wav once with "
+            "cli/preprocess_dataset.py"
+        ) from None
+    return got
+
+
 def read_audio(path: str | Path, target_sr: int | None = None) -> tuple[np.ndarray, int]:
     """Read an audio file -> (mono float signal, sample_rate).
 
@@ -188,7 +217,10 @@ def read_audio(path: str | Path, target_sr: int | None = None) -> tuple[np.ndarr
     decoder (data/flac.py); mp3 (and anything else) tries soundfile then an
     ffmpeg subprocess — the same backend librosa's audioread uses in the
     reference — and otherwise raises with conversion guidance
-    (cli/preprocess_dataset.py re-encodes a corpus to wav once).
+    (cli/preprocess_dataset.py re-encodes a corpus to wav once). The
+    fallback runs when soundfile is missing and when it fails on the file
+    (its error then chained to the fallback's). With ``target_sr`` None the
+    signal comes at the file's own rate (npy: 16 kHz, having none).
     """
     path = Path(path)
     ext = path.suffix.lower().lstrip(".")
@@ -201,23 +233,17 @@ def read_audio(path: str | Path, target_sr: int | None = None) -> tuple[np.ndarr
     else:
         try:
             import soundfile as sf  # optional; preferred when installed
-
-            signal, sr = sf.read(path)
         except ImportError:
-            if ext == "flac":
-                from td_vc_gan_tpu_torch.data.flac import read_flac
-
-                signal, sr = read_flac(path)
-            else:
-                got = _ffmpeg_decode(path, target_sr)
-                if got is None:
-                    raise RuntimeError(
-                        f"cannot decode {path.suffix} files: no soundfile "
-                        "and no ffmpeg on PATH; install either, or convert "
-                        "the corpus to wav once with "
-                        "cli/preprocess_dataset.py"
-                    ) from None
-                signal, sr = got
+            signal, sr = _decode_without_soundfile(path, ext, target_sr, "no soundfile")
+        else:
+            try:
+                signal, sr = sf.read(path)
+            except RuntimeError as err:  # installed, but it cannot decode this file
+                try:
+                    signal, sr = _decode_without_soundfile(
+                        path, ext, target_sr, "soundfile could not decode it")
+                except (RuntimeError, ValueError, OSError) as fallback:
+                    raise fallback from err
     if signal.ndim > 1:
         signal = signal.mean(axis=-1)
     if target_sr is not None and sr != target_sr:

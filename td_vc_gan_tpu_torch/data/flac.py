@@ -220,6 +220,8 @@ def read_flac(path: str | Path) -> tuple[np.ndarray, int]:
         bps = _SAMPLE_SIZE_TABLE.get(ss_code, bits_per_sample)
         br.u(8)  # header CRC-8 (not verified)
 
+        if ch_assign > 10:
+            raise ValueError(f"flac: reserved channel assignment {ch_assign}")
         if ch_assign < 8:
             if ch_assign + 1 != nch:
                 raise ValueError("flac: channel count mismatch")

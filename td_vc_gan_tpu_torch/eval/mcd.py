@@ -171,6 +171,11 @@ def test_mcd(out_filename, test_dir, parse=None, sr: int = SR) -> dict:
     for (sig_id, src_spk, tgt_spk), conv_file in sorted(convs.items()):
         src_file = origs.get((sig_id, src_spk))
         tgt_file = origs.get((sig_id, tgt_spk))
+        if tgt_file is None:
+            # VCTK phrase ids name their speaker (p225_003 converted to p226
+            # pairs with p226_003): the original reference rewrites the
+            # phrase, re.sub(src_spk, tgt_spk, ...) (vctk/test_mcd.py:152)
+            tgt_file = origs.get((re.sub(re.escape(src_spk), tgt_spk, sig_id), tgt_spk))
         if src_file is None or tgt_file is None:
             continue
         conv_a = analyze(conv_file)

@@ -17,17 +17,23 @@ within one bf16 ulp, as ``chip_smoke.py`` holds the kernels on the card:
   in both (K2's dexc);
 - K1: P = a @ [W1_0 | W1_1 | W1_2] on chunks of 32 or 64 output columns,
   then out[t] = b1 + P_0[t-1] + P_1[t] + P_2[t+1] (route (a)), rounded once;
-- K2: g's tap windows read rows t0 + 62 w - j, zero outside [0, T) (the TMA
-  copy's zero fill); da in h's accumulator layout; the slope from the sign
-  of bf16(lrelu(h)) (with lrelu(-0) = +0, the sign of h); dexc summed over
-  the blocks and passes in f32 and rounded once; dhbias in row groups of 7,
-  per half tile; db1 in chunks of rows.
+- K2's data kernel: g's tap windows read rows t0 + 62 w - j, zero outside
+  [0, T) (the TMA copy's zero fill); da in h's accumulator layout; the
+  slope from the sign of bf16(lrelu(h)) (with lrelu(-0) = +0, the sign of
+  h); dexc summed over the blocks and passes in f32 and rounded once; dh to
+  the scratch;
+- K2's weight grads: dW1 and db1 over units of 62 rows of g (two zero rows
+  after them), with a recomputed from exc for the rows t0 - 1 .. t0 + 62
+  and tap j reading a from row j, in chunks of units; dW0, dhbias and the
+  edges as X^T dh over the parts of each batch row; every kind of partial
+  summed over its chunks in order and rounded once.
 
 Operands are dyadic where a slope must agree (cond_0's sums exact in any
 order), as on the card. Numpy only, no JAX compile.
 """
 
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -39,6 +45,7 @@ BF = torch.bfloat16
 ULP_SHARE = 1e-2        # elements allowed beyond one bf16 ulp of the plain value
 MAX_REL = 2.0 ** -7     # max|d| of max|plain|
 TILE, OWN, ROWS, PASS = 124, 62, 64, 136
+SMS = 132               # the card's SMs, which k2b_w1_kernel's chunks fill
 SLOPE = np.float32(0.2)
 
 
@@ -196,21 +203,46 @@ def k1_emulated(ops):
     return out
 
 
+def w1_plan(bsz, t, n, npass, two_c):
+    """k2b_w1_kernel's work (make_plan): units of 62 rows of g, chunked so
+    that (block, pass, 64 columns of g) tiles x chunks make one wave of SMS
+    CTAs: (units a batch row, units, units a chunk, chunks)."""
+    nsub = -(-t // OWN)
+    units = bsz * nsub
+    tiles = n * npass * -(-two_c // 64)
+    chunk = -(-units // min(max(1, SMS // tiles), units))
+    return nsub, units, chunk, -(-units // chunk)
+
+
+def xdh_plan(bsz, t, e, n0):
+    """k2b_xdh_kernel's parts of a batch row (make_plan): at least 264 CTAs
+    of (256 columns of dh, 64 rows of X^T): (parts, rows a part)."""
+    per_b = bsz * -(-n0 // 256) * -(-(3 * e + 3) // 64)
+    parts = max(1, -(-264 // per_b))
+    prows = -(-(-(-t // parts)) // 64) * 64
+    return -(-t // prows), prows
+
+
+def in_order(parts):
+    """The partials summed in f32 in order, from 0 (k2b_reduce_kernel)."""
+    tot = np.zeros_like(parts[0])
+    for x in parts:
+        tot = tot + x
+    return tot
+
+
 def k2_emulated(ops, g):
-    """K2-bf16's arithmetic (the data kernel as its CTAs take it; the
-    weight grads as f32 sums of the scratch): the gradients' dict, f32
-    values of bf16."""
+    """K2-bf16's arithmetic as its kernels take it (the data kernel's CTAs,
+    k2b_w1_kernel's units and chunks, k2b_xdh_kernel's parts, the ordered
+    reductions): the gradients' dict, f32 values of bf16."""
     bsz, t, e = ops["exc"].shape
     cc = ops["w1"].shape[1]
     n = ops["w0"].shape[2] // cc
     two_c = ops["w1"].shape[2] // n
     npass, kh = geo(e, cc)
     nec = -(-e // 8)
-    ntiles = -(-t // TILE)
     n0 = n * cc
-    a_s = np.zeros((bsz, t, n0), np.float32)
     dh_s = np.zeros((bsz, t, n0), np.float32)
-    phb = np.zeros((bsz, 2 * ntiles, n0), np.float32)
     dexc = np.zeros((bsz, t, e), np.float32)
     for b in range(bsz):
         for tile, w, u0 in wg_rows(t):
@@ -237,18 +269,7 @@ def k2_emulated(ops, g):
                     dh = np.where(valid[:, None], bf16(np.where(neg, SLOPE * da, da)), 0)
                     okc = c < cc
                     rows, cols = u[own], i * cc + c[okc]
-                    a_s[b, rows[:, None], cols[None]] = a[own][:, okc]
                     dh_s[b, rows[:, None], cols[None]] = dh[own][:, okc]
-                    # dhbias: row groups of 7, then the groups in order
-                    part = np.zeros((7, PASS), np.float32)
-                    for rg in range(7):
-                        for q in range(1 + rg, OWN + 1, 7):
-                            if u0 + q < t:
-                                part[rg] = part[rg] + dh[q]
-                    tot = part[0]
-                    for rg in range(1, 7):
-                        tot = tot + part[rg]
-                    phb[b, 2 * tile + w, cols] = tot[okc]
                     # dexc: E in chunks of 8, dh rows r + 2 - j, K = 144
                     dh144 = np.concatenate([dh, np.zeros((ROWS, 8), np.float32)], 1)
                     w0x = np.zeros((3, 144, nec * 8), np.float32)
@@ -264,32 +285,61 @@ def k2_emulated(ops, g):
             tt = u0 + 1 + np.arange(OWN)
             ok = tt < t
             dexc[b, tt[ok]] = bf16(acc[ok][:, :e])
-    hb = ops["hbias"]
-    if hb.ndim == 2:
-        dhbias = np.zeros((bsz, n0), np.float32)
-        for b in range(bsz):
-            for s in range(2 * ntiles):
-                dhbias[b] = dhbias[b] + phb[b, s]
+    # dW1 and db1 (k2b_w1_kernel): a unit is 62 rows t0 + r of g (zero
+    # outside [0, T), then two zero rows); a is recomputed for the rows
+    # t0 - 1 + q, q < 64 (then 8 zero rows), tap j's B is a from row j; each
+    # chunk of units sums in f32, slice by slice, unit by unit
+    nsub, units, chunk, s1 = w1_plan(bsz, t, n, npass, two_c)
+    pw1 = np.zeros((s1, 3, cc, n * two_c), np.float32)
+    pb1 = np.zeros((s1, n * two_c), np.float32)
+    for s in range(s1):
+        acc, accb = {}, {}
+        for k in range(s * chunk, min(units, (s + 1) * chunk)):
+            b, t0 = k // nsub, (k % nsub) * OWN
+            u = t0 - 1 + np.arange(ROWS)
+            r = t0 + np.arange(ROWS)
+            okr = (np.arange(ROWS) < OWN) & (r < t)
+            for i in range(n):
+                gt = np.zeros((ROWS, two_c), np.float32)
+                gt[okr] = g[b, r[okr], i * two_c:(i + 1) * two_c]
+                accb[i] = slices16(gt.T, np.ones((ROWS, 1), np.float32), accb.get(i))
+                for p in range(npass):
+                    a = np.zeros((ROWS + 8, PASS), np.float32)
+                    a[:ROWS] = bf16(act(ops, b, u, i, p, kh))
+                    for j in range(3):
+                        acc[i, p, j] = slices16(gt.T, a[j:j + ROWS], acc.get((i, p, j)))
+        for (i, p, j), v in acc.items():
+            c = p * PASS + np.arange(PASS)
+            pw1[s, j, c[c < cc], i * two_c:(i + 1) * two_c] = v[:, c < cc].T
+        for i, v in accb.items():
+            pb1[s, i * two_c:(i + 1) * two_c] = v[:, 0]
+    # dW0, dhbias and the edges (k2b_xdh_kernel): X^T dh over the rows of
+    # each part of each batch row, 64 rows a step, X zero past the part
+    kx = 3 * e + 3
+    parts, prows = xdh_plan(bsz, t, e, n0)
+    pw0 = np.zeros((bsz * parts, kx, n0), np.float32)
+    for b in range(bsz):
+        for part in range(parts):
+            r0, r1 = part * prows, min(t, (part + 1) * prows)
+            acc = None
+            for t0 in range(r0, r1, ROWS):
+                u = t0 + np.arange(ROWS)
+                ok = u < r1
+                x = np.where(ok[:, None], x_rows(ops, b, u, kx), np.float32(0))
+                d = np.zeros((ROWS, n0), np.float32)
+                d[ok] = dh_s[b, u[ok]]
+                acc = slices16(x.T, d, acc)
+            pw0[b * parts + part] = acc
+    per_b = pw0.reshape(bsz, parts, kx, n0)
+    out = dict(exc=dexc, w0=bf16(in_order(pw0[:, :3 * e]).reshape(3, e, n0)),
+               w1=bf16(in_order(pw1)), b1=bf16(in_order(pb1)))
+    if ops["hbias"].ndim == 2:
+        out["hbias"] = bf16(np.stack([in_order(per_b[b, :, 3 * e]) for b in range(bsz)]))
     else:
-        dhbias = np.zeros(n0, np.float32)
-        for s in phb.reshape(-1, n0):
-            dhbias = dhbias + s
-    # db1: g's rows (B*T of them) in chunks of ceil(B*T / 264), then the chunks
-    g2 = g.reshape(-1, n * two_c)
-    rows = -(-g2.shape[0] // 264)
-    db1 = np.zeros(n * two_c, np.float32)
-    for s in range(0, g2.shape[0], rows):
-        db1 = db1 + np.sum(g2[s:s + rows], 0, dtype=np.float32)
-    # the weight grads from the scratch, summed in f32
-    pad = lambda x: np.pad(x, ((0, 0), (1, 1), (0, 0)))  # noqa: E731
-    ap, xp = pad(a_s), pad(ops["exc"])
-    gb = g.reshape(bsz, t, n, two_c)
-    dw1 = np.stack([np.einsum("btnc,btno->cno", ap[:, j:j + t].reshape(bsz, t, n, cc), gb)
-                    .reshape(cc, n * two_c) for j in range(3)])
-    dw0 = np.stack([np.einsum("bte,btk->ek", xp[:, j:j + t], dh_s) for j in range(3)])
-    out = dict(exc=dexc, w0=bf16(dw0), hbias=bf16(dhbias), w1=bf16(dw1), b1=bf16(db1))
+        out["hbias"] = bf16(in_order(pw0[:, 3 * e]))
     if "edge0" in ops:
-        out.update(edge0=-dh_s[:, 0], edge_t=-dh_s[:, t - 1])
+        out.update(edge0=np.stack([in_order(per_b[b, :, 3 * e + 1]) for b in range(bsz)]),
+                   edge_t=np.stack([in_order(per_b[b, :, 3 * e + 2]) for b in range(bsz)]))
     return out
 
 
@@ -327,6 +377,24 @@ def test_k2_bf16_tiles_emulated(case):
     want = cond_chain.cond_chain_bwd_plain(g=torch.from_numpy(g).to(BF), **tops)
     got = k2_emulated(ops, g)
     assert set(got) == set(want)
+    for k in want:
+        assert_ulp(got[k], want[k], k)
+
+
+def test_k2_bf16_weight_grads_in_chunks_of_units(monkeypatch):
+    """k2b_w1_kernel's chunks on a card of 2 SMs: several units of 62 rows
+    a chunk (at 132 SMs the file's small cases take one unit a chunk), a
+    chunk ending inside a batch row and one crossing into the next; the
+    per-chunk partials summed in order."""
+    monkeypatch.setattr(sys.modules[__name__], "SMS", 2)
+    _, b, t, e, n, cc, two_c, _ = CASES[0]
+    assert w1_plan(3, 200, n, 1, two_c) == (4, 12, 12, 1)
+    assert w1_plan(3, 200, 1, 1, two_c) == (4, 12, 6, 2)
+    ops = chain_ops(3, 200, e, 1, cc, two_c, seed=11)
+    g = bf16(np.random.default_rng(12).standard_normal((3, 200, two_c)).astype(np.float32))
+    tops = {k: v for k, v in torch_ops(ops).items() if k != "b1"}
+    want = cond_chain.cond_chain_bwd_plain(g=torch.from_numpy(g).to(BF), **tops)
+    got = k2_emulated(ops, g)
     for k in want:
         assert_ulp(got[k], want[k], k)
 

@@ -10,6 +10,7 @@ to ~1e-7 here, and the tests allow 1e-5 absolute.
 
 import os
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -91,6 +92,100 @@ def test_read_audio_bit_identical(corpus, target_sr):
         (ja, jsr), (pa, psr) = jaudio.read_audio(path, target_sr), paudio.read_audio(path, target_sr)
         assert jsr == psr
         np.testing.assert_array_equal(ja, pa)
+
+
+def flac_with_channel_code(path, code):
+    """A hand-built FLAC stream: STREAMINFO (16 kHz, 2 channels, 16 bits, 16
+    samples) and one frame header with channel assignment ``code``, then
+    zero bits (two constant subframes and the frame's CRC, were it read)."""
+    raw = (SR << 44) | (1 << 41) | (15 << 36) | 16
+    info = bytes(10) + raw.to_bytes(8, "big") + bytes(16)
+    bw = pflac._BitWriter()
+    for value, bits in ((0x3FFE, 14), (0, 1), (0, 1), (6, 4), (0, 4), (code, 4), (0, 3), (0, 1),
+                        (0, 8), (15, 8), (0, 8)):
+        bw.w(value, bits)
+    path.write_bytes(b"fLaC" + bytes([0x80, 0, 0, len(info)]) + info + bytes(bw.out) + bytes(16))
+
+
+def test_flac_refuses_reserved_channel_codes(tmp_path):
+    """Channel assignments 11-15 are reserved in FLAC's frame header: the
+    decoder raises on them (the FLAC format's rule), where the JAX package's
+    decodes them as mid/side; 10 (mid/side) still decodes."""
+    for code in range(11, 16):
+        flac_with_channel_code(tmp_path / f"c{code}.flac", code)
+        with pytest.raises(ValueError, match="reserved channel assignment"):
+            pflac.read_flac(tmp_path / f"c{code}.flac")
+    flac_with_channel_code(tmp_path / "c10.flac", 10)
+    sig, sr = pflac.read_flac(tmp_path / "c10.flac")
+    assert sr == SR and sig.shape == (16, 2) and not sig.any()
+
+
+def test_read_audio_falls_through_when_soundfile_fails(corpus, tmp_path, monkeypatch):
+    """soundfile installed but failing on a file: the port's FLAC decoder
+    (flac) or ffmpeg (anything else) decodes it, and an error of that
+    fallback carries soundfile's as its cause. This follows the decode
+    matrix ``read_audio`` states, not the JAX package, which raises
+    soundfile's error."""
+    import types
+
+    class Refused(RuntimeError):
+        pass
+
+    def read(path):
+        raise Refused(f"stub soundfile refuses {path}")
+
+    monkeypatch.setitem(sys.modules, "soundfile", types.SimpleNamespace(read=read))
+    flac = corpus / "spk0_1.flac"
+    (got, sr), (want, wsr) = paudio.read_audio(flac), pflac.read_flac(flac)
+    assert sr == wsr == SR
+    np.testing.assert_array_equal(got, want)
+    ffmpeg = tmp_path / "ffmpeg"
+    ffmpeg.write_text("#!/bin/sh\necho 'stub ffmpeg: invalid data' >&2\nexit 1\n")
+    ffmpeg.chmod(0o755)
+    monkeypatch.setenv("TDVC_FFMPEG", str(ffmpeg))
+    (tmp_path / "x.mp3").write_bytes(bytes(64))
+    with pytest.raises(RuntimeError, match="ffmpeg failed") as info:
+        paudio.read_audio(tmp_path / "x.mp3", SR)
+    assert isinstance(info.value.__cause__, Refused)
+
+
+STUB_FFMPEG = """#!{python}
+import struct, sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if "-f" not in args:
+    sys.stderr.write("Input #0, mp3, from 'x.mp3':\\n  Stream #0:0: Audio: mp3 (mp3float), "
+                     "22050 Hz, mono, fltp, 64 kb/s\\nAt least one output file must be "
+                     "specified\\n")
+    sys.exit(1)
+rate = int(args[args.index("-ar") + 1])
+sys.stdout.buffer.write(struct.pack("<%df" % (rate // 10), *([0.25] * (rate // 10))))
+"""
+
+
+def test_read_audio_through_ffmpeg_keeps_the_native_rate(tmp_path, monkeypatch):
+    """Without a target rate, a file decoded by ffmpeg comes at its own rate
+    (read from ffmpeg's description of the input), as wav and flac files
+    do and as the reference's librosa returns with sr=None; with one, at
+    that rate and without the probe. A stub script named by TDVC_FFMPEG
+    stands in for ffmpeg (a 22.05 kHz mp3). The JAX package pins 16 kHz."""
+    log = tmp_path / "calls"
+    ffmpeg = tmp_path / "ffmpeg"
+    ffmpeg.write_text(STUB_FFMPEG.format(python=sys.executable, log=str(log)))
+    ffmpeg.chmod(0o755)
+    monkeypatch.setenv("TDVC_FFMPEG", str(ffmpeg))
+    monkeypatch.setitem(sys.modules, "soundfile", None)  # not installed
+    (tmp_path / "x.mp3").write_bytes(bytes(64))
+    sig, sr = paudio.read_audio(tmp_path / "x.mp3")
+    assert sr == 22050 and sig.shape == (2205,) and np.all(sig == 0.25)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2 and "-ar 22050" in calls[1]
+    log.unlink()
+    sig, sr = paudio.read_audio(tmp_path / "x.mp3", SR)
+    assert sr == SR and sig.shape == (SR // 10,)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1 and f"-ar {SR}" in calls[0]
 
 
 def test_wav_meta_slice_and_write(tmp_path, corpus):

@@ -160,6 +160,37 @@ def test_mcd_protocol_pickles(signals_dir, tmp_path):
     assert all(abs(v) < 1e-3 for v in got["mcd_result_orig"]["sb"]["sb"])  # itself
 
 
+@pytest.mark.parametrize("layout", ["reference", "native"])
+def test_mcd_pairs_vctk_phrases(layout, tmp_path):
+    """VCTK phrase ids name their speaker (p225_001 converted to p226 pairs
+    with the original p226_001): every conversion is paired with its target
+    original, in the reference layout (``{phrase}_{spk}-X_orig.wav``,
+    ``{phrase}_{src}-{tgt}_conv.wav``) and the native one
+    (``{phrase}-{src}-{tgt}-{orig|conv}.wav``). This follows the original
+    reference (vctk/test_mcd.py:152, ``re.sub(src_spk, tgt_spk, ...)``), not
+    the JAX package, whose lookup pairs none of them."""
+    from td_vc_gan_tpu_torch.eval.presets import parse_vctk
+
+    spk = {"p225": 120.0, "p226": 190.0}
+    name = ({"orig": "{p}_{s}-X_orig.wav", "conv": "{p}_{s}-{t}_conv.wav"} if layout == "reference"
+            else {"orig": "{p}-{s}-X-orig.wav", "conv": "{p}-{s}-{t}-conv.wav"})
+    for k, num in enumerate(("001", "002")):
+        for s, (src, f0) in enumerate(spk.items()):
+            phrase = f"{src}_{num}"
+            write_audio(tmp_path / name["orig"].format(p=phrase, s=src),
+                        voiced(f0, 0.4, seed=20 + 2 * k + s), SR)
+            tgt = next(x for x in spk if x != src)
+            write_audio(tmp_path / name["conv"].format(p=phrase, s=src, t=tgt),
+                        voiced(spk[tgt], 0.4, seed=30 + 2 * k + s, vibrato=0.02), SR)
+    got = mcd.test_mcd(None, tmp_path, parse=parse_vctk)
+    conv = got["mcd_result_conv"]
+    assert sorted((s, t) for s in conv for t in conv[s]) == [("p225", "p226"), ("p226", "p225")]
+    for src in conv:
+        for tgt, values in conv[src].items():
+            assert len(values) == 2 and np.isfinite(values).all(), (src, tgt, values)
+            assert len(got["f0_ratio"][src][tgt]) == 2
+
+
 def test_compute_mcd():
     a, b = SIGNALS["steady"], SIGNALS["vibrato"]
     got, want = mcd.compute_mcd(a, b), jmcd.compute_mcd(a, b)
