@@ -10,9 +10,11 @@ and no weights: everything is made from seeds. Phases, one line or more each:
 1. card: name and power limit (nvidia-smi) and torch's device name;
 2. build: nvcc compiles the four kernel sources (K1, the FiLM cond chain's
    forward; K2, its backward; both on the tensor cores as 3xTF32 through
-   csrc/tf32x3.cuh; and their bf16 instances, K1-bf16 and K2-bf16, through
-   csrc/cond_chain_bf16.cuh and csrc/hopper_bf16.cuh), one nvcc per source,
-   started together, with each kernel's registers and spills;
+   csrc/tf32x3.cuh, K1 and K2's data kernel on Hopper's wgmma through
+   csrc/cond_chain_f32.cuh and csrc/hopper_bf16.cuh; and their bf16
+   instances, K1-bf16 and K2-bf16, through csrc/cond_chain_bf16.cuh and
+   csrc/hopper_bf16.cuh), one nvcc per source, started together, with each
+   kernel's registers and spills;
 3. parity: K1 against its plain PyTorch version at the four decoder-stage
    shapes of an 8960-sample segment (B=2), split and concat forms;
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
@@ -27,10 +29,11 @@ and no weights: everything is made from seeds. Phases, one line or more each:
 6. K2 parity: every output of K2 against cond_chain_bwd_plain at the four
    training stage shapes (B=2), split and concat forms, and gradients
    through MRFBlock.films, the kernels against the plain chain; then K1 and
-   K2 at widths off the decoder's defaults (Cc = 264; E = 6 and 10), at
-   every stage's shape for the widths whose shared memory needs the smaller
-   time tiles (split Cc = 392 and 1204, concat Cc = 184 and 344), and
-   their refusal of a width no tile holds (concat Cc = 704);
+   K2 (a second run bit for bit) at widths off the decoder's defaults
+   (Cc = 264; E = 6 and 10; Cc = 11 and 138, which the wrapper pads; split
+   Cc = 1290; concat E = Cc = 600; 2C = 1032), and at every stage's shape
+   for widths of several passes of 136 channels (split Cc = 392 and 1204,
+   concat Cc = 184 and 344);
 7. train: the full-width stage-2 GAN train step (D -> C -> G, the config
    defaults, conv encoder) on 16 x 8960 samples: its first step against the
    same step with the plain chain, then a warm-up and timed steps (CUDA
@@ -38,7 +41,10 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    checks, peak memory, and one step's device time by kernel;
 8. K2 at the step's eight (stage, batch) shapes: against its plain
    version, a second run bit for bit, then its time beside the two bounds,
-   the plain version and cuDNN's backward of the same chain (a yardstick);
+   the plain version and cuDNN's backward of the same chain (a yardstick),
+   its device time by kernel (the events its library records between
+   launches) at each shape and per step, its launches per call, and its
+   workspace at the step's largest call;
 9. the train CLI (``python -m td_vc_gan_tpu_torch.cli.train``, a
    subprocess) on a corpus the script writes (16 speakers x 6 utterances of
    1.5-4 s, 4 of them FLAC): epoch 0 (5 steps at batch 16, through the
@@ -77,8 +83,10 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    plain bf16 versions (within one bf16 ulp but for a stated share of
    elements, and max|d| within 2^-7 of max|plain|), every output, at the four
    training stages in both forms, at E = 6 and 10 and at Cc = 600, 1204 and
-   2000 (5, 9 and 15 passes of 136 columns), K2-bf16 bit for bit in a second
-   run, and both refusing a 2C over the wrappers' cap; their times at the
+   2000 (5, 9 and 15 passes of 136 columns), and at the first stage's T at
+   Cc = 11 and 138 (padded to multiples of 4), split Cc = 1290, concat
+   E = Cc = 600 and 2C = 1032, K2-bf16 bit for bit in a second run; their
+   times at the
    bf16 conversion's four stage shapes (K1) and at the batch-64 train step's
    eight (K1, K2), each beside two bounds (the dense bf16 tensor-core rate
    and the memory rate), the plain bf16 version, the f32 kernel and cuDNN's
@@ -174,13 +182,15 @@ pass or fail, ends and reaps each of them before it exits.
 
     python3 chip_smoke.py --ab DIR
 
-runs the card and build phases, then only an A/B of the bf16 kernels: the
-earlier K1-bf16 and K2-bf16 built from their sources in DIR (the two .cu
-files and the headers they include) against this tree's, alternated for 5
-rounds at the bf16 conversion's and the batch-64 step's chain shapes, the
-two versions' outputs held to each other, K2-bf16's time by kernel and
-workspace for each version; its last line is a JSON object of each path's
-per-round totals.
+runs the card and build phases, then only an A/B of the kernels: the
+earlier K1, K2, K1-bf16 and K2-bf16 built from their sources in DIR (the
+four .cu files and the headers they include, with the C interface of the
+mma.sync f32 kernels: K1 without a workspace, K2 on W1 transposed)
+against this tree's, alternated for 5 rounds at the conversion's chain
+shapes and the train step's (f32 at batch 16, bf16 at batch 64), the two
+versions' outputs held to each other, each backward's time by kernel and
+workspace for each version; its last line is a JSON object of each dtype's
+and path's per-round totals.
 """
 
 from __future__ import annotations
@@ -259,31 +269,35 @@ STEP_LOSS_RTOL = 1e-4     # first step's losses: kernel path vs plain-chain path
 # its B*T-term sum.
 STEP_MU_RTOL = 1e-2
 # Widths off the decoder's defaults that the kernels take too, as (form,
-# conditional_dim, E): a wider speaker embedding (Cc = 264: two passes of
-# K2's da product, two column groups of the h recompute); excitation widths
-# that are not a multiple of 4 (K2's dW0 stages exc in 4-byte pieces, in
-# either weight-grad tile: E <= 8 and E > 8). Held at one stage's shape.
-WIDE_CASES = (("split", 256, 8), ("split", 130, 6), ("split", 126, 10))
-# The widths whose 128-row plans pass a block's shared memory, so that both
-# kernels take 64-row tiles (split Cc = 392, concat Cc = 184) or 32-row tiles
-# (concat Cc = 344; split Cc = 1204, where K2's 32-row tile runs its da
-# product in 10 passes), held at all four stages' shapes (2C = 256 down to
-# 32, partial last tiles); and one width that no tile holds (concat Cc = 704),
-# which the kernels refuse.
+# conditional_dim, E), held at one stage's shape: a wider speaker embedding
+# (Cc = 264: two passes of 136 channels); excitation widths that are not a
+# multiple of 4 (K2's dW0 stages exc in 4-byte pieces, in either weight-grad
+# tile: E <= 8 and E > 8); Cc = 11 and 138, which the wrapper pads to
+# multiples of 4 for K2; split Cc = 1290 (10 passes); concat E = Cc = 600
+# (K = 3E + 3 = 1803 for h, 75 chunks of 8 columns of dexc).
+WIDE_CASES = (("split", 256, 8), ("split", 130, 6), ("split", 126, 10), ("split", 3, 8),
+              ("split", 130, 8), ("split", 1282, 8), ("concat", 592, 8))
+# 2C = 1032 (C = 516: 9 output chunks of K1's 128 columns, 129 slices of 8
+# of K2's da) at the first stage's T.
+WIDE_C = 516
+# Widths that take several passes of 136 channels (split Cc = 392 and 1204:
+# 3 and 9; concat Cc = 184 and 344: 2 and 3), held at all four stages'
+# shapes (2C = 256 down to 32, partial last tiles).
 TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
                ("split", 1196, 8))
-REFUSED_CASE = ("concat", 696, 8)
 # Each kernel's time in its previous version, as recorded in PERF.md
-# section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before they took
-# smaller time tiles at wide Cc (one fixed 128-row tile); K1-bf16 and
+# section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before their Hopper
+# redesign (K1 whole, K2's data kernel); K1-bf16 and
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
 # through L1), and K2-bf16 before its weight grads moved to wgmma. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
 EARLIER_MS = {
-    "cond_chain_fwd": [(None, 25.500, "convert call", "with one fixed 128-row tile")],
-    "cond_chain_bwd": [(None, 38.872, "train step", "with one fixed 128-row tile")],
+    "cond_chain_fwd": [(None, 25.468, "convert call",
+                        "on mma.sync m16n8k8 with cp.async staging")],
+    "cond_chain_bwd": [(None, 38.793, "train step",
+                        "with its data kernel on mma.sync m16n8k8")],
     "cond_chain_fwd_bf16": [
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
         ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version")],
@@ -336,11 +350,12 @@ BF16_STEP_LOSS_RTOL = 1e-2
 # product, dW0 staged element by element).
 BF16_TILED_CASES = (("split", 592, 8), ("split", 1196, 8), ("split", 130, 6),
                     ("split", 126, 10))
-# Split Cc = 2000 (15 passes) at the first stage's shape, both kernels; the
-# kernels' shared memory no longer grows with Cc or E, and the cap that
-# stands is the wrappers' 2C <= 1024: both refuse 2C = 1032 (C = 516).
-BF16_WIDE_CASE = ("split", 1992, 8)
-BF16_REFUSED_C = 516
+# At the first stage's T, both kernels, as (form, conditional_dim, E, C or
+# None for the stage's): split Cc = 2000 (15 passes); Cc = 11 and 138
+# (padded to multiples of 4); split Cc = 1290; concat E = Cc = 600;
+# 2C = 1032 (C = 516).
+BF16_WIDE_CASES = (("split", 1992, 8, None), ("split", 3, 8, None), ("split", 130, 8, None),
+                   ("split", 1282, 8, None), ("concat", 592, 8, None), ("split", 128, 8, 516))
 
 
 def say(*parts):
@@ -519,44 +534,44 @@ def films_grad_parity(cfg, stage, t, c):
     return worst_d
 
 
-def chain_args(cfg, form: str, s: int, e: int, stage: int, seed: int):
-    """Dyadic operands of one chain at conditional_dim ``s`` and E = ``e``
-    (B=2, one training stage's T and C): (K1's kwargs, K2's kwargs without
-    g, the split-form kwargs, n, Cc)."""
-    t, c = stage_shapes(SEG, cfg)[stage]
-    wcfg = copy.deepcopy(cfg)
-    wcfg.model.generator.conditional_dim = s
-    split, concat, n, cc = chain_inputs(2, t, c, wcfg, seed=seed, exact_h=True, e=e)
+def form_args(form: str, split: dict, concat: dict) -> tuple[dict, dict]:
+    """(K1's kwargs, K2's kwargs without g) of ``chain_inputs``' operands in
+    one form."""
     if form == "split":
         fwd_args = split
-        bwd_args = {k: v for k, v in split.items() if k != "b1"}
     else:
         fwd_args = dict(exc=concat["c"], w0=concat["w0"], hbias=concat["b0"],
                         w1=concat["w1"], b1=concat["b1"])
-        bwd_args = {k: v for k, v in fwd_args.items() if k != "b1"}
-        bwd_args.update(edge0=None, edge_t=None)
-    return fwd_args, bwd_args, split, n, cc
+    bwd_args = {"edge0": None, "edge_t": None,
+                **{k: v for k, v in fwd_args.items() if k != "b1"}}
+    return fwd_args, bwd_args
 
 
-def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool):
-    """K1 and K2 against their plain versions at one width and stage, with
-    the tiles the libraries take; with ``timed``, each kernel's time beside
-    the 3xTF32 bound of its operations. One part of the wide-parity line."""
-    t, c = stage_shapes(SEG, cfg)[stage]
-    libs = cc_mod._library()
-    fwd_lib, bwd_lib = libs["fwd"], libs["bwd"]
-    fwd_args, bwd_args, split, n, cc = chain_args(cfg, form, s, e, stage, 900 + e + s + stage)
+def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool, c: int | None = None):
+    """K1 and K2 against their plain versions at one width and stage (C = ``c``
+    where given), K2 bit for bit in a second run; with ``timed``, each
+    kernel's time beside the 3xTF32 bound of its operations. One part of the
+    wide-parity line."""
+    t, c0 = stage_shapes(SEG, cfg)[stage]
+    c = c or c0
+    wcfg = copy.deepcopy(cfg)
+    wcfg.model.generator.conditional_dim = s
+    split, concat, n, cc = chain_inputs(2, t, c, wcfg, seed=900 + e + s + stage, exact_h=True,
+                                        e=e)
+    fwd_args, bwd_args = form_args(form, split, concat)
     ew = fwd_args["exc"].shape[-1]
-    tiles = (fwd_lib.cond_chain_fwd_tile(ew, cc, 2 * c),
-             bwd_lib.cond_chain_bwd_rows(2, t, ew, n, cc, 2 * c))
     _, r_fwd = rel_err(cc_mod.cond_chain(**fwd_args), cc_mod.cond_chain_plain(**fwd_args))
     g = cotangent(split, seed=950 + e + s + stage)
     got = cc_mod._launch_bwd(g=g, **bwd_args)
+    again = cc_mod._launch_bwd(g=g, **bwd_args)
     want = cc_mod.cond_chain_bwd_plain(g=g, **bwd_args)
     r_bwd = max(rel_err(got[k], want[k])[1] for k in want)
     torch.cuda.synchronize()
-    part = (f"{form} Cc={cc} E={ew} T={t} 2C={2 * c} (K1 tile {tiles[0]}, K2 rows "
-            f"{tiles[1]}): K1 {r_fwd:.1e}, K2 (worst output) {r_bwd:.1e}")
+    for k in want:
+        if not torch.equal(got[k], again[k]):
+            raise AssertionError(f"K2 gave two different d{k} at {form} Cc={cc} E={ew} T={t}")
+    part = (f"{form} Cc={cc} E={ew} T={t} 2C={2 * c} ({-(-cc // 136)} passes): K1 "
+            f"{r_fwd:.1e}, K2 (worst output) {r_bwd:.1e}")
     if timed:
         k1_ms = cuda_ms(lambda: cc_mod.cond_chain(**fwd_args), iters=5, warmup=1)
         k2_ms = cuda_ms(lambda: cc_mod._launch_bwd(g=g, **bwd_args), iters=5, warmup=1)
@@ -567,37 +582,26 @@ def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool):
     if not (r_fwd <= PARITY_RTOL and r_bwd <= PARITY_RTOL):
         raise AssertionError(f"cond-chain kernels disagree with their plain versions at "
                              f"{form} Cc={cc} E={ew} T={t}")
-    del fwd_args, bwd_args, split, g, got, want
+    del fwd_args, bwd_args, split, concat, g, got, again, want
     torch.cuda.empty_cache()
     return part
 
 
 def wide_parity(cfg, card, stage: int = 1):
     """K1 and K2 against their plain versions (B=2, dyadic cond_0 operands)
-    at WIDE_CASES on one training stage's (T, C), and at TILED_CASES on all
-    four stages', each with the tiles its library takes; each case timed at
-    ``stage``; then the kernels' refusal of REFUSED_CASE."""
+    at WIDE_CASES on one training stage's (T, C) and 2C = 2 WIDE_C at the
+    first stage's T, each timed, and at TILED_CASES on all four stages'
+    (timed at ``stage``)."""
     for form, s, e in WIDE_CASES:
         say("wide parity: " + wide_case(cfg, form, s, e, stage, timed=True)
             + f"; tolerance {PARITY_RTOL:.0e} of max|ref| [{card}]")
+    say("wide parity: " + wide_case(cfg, "split", cfg.model.generator.conditional_dim, 8, 0,
+                                    timed=True, c=WIDE_C)
+        + f"; tolerance {PARITY_RTOL:.0e} of max|ref| [{card}]")
     for form, s, e in TILED_CASES:
         parts = [wide_case(cfg, form, s, e, i, timed=i == stage) for i in range(STAGES)]
         say("tiled parity: " + "; ".join(parts)
             + f"; tolerance {PARITY_RTOL:.0e} of max|ref| [{card}]")
-    form, s, e = REFUSED_CASE
-    fwd_args, bwd_args, split, _, cc = chain_args(cfg, form, s, e, stage, seed=990)
-    g = cotangent(split, seed=991)
-    for name, call in (("K1", lambda: cc_mod.cond_chain(**fwd_args)),
-                       ("K2", lambda: cc_mod._launch_bwd(g=g, **bwd_args))):
-        try:
-            call()
-        except ValueError as err:
-            if "shared memory" not in str(err):
-                raise
-        else:
-            raise AssertionError(f"{name} took {form} Cc={cc}, which no time tile holds")
-    say(f"refused: {form} Cc={cc} E={cc}: K1 and K2 raise before any launch (no time tile's "
-        f"shared memory fits a block's 227 KB)")
 
 
 def signals(seed: int, n: int = UTT) -> np.ndarray:
@@ -932,13 +936,23 @@ def k2_work(b, t, e, n, cc, two_c) -> tuple[float, float]:
     return flops, 4.0 * (ins + outs)
 
 
+# K2's launches in a call, as cond_chain_bwd_kernel_ms times them: (name,
+# launches); the reduces are 4, or 6 with the edges
+K2_LAUNCHES = (("k2_images_kernel", 1), ("k2_data_kernel", 1), ("k2_wgrad_kernel dW1", 1),
+               ("k2_wgrad_kernel dW0", 1), ("k2_reduce_kernel", 6))
+# the f32 step's largest K2 call, whose workspace phase 8 prints
+K2_WS_SHAPE = (2 * B, SEG, 8, 9, 136, 32)
+
+
 def phase_k2_times(cfg, card, launches, parity_err):
     """K2 at the train step's eight (stage, batch) shapes: against its plain
     version, a second run bit for bit (no atomics: the same result every
     run), then kernel, bounds, plain version and cuDNN's backward of the same
-    chain."""
+    chain, and its device time by kernel (the events its library records
+    between launches)."""
     totals = Totals()
     worst = parity_err
+    k2_parts: dict = {}
     for bsz in (2 * B, B):
         for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
             split, _, n, cc = chain_inputs(bsz, t, c, cfg, seed=700 + i, exact_h=True)
@@ -968,6 +982,10 @@ def phase_k2_times(cfg, card, launches, parity_err):
             l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True),
                            iters=2)
             del h, out, leaves
+            parts = event_times("bwd", "cond_chain_bwd", K2_LAUNCHES,
+                                lambda: cc_mod._launch_bwd(g=g, **args))
+            add_breakdown(k2_parts, parts)
+            say(f"k2 kernels B={bsz} T={t} C={c}: {breakdown_line(parts)} [{card}]")
             flops, nbytes = k2_work(bsz, t, e, n, cc, 2 * c)
             bound, bound_simt, _ = bounds(flops, nbytes)
             say(f"k2 B={bsz} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
@@ -980,12 +998,16 @@ def phase_k2_times(cfg, card, launches, parity_err):
                        library_ms=l_ms, flops=flops, bytes=nbytes)
             del split, g, args
             torch.cuda.empty_cache()
+    ws = cc_mod._library()["bwd"].cond_chain_bwd_workspace(*K2_WS_SHAPE, 1)
+    say(f"k2 kernels per train step (8 calls): {breakdown_line(k2_parts, 8)}; workspace at "
+        f"(B, T, E, n, Cc, 2C) = {K2_WS_SHAPE}: {4 * ws / 1e9:.3f} GB [{card}]")
     say(f"k2 per train step (8 calls): {totals.line()} [{card}]")
     return {"name": "cond_chain_bwd", "route": "cuda",
             "source": "td_vc_gan_tpu_torch/csrc/cond_chain_bwd.cu",
             "replaces": "td_vc_gan_tpu/ops/pallas/cond_chain.py:221",
             "launches": launches, "max_abs_err": worst, **totals.row(),
-            "bound_by": bounds(totals["flops"], totals["bytes"])[2]}
+            "bound_by": bounds(totals["flops"], totals["bytes"])[2],
+            "by_kernel": {k: v[0] for k, v in k2_parts.items()}}
 
 
 def utterance(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -1571,8 +1593,8 @@ def bf16_chain_parity(cfg, card):
     """K1-bf16 and K2-bf16 against their plain bf16 versions at the four
     training stage shapes (B=2), split and concat forms, every output, K2-bf16
     bit for bit in a second run; then at the wide widths (several passes of
-    136 columns of h) and excitation widths off 8, and their refusal of a
-    2C over the wrappers' cap; returns (worst K1 max|d|, worst K2 max|d|). The
+    136 columns of h), excitation widths off 8 and BF16_WIDE_CASES; returns
+    (worst K1 max|d|, worst K2 max|d|). The
     operands are those of ``chain_inputs(exact_h=True)`` rounded to bf16 (the
     rounded values are bf16 already), so h is exact in any summation order
     and the leaky_relu slope K2 takes at each element is the plain version's:
@@ -1581,30 +1603,27 @@ def bf16_chain_parity(cfg, card):
     max|dexc| in the concat form)."""
     w1 = w2 = 0.0
     worst_share = worst_rel = 0.0
-    cases = [("split" if f == 0 else "concat", cfg.model.generator.conditional_dim, 8, i)
+    cases = [("split" if f == 0 else "concat", cfg.model.generator.conditional_dim, 8, i, None)
              for i in range(STAGES) for f in (0, 1)]
-    cases += [(form, s, e, i) for form, s, e in BF16_TILED_CASES for i in range(STAGES)]
+    cases += [(form, s, e, i, None) for form, s, e in BF16_TILED_CASES for i in range(STAGES)]
+    cases += [(form, s, e, 0, c) for form, s, e, c in BF16_WIDE_CASES]
     libs = cc_mod._library()
     tiles = set()
-    for form, s, e, i in cases:
-        t, c = stage_shapes(SEG, cfg)[i]
+    for form, s, e, i, c in cases:
+        t, c0 = stage_shapes(SEG, cfg)[i]
+        c = c or c0
         wcfg = copy.deepcopy(cfg)
         wcfg.model.generator.conditional_dim = s
         split, concat, n, cc = chain_inputs(2, t, c, wcfg, seed=1400 + s + 10 * i, e=e,
                                             exact_h=True, dtype=torch.bfloat16)
-        if form == "split":
-            fwd = split
-        else:
-            fwd = dict(exc=concat["c"], w0=concat["w0"], hbias=concat["b0"], w1=concat["w1"],
-                       b1=concat["b1"])
-        bwd = {k: v for k, v in fwd.items() if k != "b1"}
-        bwd.setdefault("edge0", None)
-        bwd.setdefault("edge_t", None)
+        fwd, bwd = form_args(form, split, concat)
         ew = fwd["exc"].shape[-1]
-        tiles.add((form, cc, ew, libs["fwd_bf16"].cond_chain_fwd_bf16_tile(ew, cc, 2 * c),
-                   libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, ew, n, cc, 2 * c)))
-        sh, rel, d = ulp_parity(f"K1-bf16 {form} Cc={cc} T={t}", cc_mod.cond_chain(**fwd),
-                                cc_mod.cond_chain_plain(**fwd))
+        cc_p, c2_p = cc_mod._padded_widths("bwd_bf16", cc, 2 * c)
+        tiles.add((form, cc, ew, 2 * c,
+                   libs["fwd_bf16"].cond_chain_fwd_bf16_tile(ew, cc_p, c2_p),
+                   libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, ew, n, cc_p, c2_p)))
+        sh, rel, d = ulp_parity(f"K1-bf16 {form} Cc={cc} T={t} 2C={2 * c}",
+                                cc_mod.cond_chain(**fwd), cc_mod.cond_chain_plain(**fwd))
         w1 = max(w1, d)
         worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
         g = cotangent(split, seed=1500 + s + i).to(torch.bfloat16)
@@ -1612,65 +1631,28 @@ def bf16_chain_parity(cfg, card):
         again = cc_mod._launch_bwd(g=g, **bwd)
         want = cc_mod.cond_chain_bwd_plain(g=g, **bwd)
         for k in want:
-            sh, rel, d = ulp_parity(f"K2-bf16 {form} Cc={cc} T={t} d{k}", got[k], want[k])
+            sh, rel, d = ulp_parity(f"K2-bf16 {form} Cc={cc} T={t} 2C={2 * c} d{k}", got[k],
+                                    want[k])
             if not torch.equal(got[k], again[k]):
                 raise AssertionError(f"K2-bf16 gave two different d{k} on the same inputs")
             w2 = max(w2, d)
             worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
         del split, concat, fwd, bwd, got, again, want
     torch.cuda.synchronize()
-    # the widest case, both kernels in 15 passes; then the cap that stands
-    form, s, e = BF16_WIDE_CASE
-    t, c = stage_shapes(SEG, cfg)[0]
-    wcfg = copy.deepcopy(cfg)
-    wcfg.model.generator.conditional_dim = s
-    split, _, n, cc = chain_inputs(2, t, c, wcfg, seed=1600, e=e, exact_h=True,
-                                   dtype=torch.bfloat16)
-    tiles.add((form, cc, e, libs["fwd_bf16"].cond_chain_fwd_bf16_tile(e, cc, 2 * c),
-               libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, e, n, cc, 2 * c)))
-    sh, rel, d = ulp_parity(f"K1-bf16 split Cc={cc}", cc_mod.cond_chain(**split),
-                            cc_mod.cond_chain_plain(**split))
-    w1 = max(w1, d)
-    worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
-    g = cotangent(split, 1601).to(torch.bfloat16)
-    bwd = {k: v for k, v in split.items() if k != "b1"}
-    got, again = cc_mod._launch_bwd(g=g, **bwd), cc_mod._launch_bwd(g=g, **bwd)
-    want = cc_mod.cond_chain_bwd_plain(g=g, **bwd)
-    for k in want:
-        sh, rel, d = ulp_parity(f"K2-bf16 split Cc={cc} d{k}", got[k], want[k])
-        if not torch.equal(got[k], again[k]):
-            raise AssertionError(f"K2-bf16 gave two different d{k} on the same inputs")
-        w2 = max(w2, d)
-        worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
-    del split, g, bwd, got, again, want
-    refused = []
-    split, _, n, cc = chain_inputs(2, SEG // 32, BF16_REFUSED_C, cfg, seed=1602,
-                                   dtype=torch.bfloat16)
-    for label, run in (("K1-bf16", lambda: cc_mod.cond_chain(**split)),
-                       ("K2-bf16", lambda: cc_mod._launch_bwd(
-                           g=torch.zeros_like(cc_mod.cond_chain_plain(**split)),
-                           **{k: v for k, v in split.items() if k != "b1"}))):
-        try:
-            run()
-        except ValueError:
-            refused.append(label)
-    if refused != ["K1-bf16", "K2-bf16"]:
-        raise AssertionError(f"2C={2 * BF16_REFUSED_C}: refused by {refused}, expected both")
     # every case in one tile (124 rows), and the passes of 136 columns the
     # wide cases take
-    if {(a, b) for _, _, _, a, b in tiles} != {(124, 124)}:
+    if {(a, b) for *_, a, b in tiles} != {(124, 124)}:
         raise AssertionError(f"the parity cases took tiles {sorted(tiles)}, expected 124 rows")
-    passes = sorted({-(-cc // 136) for _, cc, _, _, _ in tiles})
+    passes = sorted({-(-cc // 136) for _, cc, *_ in tiles})
     if passes[0] != 1 or passes[-1] < 9:
         raise AssertionError(f"the parity cases took {passes} passes of 136 columns")
+    default = (cfg.model.generator.conditional_dim + 8, 8)
     say(f"bf16 parity: K1-bf16 and K2-bf16 (every output, a second run bit for bit) against "
         f"their plain bf16 versions at the 4 training stages (B=2, split and concat) and at "
-        + ", ".join(f"{f} Cc={cc} E={ew} ({-(-cc // 136)} passes)"
-                    for f, cc, ew, a, b in sorted(tiles) if f == "split" and
-                    (cc, ew) != (cfg.model.generator.conditional_dim + 8, 8))
-        + f"; 2C={2 * BF16_REFUSED_C} refused by both: worst share beyond one bf16 ulp "
-        f"{worst_share:.2e} (limit {BF16_ULP_SHARE:.0e}), worst max|d| {worst_rel:.2e} of "
-        f"max|plain| (limit {BF16_MAX_REL:.2e}) [{card}]")
+        + ", ".join(f"{f} Cc={cc} E={ew} 2C={c2} ({-(-cc // 136)} passes)"
+                    for f, cc, ew, c2, _, _ in sorted(tiles) if (cc, ew) != default or c2 > 256)
+        + f": worst share beyond one bf16 ulp {worst_share:.2e} (limit {BF16_ULP_SHARE:.0e}), "
+        f"worst max|d| {worst_rel:.2e} of max|plain| (limit {BF16_MAX_REL:.2e}) [{card}]")
     return w1, w2
 
 
@@ -1742,7 +1724,8 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
     gt = g.transpose(1, 2)
     l_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True), iters=2)
     del h, out, leaves
-    parts = k2b_event_times(lambda: cc_mod._launch_bwd(g=g, **args))
+    parts = event_times("bwd_bf16", "cond_chain_bwd_bf16", tuple((k, 1) for k in K2B_LAUNCHES),
+                        lambda: cc_mod._launch_bwd(g=g, **args))
     say(f"k2-bf16 kernels B={b} T={t} C={c}: {breakdown_line(parts)} [{card}]")
     flops, nbytes4 = k2_work(b, t, e, n, cc, 2 * c)
     nbytes = nbytes4 / 2  # every input and output is bf16
@@ -1760,15 +1743,16 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
                          flops=flops, bytes=nbytes, parts=parts)
 
 
-# K2-bf16's kernels, by the names the profiler gives them (demangled, or
-# not: "...15k2b_data_kernelENS_8DataArgsE"), template arguments kept
-K2B_KERNELS = re.compile(r"(w_images_kernel|k2b_[A-Za-z0-9]+?_kernel)(<[^>]*>|I(?:L[ib]\d+E)+E)?")
+# K2's and K2-bf16's kernels, by the names the profiler gives them (demangled,
+# or not: "...15k2b_data_kernelENS_8DataArgsE"), template arguments kept
+K2B_KERNELS = re.compile(r"(w_images_kernel|k2b?_[A-Za-z0-9]+?_kernel)(<[^>]*>|I(?:L[ib]\d+E)+E)?")
 # the batch-64 step's largest K2-bf16 call, whose workspace phase 14 prints
 K2B_WS_SHAPE = (2 * B64, SEG, 8, 9, 136, 32)
 
 
 def k2b_label(name: str) -> str | None:
-    """'k2b_wgrad_kernel<3,1>' for a profiler kernel name of K2-bf16's, else None."""
+    """'k2_wgrad_kernel<3,1>' for a profiler kernel name of K2's or K2-bf16's,
+    else None."""
     m = K2B_KERNELS.search(name)
     if m is None:
         return None
@@ -1782,26 +1766,29 @@ K2B_LAUNCHES = ("w_images_kernel", "k2b_data_kernel", "k2b_w1_kernel", "k2b_xdh_
                 "k2b_reduce_kernel")
 
 
-def k2b_event_times(fn) -> dict:
+def event_times(lib_name: str, prefix: str, launches: tuple, fn) -> dict:
     """{kernel: [device ms, launches]} of one call of ``fn`` (this tree's
-    K2-bf16, warm) from the events its library records between its launches
-    (each kernel's time from the end of the launch before it). Late in the
-    full run a torch.profiler session could record no device event at all,
-    so phase 14 does not depend on it."""
-    lib = cc_mod._library()["bwd_bf16"]
-    lib.cond_chain_bwd_bf16_time_kernels.argtypes = [ctypes.c_int]
-    lib.cond_chain_bwd_bf16_kernel_ms.argtypes = [ctypes.POINTER(ctypes.c_float)]
-    ms = (ctypes.c_float * len(K2B_LAUNCHES))()
-    if lib.cond_chain_bwd_bf16_time_kernels(1):
-        raise RuntimeError("K2-bf16 could not make its timing events")
+    K2 or K2-bf16, warm) from the events its library (``lib_name``) records
+    between its launches (``{prefix}_time_kernels``, ``{prefix}_kernel_ms``;
+    each kernel's time from the end of the launch before it); ``launches``
+    names them, as (name, launches). Late in the full run a torch.profiler
+    session could record no device event at all, so phases 8 and 14 do not
+    depend on it."""
+    lib = cc_mod._library()[lib_name]
+    on, get = getattr(lib, f"{prefix}_time_kernels"), getattr(lib, f"{prefix}_kernel_ms")
+    on.argtypes = [ctypes.c_int]
+    get.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    ms = (ctypes.c_float * len(launches))()
+    if on(1):
+        raise RuntimeError(f"{prefix} could not make its timing events")
     try:
         fn()
         torch.cuda.synchronize()
-        if lib.cond_chain_bwd_bf16_kernel_ms(ms):
-            raise RuntimeError("K2-bf16's timing events gave no time")
+        if get(ms):
+            raise RuntimeError(f"{prefix}'s timing events gave no time")
     finally:
-        lib.cond_chain_bwd_bf16_time_kernels(0)
-    return {name: [float(ms[k]), 1] for k, name in enumerate(K2B_LAUNCHES)}
+        on(0)
+    return {name: [float(ms[k]), count] for k, (name, count) in enumerate(launches)}
 
 
 def kernel_breakdown(fn, attempts: int = 3) -> dict:
@@ -2957,12 +2944,15 @@ def phase_options(card, convert_ms: float, step_ms: float) -> dict:
 AB_ROUNDS = 5
 
 
-def ab_libraries(src_dir: Path, out_dir: Path):
-    """The earlier bf16 libraries, built from their sources in ``src_dir``
-    (cond_chain_bf16.cu, cond_chain_bwd_bf16.cu and the headers they
-    include) into ``out_dir`` with the package's nvcc flags, both started
-    together; (K1-bf16's, K2-bf16's) ctypes libraries and nvcc's output."""
-    jobs = [(src_dir / s.name, out_dir / f"{s.stem}.so") for s in cc_mod.BF16_SOURCES]
+def ab_libraries(src_dir: Path, out_dir: Path) -> tuple[dict, str]:
+    """The earlier libraries, built from their sources in ``src_dir`` (the
+    four .cu files of SOURCES and BF16_SOURCES and the headers they include,
+    with the C interface of the mma.sync f32 kernels: K1 without a
+    workspace, K2 on W1 transposed)
+    into ``out_dir`` with the package's nvcc flags, all started together;
+    ({"fwd", "bwd", "fwd_bf16", "bwd_bf16"}: ctypes library, nvcc's output)."""
+    jobs = [(src_dir / s.name, out_dir / f"{s.stem}.so")
+            for s in cc_mod.SOURCES + cc_mod.BF16_SOURCES]
     procs = [subprocess.Popen([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-o", str(lib), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, lib in jobs]
@@ -2972,18 +2962,28 @@ def ab_libraries(src_dir: Path, out_dir: Path):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{out}")
         log.append(out)
-    fwd, bwd = (ctypes.CDLL(str(lib)) for _, lib in jobs)
+    libs = dict(zip(cc_mod._LIBS, (ctypes.CDLL(str(lib)) for _, lib in jobs)))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs["fwd"].cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, i, i, i, i, i, i, p]
+    libs["fwd"].cond_chain_fwd_f32.restype = i
+    bwd = libs["bwd"]
+    bwd.cond_chain_bwd_workspace.argtypes = [i] * 6
+    bwd.cond_chain_bwd_workspace.restype = ll
+    bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
+                                       i, i, i, i, i, i, p]
+    bwd.cond_chain_bwd_f32.restype = i
+    fwd = libs["fwd_bf16"]
     fwd.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
     fwd.cond_chain_fwd_bf16.restype = i
     fwd.cond_chain_fwd_bf16_workspace.argtypes = [i] * 5
     fwd.cond_chain_fwd_bf16_workspace.restype = ll
+    bwd = libs["bwd_bf16"]
     bwd.cond_chain_bwd_bf16_workspace.argtypes = [i] * 6
     bwd.cond_chain_bwd_bf16_workspace.restype = ll
     bwd.cond_chain_bwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
                                         i, i, i, i, i, i, p]
     bwd.cond_chain_bwd_bf16.restype = i
-    return fwd, bwd, "\n".join(log)
+    return libs, "\n".join(log)
 
 
 def ptr(x):
@@ -2991,36 +2991,48 @@ def ptr(x):
 
 
 def old_k1(fwd, split: dict):
-    """The earlier K1-bf16 on split-form operands (W1 in its own layout)."""
+    """The earlier K1 (f32 operands, no workspace) or K1-bf16 (bf16) on
+    split-form operands (W1 in its own layout)."""
     exc, w0, hbias, w1, b1 = (split[k] for k in ("exc", "w0", "hbias", "w1", "b1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
-    ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
-                     device=exc.device, dtype=torch.uint8)
-    err = fwd.cond_chain_fwd_bf16(ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]),
-                                  ptr(split["edge_t"]), ptr(w1), ptr(b1), ptr(out), ptr(ws),
-                                  ws.numel(), b, t, e, n, cc, two_c,
-                                  torch.cuda.current_stream().cuda_stream)
+    args = (ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]), ptr(split["edge_t"]),
+            ptr(w1), ptr(b1), ptr(out))
+    stream = torch.cuda.current_stream().cuda_stream
+    if exc.dtype == torch.float32:
+        err = fwd.cond_chain_fwd_f32(*args, b, t, e, n, cc, two_c, stream)
+    else:
+        ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
+                         device=exc.device, dtype=torch.uint8)
+        err = fwd.cond_chain_fwd_bf16(*args, ptr(ws), ws.numel(), b, t, e, n, cc, two_c, stream)
     if err:
-        raise RuntimeError(f"the earlier K1-bf16 failed to launch ({err})")
+        raise RuntimeError(f"the earlier forward kernel failed to launch ({err})")
     return out
 
 
 def old_k2(bwd, args: dict, g):
-    """The earlier K2-bf16 on split-form operands: the gradients' dict."""
+    """The earlier K2 (f32 operands: W1 transposed, a workspace in floats) or
+    K2-bf16 (bf16) on split-form operands: the gradients' dict."""
     exc, w0, hbias, w1 = (args[k] for k in ("exc", "w0", "hbias", "w1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
-    ws = torch.empty(int(bwd.cond_chain_bwd_bf16_workspace(b, t, e, n, cc, two_c)),
-                     device=exc.device, dtype=torch.uint8)
     out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")}
     out["b1"] = torch.empty(n * two_c, device=exc.device, dtype=exc.dtype)
-    err = bwd.cond_chain_bwd_bf16(
+    if exc.dtype == torch.float32:
+        w1 = w1.reshape(3, cc, n, two_c).permute(2, 0, 3, 1).contiguous()
+        ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c)),
+                         device=exc.device, dtype=torch.float32)
+        launch = bwd.cond_chain_bwd_f32
+    else:
+        ws = torch.empty(int(bwd.cond_chain_bwd_bf16_workspace(b, t, e, n, cc, two_c)),
+                         device=exc.device, dtype=torch.uint8)
+        launch = bwd.cond_chain_bwd_bf16
+    err = launch(
         ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(args["edge0"]), ptr(args["edge_t"]), ptr(w1),
         ptr(g), ptr(out["exc"]), ptr(out["w0"]), ptr(out["hbias"]), ptr(out["edge0"]),
         ptr(out["edge_t"]), ptr(out["w1"]), ptr(out["b1"]), ptr(ws), ws.numel(),
         b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"the earlier K2-bf16 failed to launch ({err})")
+        raise RuntimeError(f"the earlier backward kernels failed to launch ({err})")
     return out
 
 
@@ -3043,60 +3055,82 @@ def ab_summary(per_shape: list[dict]) -> dict:
     return out
 
 
-def phase_ab(cfg, card, src_dir: Path) -> dict:
-    """The earlier K1-bf16 and K2-bf16 (built from ``src_dir``) against this
-    tree's, alternated for AB_ROUNDS rounds, at the bf16 conversion's four
-    stage shapes (K1) and the batch-64 train step's eight (K1, K2), the
-    outputs of the two versions held to each other (one bf16 ulp, as
-    phase 14); returns the summaries by path."""
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        fwd, bwd, log = ab_libraries(src_dir, Path(tmp))
-        say(f"ab: the earlier libraries built in {time.perf_counter() - t0:.1f} s; "
-            + " | ".join(ptxas_summary(log)))
-        paths = {"k1 convert": [], "k1 train": [], "k2 train": []}
-        parts: dict = {"old": {}, "new": {}}
-        shapes = [("convert", B, t, c, 1700 + i) for i, (t, c) in enumerate(stage_shapes(UTT, cfg))]
-        shapes += [("train", bsz, t, c, 1750 + i) for bsz in (2 * B64, B64)
-                   for i, (t, c) in enumerate(stage_shapes(SEG, cfg))]
-        for path, b, t, c, seed in shapes:
-            split, _, n, cc = chain_inputs(b, t, c, cfg, seed=seed, exact_h=True,
-                                           dtype=torch.bfloat16)
-            ulp_parity(f"ab K1-bf16 B={b} T={t}", cc_mod.cond_chain(**split), old_k1(fwd, split))
-            k1 = ab_times(lambda: old_k1(fwd, split), lambda: cc_mod.cond_chain(**split), iters=3)
-            paths[f"k1 {path}"].append(k1)
-            line = (f"ab B={b} T={t} C={c}: K1-bf16 old {np.median(k1['old']):.3f} ms, new "
-                    f"{np.median(k1['new']):.3f} ms")
-            if path == "train":
-                g = cotangent(split, seed=seed + 50).to(torch.bfloat16)
-                args = {k: v for k, v in split.items() if k != "b1"}
-                new, old = cc_mod._launch_bwd(g=g, **args), old_k2(bwd, args, g)
-                for k in new:
-                    ulp_parity(f"ab K2-bf16 B={b} T={t} d{k}", new[k], old[k])
-                del new, old
-                k2 = ab_times(lambda: old_k2(bwd, args, g), lambda: cc_mod._launch_bwd(g=g, **args),
-                              iters=2)
-                paths["k2 train"].append(k2)
-                line += (f"; K2-bf16 old {np.median(k2['old']):.3f} ms, new "
-                         f"{np.median(k2['new']):.3f} ms")
-                for version, fn in (("old", lambda: old_k2(bwd, args, g)),
-                                    ("new", lambda: cc_mod._launch_bwd(g=g, **args))):
-                    part = kernel_breakdown(fn)
-                    add_breakdown(parts[version], part)
-                    say(f"ab k2-bf16 kernels ({version}) B={b} T={t} C={c}: "
-                        f"{breakdown_line(part)} [{card}]")
-                del g, args
-            say(line + f" [{card}]")
-            del split
-            torch.cuda.empty_cache()
-        for version, lib in (("old", bwd), ("new", cc_mod._library()["bwd_bf16"])):
-            say(f"ab k2-bf16 kernels ({version}) per batch-64 train step (8 calls): "
-                f"{breakdown_line(parts[version], 8)}; workspace at (B, T, E, n, Cc, 2C) = "
-                f"{K2B_WS_SHAPE}: {lib.cond_chain_bwd_bf16_workspace(*K2B_WS_SHAPE) / 1e9:.3f} GB "
-                f"[{card}]")
+def ab_f32_agree(label: str, new, old) -> None:
+    """The two f32 versions' outputs within PARITY_RTOL of max|old|."""
+    _, r = rel_err(new, old)
+    if not r <= PARITY_RTOL:
+        raise AssertionError(f"{label}: the two versions differ by {r:.2e} of max|old|")
+
+
+def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
+    """The earlier forward and backward kernels of one dtype (libraries
+    ``fwd``, ``bwd``) against this tree's, alternated for AB_ROUNDS rounds,
+    at the conversion's four stage shapes (K1) and the train step's eight
+    (K1, K2; f32 at batch 16, bf16 at batch 64), the outputs of the two
+    versions held to each other (f32 within PARITY_RTOL of max|old|, bf16
+    within one bf16 ulp, as phase 14), the backward's time by kernel
+    (torch.profiler, as the earlier library has no timing events) and its
+    workspace at the step's largest call; returns the summaries by path."""
+    f32 = dtype == torch.float32
+    name = "" if f32 else "-bf16"
+    bsz = B if f32 else B64
+    paths = {"k1 convert": [], "k1 train": [], "k2 train": []}
+    parts: dict = {"old": {}, "new": {}}
+    seed = 700 if f32 else 1750
+    shapes = [("convert", B, t, c, 1700 + i) for i, (t, c) in enumerate(stage_shapes(UTT, cfg))]
+    shapes += [("train", b, t, c, seed + i) for b in (2 * bsz, bsz)
+               for i, (t, c) in enumerate(stage_shapes(SEG, cfg))]
+
+    def agree(label, new, old):
+        if f32:
+            ab_f32_agree(label, new, old)
+        else:
+            ulp_parity(label, new, old)
+
+    for path, b, t, c, seed in shapes:
+        split, _, n, cc = chain_inputs(b, t, c, cfg, seed=seed, exact_h=True, dtype=dtype)
+        agree(f"ab K1{name} B={b} T={t}", cc_mod.cond_chain(**split), old_k1(fwd, split))
+        k1 = ab_times(lambda: old_k1(fwd, split), lambda: cc_mod.cond_chain(**split), iters=3)
+        paths[f"k1 {path}"].append(k1)
+        line = (f"ab B={b} T={t} C={c}: K1{name} old {np.median(k1['old']):.3f} ms, new "
+                f"{np.median(k1['new']):.3f} ms")
+        if path == "train":
+            g = cotangent(split, seed=seed + 50).to(dtype)
+            args = {k: v for k, v in split.items() if k != "b1"}
+            new, old = cc_mod._launch_bwd(g=g, **args), old_k2(bwd, args, g)
+            for k in new:
+                agree(f"ab K2{name} B={b} T={t} d{k}", new[k], old[k])
+            del new, old
+            k2 = ab_times(lambda: old_k2(bwd, args, g), lambda: cc_mod._launch_bwd(g=g, **args),
+                          iters=2)
+            paths["k2 train"].append(k2)
+            line += (f"; K2{name} old {np.median(k2['old']):.3f} ms, new "
+                     f"{np.median(k2['new']):.3f} ms")
+            for version, fn in (("old", lambda: old_k2(bwd, args, g)),
+                                ("new", lambda: cc_mod._launch_bwd(g=g, **args))):
+                part = kernel_breakdown(fn)
+                add_breakdown(parts[version], part)
+                say(f"ab k2{name} kernels ({version}) B={b} T={t} C={c}: "
+                    f"{breakdown_line(part)} [{card}]")
+            del g, args
+        say(line + f" [{card}]")
+        del split
+        torch.cuda.empty_cache()
+    if f32:
+        ws_shape, per = K2_WS_SHAPE, "train step"
+        ws = {"old": 4 * bwd.cond_chain_bwd_workspace(*ws_shape),
+              "new": 4 * cc_mod._library()["bwd"].cond_chain_bwd_workspace(*ws_shape, 1)}
+    else:
+        ws_shape, per = K2B_WS_SHAPE, "batch-64 train step"
+        ws = {"old": bwd.cond_chain_bwd_bf16_workspace(*ws_shape),
+              "new": cc_mod._library()["bwd_bf16"].cond_chain_bwd_bf16_workspace(*ws_shape)}
+    for version in ("old", "new"):
+        say(f"ab k2{name} kernels ({version}) per {per} (8 calls): "
+            f"{breakdown_line(parts[version], 8)}; workspace at (B, T, E, n, Cc, 2C) = "
+            f"{ws_shape}: {ws[version] / 1e9:.3f} GB [{card}]")
     out = {k: ab_summary(v) for k, v in paths.items()}
     for k, v in out.items():
-        say(f"ab {k} ({len(paths[k])} shapes, {AB_ROUNDS} rounds alternated): old median "
+        say(f"ab {k}{name} ({len(paths[k])} shapes, {AB_ROUNDS} rounds alternated): old median "
             f"{v['old']['median']:.3f} ms (min {v['old']['min']:.3f}, max {v['old']['max']:.3f}), "
             f"new median {v['new']['median']:.3f} ms (min {v['new']['min']:.3f}, max "
             f"{v['new']['max']:.3f}); new/old {v['new']['median'] / v['old']['median']:.3f} "
@@ -3104,12 +3138,25 @@ def phase_ab(cfg, card, src_dir: Path) -> dict:
     return out
 
 
+def phase_ab(cfg, card, src_dir: Path) -> dict:
+    """The earlier kernels (built from ``src_dir``) against this tree's: the
+    f32 pair (K1, K2), then the bf16 pair (K1-bf16, K2-bf16) (``ab_pair``);
+    returns the summaries by dtype and path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        libs, log = ab_libraries(src_dir, Path(tmp))
+        say(f"ab: the earlier libraries built in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(ptxas_summary(log)))
+        return {"f32": ab_pair(cfg, card, libs["fwd"], libs["bwd"], torch.float32),
+                "bf16": ab_pair(cfg, card, libs["fwd_bf16"], libs["bwd_bf16"], torch.bfloat16)}
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
     out, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(cond_chain_fwd_kernel|k1_bf16_kernel|"
-                      r"w_images_kernel|k2b?_\w+?_kernel)"
+        m = re.search(r"Compiling entry function '.*?(k1_f32_kernel|k1_images_kernel|"
+                      r"cond_chain_fwd_kernel|k1_bf16_kernel|w_images_kernel|k2b?_\w+?_kernel)"
                       r"((?:I(?:L[ib]\d+E)+E)?)", ln)
         if m:
             targs = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -3162,7 +3209,9 @@ HEADLINES = {
                                      r"(?:split|concat)\.\w+ ([\d.e+-]+)", "max")],
     "7 train": [("ms per step", r"median ([\d.]+) ms per step", "first"),
                 ("peak GiB", r"peak device memory ([\d.]+) GiB", "first")],
-    "8 K2 times": [("K2 ms per step", r"k2 per train step \(8 calls\): ([\d.]+) ms", "first")],
+    "8 K2 times": [("K2 ms per step", r"k2 per train step \(8 calls\): ([\d.]+) ms", "first"),
+                   ("K2 by kernel per step",
+                    r"k2 kernels per train step \(8 calls\): (.*?) \[", "first")],
     "9 train CLI": [("loop ms per step", r"median of steps 1-4: ([\d.]+) ms", "first")],
     "10 generate CLI": [("RTF in the CLI", r"\(RTF ([\d.]+x), pitch", "first"),
                         ("K1 at the CLIs' shapes, worst max|d|",
@@ -3252,8 +3301,10 @@ def main(ab_dir: Path | None = None) -> int:
 
     def build():
         _, build_s, log = cc_mod.build()
-        say(f"build: {', '.join(src.name for src in cc_mod.SOURCES + cc_mod.BF16_SOURCES)} "
-            f"with nvcc, in parallel, in {build_s:.1f} s; " + " | ".join(ptxas_summary(log)))
+        names = [" + ".join(x.name for x in cc_mod._sources_of(src))
+                 for src in cc_mod.SOURCES + cc_mod.BF16_SOURCES]
+        say(f"build: {', '.join(names)} with nvcc, in parallel, in {build_s:.1f} s; "
+            + " | ".join(ptxas_summary(log)))
 
     phases.run("2 build", build)
     cfg = Config()
@@ -3413,7 +3464,7 @@ if __name__ == "__main__":
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ab", type=Path, default=None, metavar="DIR",
-                        help="only the A/B of the bf16 kernels against earlier sources in DIR")
+                        help="only the A/B of the kernels against earlier sources in DIR")
     cli = parser.parse_args()
     adopt_orphans()
     try:

@@ -28,45 +28,56 @@
 // operations, even counting the scratch below (written once, read once).
 //
 // What the design does about it. Every product runs on the tensor cores as
-// 3xTF32 (tf32x3.cuh: warp-level mma.sync m16n8k8, f32 accuracy at a third
-// of the TF32 rate, 2.5x the f32 CUDA-core peak). The TPU kernel accumulates
-// the weight grads in VMEM across a grid that runs in order; Hopper CTAs run
-// in no order, so the work is split into kernels that each own their
-// outputs, and every sum runs in a fixed order (the results are the same
-// from run to run, with no atomics):
+// 3xTF32 (tf32x3.cuh: f32 accuracy at a third of the TF32 rate, 2.5x the
+// f32 CUDA-core peak). The TPU kernel accumulates the weight grads in VMEM
+// across a grid that runs in order; Hopper CTAs run in no order, so the work
+// is split into kernels that each own their outputs, and every sum runs in a
+// fixed order (the results are the same from run to run, with no atomics):
 //
-//  (a) k2_data_kernel, one CTA of 8 warps per (batch row, 126-row time tile;
-//      62 or 30 rows where a wide Cc or E passes a block's shared memory,
-//      chosen on the host by make_plan, DataGeom below):
-//      stages the tile's excitation rows once; per block i it
-//       - recomputes lrelu(h_i) for the tile plus one halo row on each side
-//         (128 rows) in shared memory (cond_chain_h.cuh);
-//       - forms da_i, an M = 128, N = Cc, K = 3*2C product, in passes of
-//         144 channels (one pass at the decoder's Cc = 136): g_i's rows and
-//         W1_i^T come in K-chunks of 8 output channels (130 g rows and the 3
-//         taps' 8 x 144 slices of W1_i^T) through a double-buffered cp.async
-//         ring, so neither operand streams through L1 (W1_i^T is 418 KB at
-//         2C = 256 and does not fit in shared memory whole); W1_i^T is split
-//         into hi and lo once where it lands; tap j reads the staged g rows j
-//         rows up; each warp owns 32 x 72 of a pass's da; in the first pass
-//         one warp per staged g column sums the tile's own rows (db1);
-//       - turns da into dh in place (the slope from the recomputed h), and
-//         writes lrelu(h_i) and dh_i of the tile's own rows to scratch;
-//       - adds the tile's dexc (M = 128, N = E, K = 3*Cc: A = dh in shared
-//         memory, B = W0_i through L1, one accumulator per tap) into dexc,
-//         which the CTA owns;
-//       - sums dh_i over its own rows per channel (dhbias), a warp a channel.
-//  (b) k2_wgrad_kernel, split-K weight grads, both as D = X^T Y(shifted):
-//      dW1_i^T[j] (M = 2C, N = Cc; X = g_i, Y = the lrelu(h) scratch) and
-//      dW0^T[j] (M = n*Cc, N = E; X = the dh scratch, Y = exc). A CTA owns
-//      one (block, output tile) and one fixed chunk of the B*T rows and
-//      computes all three taps: it stages 32 rows of X and the 34 rows of Y
-//      around them (a one-row halo each side) per cp.async stage, double
-//      buffered, splits both into hi and lo once where they land, and serves
-//      the three taps from that one staging. Rows are indexed with a zero row
-//      between batch rows, so that a tap never pairs rows of two batch rows.
-//      It writes a partial.
-//  (c) k2_reduce_kernel sums the partials over the chunks in order, and gives
+//  (a) k2_images_kernel lays out, at each launch, the images of the weights
+//      the data kernel's products read, split into hi and lo (K-major,
+//      without swizzle: tf32x3.cuh): Wh (cond_chain_f32.cuh), W1_i[j]^T for
+//      da and W0_i[j]^T for dexc.
+//  (b) k2_data_kernel, on Hopper's wgmma: one CTA per (batch row, 124-row
+//      time tile), two consumer warpgroups of 64 rows of h and a producer
+//      warp (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of the
+//      images; TMA copies of g, whose zero fill outside [0, T) gives the
+//      'same' conv's zero rows). Per block i and pass of 136 channels:
+//       - h on wgmma as K1 takes it (the same operands in the same order);
+//         lrelu(h) of the own rows to the scratch (for (c)) straight from
+//         the accumulators, and the sign of h as 68 bits a thread, so that
+//         h's registers take da;
+//       - da_i, M = 64, N = 136, K = 3 x 2C in slices of 8 output channels:
+//         a stage is the slice of g for the CTA's 128 rows t0 - 2 ..
+//         t0 + 125 (two TMA boxes of 4 channels, raw f32) and the image of
+//         W1_i's three taps; A from registers: each thread loads its g
+//         fragment for tap j (the rows 2 - j further down) and splits it;
+//         in the first pass one warp per channel of the slice sums the
+//         CTA's rows of g (db1) while the products run;
+//       - dh = lrelu'(h) da in place, zero outside [0, T); the own rows to
+//         the scratch; dhbias's column sums over each warp's own rows (the
+//         lanes by shuffles, one partial a warp);
+//       - dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] for E in chunks
+//         of 8 (K = the pass's channels), on mma.sync m16n8k8 per warp (its
+//         16 rows, one accumulator a tap: small products that need no
+//         asynchronous wait) with A from dh's registers: a warp's part of the
+//         wgmma accumulator layout is the m16n8k8 tile's, and its pairs are
+//         the A fragment's columns tig and tig + 4 when the image's K order
+//         is permuted to match (k -> 2k (k < 4), 2(k - 4) + 1); then
+//         dexc[t] += P_0[t+1] + P_1[t] + P_2[t-1] through shared memory,
+//         a sum the CTA owns, over the blocks and passes in order.
+//      Nothing of it grows with Cc or E: one tile for every width.
+//  (c) k2_wgrad_kernel, split-K weight grads on mma.sync m16n8k8, both as
+//      D = X^T Y(shifted): dW1_i^T[j] (M = 2C, N = Cc; X = g_i, Y = the
+//      lrelu(h) scratch) and dW0^T[j] (M = n*Cc, N = E; X = the dh scratch,
+//      Y = exc). A CTA owns one (block, output tile) and one fixed chunk of
+//      the B*T rows and computes all three taps: it stages 32 rows of X and
+//      the 34 rows of Y around them (a one-row halo each side) per cp.async
+//      stage, double buffered, splits both into hi and lo once where they
+//      land, and serves the three taps from that one staging. Rows are
+//      indexed with a zero row between batch rows, so that a tap never pairs
+//      rows of two batch rows. It writes a partial.
+//  (d) k2_reduce_kernel sums the partials over the chunks in order, and gives
 //      db1, dhbias and the edge grads.
 //
 // The scratch (two (B, T, n*Cc) f32 arrays, 1.4 GB each at B = 32, T = 8960)
@@ -84,290 +95,385 @@
 
 #include <cuda_runtime.h>
 
-#include "cond_chain_h.cuh"
+#include "cond_chain_f32.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-using cond_chain_h::HArgs;
-using cond_chain_h::kSlope;
-using namespace tf32x3;
+using namespace f32chain;
+using tf32x3::FragA;
+using tf32x3::FragB;
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::load_a_split;
+using tf32x3::load_b_split;
+using tf32x3::mma3;
+using tf32x3::split_in_place;
 
-constexpr int kThreads = 256;        // data kernel: 8 warps
-constexpr int kOC = 8;               // g columns (output channels o) per stage
-constexpr int kStages = 2;           // double-buffered
+// -- (a), (b): the data kernel on wgmma
 
-// The data kernel's shape for R rows of h / dh per CTA (its time tile and a
-// halo row each side): 128, or 64 and then 32 where a wide Cc (or E) leaves
-// the 128-row plan's shared memory over the limit. At R = 128 and 64 the
-// warps are 4 (rows) x 2 (channels), each owning 72 channels of a pass; at
-// R = 32 they are 2 x 4, each owning 32 channels.
-template <int R>
-struct DataGeom {
-  static constexpr int kRows = R;
-  static constexpr int kTile = R - 2;        // the CTA's own rows
-  static constexpr int kXsRows = R + 2;      // exc rows t0-2 ..
-  static constexpr int kGRows = R + 2;       // g rows t0-2 .. t0+kTile+1
-  static constexpr int kWNShift = R >= 64 ? 1 : 2;
-  static constexpr int kWN = 1 << kWNShift;    // warps along da's channels
-  static constexpr int kWM = 8 / kWN;          // warps along its rows
-  static constexpr int kMT = R / (16 * kWM);   // m-tiles (16 rows) per warp
-  static constexpr int kDaNT = R >= 64 ? 9 : 4;  // 8-channel n-tiles of da per warp and pass
-  static constexpr int kDaCols = kWN * kDaNT * 8;  // channels of da per pass
-  static_assert(kMT >= 1 && kMT * 16 * kWM == R, "warps must cover the rows");
-};
-constexpr int kDataRows[] = {128, 64, 32};
-constexpr int kDaCols128 = DataGeom<128>::kDaCols;  // 144: one pass at the decoder's Cc
-constexpr int kWRows = 32;           // weight-grad kernel: rows per stage
-constexpr int kWStages = 2;
-constexpr size_t kSmemMax = 227 * 1024;
-constexpr int kTargetCtas = 4 * 132;  // split-K aims at four CTAs per SM
+constexpr int kDStages = 5;
+constexpr int kGBox = kTile + 4;           // 128 rows of g a stage: t0 - 2 .. t0 + 125
+constexpr int kGTile = 2 * kGBox * 16;     // 4096: 8 channels of them, raw, 4 channels a box
+constexpr int kW1Item = 3 * 2 * kHItem;    // 26112: W1_i[j]^T's k-slice, 3 taps, hi and lo
+constexpr int kW0Rows = 24;                // dexc's N: 3 taps x 8 columns of exc
+constexpr int kW0Block = kW0Rows * 32;     // 768: a k-slice of dexc's B, hi or lo
+constexpr int kW0Item = kPassSlices * 2 * kW0Block;  // 26112: a pass of it
+constexpr int kDSlot = 30 * 1024;
+static_assert(kGTile + kW1Item <= kDSlot && kW0Item <= kDSlot && 2 * kHItem <= kDSlot,
+              "ring items fit a slot");
+constexpr int kPLd = 28;                   // floats a row of dexc's P in shared memory
+constexpr int kPFloats = kRows * kPLd;
+constexpr size_t kDataSmem =
+    (size_t)kDStages * kDSlot + 2 * (size_t)kPFloats * 4 + 16 * kDStages + 1024;
+static_assert(kDataSmem <= kSmemMax, "K2's data kernel's shared memory");
 
 struct DataArgs {
   HArgs h;
-  const float* w1t;  // (n, 3, 2C, Cc): W1 with the input channel innermost
-  const float* g;    // (B, T, n*2C)
-  float* a_out;      // (B, T, n*Cc) scratch: lrelu(h)
-  float* dh_out;     // (B, T, n*Cc) scratch: dh
-  float* dexc;       // (B, T, E)
-  float* phb;        // (B, ntiles, n*Cc) partial sums of dh
-  float* pb1;        // (B, ntiles, n*2C) partial sums of g
-  int two_c, ntiles;
-  int lda, ldx, ldg, ldw;  // shared-memory row strides (floats)
+  const unsigned char* img_h;   // Wh's images (cond_chain_f32.cuh)
+  long long h_image;            // bytes of one batch row's (0: one for every row)
+  const unsigned char* img_w1;  // da's B: [i][p][so][j][hi, lo][136 rows c x 8 o]
+  const unsigned char* img_w0;  // dexc's B: [i][p][ec][s][hi, lo][24 rows (j, e) x 8 c]
+  float* a_out;                 // (B, T, n*Cc) scratch: lrelu(h)
+  float* dh_out;                // (B, T, n*Cc) scratch: dh
+  float* dexc;                  // (B, T, E)
+  float* phb;                   // (B, 8 ntiles, n*Cc): dh summed over a warp's own rows
+  float* pb1;                   // (B, ntiles, n*2C): g summed over a CTA's rows
+  int two_c, no, ne, ntiles;    // no, ne: slices of 8 of 2C and of E
+  CUtensorMap g_map;            // g as (o: 2C, i: n, t: T, b: B), box (4, 1, 128, 1)
 };
 
-// sum over r < kTile of p[(r0 + r) * ld], by one warp, in a fixed order
-// (rows outside [0, T) hold zeros); the result in every lane
-template <int kTile>
-__device__ __forceinline__ float own_rows_sum(const float* p, int ld, int r0) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int r = lane; r < kTile; r += 32) s += p[(r0 + r) * ld];
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  return s;
-}
+// dexc's K order within a slice: image column k holds channel perm(k), so
+// that dh's accumulator pair (2 tig, 2 tig + 1) is the A fragment's (tig, tig + 4)
+__device__ __forceinline__ int perm(int k) { return k < 4 ? 2 * k : 2 * (k - 4) + 1; }
 
-// kOnePass (Cc <= kDaCols, R = 128 only) compiles the loop over da's
-// passes, and the h recompute's over column groups, away.
-template <int R, bool kOnePass>
-__global__ void __launch_bounds__(kThreads) k2_data_kernel(DataArgs a) {
-  using Geo = DataGeom<R>;
-  constexpr int kRows = Geo::kRows;
-  constexpr int kTile = Geo::kTile;
-  constexpr int kXsRows = Geo::kXsRows;
-  constexpr int kGRows = Geo::kGRows;
-  constexpr int kDaNT = Geo::kDaNT;
-  constexpr int kDaCols = Geo::kDaCols;
-  constexpr int kMT = Geo::kMT;
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_constant__ DataArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* ring = smem;
+  float* pbuf = reinterpret_cast<float*>(ring + kDStages * kDSlot);  // [wg][64][kPLd]
+  uint64_t* full = reinterpret_cast<uint64_t*>(pbuf + 2 * kPFloats);
+  uint64_t* empty = full + kDStages;
+
   const HArgs& h = a.h;
-  float* buf = smem;                         // [kRows + 2][lda]: lrelu(h_i), then dh_i; rows t0-1 ..
-  float* xs = buf + (kRows + 2) * a.lda;     // [kXsRows][ldx]: exc rows t0-2 ..
-  float* stg = xs + kXsRows * a.ldx;         // [kStages]: g [kGRows][ldg], W1^T hi, lo [3*kOC][ldw]
-  const int wlo = 3 * kOC * a.ldw;           // W1^T's lo parts, after its hi parts
-  const int stage_floats = kGRows * a.ldg + 2 * wlo;
-
   const int b = blockIdx.y;
   const int tix = blockIdx.x;
   const int t0 = tix * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  const int wm = warp >> Geo::kWNShift;  // slab of 16 * kMT rows of da
-  const int wn = warp & (Geo::kWN - 1);  // kDaNT * 8 channels of a pass
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // the producer: per block i and pass p, Wh's k-slices, then per slice of
+    // 8 output channels g's rows and W1's image, then dexc's B per chunk of E
+    if (threadIdx.x == 256) {
+      prefetch_map(&a.g_map);
+      const unsigned char* img_h = a.img_h + (size_t)b * a.h_image;
+      int k = 0;
+      for (int i = 0; i < h.n; ++i)
+        for (int p = 0; p < h.npass; ++p) {
+          const size_t ip = (size_t)i * h.npass + p;
+          for (int s = 0; s < h.nkh; ++s) {
+            put<kDStages, kDSlot>(ring, full, empty, k, img_h + (ip * h.nkh + s) * 2 * kHItem,
+                                  2 * kHItem);
+          }
+          for (int so = 0; so < a.no; ++so) {
+            const int slot = slot_of<kDStages>(k);
+            mbar_wait(&empty[slot], parity_of<kDStages>(k) ^ 1);
+            mbar_arrive_expect_tx(&full[slot], kGTile + kW1Item);
+            unsigned char* dst = ring + slot * kDSlot;
+            tma_load_4d(dst, &a.g_map, &full[slot], 8 * so, i, t0 - 2, b);
+            tma_load_4d(dst + kGTile / 2, &a.g_map, &full[slot], 8 * so + 4, i, t0 - 2, b);
+            bulk_load(dst + kGTile, a.img_w1 + (ip * a.no + so) * kW1Item, kW1Item, &full[slot]);
+            ++k;
+          }
+          for (int ec = 0; ec < a.ne; ++ec) {
+            put<kDStages, kDSlot>(ring, full, empty, k, a.img_w0 + (ip * a.ne + ec) * kW0Item,
+                                  kW0Item);
+          }
+        }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int bar = 1 + wg;
+  const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
+  const int u0 = tb - 1;          // its h row q = 0
+  const Lane l;
+  const int wq = l.wt >> 5;       // the warp within the warpgroup
+  const int lane = threadIdx.x & 31;
   const int n0 = h.n * h.cc;
   const int n2 = h.n * a.two_c;
-  const int nchunks = (a.two_c + kOC - 1) / kOC;
-  const int npass = kOnePass ? 1 : (h.cc + kDaCols - 1) / kDaCols;
-  const int ks_tap = h.cc_pad / 8;
+  float* pw = pbuf + wg * kPFloats;
+  XFrag none[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) none[s].hi[r] = none[s].lo[r] = 0u;
 
-  cond_chain_h::stage_exc(h, xs, a.ldx, kXsRows, b, t0);
-  // rows kRows, kRows+1 of buf stay zero: the dexc tile's last rows read them
-  for (int idx = tid; idx < 2 * a.lda; idx += kThreads) buf[kRows * a.lda + idx] = 0.f;
-
+  int k = 0;
   for (int i = 0; i < h.n; ++i) {
-    const float* g_i = a.g + (size_t)b * h.T * n2 + i * a.two_c;
-    const float* wt_i = a.w1t + (size_t)i * 3 * a.two_c * h.cc;
-    // chunk ch of pass ps: g_i rows t0-2 .. and columns o0 = ch*kOC ..; W1_i^T
-    // rows (j, o0 ..), channels cp0 = ps*kDaCols ..
-    // (split = true: this thread's pieces of W1_i^T in chunk ch, landed, split in place)
-    int cp0 = 0;
-    auto load = [&](int ch, bool split) {
-      float* gd = stg + (ch % kStages) * stage_floats;
-      float* wd = gd + kGRows * a.ldg;
-      const int o0 = ch * kOC;
-      constexpr int kGP = kOC / 4;       // 16-byte pieces per g row
-      constexpr int kWP = kDaCols / 4;   // per W1^T row
-      constexpr int kNG = kGRows * kGP;
-      for (int idx = tid; idx < kNG + 3 * kOC * kWP; idx += kThreads) {
-        if (idx < kNG) {
-          if (split) continue;  // g is split where it is read
-          const int r = idx / kGP;
-          const int o = (idx - r * kGP) * 4;
-          const int t = t0 - 2 + r;
-          const bool ok = t >= 0 && t < h.T && o0 + o < a.two_c;
-          cp_async16(gd + r * a.ldg + o, ok ? g_i + (size_t)t * n2 + o0 + o : a.g, ok);
-        } else {
-          const int k = idx - kNG;
-          const int r = k / kWP;  // j*kOC + o
-          const int c = (k - r * kWP) * 4;
-          const int j = r / kOC;
-          const int o = o0 + r - j * kOC;
-          const bool ok = o < a.two_c && cp0 + c < h.cc;
-          if (split) {
-            split_in_place(wd + r * a.ldw + c, wlo);
-          } else {
-            cp_async16(wd + r * a.ldw + c,
-                       ok ? wt_i + ((size_t)j * a.two_c + o) * h.cc + cp0 + c : a.w1t, ok);
+    for (int p = 0; p < h.npass; ++p) {
+      const int c0 = kPass * p;
+      float acc[68];
+      // 1. h; lrelu(h) of the own rows to the scratch; where h >= 0, as bits
+      h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
+      uint32_t pos[3] = {0u, 0u, 0u};
+#pragma unroll
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = l.row + 8 * half;
+          const int u = u0 + q;
+          const int c = c0 + nt * 8 + 2 * l.tig;
+          float av[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = nt * 4 + 2 * half + e;
+            const float x = acc[r];
+            if (x >= 0.f) pos[r >> 5] |= 1u << (r & 31);
+            av[e] = x >= 0.f ? x : kSlope * x;
+          }
+          if (q >= 1 && q <= kOwn && u < h.T && c < h.cc) {
+            *reinterpret_cast<float2*>(a.a_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
+                make_float2(av[0], av[1]);
           }
         }
       }
-    };
-
-    __syncthreads();  // xs staged; the previous block's buf fully read
-    // the first chunks of g_i and W1_i^T land while lrelu(h_i) is recomputed
-    for (int ch = 0; ch < kStages - 1; ++ch) {
-      if (ch < nchunks) load(ch, false);
-      cp_async_commit();
-    }
-    cond_chain_h::recompute_act<kOnePass>(h, xs, a.ldx, buf, a.lda, kRows, b, t0, i);
-
-    // da[q][c] = sum_j sum_o g[t0-1+q-j+1][o] W1_i[j][c][o]: gs row q + 2 - j, in
-    // passes of kDaCols channels (one pass at Cc <= 144); each pass streams
-    // all of g_i and its channels of W1_i^T
-    for (int ps = 0; ps < npass; ++ps) {
-      cp0 = ps * kDaCols;
-      if (ps > 0) {
-        __syncthreads();  // the previous pass's last stage fully read
-        for (int ch = 0; ch < kStages - 1; ++ch) {
-          if (ch < nchunks) load(ch, false);
-          cp_async_commit();
-        }
-      }
-      float acc[kMT][kDaNT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kDaNT; ++nt)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-      for (int ch = 0; ch < nchunks; ++ch) {
-        cp_async_wait<kStages - 2>();
-        load(ch, true);
-        __syncthreads();  // chunk ch landed and split; chunk ch-1's stage is free; buf holds lrelu(h_i)
-        if (ch + kStages - 1 < nchunks) load(ch + kStages - 1, false);
-        cp_async_commit();
-        const float* gs = stg + (ch % kStages) * stage_floats;
-        const float* wts = gs + kGRows * a.ldg;
-        // g of the tile's own rows (gs rows 2 .. kTile + 1) summed per channel, for db1
-        if (ps == 0 && warp < kOC && ch * kOC + warp < a.two_c) {
-          const float s = own_rows_sum<kTile>(gs + warp, a.ldg, 2);
-          if (lane == 0) a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + ch * kOC + warp] = s;
-        }
+      // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
+      zero(acc);
+      for (int so = 0; so < a.no; ++so) {
+        const int slot = slot_of<kDStages>(k);
+        mbar_wait(&full[slot], parity_of<kDStages>(k));
+        const float* graw = reinterpret_cast<const float*>(ring + slot * kDSlot);
+        // tap j's A: g at the h row's time - j + 1, the tile's row 62 wg + q + 2 - j
+        XFrag gf[3];
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          FragA fa[kMT];
+          const float* g0 = graw + (kOwn * wg + l.row + 2 - j) * 4 + l.tig;
+          split(g0[0], gf[j].hi[0], gf[j].lo[0]);
+          split(g0[32], gf[j].hi[1], gf[j].lo[1]);
+          split(g0[kGBox * 4], gf[j].hi[2], gf[j].lo[2]);
+          split(g0[kGBox * 4 + 32], gf[j].hi[3], gf[j].lo[3]);
+          fence_regs(gf[j].hi);
+          fence_regs(gf[j].lo);
+        }
+        const uint32_t base = smem_u32(ring + slot * kDSlot) + kGTile;
+        wgmma_fence();
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            fa[mt] = load_a(gs + (wm * 16 * kMT + mt * 16 + grp + 2 - j) * a.ldg + tig, a.ldg, 1);
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t bh = base + 2 * j * kHItem;
+          tf32x3::wgmma_rs_n136(acc, gf[j].lo, desc(bh, 128, 256), 1);
+          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh + kHItem, 128, 256), 1);
+          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh, 128, 256), 1);
+        }
+        wgmma_commit();
+        if (p == 0) {
+          // db1, while the products run: warp w sums channel 8 so + w over the
+          // CTA's rows t0 .. t0 + 123
+          const int o = 8 * so + warp;
+          const float* col = graw + (warp >> 2) * kGBox * 4 + (warp & 3);
+          float sv = 0.f;
+          for (int r = 2 + lane; r < 2 + kTile; r += 32) {
+            if (t0 - 2 + r < h.T) sv += col[r * 4];
+          }
 #pragma unroll
-          for (int nt = 0; nt < kDaNT; ++nt) {
-            const FragB fb = load_b_split(
-                wts + (j * kOC + tig) * a.ldw + wn * kDaNT * 8 + nt * 8 + grp, wlo, a.ldw);
+          for (int m = 16; m >= 1; m >>= 1) sv += __shfl_xor_sync(0xffffffffu, sv, m);
+          if (lane == 0 && o < a.two_c) {
+            a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + o] = sv;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(&empty[slot]);
+        ++k;
+      }
+      // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc; the own rows to
+      // the scratch
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = l.row + 8 * half;
+          const int u = u0 + q;
+          const int c = c0 + nt * 8 + 2 * l.tig;
+          const bool ok = u >= 0 && u < h.T && c < h.cc;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = nt * 4 + 2 * half + e;
+            acc[r] = ok ? ((pos[r >> 5] >> (r & 31)) & 1u ? acc[r] : kSlope * acc[r]) : 0.f;
+          }
+          if (ok && q >= 1 && q <= kOwn) {
+            *reinterpret_cast<float2*>(a.dh_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
+                make_float2(acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1]);
           }
         }
       }
-      cp_async_wait<0>();
-
-      // dh = lrelu'(h) da in place (each element is read and written by its
-      // owner only); lrelu(h) and dh of the tile's own rows to scratch
+      // dhbias: dh summed over a warp's own rows per channel, by its lanes;
+      // one partial a warp (the reduce sums them in order)
+      const bool own0 = l.row >= 1 && u0 + l.row < h.T;
+      const bool own1 = l.row + 8 <= kOwn && u0 + l.row + 8 < h.T;
+      float* phb = a.phb + ((((size_t)b * a.ntiles + tix) * 2 + wg) * 4 + wq) * n0 + i * h.cc;
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+        float sv[2];
 #pragma unroll
-        for (int nt = 0; nt < kDaNT; ++nt) {
-          const int c = cp0 + wn * kDaNT * 8 + nt * 8 + 2 * tig;
-          if (c >= h.cc) continue;
+        for (int e = 0; e < 2; ++e) {
+          sv[e] = (own0 ? acc[nt * 4 + e] : 0.f) + (own1 ? acc[nt * 4 + 2 + e] : 0.f);
+          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 4);
+          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 8);
+          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 16);
+        }
+        const int c = c0 + nt * 8 + 2 * l.tig;
+        if (lane < 4 && c < h.cc) *reinterpret_cast<float2*>(phb + c) = make_float2(sv[0], sv[1]);
+      }
+      // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
+      // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
+      // tile is the warp's part of the wgmma layout), one accumulator a tap
+      const int ns = pass_slices(h, p);
+      for (int ec = 0; ec < a.ne; ++ec) {
+        float pac[3][4] = {};
+        const int slot = slot_of<kDStages>(k);
+        mbar_wait(&full[slot], parity_of<kDStages>(k));
+        // B[k][n] of tap j at (n / 8 = j) 256 + (k / 4) 128 + (n % 8) 16 + (k % 4) 4
+        const float* w0i = reinterpret_cast<const float*>(ring + slot * kDSlot) +
+                           (lane >> 2) * 4 + l.tig;
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int q = wm * 16 * kMT + mt * 16 + grp + 8 * half;
-            const int u = t0 - 1 + q;
-            const bool valid = u >= 0 && u < h.T;
-            float* slot = buf + q * a.lda + c;
-            const float a0 = slot[0];
-            const float a1 = slot[1];
-            const float da0 = acc[mt][nt][2 * half];
-            const float da1 = acc[mt][nt][2 * half + 1];
-            const float d0 = valid ? (a0 >= 0.f ? da0 : kSlope * da0) : 0.f;
-            const float d1 = valid ? (a1 >= 0.f ? da1 : kSlope * da1) : 0.f;
-            slot[0] = d0;
-            slot[1] = d1;
-            if (valid && q >= 1 && q <= kTile) {
-              const size_t off = ((size_t)b * h.T + u) * n0 + i * h.cc + c;
-              *reinterpret_cast<float2*>(a.a_out + off) = make_float2(a0, a1);
-              *reinterpret_cast<float2*>(a.dh_out + off) = make_float2(d0, d1);
+        for (int s = 0; s < kPassSlices; ++s) {
+          if (s < ns) {
+            FragA f;
+            split(acc[4 * s], f.hi[0], f.lo[0]);
+            split(acc[4 * s + 2], f.hi[1], f.lo[1]);
+            split(acc[4 * s + 1], f.hi[2], f.lo[2]);
+            split(acc[4 * s + 3], f.hi[3], f.lo[3]);
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              mma3(pac[j], f, load_b_split(w0i + 2 * s * (kW0Block / 4) + j * 64,
+                                           kW0Block / 4, 8));
             }
           }
         }
-      }
-    }
-    __syncthreads();
-
-    // dexc[t0+r] += sum_j sum_c dh[t0+r-j+1][c] W0[j][e][i*Cc+c]: buf row r + 2 - j
-    {
-      const int etiles = h.e_pad / 8;
-      for (int item = warp; item < (kRows / 16) * etiles; item += kThreads / 32) {
-        const int mt = item / etiles;
-        const int et = item - mt * etiles;
-        const int e = et * 8 + grp;  // this lane's B column
-        const float* wrow = h.w0 + (size_t)e * n0 + i * h.cc;
-        // one accumulator per tap: three independent chains of mma
-        float dj[3][4];
+        release(&empty[slot]);
+        ++k;
+        // dexc[tb + r] += P_0[r + 2] + P_1[r + 1] + P_2[r] (P's row q is dh's time u0 + q)
+        bar_sync(bar, 128);  // the previous chunk's reads of pw are done
 #pragma unroll
-        for (int j = 0; j < 3; ++j)
+        for (int jj = 0; jj < 3; ++jj) {
 #pragma unroll
-          for (int v = 0; v < 4; ++v) dj[j][v] = 0.f;
-        for (int ks = 0; ks < ks_tap; ++ks) {
-          const int cb = ks * 8;
-          const int ca = cb + tig;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float* wj = wrow + (size_t)j * h.E * n0;
-            const FragA fa = load_a(buf + (mt * 16 + grp + 2 - j) * a.lda + cb + tig, a.lda, 1);
-            const float b0 = (e < h.E && ca < h.cc) ? __ldg(wj + ca) : 0.f;
-            const float b1 = (e < h.E && ca + 4 < h.cc) ? __ldg(wj + ca + 4) : 0.f;
-            mma3(dj[j], fa, make_b(b0, b1));
+          for (int half = 0; half < 2; ++half) {
+            *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + jj * 8 + 2 * l.tig) =
+                make_float2(pac[jj][2 * half], pac[jj][2 * half + 1]);
           }
         }
-        float d[4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) d[v] = (dj[0][v] + dj[1][v]) + dj[2][v];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = mt * 16 + grp + 8 * half;
-          const int t = t0 + r;
-          if (r >= kTile || t >= h.T) continue;
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int ec = et * 8 + 2 * tig + u;
-            if (ec >= h.E) continue;
-            float* dst = a.dexc + ((size_t)b * h.T + t) * h.E + ec;
-            *dst = i == 0 ? d[2 * half + u] : *dst + d[2 * half + u];
+        bar_sync(bar, 128);
+        for (int x = l.wt; x < kOwn * 8; x += 128) {
+          const int r = x >> 3;
+          const int e = 8 * ec + (x & 7);
+          const int t = tb + r;
+          if (t < h.T && e < h.E) {
+            const float v = (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
+                            pw[r * kPLd + 16 + (x & 7)];
+            float* d = a.dexc + ((size_t)b * h.T + t) * h.E + e;
+            *d = i == 0 && p == 0 ? v : *d + v;
           }
         }
       }
-    }
-    // dh of the tile's own rows (buf rows 1 .. kTile) summed per channel, for dhbias
-    for (int c = warp; c < h.cc; c += kThreads / 32) {
-      const float s = own_rows_sum<kTile>(buf + c, a.lda, 1);
-      if (lane == 0) a.phb[((size_t)b * a.ntiles + tix) * n0 + i * h.cc + c] = s;
     }
   }
 }
+
+struct ImageArgs {
+  WhArgs wh;
+  const float* w1;  // (3, Cc, n*2C)
+  unsigned char* img_h;
+  unsigned char* img_w1;
+  unsigned char* img_w0;
+  int nimg, two_c, no, ne;
+};
+
+// The data kernel's images, 16 bytes (4 k of one row of a core matrix) a
+// thread (cond_chain_f32.cuh's layout)
+__global__ void k2_images_kernel(ImageArgs a) {
+  const WhArgs& wh = a.wh;
+  const int npass = passes(wh.cc);
+  const long long uh = (long long)a.nimg * (long long)(h_image_bytes(wh.n, wh.cc, wh.E) / 16);
+  const long long uw1 = (long long)wh.n * npass * a.no * (kW1Item / 16);
+  const long long uw0 = (long long)wh.n * npass * a.ne * (kW0Item / 16);
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < uh + uw1 + uw0;
+       u += (long long)gridDim.x * blockDim.x) {
+    if (u < uh) {
+      h_image_unit(wh, u, a.img_h);
+      continue;
+    }
+    float v[4];
+    int hl, row, k0;
+    unsigned char* dst;
+    if (u < uh + uw1) {
+      // W1_i[j]^T: row c of the pass, k = output channel 8 so + k
+      const long long u2 = u - uh;
+      const long long item = u2 / (kW1Item / 16);
+      int r = (int)(u2 - item * (kW1Item / 16));
+      const int jh = r / kHUnits;
+      r -= jh * kHUnits;
+      hl = jh & 1;
+      unit_place(r, row, k0);
+      const int so = (int)(item % a.no);
+      const int p = (int)((item / a.no) % npass);
+      const int i = (int)(item / ((long long)a.no * npass));
+      const int j = jh >> 1;
+      const int c = kPass * p + row;
+      const int n2 = wh.n * a.two_c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 8 * so + k0 + e;
+        v[e] = c < wh.cc && o < a.two_c ? a.w1[((size_t)j * wh.cc + c) * n2 + i * a.two_c + o]
+                                        : 0.f;
+      }
+      dst = a.img_w1 + u2 * 16;
+    } else {
+      // W0_i[j]^T: row 8 j + e of the chunk ec, k = the pass's channel 8 s + perm(k)
+      const long long u3 = u - uh - uw1;
+      const long long item = u3 / (kW0Item / 16);
+      int r = (int)(u3 - item * (kW0Item / 16));
+      const int blk = r / (kW0Block / 16);
+      r -= blk * (kW0Block / 16);
+      hl = blk & 1;
+      const int s = blk >> 1;
+      unit_place(r, row, k0);
+      const int ec = (int)(item % a.ne);
+      const int p = (int)((item / a.ne) % npass);
+      const int i = (int)(item / ((long long)a.ne * npass));
+      const int j = row >> 3;
+      const int e = 8 * ec + (row & 7);
+      const int n0 = wh.n * wh.cc;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int c = kPass * p + 8 * s + perm(k0 + x);
+        v[x] = e < wh.E && c < wh.cc ? wh.w0[((size_t)j * wh.E + e) * n0 + (size_t)i * wh.cc + c]
+                                     : 0.f;
+      }
+      dst = a.img_w0 + u3 * 16;
+    }
+    put_unit(dst, v, hl);
+  }
+}
+
+// -- (c), (d): the weight grads and the reduce, on mma.sync from the scratch
+
+constexpr int kWRows = 32;           // weight-grad kernel: rows per stage
+constexpr int kWStages = 2;
+constexpr int kTargetCtas = 4 * 132;  // split-K aims at four CTAs per SM
 
 struct WgradArgs {
   const float* X;  // unshifted operand: element (row, grp*xgoff + m), row = b*T + t
@@ -582,65 +688,55 @@ Wgrad wgrad_plan(int M, int N, int G, int B, int T) {
   return p;
 }
 
+
 // Everything the launch needs, from the shapes alone; ok = false for shapes
-// the kernels do not take.
+// the kernels do not take. Offsets are in floats of the workspace.
 struct Plan {
   bool ok;
-  int rows, ntiles, lda, ldx, ldg, ldw;
-  size_t smem;
+  int ntiles, no, ne, nimg;
   Wgrad w1, w0;
-  size_t off_a, off_dh, off_phb, off_pb1, off_pw1, off_pw0, total;
+  size_t off_a, off_dh, off_phb, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, total;
+  size_t h_image;  // bytes
 };
 
-Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
+Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   Plan p{};
   p.ok = false;
   if (B <= 0 || B > 65535 || T <= 0 || E <= 0 || n <= 0 || cc <= 0 || two_c <= 0 ||
-      cc % 4 || two_c % 4 ||
-      (long long)B * (T + 1) > (1LL << 30)) {
+      cc % 4 || two_c % 4 || (long long)B * (T + 1) > (1LL << 30)) {
     return p;
   }
-  p.lda = row_read_stride(cc);
-  p.ldx = row_read_stride(E);
-  p.ldg = row_read_stride(kOC);
-  p.rows = 0;
-  for (int r : kDataRows) {  // the largest tile whose shared memory fits
-    const int da_cols = r == 128 ? DataGeom<128>::kDaCols
-                                 : r == 64 ? DataGeom<64>::kDaCols : DataGeom<32>::kDaCols;
-    p.ldw = k_read_stride(da_cols);
-    p.smem = ((size_t)(r + 2) * p.lda + (size_t)(r + 2) * p.ldx +
-              (size_t)kStages * ((r + 2) * p.ldg + 2 * 3 * kOC * p.ldw)) * sizeof(float);
-    if (p.smem <= kSmemMax) {
-      p.rows = r;
-      break;
-    }
-  }
-  if (p.rows == 0) return p;
-  p.ntiles = (T + p.rows - 3) / (p.rows - 2);
+  p.ntiles = (T + kTile - 1) / kTile;
+  p.no = (two_c + 7) / 8;
+  p.ne = (E + 7) / 8;
+  p.nimg = per_row ? B : 1;
+  p.h_image = h_image_bytes(n, cc, E);
   const size_t R = (size_t)B * T;
   const size_t n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.w1 = wgrad_plan(two_c, cc, n, B, T);
   p.w0 = wgrad_plan((int)n0, E, 1, B, T);
   if (p.w1.smem > kSmemMax || p.w0.smem > kSmemMax) return p;
+  auto up = [](size_t x) { return (x + 63) / 64 * 64; };  // 256-byte boundaries
+  const size_t npass = passes(cc);
   p.off_a = 0;
   p.off_dh = p.off_a + R * n0;
   p.off_phb = p.off_dh + R * n0;
-  p.off_pb1 = p.off_phb + (size_t)B * p.ntiles * n0;
+  p.off_pb1 = p.off_phb + (size_t)B * 8 * p.ntiles * n0;
   p.off_pw1 = p.off_pb1 + (size_t)B * p.ntiles * n2;
   p.off_pw0 = p.off_pw1 + (size_t)p.w1.S * 3 * cc * n2;
-  p.total = p.off_pw0 + (size_t)p.w0.S * 3 * E * n0;
+  p.off_imh = up(p.off_pw0 + (size_t)p.w0.S * 3 * E * n0);
+  p.off_imw1 = up(p.off_imh + p.nimg * p.h_image / 4);
+  p.off_imw0 = up(p.off_imw1 + (size_t)n * npass * p.no * kW1Item / 4);
+  p.total = p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4;
   p.ok = true;
   return p;
 }
 
-template <int R, bool kOnePass>
 cudaError_t launch_data(const DataArgs& d, const Plan& p, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(k2_data_kernel<R, kOnePass>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)p.smem);
+  cudaError_t e = cudaFuncSetAttribute(k2_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kDataSmem);
   if (e != cudaSuccess) return e;
-  k2_data_kernel<R, kOnePass>
-      <<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, p.smem, stream>>>(d);
+  k2_data_kernel<<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, kDataSmem, stream>>>(d);
   return cudaGetLastError();
 }
 
@@ -689,36 +785,65 @@ cudaError_t launch_wgrad(const Wgrad& p, const float* X, long long ldx, int xgof
   return p.ntw == 1 ? launch_wgrad_t<1, false>(p, w, G, stream)
                     : launch_wgrad_t<3, false>(p, w, G, stream);
 }
+// Device time of a call's kernels, for measurement (smoke phase 8): while
+// on, a call records an event before its first launch and after the images,
+// the data kernel, each weight-grad kernel and the last reduce, on its stream
+bool g_timed = false;
+cudaEvent_t g_marks[6];
 
 }  // namespace
 
-// The rows of h / dh per data-kernel CTA at these widths (128, 64 or 32), or
-// 0 for shapes the kernels do not take.
-extern "C" int cond_chain_bwd_rows(int B, int T, int E, int n, int cc, int two_c) {
-  const Plan p = make_plan(B, T, E, n, cc, two_c);
-  return p.ok ? p.rows : 0;
+// Times the kernels of the calls that follow (on != 0) or stops (0); the
+// events are made at the first call that turns it on.
+extern "C" int cond_chain_bwd_time_kernels(int on) {
+  if (on && g_marks[0] == nullptr) {
+    for (cudaEvent_t& e : g_marks) {
+      const cudaError_t err = cudaEventCreate(&e);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  g_timed = on != 0;
+  return 0;
+}
+
+// ms[0..4]: the last timed call's k2_images_kernel, k2_data_kernel,
+// k2_wgrad_kernel for dW1, k2_wgrad_kernel for dW0 and its k2_reduce_kernel
+// launches (4 to 6), each from the end of the launch before it (synchronize
+// first)
+extern "C" int cond_chain_bwd_kernel_ms(float* ms) {
+  for (int k = 0; k < 5; ++k) {
+    const cudaError_t err = cudaEventElapsedTime(&ms[k], g_marks[k], g_marks[k + 1]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // Floats of device scratch cond_chain_bwd_f32 needs for these shapes (0 for
-// shapes the kernels do not take).
-extern "C" long long cond_chain_bwd_workspace(int B, int T, int E, int n, int cc, int two_c) {
-  const Plan p = make_plan(B, T, E, n, cc, two_c);
+// shapes the kernels do not take); per_row: hbias or the edges differ per
+// batch row.
+extern "C" long long cond_chain_bwd_workspace(int B, int T, int E, int n, int cc, int two_c,
+                                              int per_row) {
+  const Plan p = make_plan(B, T, E, n, cc, two_c, per_row != 0);
   return p.ok ? (long long)p.total : 0;
 }
 
 // Launches K2's kernels on `stream` and returns the first CUDA error (0 on
-// success); shapes the kernels do not take, or too little workspace, give
-// cudaErrorInvalidValue. dhbias is (B, n*Cc), or (n*Cc) when hbias_bstride is
-// 0; dedge0/dedge_t are written when edge0 is given.
+// success); shapes the kernels do not take, too little workspace or a tensor
+// map cuTensorMapEncodeTiled refuses give cudaErrorInvalidValue. w1 is in
+// its own (3, Cc, n*2C) layout; g must be 16-byte aligned. dhbias is
+// (B, n*Cc), or (n*Cc) when hbias_bstride is 0; dedge0/dedge_t are written
+// when edge0 is given.
 extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float* hbias,
                                   long long hbias_bstride, const float* edge0,
-                                  const float* edge_t, const float* w1t, const float* g,
+                                  const float* edge_t, const float* w1, const float* g,
                                   float* dexc, float* dw0, float* dhbias, float* dedge0,
                                   float* dedge_t, float* dw1, float* db1, float* ws,
                                   long long ws_floats, int B, int T, int E, int n, int cc,
                                   int two_c, void* stream_ptr) {
-  const Plan p = make_plan(B, T, E, n, cc, two_c);
-  if (!p.ok || ws_floats < (long long)p.total || (edge0 == nullptr) != (dedge0 == nullptr)) {
+  const bool per_row = hbias_bstride != 0 || edge0 != nullptr;
+  const Plan p = make_plan(B, T, E, n, cc, two_c, per_row);
+  if (!p.ok || ws_floats < (long long)p.total || (edge0 == nullptr) != (dedge0 == nullptr) ||
+      (uintptr_t)g % 16 || (uintptr_t)ws % 256) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -726,47 +851,55 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   const int n2 = n * two_c;
   float* a_s = ws + p.off_a;
   float* dh_s = ws + p.off_dh;
+  unsigned char* img_h = reinterpret_cast<unsigned char*>(ws + p.off_imh);
+  unsigned char* img_w1 = reinterpret_cast<unsigned char*>(ws + p.off_imw1);
+  unsigned char* img_w0 = reinterpret_cast<unsigned char*>(ws + p.off_imw0);
 
   DataArgs d;
-  d.h.exc = exc;
-  d.h.w0 = w0;
-  d.h.hbias = hbias;
-  d.h.hbias_bstride = hbias_bstride;
-  d.h.edge0 = edge0;
-  d.h.edge_t = edge_t;
-  d.h.T = T;
-  d.h.E = E;
-  d.h.n = n;
-  d.h.cc = cc;
-  d.h.e_pad = (E + 7) / 8 * 8;
-  d.h.cc_pad = (cc + 7) / 8 * 8;
-  d.w1t = w1t;
-  d.g = g;
+  d.h = HArgs{exc, T, E, n, cc, passes(cc), h_slices(E)};
+  d.img_h = img_h;
+  d.h_image = per_row ? (long long)p.h_image : 0;
+  d.img_w1 = img_w1;
+  d.img_w0 = img_w0;
   d.a_out = a_s;
   d.dh_out = dh_s;
   d.dexc = dexc;
   d.phb = ws + p.off_phb;
   d.pb1 = ws + p.off_pb1;
   d.two_c = two_c;
+  d.no = p.no;
+  d.ne = p.ne;
   d.ntiles = p.ntiles;
-  d.lda = p.lda;
-  d.ldx = p.ldx;
-  d.ldg = p.ldg;
-  d.ldw = p.ldw;
-  cudaError_t e = p.rows == 128 ? (cc <= kDaCols128 ? launch_data<128, true>(d, p, B, stream)
-                                                    : launch_data<128, false>(d, p, B, stream))
-                  : p.rows == 64 ? launch_data<64, false>(d, p, B, stream)
-                                 : launch_data<32, false>(d, p, B, stream);
+  const cuuint64_t o = (cuuint64_t)two_c;
+  const cuuint64_t g_dims[4] = {o, (cuuint64_t)n, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t g_strides[3] = {o * 4, o * 4 * n, o * 4 * n * T};
+  const cuuint32_t g_box[4] = {4, 1, (cuuint32_t)kGBox, 1};
+  if (!make_map_f32(&d.g_map, g, 4, g_dims, g_strides, g_box)) return (int)cudaErrorInvalidValue;
+  const ImageArgs im{WhArgs{w0, hbias, hbias_bstride, edge0, edge_t, E, n, cc}, w1, img_h, img_w1,
+                     img_w0, p.nimg, two_c, p.no, p.ne};
+
+  auto mark = [&](int k) {
+    if (g_timed) cudaEventRecord(g_marks[k], stream);
+  };
+  mark(0);
+  k2_images_kernel<<<264, 256, 0, stream>>>(im);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  mark(1);
+  if ((e = launch_data(d, p, B, stream)) != cudaSuccess) return (int)e;
+  mark(2);
 
   // dW1^T from g and lrelu(h) (shifted); dW0^T from dh and exc (shifted)
   if ((e = launch_wgrad(p.w1, g, n2, two_c, two_c, a_s, n0, cc, cc, n, B, T, ws + p.off_pw1,
                         stream)) != cudaSuccess) return (int)e;
+  mark(3);
   if ((e = launch_wgrad(p.w0, dh_s, n0, 0, n0, exc, E, 0, E, 1, B, T, ws + p.off_pw0,
                         stream)) != cudaSuccess) return (int)e;
+  mark(4);
 
   const long long len1 = 3LL * cc * n2;
   const long long len0 = 3LL * E * n0;
+  const int parts = 8 * p.ntiles;  // dhbias's partials a batch row: one a consumer warp
   if ((e = launch_reduce(ws + p.off_pw1, dw1, len1, 1, p.w1.S, len1, 0, 1.f, stream)) !=
       cudaSuccess) return (int)e;
   if ((e = launch_reduce(ws + p.off_pw0, dw0, len0, 1, p.w0.S, len0, 0, 1.f, stream)) !=
@@ -774,10 +907,10 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   if ((e = launch_reduce(ws + p.off_pb1, db1, n2, 1, B * p.ntiles, n2, 0, 1.f, stream)) !=
       cudaSuccess) return (int)e;
   if (hbias_bstride) {
-    e = launch_reduce(ws + p.off_phb, dhbias, n0, B, p.ntiles, n0, (long long)p.ntiles * n0,
-                      1.f, stream);
+    e = launch_reduce(ws + p.off_phb, dhbias, n0, B, parts, n0, (long long)parts * n0, 1.f,
+                      stream);
   } else {
-    e = launch_reduce(ws + p.off_phb, dhbias, n0, 1, B * p.ntiles, n0, 0, 1.f, stream);
+    e = launch_reduce(ws + p.off_phb, dhbias, n0, 1, B * parts, n0, 0, 1.f, stream);
   }
   if (e != cudaSuccess) return (int)e;
   if (edge0) {
@@ -786,5 +919,6 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
     if ((e = launch_reduce(dh_s + (size_t)(T - 1) * n0, dedge_t, n0, B, 1, 0,
                            (long long)T * n0, -1.f, stream)) != cudaSuccess) return (int)e;
   }
+  mark(5);
   return 0;
 }

@@ -20,13 +20,25 @@ The forward (K1, ``csrc/cond_chain.cu``) replaces
 ``td_vc_gan_tpu/ops/pallas/cond_chain.py::_fwd_kernel``; the backward (K2,
 ``csrc/cond_chain_bwd.cu``) replaces its ``_bwd_kernel``. Both run their
 products on the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``: f32 accuracy
-from TF32 ``mma.sync`` tiles) and share cond_0's recompute
-(``csrc/cond_chain_h.cuh``). Both are tied
-together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors launch
-the kernels (or raise for what they do not take), CPU tensors run
-:func:`cond_chain_plain` and :func:`cond_chain_bwd_plain`. Layouts are
-channels-last, as in the JAX package: ``exc (B, T, E)``, ``w0 (3, E, n*Cc)``,
-``w1 (3, Cc, n*2C)``, output ``(B, T, n*2C)``.
+from TF32 products). K1 and K2's data kernel are Hopper kernels: ``wgmma``
+on operands that bulk and TMA copies bring through ``mbarrier`` rings
+(``csrc/cond_chain_f32.cuh``, ``csrc/hopper_bf16.cuh``), on images of the
+weights the libraries make at each launch in a workspace the wrapper
+allocates; K2's weight grads run on ``mma.sync`` from a scratch. Both are
+tied together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors
+launch the kernels (or raise for a device, dtype or layout they do not
+take), CPU tensors run :func:`cond_chain_plain` and
+:func:`cond_chain_bwd_plain`. Layouts are channels-last, as in the JAX
+package: ``exc (B, T, E)``, ``w0 (3, E, n*Cc)``, ``w1 (3, Cc, n*2C)``, output
+``(B, T, n*2C)``.
+
+Every width runs through the kernels, as every width runs in the JAX
+package: none of the four kernels' shared memory grows with Cc or E (passes
+of 136 channels of h). Where a kernel takes Cc or 2C in multiples only
+(``_GRAIN``), the wrapper pads each block's channels with zeros and cuts the
+results back (:func:`_pad_widths`, :func:`_cut_grads`; exact: a zero
+channel of h is zero after leaky_relu, and zero rows or columns of W1 add
+nothing).
 
 The operands are all float32 or all bfloat16 (the JAX package's bf16
 compute scope). bfloat16 operands take the kernels' bf16 instances, K1-bf16
@@ -39,9 +51,7 @@ weights they make in a workspace the wrapper allocates. They round where the
 Pallas kernels round their bf16 instance: lrelu(h) once before the second
 product, the output once; in the backward dh and dexc once each, and every
 weight and bias gradient summed in f32 and rounded once. The plain versions
-round at the same points. K2-bf16 reads g and W1 through tensor maps that
-need 2C a multiple of 8; the wrapper pads other widths with zero columns per
-block (:func:`_pad_blocks`).
+round at the same points.
 """
 
 from __future__ import annotations
@@ -172,27 +182,29 @@ def _library() -> dict:
         for name in ("fwd", "fwd_bf16"):
             libs[name].cond_chain_error_string.argtypes = [i]
             libs[name].cond_chain_error_string.restype = ctypes.c_char_p
-        libs["fwd"].cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p,
+        libs["fwd"].cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll,
                                                    i, i, i, i, i, i, p]
         libs["fwd"].cond_chain_fwd_f32.restype = i
+        libs["fwd"].cond_chain_fwd_f32_workspace.argtypes = [i, i, i, i, i, i]
+        libs["fwd"].cond_chain_fwd_f32_workspace.restype = ll
         libs["fwd_bf16"].cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll,
                                                          i, i, i, i, i, i, p]
         libs["fwd_bf16"].cond_chain_fwd_bf16.restype = i
         libs["fwd_bf16"].cond_chain_fwd_bf16_workspace.argtypes = [i, i, i, i, i]
         libs["fwd_bf16"].cond_chain_fwd_bf16_workspace.restype = ll
-        libs["fwd"].cond_chain_fwd_tile.argtypes = [i, i, i]
-        libs["fwd"].cond_chain_fwd_tile.restype = i
         libs["fwd_bf16"].cond_chain_fwd_bf16_tile.argtypes = [i, i, i]
         libs["fwd_bf16"].cond_chain_fwd_bf16_tile.restype = i
         bwd = libs["bwd"]
-        bwd.cond_chain_bwd_rows.argtypes = [i, i, i, i, i, i]
-        bwd.cond_chain_bwd_rows.restype = i
-        bwd.cond_chain_bwd_workspace.argtypes = [i, i, i, i, i, i]
+        bwd.cond_chain_bwd_workspace.argtypes = [i, i, i, i, i, i, i]
         bwd.cond_chain_bwd_workspace.restype = ll
         bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ll, p, p, p, p,
                                            p, p, p, p, p, p, p,
                                            p, ll, i, i, i, i, i, i, p]
         bwd.cond_chain_bwd_f32.restype = i
+        bwd.cond_chain_bwd_time_kernels.argtypes = [i]
+        bwd.cond_chain_bwd_time_kernels.restype = i
+        bwd.cond_chain_bwd_kernel_ms.argtypes = [ctypes.POINTER(ctypes.c_float)]
+        bwd.cond_chain_bwd_kernel_ms.restype = i
         bwd = libs["bwd_bf16"]
         bwd.cond_chain_bwd_bf16_rows.argtypes = [i, i, i, i, i, i]
         bwd.cond_chain_bwd_bf16_rows.restype = i
@@ -325,12 +337,10 @@ def _check_cuda(name, x, device, dtype):
 
 def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
     """Shapes, device, dtype (all float32 or all bfloat16) and contiguity the
-    kernels take; (B, T, E, n, Cc, 2C). ``b1`` may be None (the backward does
-    not read it)."""
+    kernels take; (B, T, E, n, Cc, 2C). Any widths: the wrapper pads them to
+    what each kernel takes. ``b1`` may be None (the backward does not read
+    it)."""
     b, t, e, n, cc, two_c = _dims(exc, w0, w1)
-    if two_c % 4 or two_c > 1024 or cc % 4:
-        raise ValueError(f"cond chain kernels take 2C a multiple of 4 up to 1024 and Cc a "
-                         f"multiple of 4, got 2C={two_c}, Cc={cc}")
     dev = exc.device
     ops = {"exc": exc, "w0": w0, "hbias": hbias, "w1": w1}
     if b1 is not None:
@@ -348,12 +358,73 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
     return b, t, e, n, cc, two_c
 
 
-# The f32 kernels take a 128-row time tile, else a 64- or 32-row one where a
-# wide Cc or E leaves the larger tile's shared memory over a block's 227 KB;
-# the bf16 ones one 124-row tile at every width (in passes of 136 columns).
-# Each library says which tile it takes (0: none fits).
-_NO_TILE = ("cond chain kernels: even a 32-row time tile at Cc={cc}, E={e} needs more "
-            "than a block's 227 KB of shared memory")
+# The widths each kernel takes, as the multiples of (Cc, 2C) it needs: K2's
+# cp.async and tensor map and K2-bf16's tensor maps copy rows in 16-byte
+# pieces, K1 stores output columns in pairs. Other widths are padded with
+# zero channels per block (_pad_widths) and the results cut back
+# (_cut_grads, _cut_blocks).
+_GRAIN = {"fwd": (1, 2), "bwd": (4, 4), "fwd_bf16": (4, 4), "bwd_bf16": (4, 8)}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _padded_widths(kind: str, cc: int, two_c: int) -> tuple[int, int]:
+    """(Cc, 2C) rounded up to what the kernel ``kind`` (a key of _GRAIN) takes."""
+    gc, g2 = _GRAIN[kind]
+    return _round_up(cc, gc), _round_up(two_c, g2)
+
+
+def _pad_blocks(x, n, two_c, width):
+    """x (..., n*2C) with each block's 2C columns padded to ``width`` with
+    zeros: (..., n*width), contiguous."""
+    out = x.new_zeros((*x.shape[:-1], n, width))
+    out[..., :two_c] = x.reshape(*x.shape[:-1], n, two_c)
+    return out.reshape(*x.shape[:-1], n * width)
+
+
+def _cut_blocks(x, n, width, keep):
+    """x (..., n*width) with each block's first ``keep`` columns:
+    (..., n*keep), contiguous."""
+    return x.reshape(*x.shape[:-1], n, width)[..., :keep].reshape(*x.shape[:-1], n * keep)
+
+
+_CC_KEYS = ("w0", "hbias", "edge0", "edge_t")  # operands with n*Cc columns
+
+
+def _pad_widths(ops: dict, n, cc, two_c, cc_to, two_c_to) -> dict:
+    """The chain's operands (any of ``w0``, ``hbias``, ``edge0``,
+    ``edge_t``, ``w1``, ``b1``, ``g``) with each block's Cc channels padded to
+    ``cc_to`` and its 2C output columns to ``two_c_to``, with zeros."""
+    out = dict(ops)
+    for k, v in ops.items():
+        if v is None:
+            continue
+        if k in _CC_KEYS and cc_to != cc:
+            out[k] = _pad_blocks(v, n, cc, cc_to)
+        elif k in ("b1", "g") and two_c_to != two_c:
+            out[k] = _pad_blocks(v, n, two_c, two_c_to)
+        elif k == "w1":
+            if two_c_to != two_c:
+                v = _pad_blocks(v, n, two_c, two_c_to)
+            out[k] = F.pad(v, (0, 0, 0, cc_to - cc)) if cc_to != cc else v
+    return out
+
+
+def _cut_grads(grads: dict, n, cc, two_c, cc_from, two_c_from) -> dict:
+    """The backward's gradients at padded widths (``cc_from``,
+    ``two_c_from``) cut back to the operands' (Cc, 2C)."""
+    out = dict(grads)
+    for k in _CC_KEYS:
+        if k in out and cc_from != cc:
+            out[k] = _cut_blocks(out[k], n, cc_from, cc)
+    w1 = out["w1"]
+    if two_c_from != two_c:
+        w1 = _cut_blocks(w1, n, two_c_from, two_c)
+        out["b1"] = _cut_blocks(out["b1"], n, two_c_from, two_c)
+    out["w1"] = w1[:, :cc].contiguous() if cc_from != cc else w1
+    return out
 
 
 def _stream(dev):
@@ -367,33 +438,41 @@ def _error(lib, err):
 
 def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
     """K1 (float32 operands) or K1-bf16 (bfloat16): the forward kernel,
-    (B, T, n*2C) in the operands' dtype."""
-    global launches, launches_bf16
+    (B, T, n*2C) in the operands' dtype, at any widths (padded to what the
+    kernel takes, the output cut back)."""
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t)
-    bf16 = exc.dtype == torch.bfloat16
-    if not bf16 and w1.data_ptr() % 16:
-        raise ValueError("cond chain kernel copies w1 in 16-byte pieces: it must be "
-                         "16-byte aligned")
-    fwd = _library()["fwd_bf16" if bf16 else "fwd"]
-    tile = fwd.cond_chain_fwd_bf16_tile if bf16 else fwd.cond_chain_fwd_tile
-    if not tile(e, cc, two_c):
-        raise ValueError(_NO_TILE.format(cc=cc, e=e))
+    kind = "fwd_bf16" if exc.dtype == torch.bfloat16 else "fwd"
+    cc_p, two_c_p = _padded_widths(kind, cc, two_c)
+    if (cc_p, two_c_p) == (cc, two_c):
+        return _launch_fwd(kind, exc, w0, hbias, w1, b1, edge0, edge_t, b, t, e, n, cc, two_c)
+    ops = _pad_widths(dict(w0=w0, hbias=hbias, w1=w1, b1=b1, edge0=edge0, edge_t=edge_t),
+                      n, cc, two_c, cc_p, two_c_p)
+    out = _launch_fwd(kind, exc, **ops, b=b, t=t, e=e, n=n, cc=cc_p, two_c=two_c_p)
+    return _cut_blocks(out, n, two_c_p, two_c) if two_c_p != two_c else out
+
+
+def _launch_fwd(kind, exc, w0, hbias, w1, b1, edge0, edge_t, b, t, e, n, cc, two_c):
+    """One launch of K1 or K1-bf16 at widths it takes, with the workspace
+    for the images of W0 and W1 it makes at each launch."""
+    global launches, launches_bf16
+    fwd = _library()[kind]
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
     args = (exc.data_ptr(), w0.data_ptr(), hbias.data_ptr(), n * cc if hbias.dim() == 2 else 0,
             edge0.data_ptr() if edge0 is not None else None,
             edge_t.data_ptr() if edge_t is not None else None,
             w1.data_ptr(), b1.data_ptr(), out.data_ptr())
-    if bf16:
-        # the images of W0 and W1 the kernel makes at each launch
-        ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
-                         device=exc.device, dtype=torch.uint8)
-        err = fwd.cond_chain_fwd_bf16(*args, ws.data_ptr(), ws.numel(),
-                                      b, t, e, n, cc, two_c, _stream(exc.device))
+    if kind == "fwd_bf16":
+        nbytes = fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)
+        launch = fwd.cond_chain_fwd_bf16
     else:
-        err = fwd.cond_chain_fwd_f32(*args, b, t, e, n, cc, two_c, _stream(exc.device))
+        nbytes = fwd.cond_chain_fwd_f32_workspace(b, e, n, cc, two_c,
+                                                  int(hbias.dim() == 2 or edge0 is not None))
+        launch = fwd.cond_chain_fwd_f32
+    ws = torch.empty(int(nbytes), device=exc.device, dtype=torch.uint8)
+    err = launch(*args, ws.data_ptr(), ws.numel(), b, t, e, n, cc, two_c, _stream(exc.device))
     if err:
         raise RuntimeError("cond chain kernel launch failed: " + _error(fwd, err))
-    if bf16:
+    if kind == "fwd_bf16":
         launches_bf16 += 1
     else:
         launches += 1
@@ -402,26 +481,34 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
 
 def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
     """K2 (float32 operands) or K2-bf16 (bfloat16): the backward kernels, the
-    same dict as :func:`cond_chain_bwd_plain`."""
-    global bwd_launches
+    same dict as :func:`cond_chain_bwd_plain`, at any widths (padded to what
+    the kernels take, the gradients cut back)."""
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, None, edge0, edge_t)
     _check_cuda("g", g, exc.device, exc.dtype)
     if g.shape != (b, t, n * two_c):
         raise ValueError(f"cond chain cotangent {tuple(g.shape)} is not {(b, t, n * two_c)}")
-    if exc.dtype == torch.bfloat16:
-        return _launch_bwd_bf16(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c)
-    if (e % 4 == 0 and exc.data_ptr() % 16) or g.data_ptr() % 16:
-        raise ValueError("cond chain backward kernels copy g, and exc when E is a multiple "
-                         "of 4, in 16-byte pieces: they must be 16-byte aligned")
+    bf16 = exc.dtype == torch.bfloat16
+    run = _launch_bwd_bf16 if bf16 else _launch_bwd_f32
+    cc_p, two_c_p = _padded_widths("bwd_bf16" if bf16 else "bwd", cc, two_c)
+    ops = dict(w0=w0, hbias=hbias, w1=w1, g=g, edge0=edge0, edge_t=edge_t)
+    if (cc_p, two_c_p) == (cc, two_c):
+        return run(exc, **ops, b=b, t=t, e=e, n=n, cc=cc, two_c=two_c)
+    ops = _pad_widths(ops, n, cc, two_c, cc_p, two_c_p)
+    grads = run(exc, **ops, b=b, t=t, e=e, n=n, cc=cc_p, two_c=two_c_p)
+    return _cut_grads(grads, n, cc, two_c, cc_p, two_c_p)
+
+
+def _launch_bwd_f32(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
+    """K2 on checked f32 operands at widths it takes: the gradients."""
+    global bwd_launches
+    g = _aligned16(g)  # the data kernel's tensor map; the weight grads' 16-byte copies
+    if e % 4 == 0:
+        exc = _aligned16(exc)  # dW0 copies its rows in 16-byte pieces where E allows
     libs = _library()
     fwd, bwd = libs["fwd"], libs["bwd"]
-    if not bwd.cond_chain_bwd_rows(b, t, e, n, cc, two_c):
-        raise ValueError(_NO_TILE.format(cc=cc, e=e))
     dev = exc.device
-    # (n, 3, 2C, Cc): block i's tap-j cond_1 kernel transposed, Cc contiguous,
-    # the B operand of K2's da product
-    w1t = w1.reshape(3, cc, n, two_c).permute(2, 0, 3, 1).contiguous()
-    ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c)),
+    per_row = int(hbias.dim() == 2 or edge0 is not None)
+    ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c, per_row)),
                      device=dev, dtype=torch.float32)
     out = dict(exc=torch.empty_like(exc), w0=torch.empty_like(w0),
                hbias=torch.empty_like(hbias), w1=torch.empty_like(w1),
@@ -433,7 +520,7 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
         n * cc if hbias.dim() == 2 else 0,
         edge0.data_ptr() if edge0 is not None else None,
         edge_t.data_ptr() if edge_t is not None else None,
-        w1t.data_ptr(), g.data_ptr(),
+        w1.data_ptr(), g.data_ptr(),
         out["exc"].data_ptr(), out["w0"].data_ptr(), out["hbias"].data_ptr(),
         out["edge0"].data_ptr() if edge0 is not None else None,
         out["edge_t"].data_ptr() if edge0 is not None else None,
@@ -445,38 +532,18 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
     return out
 
 
-def _pad_blocks(x, n, two_c, width):
-    """x (..., n*2C) with each block's 2C columns padded to ``width`` with
-    zeros: (..., n*width), contiguous."""
-    out = x.new_zeros((*x.shape[:-1], n, width))
-    out[..., :two_c] = x.reshape(*x.shape[:-1], n, two_c)
-    return out.reshape(*x.shape[:-1], n * width)
-
-
 def _aligned16(x):
     """x, or a copy of it at a 16-byte aligned address."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch_bwd_bf16(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
-    """K2-bf16 on checked bf16 operands: the gradients in bf16. 2C not a
-    multiple of 8 runs at the next multiple, g and W1 padded with zero
-    columns per block (their columns contribute nothing), and dW1 and db1
-    are cut back."""
+    """K2-bf16 on checked bf16 operands at widths it takes: the gradients in
+    bf16."""
     global bwd_launches_bf16
-    width = (two_c + 7) // 8 * 8
-    if width != two_c:
-        out = _launch_bwd_bf16(exc, w0, hbias, _pad_blocks(w1, n, two_c, width),
-                               _pad_blocks(g, n, two_c, width), edge0, edge_t,
-                               b, t, e, n, cc, width)
-        out["w1"] = out["w1"].reshape(3, cc, n, width)[..., :two_c].reshape(3, cc, n * two_c)
-        out["b1"] = out["b1"].reshape(n, width)[:, :two_c].reshape(n * two_c)
-        return out
     w1, g = _aligned16(w1), _aligned16(g)
     libs = _library()
     fwd, bwd = libs["fwd_bf16"], libs["bwd_bf16"]
-    if not bwd.cond_chain_bwd_bf16_rows(b, t, e, n, cc, two_c):
-        raise ValueError(_NO_TILE.format(cc=cc, e=e))
     dev = exc.device
     ws = torch.empty(int(bwd.cond_chain_bwd_bf16_workspace(b, t, e, n, cc, two_c)),
                      device=dev, dtype=torch.uint8)

@@ -421,18 +421,22 @@ def test_padding_2c_to_a_multiple_of_8_is_exact():
 
 def test_bf16_libraries_are_keyed_on_the_hopper_header(tmp_path):
     """Both bf16 libraries include csrc/hopper_bf16.cuh (through
-    cond_chain_bf16.cuh): editing it rebuilds both and neither f32 library."""
+    cond_chain_bf16.cuh), and so do both f32 ones (through
+    cond_chain_f32.cuh, their Hopper kernels): editing it rebuilds all four;
+    editing cond_chain_bf16.cuh rebuilds the bf16 ones only."""
     for src in (*cond_chain.SOURCES, *cond_chain.BF16_SOURCES,
                 *cond_chain.SOURCES[0].parent.glob("*.cuh")):
         shutil.copy(src, tmp_path / src.name)
     bf = [tmp_path / s.name for s in cond_chain.BF16_SOURCES]
     f32 = [tmp_path / s.name for s in cond_chain.SOURCES]
-    for src in bf:
+    for src in (*bf, *f32):
         assert "hopper_bf16.cuh" in {p.name for p in cond_chain._sources_of(src)}
-    for src in f32:
-        assert "hopper_bf16.cuh" not in {p.name for p in cond_chain._sources_of(src)}
     before = [cond_chain._lib_path(x) for x in (*bf, *f32)]
     header = tmp_path / "hopper_bf16.cuh"
     header.write_text(header.read_text() + "\n")
     after = [cond_chain._lib_path(x) for x in (*bf, *f32)]
-    assert after[0] != before[0] and after[1] != before[1] and after[2:] == before[2:]
+    assert all(a != b for a, b in zip(after, before))
+    header = tmp_path / "cond_chain_bf16.cuh"
+    header.write_text(header.read_text() + "\n")
+    again = [cond_chain._lib_path(x) for x in (*bf, *f32)]
+    assert again[0] != after[0] and again[1] != after[1] and again[2:] == after[2:]

@@ -243,10 +243,9 @@ def test_library_is_keyed_on_its_headers(tmp_path):
     for src in (*cond_chain.SOURCES, *cond_chain.SOURCES[0].parent.glob("*.cuh")):
         shutil.copy(src, tmp_path / src.name)
     fwd, bwd = (tmp_path / s.name for s in cond_chain.SOURCES)
-    assert {p.name for p in cond_chain._sources_of(fwd)} == {
-        "cond_chain.cu", "cond_chain_h.cuh", "tf32x3.cuh"}
-    assert {p.name for p in cond_chain._sources_of(bwd)} == {
-        "cond_chain_bwd.cu", "cond_chain_h.cuh", "tf32x3.cuh"}
+    headers = {"cond_chain_f32.cuh", "hopper_bf16.cuh", "tf32x3.cuh"}
+    assert {p.name for p in cond_chain._sources_of(fwd)} == {"cond_chain.cu", *headers}
+    assert {p.name for p in cond_chain._sources_of(bwd)} == {"cond_chain_bwd.cu", *headers}
     before = cond_chain._lib_path(fwd), cond_chain._lib_path(bwd)
     assert before == tuple(cond_chain._lib_path(s) for s in cond_chain.SOURCES)
     (tmp_path / "tf32x3.cuh").write_text((tmp_path / "tf32x3.cuh").read_text() + "\n")

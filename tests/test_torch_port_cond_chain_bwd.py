@@ -158,11 +158,15 @@ def test_mrf_films_gradients_reach_speaker_excitation_and_weights(monkeypatch):
 
 def test_kernel_route_checks_operands():
     """The kernel route raises on what K1/K2 do not take (checked before any
-    build): Cc or 2C not a multiple of 4, float64, non-contiguous. Cc past
-    one pass of K2's da product (148) and E not a multiple of 4 (6) pass."""
+    build): float64, non-contiguous. Every width passes: Cc = 11 is padded to
+    12 for the kernels that take Cc in multiples of 4 (K1 takes it as it is);
+    Cc past one pass of 136 channels (148) and E not a multiple of 4 (6)
+    pass."""
     ops = operands(True, s=9, e=2)  # Cc = 11
-    with pytest.raises(ValueError, match="multiple of 4"):
-        cond_chain._check_operands(**ops)
+    assert cond_chain._check_operands(**ops)[4] == 11
+    assert cond_chain._padded_widths("fwd", 11, 8) == (11, 8)
+    for kind in ("bwd", "fwd_bf16", "bwd_bf16"):
+        assert cond_chain._padded_widths(kind, 11, 8) == (12, 8)
     for kw, cc in ((dict(s=144, e=4), 148), (dict(s=10, e=6), 16)):
         assert cond_chain._check_operands(**operands(True, **kw))[4] == cc
     ops = operands(True, s=12)  # Cc = 16
@@ -181,10 +185,9 @@ def test_kernel_route_checks_operands():
     (True, 1204, 32),
 ], ids=["decoder", "decoder-2C32", "split392", "concat184", "concat344", "split1204"])
 def test_kernel_tiles_take_any_cc_up_to_shared_memory(split, cc, two_c):
-    """The operand check lets widths through whose 128-row plans pass a
-    block's shared memory: the kernels take 64- or 32-row time tiles there,
-    and only the libraries' own plans refuse what no tile holds (on the
-    card, chip_smoke.py holds each tile against the plain version)."""
+    """The operand check lets every width through: the kernels take Cc in
+    passes of 136 channels, so their shared memory does not grow with it (on
+    the card, chip_smoke.py holds these widths against the plain version)."""
     ops = {"edge0": None, "edge_t": None,
            **operands(split, t=6, s=cc - 8 if split else 8, e=8, cc=cc, two_c=two_c)}
     assert cond_chain._check_operands(**ops)[4] == cc

@@ -1,0 +1,393 @@
+"""The tiling of the Hopper f32 cond-chain kernels, emulated in numpy, and the
+wrapper's width repair.
+
+K1 (``csrc/cond_chain.cu``) and K2's data kernel (``csrc/cond_chain_bwd.cu``)
+run on the card only. Their index arithmetic, their 3xTF32 rounding and the
+order of their products are emulated here step by step as the kernels take
+them (``csrc/cond_chain_f32.cuh`` describes the CTA) and held to the plain
+versions (``cond_chain_plain``, ``cond_chain_bwd_plain``) within
+``testing.PARITY_RTOL`` of max|ref|, as ``chip_smoke.py`` holds the kernels
+on the card:
+
+- a CTA owns 124 time rows; its two consumer warpgroups hold 64 rows of h
+  each, from t0 + 62 w - 1, overlapping by two rows; the last tile is ragged;
+- every operand a product reads is split into hi = tf32(x) and
+  lo = tf32(x - hi) (``cvt.rna``: nearest, ties away from zero), and every
+  product of a k-slice of 8 is taken as lo.hi + hi.lo + hi.hi into the f32
+  accumulator, in that order;
+- cond_0 is one product, h = X @ Wh with X = [exc taps | 1 | -[u == 0] |
+  -[u == T-1]] and Wh = [W0; hbias; edge0; edge_t], K = 3E + 3 in k-slices
+  of 8, per pass of 136 columns of h;
+- K1: lrelu(h) of a pass (zero outside [0, T) and past Cc) is the A of
+  out = b1 + sum_j A(rows j ..) @ W1_i[j], the pass's k-slices, each with
+  its three taps, summed over the passes;
+- K2's data kernel: lrelu(h) of the own rows to the scratch; da from g's
+  rows 62 w + q + 2 - j of the CTA's 128-row tile; dh = lrelu'(h) da; dexc
+  as P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] with dh's accumulator
+  pairs as the m16n8k8 A fragment (the image's K order permuted to match),
+  then dexc[t] = P_0[t+1] + P_1[t] + P_2[t-1], summed over blocks and
+  passes; dhbias per warp (16 rows) and db1 per CTA, reduced in order; dW1
+  and dW0 from the scratch (the weight-grad kernel, unchanged).
+
+Numpy and torch's CPU ops only, no JAX compile: ~10 s of one worker.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from td_vc_gan_tpu_torch import testing
+from td_vc_gan_tpu_torch.ops.cuda import cond_chain
+
+torch.set_num_threads(1)
+
+TILE, OWN, ROWS, PASS = 124, 62, 64, 136
+SLOPE = np.float32(0.2)
+
+
+def tf32(x):
+    """x rounded to TF32, nearest, ties away from zero (cvt.rna.tf32.f32)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(np.asarray(x, np.float32) - hi)
+
+
+def add3(acc, a, b):
+    """acc += a @ b as the kernels take a k-slice: lo.hi + hi.lo + hi.hi,
+    each product added in turn (batched over leading axes)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        acc += np.matmul(x, y, dtype=np.float32)
+    return acc
+
+
+def np32(d):
+    return {k: (None if v is None else v.numpy()) for k, v in d.items()}
+
+
+def chain_dims(exc, w0, w1):
+    b, t, e = exc.shape
+    cc = w1.shape[1]
+    n = w0.shape[2] // cc
+    return b, t, e, n, cc, w1.shape[2] // n
+
+
+def x_rows(exc, u):
+    """X (B, len(u), K8) at h rows u: exc's three taps, 1, -[u == 0],
+    -[u == T-1], zeros to a multiple of 8."""
+    b, t, e = exc.shape
+    k = 3 * e + 3
+    x = np.zeros((b, len(u), -(-k // 8) * 8), np.float32)
+    for j in range(3):
+        tt = u + j - 1
+        ok = (tt >= 0) & (tt < t)
+        x[:, ok, j * e:(j + 1) * e] = exc[:, tt[ok]]
+    x[:, :, 3 * e] = 1
+    x[:, :, 3 * e + 1] = -(u == 0).astype(np.float32)
+    x[:, :, 3 * e + 2] = -(u == t - 1).astype(np.float32)
+    return x
+
+
+def wh_block(w0, hbias, edge0, edge_t, i, cc, b, k8):
+    """Wh of block i (B, K8, Cc): W0's three taps, hbias, the edges, zeros."""
+    e = w0.shape[1]
+    cols = slice(i * cc, (i + 1) * cc)
+    wh = np.zeros((b, k8, cc), np.float32)
+    wh[:, :3 * e] = w0[:, :, cols].reshape(3 * e, cc)
+    wh[:, 3 * e] = (hbias if hbias.ndim == 2 else hbias[None])[:, cols]
+    if edge0 is not None:
+        wh[:, 3 * e + 1] = edge0[:, cols]
+        wh[:, 3 * e + 2] = edge_t[:, cols]
+    return wh
+
+
+def _h(exc, w0, hbias, edge0, edge_t, i, p, cc):
+    """h of block i's pass p for every CTA and warpgroup, before leaky_relu:
+    (B, tiles, 2, 64, 136); the rows u (tiles, 2, 64); where h is in [0, T)
+    and within Cc."""
+    b, t, e = exc.shape
+    ntiles = -(-t // TILE)
+    u = (np.arange(ntiles)[:, None, None] * TILE + OWN * np.arange(2)[None, :, None] - 1
+         + np.arange(ROWS)[None, None, :])
+    x = x_rows(exc, u.reshape(-1)).reshape(b, ntiles, 2, ROWS, -1)
+    wh = wh_block(w0, hbias, edge0, edge_t, i, cc, b, x.shape[-1])
+    cols = np.zeros((b, x.shape[-1], PASS), np.float32)
+    width = min(PASS, cc - PASS * p)
+    cols[..., :width] = wh[..., PASS * p:PASS * p + width]
+    acc = np.zeros((b, ntiles, 2, ROWS, PASS), np.float32)
+    for s in range(x.shape[-1] // 8):
+        add3(acc, x[..., 8 * s:8 * s + 8], cols[:, None, None, 8 * s:8 * s + 8])
+    ok = (u >= 0) & (u < t)
+    chan_ok = PASS * p + np.arange(PASS) < cc
+    return acc, u, ok[None, ..., None] & chan_ok
+
+
+def k1_emulated(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
+    """The chain's forward as K1 takes it (numpy f32 in, out)."""
+    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+    ntiles = -(-t // TILE)
+    out = np.zeros((b, t, n * two_c), np.float32)
+    for i in range(n):
+        pacc = np.zeros((b, ntiles, 2, ROWS, two_c), np.float32)
+        for p in range(-(-cc // PASS)):
+            h, u, ok = _h(exc, w0, hbias, edge0, edge_t, i, p, cc)
+            a = np.where(ok, np.where(h >= 0, h, SLOPE * h), 0).astype(np.float32)
+            # rows 64 and 65, which only the dropped output rows read
+            a = np.concatenate([a, np.zeros_like(a[..., :2, :])], -2)
+            for s in range(-(-min(PASS, cc - PASS * p) // 8)):
+                for j in range(3):
+                    w = np.zeros((8, two_c), np.float32)
+                    rows = np.arange(PASS * p + 8 * s, PASS * p + 8 * s + 8)
+                    w[rows < cc] = w1[j][rows[rows < cc], i * two_c:(i + 1) * two_c]
+                    add3(pacc, a[..., j:j + ROWS, 8 * s:8 * s + 8], w)
+        own = pacc[..., :OWN, :] + b1[i * two_c:(i + 1) * two_c]
+        out[:, :, i * two_c:(i + 1) * two_c] = own.reshape(b, -1, two_c)[:, :t]
+    return out
+
+
+def perm(k):
+    """dexc's K order: the image's column k holds the slice's channel perm(k)."""
+    return 2 * k if k < 4 else 2 * (k - 4) + 1
+
+
+def dh_as_a(d):
+    """The A fragment of dexc's k-slice from dh's accumulators d (..., 64, 8)
+    as a thread holds them: d[4s + v] = D[row + 8 (v >> 1)][2 tig + (v & 1)]
+    goes to a[0] = d0, a[1] = d2, a[2] = d1, a[3] = d3, where a[v] is
+    A[row + 8 (v & 1)][tig + 4 (v >> 1)]."""
+    a = np.empty_like(d)
+    for tig in range(4):
+        for v, dv in enumerate((0, 2, 1, 3)):
+            assert v & 1 == dv >> 1  # a[v] and d[dv] lie in the same row
+            a[..., tig + 4 * (v >> 1)] = d[..., 2 * tig + (dv & 1)]
+    return a
+
+
+def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
+    """The chain's backward as K2 takes it: the data kernel tile by tile,
+    then the weight grads and the reduces on its partials."""
+    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+    ntiles = -(-t // TILE)
+    n0 = n * cc
+    a_s = np.zeros((b, t, n0), np.float32)
+    dh_s = np.zeros((b, t, n0), np.float32)
+    dexc = np.zeros((b, t, e), np.float32)
+    phb = np.zeros((b, ntiles, 2, 4, n0), np.float32)  # one partial a consumer warp
+    pb1 = np.zeros((b, ntiles, n * two_c), np.float32)
+    # g's 128-row tile of each CTA: times t0 - 2 .. t0 + 125, zero outside [0, T)
+    tt = np.arange(ntiles)[:, None] * TILE - 2 + np.arange(TILE + 4)[None]
+    gt = np.where(((tt >= 0) & (tt < t))[None, ..., None],
+                  g[:, np.clip(tt, 0, t - 1)], 0).astype(np.float32)
+    for i in range(n):
+        gi = gt[..., i * two_c:(i + 1) * two_c]
+        for p in range(-(-cc // PASS)):
+            h, u, ok = _h(exc, w0, hbias, edge0, edge_t, i, p, cc)
+            own = (np.arange(ROWS) >= 1) & (np.arange(ROWS) <= OWN)
+            own = own[None, None, None, :, None] & ok
+            chans = slice(i * cc + PASS * p, i * cc + min(PASS * (p + 1), cc))
+            width = chans.stop - chans.start
+            put_own(a_s, np.where(h >= 0, h, SLOPE * h).astype(np.float32), own, u, chans, width)
+            # da: tap j reads g's tile rows 62 w + q + 2 - j
+            da = np.zeros_like(h)
+            for so in range(-(-two_c // 8)):
+                for j in range(3):
+                    rows = OWN * np.arange(2)[:, None] + np.arange(ROWS)[None] + 2 - j
+                    gw = np.zeros((b, ntiles, 2, ROWS, 8), np.float32)
+                    o = np.arange(8 * so, min(8 * so + 8, two_c))
+                    gw[..., :len(o)] = gi[:, :, rows][..., o]
+                    wt = np.zeros((8, PASS), np.float32)
+                    wt[:len(o), :width] = w1[j][PASS * p:PASS * p + width, i * two_c + o].T
+                    add3(da, gw, wt)
+            dh = np.where(ok, np.where(h >= 0, da, SLOPE * da), 0).astype(np.float32)
+            put_own(dh_s, dh, own, u, chans, width)
+            # dhbias: each warp's 16 rows, its own ones
+            sums = np.where(own, dh, 0).reshape(b, ntiles, 2, 4, 16, PASS).sum(4)
+            phb[..., chans] = sums[..., :width]
+            # dexc: P = dh @ W0 taps per chunk of 8 columns of exc, K permuted
+            for ec in range(-(-e // 8)):
+                pac = np.zeros((b, ntiles, 2, ROWS, 24), np.float32)
+                for s in range(-(-width // 8)):
+                    w = np.zeros((8, 24), np.float32)
+                    for j in range(3):
+                        for k in range(8):
+                            c = PASS * p + 8 * s + perm(k)
+                            ee = np.arange(8 * ec, min(8 * ec + 8, e))
+                            if c < cc:
+                                w[k, 8 * j:8 * j + len(ee)] = w0[j][ee, i * cc + c]
+                    add3(pac, dh_as_a(dh[..., 8 * s:8 * s + 8]), w)
+                v = (pac[..., 2:OWN + 2, 0:8] + pac[..., 1:OWN + 1, 8:16]) + pac[..., :OWN, 16:24]
+                v = v.reshape(b, -1, 8)[:, :t, :min(8, e - 8 * ec)]
+                dexc[..., 8 * ec:8 * ec + v.shape[-1]] += v
+        # db1: each CTA's rows of g, per channel
+        pb1[..., i * two_c:(i + 1) * two_c] = gi[:, :, 2:TILE + 2].sum(2)
+    out = dict(exc=dexc, b1=pb1.sum((0, 1)))
+    parts = phb.reshape(b, -1, n0)  # the reduce's order: tile, warpgroup, warp
+    out["hbias"] = parts.sum(1) if hbias.ndim == 2 else parts.sum((0, 1))
+    if edge0 is not None:
+        out.update(edge0=-dh_s[:, 0], edge_t=-dh_s[:, t - 1])
+    # the weight grads from the scratch, as the weight-grad kernel takes them
+    pad = lambda x, j: np.pad(x, ((0, 0), (1, 1), (0, 0)))[:, j:j + t]  # noqa: E731
+    out["w1"] = np.stack([np.concatenate([
+        add3(np.zeros((cc, two_c), np.float32),
+             pad(a_s, j)[..., i * cc:(i + 1) * cc].reshape(-1, cc).T,
+             g[..., i * two_c:(i + 1) * two_c].reshape(-1, two_c)) for i in range(n)], -1)
+        for j in range(3)])
+    out["w0"] = np.stack([add3(np.zeros((e, n0), np.float32), pad(exc, j).reshape(-1, e).T,
+                               dh_s.reshape(-1, n0)) for j in range(3)])
+    return out
+
+
+def put_own(dst, src, own, u, chans, width):
+    """The own rows of src (B, tiles, 2, 64, 136) into dst (B, T, n*Cc)."""
+    for tile in range(src.shape[1]):
+        for w in range(2):
+            rows = np.nonzero(own[0, tile, w, :, 0])[0]
+            dst[:, u[tile, w, rows], chans] = src[:, tile, w][:, rows, :width]
+
+
+def assert_parity(got, want, name):
+    scale = float(np.abs(want).max())
+    d = float(np.abs(got - want).max())
+    assert d <= testing.PARITY_RTOL * scale, f"{name}: max|d| {d:.3e} of max|ref| {scale:.3e}"
+
+
+def operands(split_form, b, t, e, n, cc, two_c, seed, scale=0.3):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    ein = e if split_form else cc
+    ops = dict(exc=r(b, t, ein), w0=r(3, ein, n * cc),
+               hbias=r(b, n * cc) if split_form else r(n * cc), w1=r(3, cc, n * two_c),
+               b1=r(n * two_c))
+    if split_form:
+        ops.update(edge0=r(b, n * cc), edge_t=r(b, n * cc))
+    return ops
+
+
+# (form, B, T, E, n, Cc, 2C): one ragged tile; three tiles and two passes of
+# 136 channels with 2C past one output chunk; the concat form (E = Cc)
+# with E past one chunk of dexc's 8 columns
+CASES = [(True, 2, 100, 8, 2, 20, 8), (True, 1, 300, 6, 1, 150, 40),
+         (False, 2, 130, 0, 2, 12, 12)]
+IDS = ["split-one-tile", "split-two-passes", "concat-E12"]
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", CASES, ids=IDS)
+def test_k1_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
+    ops = operands(split_form, b, t, e, n, cc, two_c, seed=t + cc)
+    want = cond_chain.cond_chain_plain(**ops).numpy()
+    assert_parity(k1_emulated(**np32(ops)), want, "K1")
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", CASES, ids=IDS)
+def test_k2_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
+    ops = operands(split_form, b, t, e, n, cc, two_c, seed=t + cc + 1)
+    ops.pop("b1")
+    g = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (b, t, n * two_c)).astype(np.float32))
+    want = cond_chain.cond_chain_bwd_plain(g=g, **ops)
+    got = k2_emulated(g=g.numpy(), **np32(ops))
+    assert set(got) == set(want)
+    for k in want:
+        assert_parity(got[k], want[k].numpy(), f"d{k}")
+
+
+def test_dexc_permutation_is_the_fragment_layout():
+    """dh's accumulator pairs, read as the tf32 A fragment, are the k-slice's
+    columns in the order perm gives: A[:, k] = D[:, perm(k)]."""
+    d = np.arange(ROWS * 8, dtype=np.float32).reshape(ROWS, 8)
+    a = dh_as_a(d)
+    np.testing.assert_array_equal(a, d[:, [perm(k) for k in range(8)]])
+    assert sorted(perm(k) for k in range(8)) == list(range(8))
+
+
+# --- the wrapper's width repair: padding to each kernel's grain, cut back
+
+
+def exact_operands(split_form, b, t, e, n, cc, two_c, seed):
+    """Operands whose products and sums are exact in f32 in any order: values
+    on a grid of 1/8 within [-1, 1], and h kept positive (hbias + 4), so that
+    leaky_relu is the identity and no 0.2 enters."""
+    ops = operands(split_form, b, t, e, n, cc, two_c, seed, scale=0.5)
+    ops = {k: testing.dyadic(v.clamp(-1, 1), 1 / 8) for k, v in ops.items()}
+    ops["hbias"] = ops["hbias"] + 4
+    return ops
+
+
+# (form, B, T, E, n, Cc, 2C): Cc = 11 and 138 (padded to 12 and 140 for K2),
+# E = 6, 2C = 1030 (padded to 1032), and split Cc = 1290, past the old f32
+# kernels' shared-memory cap (padded to 1292)
+WIDTHS = [(True, 2, 9, 8, 3, 11, 6), (True, 1, 7, 6, 2, 138, 10), (False, 2, 5, 0, 1, 9, 1030),
+          (True, 1, 5, 8, 1, 1290, 8)]
+WIDTH_IDS = ["Cc11", "Cc138-E6", "2C1030", "Cc1290"]
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", WIDTHS, ids=WIDTH_IDS)
+@pytest.mark.parametrize("kind", ["bwd", "bwd_bf16"])
+def test_padding_is_exact(kind, split_form, b, t, e, n, cc, two_c):
+    """The chain at padded widths, cut back, is the chain at the operands'
+    widths: bit for bit on operands whose sums are exact in any order."""
+    ops = exact_operands(split_form, b, t, e, n, cc, two_c, seed=cc + two_c)
+    cc_p, two_c_p = cond_chain._padded_widths(kind, cc, two_c)
+    assert cc_p % 4 == 0 and two_c_p % cond_chain._GRAIN[kind][1] == 0
+    assert 0 <= cc_p - cc < 4 and 0 <= two_c_p - two_c < 8
+    rest = {k: v for k, v in ops.items() if k != "exc"}
+    padded = cond_chain._pad_widths(rest, n, cc, two_c, cc_p, two_c_p)
+    out = cond_chain.cond_chain_plain(ops["exc"], **padded)
+    assert torch.equal(cond_chain._cut_blocks(out, n, two_c_p, two_c),
+                       cond_chain.cond_chain_plain(**ops))
+    rest.pop("b1")
+    g = testing.dyadic(torch.from_numpy(np.random.default_rng(cc).standard_normal(
+        (b, t, n * two_c)).astype(np.float32)).clamp(-1, 1), 1 / 8)
+    want = cond_chain.cond_chain_bwd_plain(ops["exc"], g=g, **rest)
+    padded = cond_chain._pad_widths({**rest, "g": g}, n, cc, two_c, cc_p, two_c_p)
+    got = cond_chain._cut_grads(cond_chain.cond_chain_bwd_plain(ops["exc"], **padded),
+                                n, cc, two_c, cc_p, two_c_p)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", WIDTHS, ids=WIDTH_IDS)
+def test_kernel_route_pads_every_width(monkeypatch, split_form, b, t, e, n, cc, two_c):
+    """Through the wrappers' own code, with each kernel's launch replaced by
+    the plain version at the widths it is given (which must be the kernel's
+    grain): every width runs, and the results are the plain version's at
+    the operands' widths within the f32 tolerance (random operands, sums in
+    another order)."""
+    seen = []
+
+    def fake_fwd(kind, exc, w0, hbias, w1, b1, edge0, edge_t, b, t, e, n, cc, two_c):
+        seen.append((kind, cc, two_c))
+        return cond_chain.cond_chain_plain(exc, w0, hbias, w1, b1, edge0, edge_t)
+
+    def fake_bwd(kind):
+        def run(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
+            seen.append((kind, cc, two_c))
+            return cond_chain.cond_chain_bwd_plain(exc, w0, hbias, w1, g, edge0, edge_t)
+        return run
+
+    monkeypatch.setattr(cond_chain, "_launch_fwd", fake_fwd)
+    monkeypatch.setattr(cond_chain, "_launch_bwd_f32", fake_bwd("bwd"))
+    ops = operands(split_form, b, t, e, n, cc, two_c, seed=7)
+    args = {"edge0": None, "edge_t": None, **ops}
+    assert_parity(cond_chain._launch(**args).numpy(), cond_chain.cond_chain_plain(**ops).numpy(),
+                  "K1 route")
+    args.pop("b1")
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (b, t, n * two_c)).astype(np.float32))
+    got = cond_chain._launch_bwd(g=g, **args)
+    want = cond_chain.cond_chain_bwd_plain(g=g, **args)
+    for k in want:
+        assert_parity(got[k].numpy(), want[k].numpy(), f"K2 route d{k}")
+    for kind, cc_k, two_c_k in seen:
+        gc, g2 = cond_chain._GRAIN[kind]
+        assert cc_k % gc == 0 and two_c_k % g2 == 0, (kind, cc_k, two_c_k)
+    assert {k for k, *_ in seen} == {"fwd", "bwd"}
