@@ -16,7 +16,10 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    csrc/hopper_bf16.cuh), one nvcc per source, started together, with each
    kernel's registers and spills;
 3. parity: K1 against its plain PyTorch version at the four decoder-stage
-   shapes of an 8960-sample segment (B=2), split and concat forms;
+   shapes of an 8960-sample segment (B=2), split and concat forms; then at
+   the chain shapes that phases 9 and 10 give it (B=1 at each test
+   utterance's validation and sample bucket, B=4 at its conversion bucket,
+   every stage);
 4. slice: the full-width conv-encoder Converter runs pitch_batch (Viterbi)
    and convert_batch on 16 x 71680 samples: output checks, kernel launches
    counted over that run, the same call with the plain chain, a small input
@@ -38,7 +41,10 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    defaults, conv encoder) on 16 x 8960 samples: its first step against the
    same step with the plain chain, then a warm-up and timed steps (CUDA
    events) with 8 K1 and 8 K2 launches counted in each, loss and parameter
-   checks, peak memory, and one step's device time by kernel;
+   checks, peak memory, and one step's device time by kernel; then the bare
+   step with the next batch made beside it by threads (8; 8 with a longer
+   switch interval; 1) and by the package's worker processes, from the
+   corpus of phase 9;
 8. K2 at the step's eight (stage, batch) shapes: against its plain
    version, a second run bit for bit, then its time beside the two bounds,
    the plain version and cuDNN's backward of the same chain (a yardstick),
@@ -53,15 +59,11 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    the losses, the kernel launches of every step, the resumed state, the
    reference-format export and the samples; the loop's step time beside
    phase 7's, its wait on the input pipeline, the host's corruption time per
-   batch, checkpoint seconds and bytes, peak device memory; then the bare
-   step with the next batch made beside it by threads (8; 8 with a longer
-   switch interval; 1) and by the package's worker processes;
+   batch, checkpoint seconds and bytes, peak device memory;
 10. the conversion CLI (``python -m td_vc_gan_tpu_torch.cli.generate_with_target``,
    a subprocess) on that run: 4 test utterances to each of the 4 speakers
    of the test manifest, file and log checks, K1 launches per convert_batch
-   call, wall time and RTF; then K1 against its plain version at the chain
-   shapes of the two CLIs (B=1 at each test utterance's validation and
-   sample bucket, B=4 at its conversion bucket, every stage);
+   call, wall time and RTF;
 11. wavlm convert: the full-width wavlm-stage2_2 Converter (WavLM-Large
    from a seed, the 16-layer posterior encoder, phase 4's decoder) and
    CREPE-tiny on phase 4's batch: 4 K1 launches per call, output checks,
@@ -170,7 +172,12 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    F0Estimator on the card against the CPU.
 
 Phases 1-13 and 18-22 run in float32 (22 also in bf16), with TF32 off in
-cuDNN and matmul (the CLIs set the same), as the JAX package's default. Any
+cuDNN and matmul (the CLIs set the same), as the JAX package's default.
+They run in this order: 2-8, 11, 12, 14-16, 18 and 22 one after another,
+then five lanes at once, each a thread that runs its phases in turn: 9 and
+10; 13; 17; 19 and 20; 21. The lanes spend most of their time starting
+processes, so their wall and step times are taken beside one another's
+work; the kernel times of phases 5, 8, 14 and 22 are taken alone. Any
 failed check raises, and the script then exits non-zero without its result
 lines. The last two lines are the JSON kernel table (this run's numbers
 only) and the result object; before them, one summary line per phase (its
@@ -184,8 +191,8 @@ pass or fail, ends and reaps each of them before it exits.
 
 runs the card and build phases, then only an A/B of the kernels: the
 earlier K1, K2, K1-bf16 and K2-bf16 built from their sources in DIR (the
-four .cu files and the headers they include, with the C interface of the
-mma.sync f32 kernels: K1 without a workspace, K2 on W1 transposed)
+four .cu files and the headers they include, with this tree's C
+interface: K1 with a workspace, K2 on W1 in its own layout)
 against this tree's, alternated for 5 rounds at the conversion's chain
 shapes and the train step's (f32 at batch 16, bf16 at batch 64), the two
 versions' outputs held to each other, each backward's time by kernel and
@@ -212,7 +219,9 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -289,7 +298,8 @@ TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
 # section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before their Hopper
 # redesign (K1 whole, K2's data kernel); K1-bf16 and
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
-# through L1), and K2-bf16 before its weight grads moved to wgmma. As (path
+# through L1), K2-bf16 before its weight grads moved to wgmma, and K2 before
+# its weight grads did. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
@@ -297,7 +307,9 @@ EARLIER_MS = {
     "cond_chain_fwd": [(None, 25.468, "convert call",
                         "on mma.sync m16n8k8 with cp.async staging")],
     "cond_chain_bwd": [(None, 38.793, "train step",
-                        "with its data kernel on mma.sync m16n8k8")],
+                        "with its data kernel on mma.sync m16n8k8"),
+                       (None, 25.571, "train step",
+                        "with its weight grads on mma.sync from the a scratch")],
     "cond_chain_fwd_bf16": [
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
         ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version")],
@@ -315,6 +327,10 @@ CLI_OVERRIDES = ("model.generator.encoder_model=conv", "train.num_epoch=0",
                  "log.log_interval=1", "log.save_interval=1", "log.val_interval=1",
                  "log.gen_interval=1", "log.gen_num=2", "test.num_tests=2")
 CLI_TIMEOUT = 300
+# The phases that run last, as lanes at once (``main``); this process's
+# kernel work in them (phases 20 and 21) takes IN_PROCESS_GPU in turn.
+LANES = "9-10, 13, 17, 19-20 and 21"
+IN_PROCESS_GPU = threading.Lock()
 # The WavLM backbone's features on the card against the CPU's for one 1 s
 # utterance, TF32 off: of max|ref| (24 f32 layers, sums in another order; on
 # the CPU, f32 against f64 differs by 6.8e-7 of max|ref|; TF32 would give ~1e-3).
@@ -937,9 +953,9 @@ def k2_work(b, t, e, n, cc, two_c) -> tuple[float, float]:
 
 
 # K2's launches in a call, as cond_chain_bwd_kernel_ms times them: (name,
-# launches); the reduces are 4, or 6 with the edges
-K2_LAUNCHES = (("k2_images_kernel", 1), ("k2_data_kernel", 1), ("k2_wgrad_kernel dW1", 1),
-               ("k2_wgrad_kernel dW0", 1), ("k2_reduce_kernel", 6))
+# launches)
+K2_LAUNCHES = (("k2_images_kernel", 1), ("k2_data_kernel", 1), ("k2_w1_kernel", 1),
+               ("k2_xdh_kernel", 1), ("k2_reduce_kernel", 1))
 # the f32 step's largest K2 call, whose workspace phase 8 prints
 K2_WS_SHAPE = (2 * B, SEG, 8, 9, 136, 32)
 
@@ -1259,8 +1275,6 @@ def pipeline_beside_step(cfg, root: Path, card: str, steps: int = 4):
     thread, and by the package's iterator (8 worker processes). What the
     pipeline costs the host-bound step, and how much of it is the
     interpreter lock."""
-    from concurrent.futures import ThreadPoolExecutor
-
     state = train_state(cfg)
     step = build_train_step(cfg, state)
     ds = WaveDataset(root / "train_files", root / "speakers", sample_rate=16000,
@@ -1751,7 +1765,7 @@ K2B_WS_SHAPE = (2 * B64, SEG, 8, 9, 136, 32)
 
 
 def k2b_label(name: str) -> str | None:
-    """'k2_wgrad_kernel<3,1>' for a profiler kernel name of K2's or K2-bf16's,
+    """'k2_w1_kernel<64>' for a profiler kernel name of K2's or K2-bf16's,
     else None."""
     m = K2B_KERNELS.search(name)
     if m is None:
@@ -2370,67 +2384,68 @@ def phase_eval(root: Path, card: str) -> int:
     utts = [read_audio(ln.split("|")[0], 16000)[0].astype(np.float32) for ln in
             (root / "curriculum" / "test_files").read_text().split()]
 
-    ecapa_ckpt = ev / "embedding_model.ckpt"
-    torch.save({k: torch.from_numpy(v) for k, v in ecapa.init_ecapa_params(EVAL_SEED).items()},
-               ecapa_ckpt)
-    on = {dev: ecapa.EcapaEmbedder.from_speechbrain(str(ecapa_ckpt), device=dev)
-          for dev in ("cpu", "cuda")}
-    n_ecapa = sum(t.numel() for t in on["cuda"].model.state_dict().values())
-    on["cuda"].embed(utts[0])  # cuDNN's first call
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    got = [on["cuda"].embed(w) for w in utts]
-    ecapa_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
-    ecapa_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = [on["cpu"].embed(w) for w in utts]
-    ecapa_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
-    if not all(np.isfinite(g).all() and g.shape == (ecapa.LIN_NEURONS,) for g in got) or \
-            ecapa_err > EVAL_RTOL:
-        raise AssertionError(f"ECAPA: card against CPU {ecapa_err:.3e} of max|ref| "
-                             f"(tolerance {EVAL_RTOL})")
-    del on
-    parts = {"ECAPA (card and CPU)": time.perf_counter() - t_phase}
-    say(f"eval ecapa: published width (channels {ecapa.CHANNELS}, scale {ecapa.RES2NET_SCALE}, "
-        f"{ecapa.LIN_NEURONS}-d; {n_ecapa:,} tensor elements with BN statistics) from a seeded "
-        f"speechbrain-layout embedding_model.ckpt; {len(utts)} utterances "
-        f"({min(map(len, utts)) / 16000:.2f}-{max(map(len, utts)) / 16000:.2f} s), card "
-        f"against CPU {ecapa_err:.3e} of max|ref| (tolerance {EVAL_RTOL}); {ecapa_ms:.2f} ms "
-        f"per utterance on the card (one utterance per call, fbank on the host included), "
-        f"peak {ecapa_peak:.2f} GiB [{card}]")
-
-    slots = mosnet.init_mosnet_params(EVAL_SEED)
-    rng = np.random.default_rng(EVAL_SEED)
-    for k in slots:
-        if k.endswith(".bias"):
-            slots[k] = (0.1 * rng.standard_normal(slots[k].shape)).astype(np.float32)
-    mos_ckpt = ev / "mosnet.npz"
-    np.savez(mos_ckpt, **slots)
-    pred = {dev: mosnet.MOSPredictor(mosnet.load_mosnet(str(mos_ckpt)), dev)
-            for dev in ("cpu", "cuda")}
-    mags = [torch.from_numpy(mosnet.spectrogram(w)[None]) for w in utts]
-    with torch.no_grad():
-        pred["cuda"].model(mags[0].cuda())
+    with IN_PROCESS_GPU:  # phase 21's kernel work waits: the peaks are these models'
+        ecapa_ckpt = ev / "embedding_model.ckpt"
+        torch.save({k: torch.from_numpy(v) for k, v in ecapa.init_ecapa_params(EVAL_SEED).items()},
+                   ecapa_ckpt)
+        on = {dev: ecapa.EcapaEmbedder.from_speechbrain(str(ecapa_ckpt), device=dev)
+              for dev in ("cpu", "cuda")}
+        n_ecapa = sum(t.numel() for t in on["cuda"].model.state_dict().values())
+        on["cuda"].embed(utts[0])  # cuDNN's first call
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        got = [pred["cuda"].model(m.cuda())[1].cpu().numpy() for m in mags]
-        mos_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
-        want = [pred["cpu"].model(m)[1].numpy() for m in mags]
-    mos_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    mos_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
-    if not all(np.isfinite(g).all() for g in got) or mos_err > EVAL_RTOL:
-        raise AssertionError(f"MOSNet: card against CPU {mos_err:.3e} of max|ref| "
-                             f"(tolerance {EVAL_RTOL})")
-    n_slots = sum(v.size for v in slots.values())
-    scores = [pred["cuda"].score(w) for w in utts[:2]]
-    del pred
-    parts["MOSNet (card and CPU)"] = time.perf_counter() - t_phase - sum(parts.values())
-    say(f"eval mosnet: published width ({n_slots:,} parameters in the Keras slots; torch's "
-        f"LSTM adds {2 * 4 * mosnet.LSTM_UNITS:,} zero b_hh) from a seeded .npz; frame scores "
-        f"of {len(utts)} utterances, card against CPU {mos_err:.3e} of max|ref| (tolerance "
-        f"{EVAL_RTOL}); {mos_ms:.2f} ms per utterance on the card (model only), peak "
-        f"{mos_peak:.2f} GiB; MOS of the first two {scores[0]:.4f}, {scores[1]:.4f} [{card}]")
+        got = [on["cuda"].embed(w) for w in utts]
+        ecapa_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
+        ecapa_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = [on["cpu"].embed(w) for w in utts]
+        ecapa_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+        if not all(np.isfinite(g).all() and g.shape == (ecapa.LIN_NEURONS,) for g in got) or \
+                ecapa_err > EVAL_RTOL:
+            raise AssertionError(f"ECAPA: card against CPU {ecapa_err:.3e} of max|ref| "
+                                 f"(tolerance {EVAL_RTOL})")
+        del on
+        parts = {"ECAPA (card and CPU)": time.perf_counter() - t_phase}
+        say(f"eval ecapa: published width (channels {ecapa.CHANNELS}, scale {ecapa.RES2NET_SCALE}, "
+            f"{ecapa.LIN_NEURONS}-d; {n_ecapa:,} tensor elements with BN statistics) from a seeded "
+            f"speechbrain-layout embedding_model.ckpt; {len(utts)} utterances "
+            f"({min(map(len, utts)) / 16000:.2f}-{max(map(len, utts)) / 16000:.2f} s), card "
+            f"against CPU {ecapa_err:.3e} of max|ref| (tolerance {EVAL_RTOL}); {ecapa_ms:.2f} ms "
+            f"per utterance on the card (one utterance per call, fbank on the host included), "
+            f"peak {ecapa_peak:.2f} GiB [{card}]")
+
+        slots = mosnet.init_mosnet_params(EVAL_SEED)
+        rng = np.random.default_rng(EVAL_SEED)
+        for k in slots:
+            if k.endswith(".bias"):
+                slots[k] = (0.1 * rng.standard_normal(slots[k].shape)).astype(np.float32)
+        mos_ckpt = ev / "mosnet.npz"
+        np.savez(mos_ckpt, **slots)
+        pred = {dev: mosnet.MOSPredictor(mosnet.load_mosnet(str(mos_ckpt)), dev)
+                for dev in ("cpu", "cuda")}
+        mags = [torch.from_numpy(mosnet.spectrogram(w)[None]) for w in utts]
+        with torch.no_grad():
+            pred["cuda"].model(mags[0].cuda())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = [pred["cuda"].model(m.cuda())[1].cpu().numpy() for m in mags]
+            mos_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
+            want = [pred["cpu"].model(m)[1].numpy() for m in mags]
+        mos_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mos_err = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+        if not all(np.isfinite(g).all() for g in got) or mos_err > EVAL_RTOL:
+            raise AssertionError(f"MOSNet: card against CPU {mos_err:.3e} of max|ref| "
+                                 f"(tolerance {EVAL_RTOL})")
+        n_slots = sum(v.size for v in slots.values())
+        scores = [pred["cuda"].score(w) for w in utts[:2]]
+        del pred
+        parts["MOSNet (card and CPU)"] = time.perf_counter() - t_phase - sum(parts.values())
+        say(f"eval mosnet: published width ({n_slots:,} parameters in the Keras slots; torch's "
+            f"LSTM adds {2 * 4 * mosnet.LSTM_UNITS:,} zero b_hh) from a seeded .npz; frame scores "
+            f"of {len(utts)} utterances, card against CPU {mos_err:.3e} of max|ref| (tolerance "
+            f"{EVAL_RTOL}); {mos_ms:.2f} ms per utterance on the card (model only), peak "
+            f"{mos_peak:.2f} GiB; MOS of the first two {scores[0]:.4f}, {scores[1]:.4f} [{card}]")
 
     t0 = time.perf_counter()
     mceps = [mcd.world_mcep(w) for w in utts]
@@ -2628,37 +2643,38 @@ def phase_data_parallel(cfg, root: Path, card: str) -> dict:
         del g, d, c
 
         # the one-rank step on the 16 items, no process group
-        blob = torch.load(payload, weights_only=False)
-        state = create_train_state(cfg, *(None if blob[k] is None else blob[k].cuda()
-                                          for k in ("G", "D", "C", "crepe")))
-        step = build_train_step(cfg, state)
-        gen = torch.Generator(device="cuda").manual_seed(blob["seed"])
-        full = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-        nets = [(tag, net, opt) for tag, net, opt in (
-            ("G", state.G, state.opt_g), ("D", state.D, state.opt_d), ("C", state.C, state.opt_c))
-            if net is not None]
-        ref = {"metrics": {k: float(v) for k, v in step(full, gen).items()},
-               "lr": {tag: opt.optimizer.param_groups[0]["lr"] for tag, _, opt in nets},
-               "state": {tag: {"params": {n: p.detach().cpu().clone()
-                                          for n, p in net.named_parameters()},
-                               "exp_avg": {n: opt.optimizer.state[p]["exp_avg"].cpu().clone()
-                                           for n, p in net.named_parameters()
-                                           if p in opt.optimizer.state}}
-                         for tag, net, opt in nets}}
-        ms = []
-        for _ in range(DP_STEPS - 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(full, gen)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        ref["generator"] = gen.get_state()
-        one_ms = sorted(ms)[len(ms) // 2]
-        say(f"data parallel: one rank, no group: step median {one_ms:.2f} ms over {len(ms)} "
-            f"steps, {B * 1e3 / one_ms:.2f} segments/s [{card}]")
-        del state, step, full, blob
-        gc.collect()
-        torch.cuda.empty_cache()
+        with IN_PROCESS_GPU:
+            blob = torch.load(payload, weights_only=False)
+            state = create_train_state(cfg, *(None if blob[k] is None else blob[k].cuda()
+                                              for k in ("G", "D", "C", "crepe")))
+            step = build_train_step(cfg, state)
+            gen = torch.Generator(device="cuda").manual_seed(blob["seed"])
+            full = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            nets = [(tag, net, opt) for tag, net, opt in (
+                ("G", state.G, state.opt_g), ("D", state.D, state.opt_d),
+                ("C", state.C, state.opt_c)) if net is not None]
+            ref = {"metrics": {k: float(v) for k, v in step(full, gen).items()},
+                   "lr": {tag: opt.optimizer.param_groups[0]["lr"] for tag, _, opt in nets},
+                   "state": {tag: {"params": {n: p.detach().cpu().clone()
+                                              for n, p in net.named_parameters()},
+                                   "exp_avg": {n: opt.optimizer.state[p]["exp_avg"].cpu().clone()
+                                               for n, p in net.named_parameters()
+                                               if p in opt.optimizer.state}}
+                             for tag, net, opt in nets}}
+            ms = []
+            for _ in range(DP_STEPS - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(full, gen)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ref["generator"] = gen.get_state()
+            one_ms = sorted(ms)[len(ms) // 2]
+            say(f"data parallel: one rank, no group: step median {one_ms:.2f} ms over {len(ms)} "
+                f"steps, {B * 1e3 / one_ms:.2f} segments/s [{card}]")
+            del state, step, full, blob
+            gc.collect()
+            torch.cuda.empty_cache()
 
         k1, k2 = dp_ranks("data parallel (a), 2 ranks over gloo on cuda:0", 2, payload,
                           tmp / "a", "cuda:0", "gloo", ref, card)
@@ -2673,7 +2689,8 @@ def phase_data_parallel(cfg, root: Path, card: str) -> dict:
             cli = dp_train_cli(root, world, card)
             k1, k2 = k1 + cli[0], k2 + cli[1]
 
-    convert_k1 = dp_sharded_convert(cfg, card, world)
+    with IN_PROCESS_GPU:
+        convert_k1 = dp_sharded_convert(cfg, card, world)
     say(f"data parallel: phase total {time.perf_counter() - t_phase:.1f} s")
     return {"train": (k1, k2), "convert": convert_k1}
 
@@ -2947,8 +2964,8 @@ AB_ROUNDS = 5
 def ab_libraries(src_dir: Path, out_dir: Path) -> tuple[dict, str]:
     """The earlier libraries, built from their sources in ``src_dir`` (the
     four .cu files of SOURCES and BF16_SOURCES and the headers they include,
-    with the C interface of the mma.sync f32 kernels: K1 without a
-    workspace, K2 on W1 transposed)
+    with this tree's C interface, which the f32 kernels have had since
+    their Hopper redesign: K1 with a workspace, K2 on W1 in its own layout)
     into ``out_dir`` with the package's nvcc flags, all started together;
     ({"fwd", "bwd", "fwd_bf16", "bwd_bf16"}: ctypes library, nvcc's output)."""
     jobs = [(src_dir / s.name, out_dir / f"{s.stem}.so")
@@ -2964,10 +2981,13 @@ def ab_libraries(src_dir: Path, out_dir: Path) -> tuple[dict, str]:
         log.append(out)
     libs = dict(zip(cc_mod._LIBS, (ctypes.CDLL(str(lib)) for _, lib in jobs)))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    libs["fwd"].cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, i, i, i, i, i, i, p]
-    libs["fwd"].cond_chain_fwd_f32.restype = i
+    fwd = libs["fwd"]
+    fwd.cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+    fwd.cond_chain_fwd_f32.restype = i
+    fwd.cond_chain_fwd_f32_workspace.argtypes = [i] * 6
+    fwd.cond_chain_fwd_f32_workspace.restype = ll
     bwd = libs["bwd"]
-    bwd.cond_chain_bwd_workspace.argtypes = [i] * 6
+    bwd.cond_chain_bwd_workspace.argtypes = [i] * 7
     bwd.cond_chain_bwd_workspace.restype = ll
     bwd.cond_chain_bwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
                                        i, i, i, i, i, i, p]
@@ -2991,35 +3011,36 @@ def ptr(x):
 
 
 def old_k1(fwd, split: dict):
-    """The earlier K1 (f32 operands, no workspace) or K1-bf16 (bf16) on
-    split-form operands (W1 in its own layout)."""
+    """The earlier K1 (f32 operands) or K1-bf16 (bf16) on split-form
+    operands, with the workspace each takes."""
     exc, w0, hbias, w1, b1 = (split[k] for k in ("exc", "w0", "hbias", "w1", "b1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
     args = (ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]), ptr(split["edge_t"]),
             ptr(w1), ptr(b1), ptr(out))
-    stream = torch.cuda.current_stream().cuda_stream
     if exc.dtype == torch.float32:
-        err = fwd.cond_chain_fwd_f32(*args, b, t, e, n, cc, two_c, stream)
+        nbytes = fwd.cond_chain_fwd_f32_workspace(b, e, n, cc, two_c, 1)
+        launch = fwd.cond_chain_fwd_f32
     else:
-        ws = torch.empty(int(fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)),
-                         device=exc.device, dtype=torch.uint8)
-        err = fwd.cond_chain_fwd_bf16(*args, ptr(ws), ws.numel(), b, t, e, n, cc, two_c, stream)
+        nbytes = fwd.cond_chain_fwd_bf16_workspace(b, e, n, cc, two_c)
+        launch = fwd.cond_chain_fwd_bf16
+    ws = torch.empty(int(nbytes), device=exc.device, dtype=torch.uint8)
+    err = launch(*args, ptr(ws), ws.numel(), b, t, e, n, cc, two_c,
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the earlier forward kernel failed to launch ({err})")
     return out
 
 
 def old_k2(bwd, args: dict, g):
-    """The earlier K2 (f32 operands: W1 transposed, a workspace in floats) or
-    K2-bf16 (bf16) on split-form operands: the gradients' dict."""
+    """The earlier K2 (f32 operands, a workspace in floats) or K2-bf16 (bf16,
+    in bytes) on split-form operands: the gradients' dict."""
     exc, w0, hbias, w1 = (args[k] for k in ("exc", "w0", "hbias", "w1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
     out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")}
     out["b1"] = torch.empty(n * two_c, device=exc.device, dtype=exc.dtype)
     if exc.dtype == torch.float32:
-        w1 = w1.reshape(3, cc, n, two_c).permute(2, 0, 3, 1).contiguous()
-        ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c)),
+        ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c, 1)),
                          device=exc.device, dtype=torch.float32)
         launch = bwd.cond_chain_bwd_f32
     else:
@@ -3118,7 +3139,7 @@ def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
         torch.cuda.empty_cache()
     if f32:
         ws_shape, per = K2_WS_SHAPE, "train step"
-        ws = {"old": 4 * bwd.cond_chain_bwd_workspace(*ws_shape),
+        ws = {"old": 4 * bwd.cond_chain_bwd_workspace(*ws_shape, 1),
               "new": 4 * cc_mod._library()["bwd"].cond_chain_bwd_workspace(*ws_shape, 1)}
     else:
         ws_shape, per = K2B_WS_SHAPE, "batch-64 train step"
@@ -3179,27 +3200,46 @@ def say_earlier(rows):
                 f"kernels {version} (not measured here)")
 
 
-class _Tee:
-    """A text stream that writes to two."""
+class _Lines:
+    """``sys.stdout`` while phases run: each whole line goes to the real
+    stdout in one write (the CLI lanes print from several threads at once),
+    and every line a thread prints is copied to the buffers of the phases
+    open in that thread (``Phases.run``'s)."""
 
-    def __init__(self, *streams):
-        self.streams = streams
+    def __init__(self, out):
+        self.out, self.lock, self.local = out, threading.Lock(), threading.local()
+
+    def buffers(self) -> list:
+        if not hasattr(self.local, "buffers"):
+            self.local.buffers, self.local.part = [], ""
+        return self.local.buffers
 
     def write(self, text):
-        for st in self.streams:
-            st.write(text)
+        for buf in self.buffers():
+            buf.write(text)
+        self.local.part += text
+        if "\n" in self.local.part:
+            whole, self.local.part = self.local.part.rsplit("\n", 1)
+            with self.lock:
+                self.out.write(whole + "\n")
+                self.out.flush()
         return len(text)
 
     def flush(self):
-        for st in self.streams:
-            st.flush()
+        with self.lock:
+            self.out.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
 
 
 # Each phase's headline in the summary: (name, pattern with one group, how the
 # matches are shown: "first", "all", or "max" of the numbers).
 HEADLINES = {
     "2 build": [("nvcc", r"in ([\d.]+ s);", "first")],
-    "3 K1 parity": [("worst of max|ref|", r"max\|d\|=[\d.e+-]+ \(([\d.e+-]+)", "max")],
+    "3 K1 parity": [("worst of max|ref|", r"max\|d\|=[\d.e+-]+ \(([\d.e+-]+)", "max"),
+                    ("K1 at the CLIs' shapes, worst max|d|",
+                     r"worst max\|d\| ([\d.e+-]+); tolerance", "first")],
     "4 convert": [("ms per call", r"convert_tensors ([\d.]+) ms per call", "first"),
                   ("RTF", r"RTF ([\d.]+x)", "first")],
     "5 K1 times": [("K1 ms per convert call", r"k1 per convert call \(4 calls\): ([\d.]+) ms",
@@ -3213,9 +3253,7 @@ HEADLINES = {
                    ("K2 by kernel per step",
                     r"k2 kernels per train step \(8 calls\): (.*?) \[", "first")],
     "9 train CLI": [("loop ms per step", r"median of steps 1-4: ([\d.]+) ms", "first")],
-    "10 generate CLI": [("RTF in the CLI", r"\(RTF ([\d.]+x), pitch", "first"),
-                        ("K1 at the CLIs' shapes, worst max|d|",
-                         r"worst max\|d\| ([\d.e+-]+); tolerance", "first")],
+    "10 generate CLI": [("RTF in the CLI", r"\(RTF ([\d.]+x), pitch", "first")],
     "11 wavlm convert": [("ms per call", r"convert_tensors ([\d.]+) ms per call", "first"),
                          ("RTF", r"RTF ([\d.]+x)", "first")],
     "12 wavlm train": [("ms per step", r"median ([\d.]+) ms per step", "first"),
@@ -3256,16 +3294,21 @@ class Phases:
     come back from a run, holds every phase's numbers."""
 
     def __init__(self):
-        self.rows: list[tuple[str, float, str]] = []
+        self.rows: list[tuple[str, float, float, str]] = []
         self.text: dict[str, str] = {}
+        if not isinstance(sys.stdout, _Lines):
+            sys.stdout = _Lines(sys.stdout)
 
     def run(self, label: str, fn, *args, **kw):
-        buf = io.StringIO()
+        buf, open_ = io.StringIO(), sys.stdout.buffers()
+        open_.append(buf)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        try:
             out = fn(*args, **kw)
+        finally:
+            open_.remove(buf)
         self.text[label] = buf.getvalue()
-        self.rows.append((label, time.perf_counter() - t0, self.headline(label)))
+        self.rows.append((label, t0, time.perf_counter(), self.headline(label)))
         return out
 
     def headline(self, label: str) -> str:
@@ -3281,9 +3324,12 @@ class Phases:
         return "; ".join(parts)
 
     def say_summary(self, card: str):
-        for label, wall, head in self.rows:
-            say(f"summary: phase {label}: {wall:.1f} s" + (f"; {head}" if head else ""))
-        say(f"summary: phases {sum(r[1] for r in self.rows):.1f} s in all [{card}]")
+        rows = sorted(self.rows, key=lambda r: int(r[0].split()[0]))
+        for label, t0, t1, head in rows:
+            say(f"summary: phase {label}: {t1 - t0:.1f} s" + (f"; {head}" if head else ""))
+        say(f"summary: phases {sum(t1 - t0 for _, t0, t1, _ in rows):.1f} s in all, "
+            f"{max(r[2] for r in rows) - min(r[1] for r in rows):.1f} s of wall time (the "
+            f"lanes of phases {LANES} overlap) [{card}]")
 
 
 def main(ab_dir: Path | None = None) -> int:
@@ -3312,37 +3358,28 @@ def main(ab_dir: Path | None = None) -> int:
         say(json.dumps({"ab": phase_ab(cfg, card, ab_dir), "card": card}))
         return 0
     run = phases.run
-    parity_err = run("3 K1 parity", phase_parity, cfg)
-    convert_launches, convert_ms = run("4 convert", phase_slice, cfg, card)
-    k1_row = run("5 K1 times", phase_kernel_times, cfg, card, convert_launches, parity_err)
-    k2_err = run("6 K2 parity, wide and tiled",
-                 lambda: (phase_k2_parity(cfg), wide_parity(cfg, card))[0])
-    (train_k1, train_k2), bare_median = run("7 train", phase_step, "train", cfg, card,
-                                            STAGES * 2)
-    k2_row = run("8 K2 times", phase_k2_times, cfg, card, train_k2, k2_err)
     with tempfile.TemporaryDirectory() as tmp:
         root = write_corpus(Path(tmp))
+        parity_err = run("3 K1 parity",
+                         lambda: max(phase_parity(cfg), cli_chain_parity(cfg, root, card)))
+        convert_launches, convert_ms = run("4 convert", phase_slice, cfg, card)
+        k1_row = run("5 K1 times", phase_kernel_times, cfg, card, convert_launches, parity_err)
+        k2_err = run("6 K2 parity, wide and tiled",
+                     lambda: (phase_k2_parity(cfg), wide_parity(cfg, card))[0])
 
-        def train_cli():
-            out = phase_train_cli(root, card, bare_median)
+        def train():
+            out = phase_step("train", cfg, card, STAGES * 2)
             pipeline_beside_step(cfg, root, card)
             return out
 
-        def generate_cli():
-            return phase_generate_cli(root, card), cli_chain_parity(cfg, root, card)
-
-        cli_k1, cli_k2 = run("9 train CLI", train_cli)
-        gen_k1, cli_err = run("10 generate CLI", generate_cli)
-        k1_row["max_abs_err"] = max(k1_row["max_abs_err"], cli_err)
+        (train_k1, train_k2), bare_median = run("7 train", train)
+        k2_row = run("8 K2 times", phase_k2_times, cfg, card, train_k2, k2_err)
         wavlm_convert_k1 = run("11 wavlm convert", phase_wavlm_convert, cfg, card)
         (wavlm_train_k1, wavlm_train_k2), _ = run("12 wavlm train", phase_step, "wavlm train",
                                                   wavlm_cfg(cfg), card, STAGES * 2)
-        wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = run("13 wavlm CLIs", phase_wavlm_clis, root,
-                                                       card)
         k1b_row, k2b_row = run("14 bf16 kernels", phase_bf16_kernels, cfg, card)
         bf16_convert_k1 = run("15 bf16 convert", phase_bf16_convert, cfg, card)
         bf16_train_k1, bf16_train_k2 = run("16 bf16 train", phase_bf16_train, cfg, card)
-        bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = run("17 bf16 CLIs", phase_bf16_clis, root, card)
 
         # no cycle pass at these stages: one decode (at 2B, or at B under
         # no_conv), so one K1 and one K2 launch per decoder stage
@@ -3354,10 +3391,27 @@ def main(ab_dir: Path | None = None) -> int:
             return out
 
         stage_k = run("18 stage steps", stage_steps)
-        cur_k1, cur_k2, cur_gen_k1 = run("19 curriculum CLIs", phase_curriculum_clis, root, card)
-        eval_k1 = run("20 evaluation", phase_eval, root, card)
-        dp = run("21 data parallel", phase_data_parallel, cfg, root, card)
-    options = run("22 options", phase_options, card, convert_ms, bare_median)
+        options = run("22 options", phase_options, card, convert_ms, bare_median)
+        # The CLI phases and data parallelism last, as five lanes at once:
+        # they spend most of their time starting processes, and no other
+        # lane launches a kernel in this process while phase 21 counts its
+        # launches (every CLI counts its own in its process)
+        lanes = {
+            "cli": lambda: (run("9 train CLI", phase_train_cli, root, card, bare_median),
+                            run("10 generate CLI", phase_generate_cli, root, card)),
+            "wavlm": lambda: run("13 wavlm CLIs", phase_wavlm_clis, root, card),
+            "bf16": lambda: run("17 bf16 CLIs", phase_bf16_clis, root, card),
+            "curriculum": lambda: (run("19 curriculum CLIs", phase_curriculum_clis, root, card),
+                                   run("20 evaluation", phase_eval, root, card)),
+            "dp": lambda: run("21 data parallel", phase_data_parallel, cfg, root, card)}
+        with ThreadPoolExecutor(len(lanes)) as pool:
+            done = {name: pool.submit(fn) for name, fn in lanes.items()}
+        done = {name: fut.result() for name, fut in done.items()}
+        (cli_k1, cli_k2), gen_k1 = done["cli"]
+        wavlm_cli_k1, wavlm_cli_k2, wavlm_gen_k1 = done["wavlm"]
+        bf16_cli_k1, bf16_cli_k2, bf16_gen_k1 = done["bf16"]
+        (cur_k1, cur_k2, cur_gen_k1), eval_k1 = done["curriculum"]
+        dp = done["dp"]
     opt = options["launches"]
     # K1 runs on every main path: conversion (phases 4, 11 and 22), the train
     # step (phases 7, 12, 18 and 22) and the CLIs (phases 9, 10, 13 and 19); K2

@@ -25,28 +25,27 @@
 // shapes (n*Cc = 1224, 2C = 32..256) that is hundreds of flops per byte of
 // g read, above the card's ridge even at the tensor cores' f32-accurate rate
 // (165 TFLOP/s over 3.35 TB/s = 49 flops per byte): K2 is bound by
-// operations, even counting the scratch below (written once, read once).
+// operations, even counting the dh scratch below (written once, read once).
 //
 // What the design does about it. Every product runs on the tensor cores as
 // 3xTF32 (tf32x3.cuh: f32 accuracy at a third of the TF32 rate, 2.5x the
-// f32 CUDA-core peak). The TPU kernel accumulates the weight grads in VMEM
-// across a grid that runs in order; Hopper CTAs run in no order, so the work
-// is split into kernels that each own their outputs, and every sum runs in a
-// fixed order (the results are the same from run to run, with no atomics):
+// f32 CUDA-core peak), on Hopper's wgmma but for dexc's small products. The
+// TPU kernel accumulates the weight grads in VMEM across a grid that runs in
+// order; Hopper CTAs run in no order, so the work is split into kernels that
+// each own their outputs, and every sum runs in a fixed order (the results
+// are the same from run to run, with no atomics). Five launches:
 //
 //  (a) k2_images_kernel lays out, at each launch, the images of the weights
 //      the data kernel's products read, split into hi and lo (K-major,
 //      without swizzle: tf32x3.cuh): Wh (cond_chain_f32.cuh), W1_i[j]^T for
 //      da and W0_i[j]^T for dexc.
-//  (b) k2_data_kernel, on Hopper's wgmma: one CTA per (batch row, 124-row
-//      time tile), two consumer warpgroups of 64 rows of h and a producer
-//      warp (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of the
-//      images; TMA copies of g, whose zero fill outside [0, T) gives the
-//      'same' conv's zero rows). Per block i and pass of 136 channels:
+//  (b) k2_data_kernel: one CTA per (batch row, 124-row time tile), two
+//      consumer warpgroups of 64 rows of h and a producer warp
+//      (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of the images;
+//      TMA copies of g, whose zero fill outside [0, T) gives the 'same'
+//      conv's zero rows). Per block i and pass of 136 channels:
 //       - h on wgmma as K1 takes it (the same operands in the same order);
-//         lrelu(h) of the own rows to the scratch (for (c)) straight from
-//         the accumulators, and the sign of h as 68 bits a thread, so that
-//         h's registers take da;
+//         the sign of h as 68 bits a thread, so that h's registers take da;
 //       - da_i, M = 64, N = 136, K = 3 x 2C in slices of 8 output channels:
 //         a stage is the slice of g for the CTA's 128 rows t0 - 2 ..
 //         t0 + 125 (two TMA boxes of 4 channels, raw f32) and the image of
@@ -54,9 +53,8 @@
 //         fragment for tap j (the rows 2 - j further down) and splits it;
 //         in the first pass one warp per channel of the slice sums the
 //         CTA's rows of g (db1) while the products run;
-//       - dh = lrelu'(h) da in place, zero outside [0, T); the own rows to
-//         the scratch; dhbias's column sums over each warp's own rows (the
-//         lanes by shuffles, one partial a warp);
+//       - dh = lrelu'(h) da in place, zero outside [0, T) and past Cc; the
+//         own rows to the dh scratch (for (d));
 //       - dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] for E in chunks
 //         of 8 (K = the pass's channels), on mma.sync m16n8k8 per warp (its
 //         16 rows, one accumulator a tap: small products that need no
@@ -66,22 +64,59 @@
 //         is permuted to match (k -> 2k (k < 4), 2(k - 4) + 1); then
 //         dexc[t] += P_0[t+1] + P_1[t] + P_2[t-1] through shared memory,
 //         a sum the CTA owns, over the blocks and passes in order.
-//      Nothing of it grows with Cc or E: one tile for every width.
-//  (c) k2_wgrad_kernel, split-K weight grads on mma.sync m16n8k8, both as
-//      D = X^T Y(shifted): dW1_i^T[j] (M = 2C, N = Cc; X = g_i, Y = the
-//      lrelu(h) scratch) and dW0^T[j] (M = n*Cc, N = E; X = the dh scratch,
-//      Y = exc). A CTA owns one (block, output tile) and one fixed chunk of
-//      the B*T rows and computes all three taps: it stages 32 rows of X and
-//      the 34 rows of Y around them (a one-row halo each side) per cp.async
-//      stage, double buffered, splits both into hi and lo once where they
-//      land, and serves the three taps from that one staging. Rows are
-//      indexed with a zero row between batch rows, so that a tap never pairs
-//      rows of two batch rows. It writes a partial.
-//  (d) k2_reduce_kernel sums the partials over the chunks in order, and gives
-//      db1, dhbias and the edge grads.
+//  (c) k2_w1_kernel, dW1 with no scratch of lrelu(h). A CTA owns (block i,
+//      pass p, a tile of OT = 64 output channels o, 32 where 2C <= 32) and
+//      a chunk of units, a unit being a batch row's 64 rows s0 .. s0 + 63 of
+//      lrelu(h). Three warpgroups (warp-specialized, so that the recompute of
+//      one unit overlaps the products of the one before):
+//       - warpgroup 0 recomputes h_i for the unit's rows as (b) does (the same
+//         A registers, the same image of Wh, the same k-slices and the same
+//         m64n136k8 products in the same order: the same bits, so the slope
+//         (b) took and the a taken here never disagree), and writes
+//         lrelu(h), split, straight from its accumulators into one of two
+//         K-major images: element (c, s) at (c / 8) 2048 + (s / 4) 128 +
+//         (c % 8) 16 + (s % 4) 4 bytes, rows past T and channels past Cc
+//         zero. The transpose tf32 wgmma needs (K = time) costs nothing: it
+//         is the store. Its first thread asks for each unit's rows of g
+//         s0 - 1 .. s0 + 64 (TMA, boxes of 8 channels, zeros outside [0, T)
+//         and past 2C) two units ahead;
+//       - warpgroups 1 and 2 take dW1_i[j][c][o] += sum_s g[s - j + 1][o]
+//         a[s][c] on wgmma, on 72 and 64 columns c: M = 64 rows (tap, o),
+//         the three taps of OT channels stacked (3 products at OT = 64, 2 at
+//         32), N = the columns c, K = the unit's 64 rows in slices of 8. B
+//         is a's image. A is g^T from registers: each thread loads its
+//         m16n8k8 A fragment (o = m, s = k) from the raw stage of g, the
+//         tap's shift being a shift of the rows it reads, and splits it.
+//         The shift cannot go on a's side: one row is 4 bytes inside a core
+//         matrix, and descriptors move in 16-byte steps.
+//      The chunks are as many as make the CTAs one wave of the card's 132
+//      SMs. wgmma's accumulation drifts over long sums (about 2^-24 of the
+//      sum an add: 1.3e-4 of max|dW1| over a chunk of 320 units), so a
+//      chunk is whole runs of at most 16 units, and the accumulators take
+//      one run and write it as an f32 partial (one per run).
+//  (d) k2_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one product,
+//      X^T dh, with X the rows of h's A in (b),
+//        X[t] = [exc[t-1] | exc[t] | exc[t+1] | 1 | -[t == 0] | -[t == T-1]]   (K = 3E + 3),
+//      so that row jE + e of X^T dh is dW0[j][e], row 3E dhbias, rows 3E + 1
+//      and 3E + 2 dedge0 and dedge_t (the taps are columns of X: no row
+//      shift). Taken as (dh^T X)^T: M = 64 columns of dh a warpgroup (A from
+//      registers, loaded from a raw TMA stage of the dh scratch, boxes of 8
+//      channels), N = 32 columns of X (B: built by the consumer threads from
+//      exc straight into a K-major hi/lo image, time contiguous in a core
+//      matrix), K = 64 rows a stage of a 2-stage ring; two CTAs an SM, at
+//      least four waves of them. A CTA owns 128 columns of dh, 32 columns of
+//      X and one part of one batch row's rows, so that a per-row hbias and
+//      the edges never mix two batch rows; its accumulators take one stage
+//      and are then added into its f32 sums. dh is read raw (4 bytes an
+//      element) rather than written by (b) as a split image (8 bytes): its
+//      bytes are the kernel's bound.
+//  (e) k2_reduce_kernel sums every kind of partial (dW1, db1, dW0, dhbias,
+//      the edges) over its chunks in order, in one launch.
 //
-// The scratch (two (B, T, n*Cc) f32 arrays, 1.4 GB each at B = 32, T = 8960)
-// lives in device memory; keeping it on chip is later work.
+// Nothing of it grows with Cc or E: one tile for every width (Wh's image is
+// fetched by (c) in chunks of 4 k-slices, once a batch row where it fits one
+// chunk). The dh scratch ((B, T, n*Cc) f32, 1.4 GB at B = 32, T = 8960) lives
+// in device memory; keeping it on chip is later work.
 //
 // Numerics: 3xTF32 products into f32 accumulators, no TF32-only product and
 // no library call anywhere; the sums run in another order than the plain
@@ -95,6 +130,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "cond_chain_f32.cuh"
 #include "tf32x3.cuh"
 
@@ -102,17 +139,12 @@ namespace {
 
 using namespace f32chain;
 using tf32x3::FragA;
-using tf32x3::FragB;
-using tf32x3::cp_async16;
-using tf32x3::cp_async4;
-using tf32x3::cp_async_commit;
-using tf32x3::cp_async_wait;
-using tf32x3::load_a_split;
 using tf32x3::load_b_split;
 using tf32x3::mma3;
-using tf32x3::split_in_place;
 
-// -- (a), (b): the data kernel on wgmma
+constexpr int kSmCount = 132;  // an H100's SMs: k2_w1_kernel's CTAs make one wave
+
+// -- (a), (b): the images and the data kernel
 
 constexpr int kDStages = 5;
 constexpr int kGBox = kTile + 4;           // 128 rows of g a stage: t0 - 2 .. t0 + 125
@@ -136,10 +168,8 @@ struct DataArgs {
   long long h_image;            // bytes of one batch row's (0: one for every row)
   const unsigned char* img_w1;  // da's B: [i][p][so][j][hi, lo][136 rows c x 8 o]
   const unsigned char* img_w0;  // dexc's B: [i][p][ec][s][hi, lo][24 rows (j, e) x 8 c]
-  float* a_out;                 // (B, T, n*Cc) scratch: lrelu(h)
   float* dh_out;                // (B, T, n*Cc) scratch: dh
   float* dexc;                  // (B, T, E)
-  float* phb;                   // (B, 8 ntiles, n*Cc): dh summed over a warp's own rows
   float* pb1;                   // (B, ntiles, n*2C): g summed over a CTA's rows
   int two_c, no, ne, ntiles;    // no, ne: slices of 8 of 2C and of E
   CUtensorMap g_map;            // g as (o: 2C, i: n, t: T, b: B), box (4, 1, 128, 1)
@@ -211,7 +241,6 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
   const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
   const int u0 = tb - 1;          // its h row q = 0
   const Lane l;
-  const int wq = l.wt >> 5;       // the warp within the warpgroup
   const int lane = threadIdx.x & 31;
   const int n0 = h.n * h.cc;
   const int n2 = h.n * a.two_c;
@@ -227,29 +256,12 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
     for (int p = 0; p < h.npass; ++p) {
       const int c0 = kPass * p;
       float acc[68];
-      // 1. h; lrelu(h) of the own rows to the scratch; where h >= 0, as bits
+      // 1. h; where h >= 0, as bits
       h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
       uint32_t pos[3] = {0u, 0u, 0u};
 #pragma unroll
-      for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int q = l.row + 8 * half;
-          const int u = u0 + q;
-          const int c = c0 + nt * 8 + 2 * l.tig;
-          float av[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int r = nt * 4 + 2 * half + e;
-            const float x = acc[r];
-            if (x >= 0.f) pos[r >> 5] |= 1u << (r & 31);
-            av[e] = x >= 0.f ? x : kSlope * x;
-          }
-          if (q >= 1 && q <= kOwn && u < h.T && c < h.cc) {
-            *reinterpret_cast<float2*>(a.a_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
-                make_float2(av[0], av[1]);
-          }
-        }
+      for (int r = 0; r < 68; ++r) {
+        if (acc[r] >= 0.f) pos[r >> 5] |= 1u << (r & 31);
       }
       // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
       zero(acc);
@@ -319,24 +331,6 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
                 make_float2(acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1]);
           }
         }
-      }
-      // dhbias: dh summed over a warp's own rows per channel, by its lanes;
-      // one partial a warp (the reduce sums them in order)
-      const bool own0 = l.row >= 1 && u0 + l.row < h.T;
-      const bool own1 = l.row + 8 <= kOwn && u0 + l.row + 8 < h.T;
-      float* phb = a.phb + ((((size_t)b * a.ntiles + tix) * 2 + wg) * 4 + wq) * n0 + i * h.cc;
-#pragma unroll
-      for (int nt = 0; nt < kPass / 8; ++nt) {
-        float sv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sv[e] = (own0 ? acc[nt * 4 + e] : 0.f) + (own1 ? acc[nt * 4 + 2 + e] : 0.f);
-          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 4);
-          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 8);
-          sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], 16);
-        }
-        const int c = c0 + nt * 8 + 2 * l.tig;
-        if (lane < 4 && c < h.cc) *reinterpret_cast<float2*>(phb + c) = make_float2(sv[0], sv[1]);
       }
       // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
       // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
@@ -469,234 +463,487 @@ __global__ void k2_images_kernel(ImageArgs a) {
   }
 }
 
-// -- (c), (d): the weight grads and the reduce, on mma.sync from the scratch
+// -- (c): dW1, lrelu(h) recomputed
+//
+// k2_w1_kernel's CTA: three warpgroups, 384 threads (168 registers a
+// thread). Shared memory: two slots of a's image (hi, then lo, each 17
+// groups of 8 columns c x 64 rows s); a ring of kW1Stages stages of g (OT
+// channels in boxes of 8, each 66 rows of 32 bytes in a 2176-byte slot); a
+// chunk of Wh's image (up to 4 k-slices, hi and lo); the barriers.
+constexpr int kW1Threads = 384;
+constexpr int kUnit = 64;                            // a's rows a unit (dW1's K)
+constexpr int kGUnitRows = kUnit + 2;                // g's rows a unit: s0 - 1 .. s0 + 64
+constexpr int kW1GBox = 68 * 32;                     // 2176: 8 channels of them, 128-byte
+                                                     // aligned (a TMA destination)
+constexpr int kW1GStage = 8 * kW1GBox;               // 17408: 64 channels
+constexpr int kW1Stages = 3;
+constexpr int kW1Ahead = 2;
+constexpr int kW1Run = 16;                           // units a run at most (the accumulators' take)
+constexpr int kAGroup = kUnit * 32;                  // 2048: 8 columns of a, every row (SBO)
+constexpr int kAImg = (kPass / 8) * kAGroup;         // 34816: a, hi or lo
+constexpr int kASlot = 2 * kAImg;
+constexpr int kWhChunk = 4;                          // k-slices of Wh a fetch
+constexpr int kWhBytes = kWhChunk * 2 * kHItem;      // 34816
+constexpr size_t kW1Smem = 2 * (size_t)kASlot + (size_t)kW1Stages * kW1GStage + kWhBytes +
+                           8 * (2 * kW1Stages + 5) + 1024;
+static_assert(kW1Smem <= kSmemMax, "k2_w1_kernel's shared memory");
+static_assert(kW1Ahead < kW1Stages, "k2_w1_kernel's ring");
 
-constexpr int kWRows = 32;           // weight-grad kernel: rows per stage
-constexpr int kWStages = 2;
-constexpr int kTargetCtas = 4 * 132;  // split-K aims at four CTAs per SM
-
-struct WgradArgs {
-  const float* X;  // unshifted operand: element (row, grp*xgoff + m), row = b*T + t
-  long long ldx;
-  int xgoff, M;
-  const float* Y;  // shifted operand: element (row, grp*ygoff + n)
-  long long ldy;
-  int ygoff, N;
-  float* part;     // (S, 3, N, G*M)
-  int T, G, prows, chunk;
+struct W1Args {
+  HArgs h;
+  const unsigned char* img_h;  // Wh's images, as the data kernel's
+  long long h_image;           // bytes of one batch row's (0: one for every row)
+  float* pw1;                  // (runs, 3, Cc, n*2C): dW1 per run of units
+  int two_c, notiles, nsub, units, chunk, run;  // units = B nsub of 64 rows; chunk: units a
+                                                // CTA, whole runs of `run` units
+  CUtensorMap g_map;           // g as (o: 2C, i: n, t: T, b: B), box (8, 1, 66, 1)
 };
 
-// The weight-grad CTA's shape for NTW n-tiles (of 8 columns) per warp: 8 x 1
-// warps of 16 x 8 for N <= 8 (dW0 of the split form), else 2 x 6 warps of
-// 16 x 24.
-template <int NTW>
-struct WgradGeom {
-  static constexpr int kWM = NTW == 1 ? 8 : 2;  // warps along M
-  static constexpr int kWN = NTW == 1 ? 1 : 6;  // warps along N
-  static constexpr int kBM = 16 * kWM;
-  static constexpr int kBN = 8 * NTW * kWN;
-  static constexpr int kThreads = 32 * kWM * kWN;
-  static constexpr int kLdx = k_read_stride(kBM);
-  static constexpr int kLdy = k_read_stride(kBN);
-  static constexpr int kXlo = kWRows * kLdx;        // a stage's lo parts, after its hi parts
-  static constexpr int kYlo = (kWRows + 2) * kLdy;
-  static constexpr size_t kSmem = (size_t)kWStages * 2 * (kXlo + kYlo) * sizeof(float);
-};
-
-// part[s][j][n][grp*M + m] = sum over rows (b, t) of chunk s of
-// X[b, t][grp*xgoff + m] * Y[b, t+j-1][grp*ygoff + n], Y zero outside [0, T).
-// Rows are indexed p = b*(T+1) + t + 1, so p = b*(T+1) is a zero row between
-// batch rows and tap j pairs X row p with Y row p + j - 1. A CTA owns a
-// kBM x kBN output tile, all three taps, and the padded rows
-// [s*chunk, (s+1)*chunk).
-// kYVec: Y's rows are 16-byte aligned (ldy a multiple of 4) and are staged in
-// 16-byte pieces; else (dW0 at E not a multiple of 4) in 4-byte pieces.
-template <int NTW, bool kYVec>
-__global__ void __launch_bounds__(WgradGeom<NTW>::kThreads) k2_wgrad_kernel(WgradArgs w) {
-  using G = WgradGeom<NTW>;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                         // [kWStages][hi, lo][kWRows][kLdx]
-  float* ys = smem + kWStages * 2 * G::kXlo;  // [kWStages][hi, lo][kWRows + 2][kLdy]
-  const int mblocks = (w.M + G::kBM - 1) / G::kBM;
-  const int m0 = (blockIdx.x % mblocks) * G::kBM;
-  const int n0 = (blockIdx.x / mblocks) * G::kBN;
-  const int grp_i = blockIdx.y;
-  const int s = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  const int wm = warp / G::kWN;
-  const int wn = warp % G::kWN;
-  const int p_begin = s * w.chunk;
-  const int p_end = min(w.prows, p_begin + w.chunk);
-  const int nsub = (p_end - p_begin + kWRows - 1) / kWRows;
-  const int tp = w.T + 1;
-  const float* X = w.X + (size_t)grp_i * w.xgoff;
-  const float* Y = w.Y + (size_t)grp_i * w.ygoff;
-
-  // (split = true: this thread's pieces of stage sub, landed, split in place)
-  auto load = [&](int sub, bool split) {
-    const int pb = p_begin + sub * kWRows;
-    const int pb_b = pb / tp;  // pb = pb_b*(T+1) + pb_q
-    const int pb_q = pb - pb_b * tp;
-    float* xd = xs + (sub % kWStages) * 2 * G::kXlo;
-    float* yd = ys + (sub % kWStages) * 2 * G::kYlo;
-    constexpr int kXP = G::kBM / 4;  // 16-byte pieces per row
-    constexpr int kYP = G::kBN / 4;
-    constexpr int kNX = kWRows * kXP;
-    constexpr int kNY = (kWRows + 2) * kYP;
-    for (int idx = tid; idx < kNX + kNY; idx += G::kThreads) {
-      const bool is_x = idx < kNX;
-      const int k = is_x ? idx : idx - kNX;
-      const int r = is_x ? k / kXP : k / kYP;
-      const int c = (k - r * (is_x ? kXP : kYP)) * 4;
-      float* dst = is_x ? xd + r * G::kLdx + c : yd + r * G::kLdy + c;
-      if (split) {
-        split_in_place(dst, is_x ? G::kXlo : G::kYlo);
-        continue;
-      }
-      // padded row p = pb + r (X) or pb - 1 + r (Y), as (batch row, t + 1)
-      int bq = pb_b;
-      int q = pb_q + r - (is_x ? 0 : 1);
-      if (q < 0) {
-        q += tp;
-        --bq;
-      }
-      while (q >= tp) {
-        q -= tp;
-        ++bq;
-      }
-      const int p = bq * tp + q;
-      const size_t row = (size_t)bq * w.T + q - 1;
-      const bool ok = q != 0 && p >= 0 && (is_x ? p < p_end && m0 + c < w.M
-                                                 : p < w.prows && n0 + c < w.N);
-      const float* src = !ok ? w.X : is_x ? X + row * w.ldx + m0 + c : Y + row * w.ldy + n0 + c;
-      if (is_x || kYVec) {
-        cp_async16(dst, src, ok);
-      } else {
+// A product warpgroup of k2_w1_kernel: dW1 of the CTA's tile for N columns
+// of a from cw on, over its chunk of units; then the partial.
+template <int OT, int N>
+__device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
+                                            const unsigned char* aslots,
+                                            const unsigned char* gring, uint64_t* g_full,
+                                            uint64_t* g_empty, uint64_t* a_full,
+                                            uint64_t* a_empty, int i, int c0, int o0, int cw,
+                                            int k_begin, int k_end) {
+  constexpr int kNch = (3 * OT + 63) / 64;  // products of 64 rows (tap, o)
+  // this thread's rows r = 64 m + l.row + 8 half of the stacked taps: tap
+  // j = r / OT, channel o = r % OT; the A fragment's element (r, k) is g at
+  // the unit's row k - j + 1, the stage's row k + 2 - j
+  int off[kNch][2];
+  bool ok[kNch][2];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok_u = ok && n0 + c + u < w.N;
-          cp_async4(dst + u, ok_u ? src + u : w.X, ok_u);
+  for (int m = 0; m < kNch; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 64 * m + l.row + 8 * half;
+      const int j = r / OT, o = r % OT;
+      ok[m][half] = r < 3 * OT;
+      off[m][half] = ok[m][half] ? (o / 8) * (kW1GBox / 4) + (2 - j + l.tig) * 8 + (o % 8) : 0;
+    }
+  // The accumulators take one run of units (a chunk is whole runs), then go
+  // to the run's partial, and start again: a long run of wgmma's
+  // accumulation drifts (it loses about 2^-24 of the sum an add: 1.3e-4 of
+  // max|dW1| over 320 units)
+  const HArgs& h = a.h;
+  const size_t n2 = (size_t)h.n * a.two_c;
+  float acc[kNch][N / 2];
+  for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
+    const int fresh = k % a.run == 0;  // the unit's products overwrite the accumulators
+    const int slot = n & 1;
+    const int st = slot_of<kW1Stages>(n);
+    mbar_wait(&a_full[slot], (uint32_t)((n >> 1) & 1));
+    mbar_wait(&g_full[st], parity_of<kW1Stages>(n));
+    const float* gs = reinterpret_cast<const float*>(gring + st * kW1GStage);
+    const uint32_t abase = smem_u32(aslots + slot * kASlot) + (cw / 8) * kAGroup;
+#pragma unroll 1
+    for (int kk = 0; kk < kUnit / 8; ++kk) {
+      XFrag f[kNch];
+#pragma unroll
+      for (int m = 0; m < kNch; ++m) {
+        const float* p0 = gs + off[m][0] + 64 * kk;
+        const float* p1 = gs + off[m][1] + 64 * kk;
+        split(ok[m][0] ? p0[0] : 0.f, f[m].hi[0], f[m].lo[0]);
+        split(ok[m][1] ? p1[0] : 0.f, f[m].hi[1], f[m].lo[1]);
+        split(ok[m][0] ? p0[32] : 0.f, f[m].hi[2], f[m].lo[2]);
+        split(ok[m][1] ? p1[32] : 0.f, f[m].hi[3], f[m].lo[3]);
+        fence_regs(f[m].hi);
+        fence_regs(f[m].lo);
+      }
+      const uint32_t bh = abase + 256 * kk;
+      wgmma_fence();
+      const int keep = kk > 0 || !fresh;
+#pragma unroll
+      for (int m = 0; m < kNch; ++m) {
+        if constexpr (N == 72) {
+          tf32x3::wgmma_rs_n72(acc[m], f[m].lo, desc(bh, 128, kAGroup), keep);
+          tf32x3::wgmma_rs_n72(acc[m], f[m].hi, desc(bh + kAImg, 128, kAGroup), 1);
+          tf32x3::wgmma_rs_n72(acc[m], f[m].hi, desc(bh, 128, kAGroup), 1);
+        } else {
+          tf32x3::wgmma_rs_n64(acc[m], f[m].lo, desc(bh, 128, kAGroup), keep);
+          tf32x3::wgmma_rs_n64(acc[m], f[m].hi, desc(bh + kAImg, 128, kAGroup), 1);
+          tf32x3::wgmma_rs_n64(acc[m], f[m].hi, desc(bh, 128, kAGroup), 1);
         }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < kNch; ++m) fence_regs(acc[m]);
+    }
+    release(&g_empty[st]);
+    release(&a_empty[slot]);
+    if ((k + 1) % a.run && k + 1 < k_end) continue;
+    float* part = a.pw1 + (size_t)(k / a.run) * 3 * h.cc * n2 + (size_t)i * a.two_c;
+#pragma unroll
+    for (int m = 0; m < kNch; ++m) {
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v) {
+        const int r = 64 * m + l.row + 8 * ((v >> 1) & 1);
+        const int j = r / OT, o = o0 + r % OT;
+        const int c = c0 + cw + 8 * (v >> 2) + 2 * l.tig + (v & 1);
+        if (r < 3 * OT && o < a.two_c && c < h.cc) {
+          part[((size_t)j * h.cc + c) * n2 + o] = acc[m][v];
+        }
+      }
+    }
+  }
+}
+
+template <int OT>
+__global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_constant__ W1Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* aslots = smem;
+  unsigned char* gring = aslots + 2 * kASlot;
+  unsigned char* wh = gring + kW1Stages * kW1GStage;
+  uint64_t* g_full = reinterpret_cast<uint64_t*>(wh + kWhBytes);
+  uint64_t* g_empty = g_full + kW1Stages;
+  uint64_t* a_full = g_empty + kW1Stages;
+  uint64_t* a_empty = a_full + 2;
+  uint64_t* w_full = a_empty + 2;
+
+  const HArgs& h = a.h;
+  const int ot = blockIdx.x % a.notiles;
+  const int ip = blockIdx.x / a.notiles;
+  const int p = ip % h.npass;
+  const int i = ip / h.npass;
+  const int o0 = ot * OT;
+  const int c0 = p * kPass;
+  const int k_begin = blockIdx.y * a.chunk;
+  const int k_end = min(a.units, k_begin + a.chunk);
+  const int wg = warp_index() >> 2;
+  const Lane l;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kW1Stages; ++k) {
+      mbar_init(&g_full[k], 1);
+      mbar_init(&g_empty[k], 8);  // one arrival per product warp
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&a_full[k], 4);   // one arrival per recompute warp
+      mbar_init(&a_empty[k], 8);
+    }
+    mbar_init(w_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the g stage of unit k (the CTA's n-th), once the products of the unit
+    // kW1Stages before are done with it
+    auto ask_g = [&](int k, int n) {
+      const int b = k / a.nsub;
+      const int s0 = (k - b * a.nsub) * kUnit;
+      const int st = slot_of<kW1Stages>(n);
+      mbar_wait(&g_empty[st], parity_of<kW1Stages>(n) ^ 1);
+      mbar_arrive_expect_tx(&g_full[st], (OT / 8) * kGUnitRows * 32);
+      for (int bx = 0; bx < OT / 8; ++bx) {
+        tma_load_4d(gring + st * kW1GStage + bx * kW1GBox, &a.g_map, &g_full[st], o0 + 8 * bx, i,
+                    s0 - 1, b);
+      }
+    };
+    if (l.wt == 0) {
+      prefetch_map(&a.g_map);
+      for (int n = 0; n < kW1Ahead && k_begin + n < k_end; ++n) ask_g(k_begin + n, n);
+    }
+    // chunk kc of batch row b's image of Wh (block i, pass p) into the slot,
+    // once every recompute thread is done with what it held
+    const int nkc = (h.nkh + kWhChunk - 1) / kWhChunk;
+    int loads = 0, held = -1;
+    auto fetch = [&](int b, int kc) {
+      const int sl = min(kWhChunk, h.nkh - kWhChunk * kc);
+      bar_sync(1, 128);
+      if (l.wt == 0) {
+        mbar_arrive_expect_tx(w_full, (uint32_t)(sl * 2 * kHItem));
+        bulk_load(wh,
+                  a.img_h + (size_t)b * a.h_image +
+                      (((size_t)i * h.npass + p) * h.nkh + kWhChunk * kc) * 2 * kHItem,
+                  (uint32_t)(sl * 2 * kHItem), w_full);
+      }
+      mbar_wait(w_full, (uint32_t)(loads & 1));
+      ++loads;
+    };
+    const uint32_t whb = smem_u32(wh);
+    float acc[68];
+    for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
+      const int b = k / a.nsub;
+      const int u0 = (k - b * a.nsub) * kUnit;  // a's row q = 0
+      // h for rows u0 + q as the data kernel's h_pass takes it: slice by
+      // slice, X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi
+      zero(acc);
+      for (int kc = 0; kc < nkc; ++kc) {
+        if (nkc > 1 || held < 0 || (a.h_image && b != held)) fetch(b, kc);
+        held = b;
+        const int sl = min(kWhChunk, h.nkh - kWhChunk * kc);
+        XFrag x[kWhChunk];
+#pragma unroll
+        for (int ss = 0; ss < kWhChunk; ++ss) {
+          if (ss < sl) {
+            x[ss] = x_frag(h, b, u0, l, kWhChunk * kc + ss);
+            fence_regs(x[ss].hi);
+            fence_regs(x[ss].lo);
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ss = 0; ss < kWhChunk; ++ss) {
+          if (ss < sl) {
+            const uint32_t base = whb + ss * 2 * kHItem;
+            tf32x3::wgmma_rs_n136(acc, x[ss].lo, desc(base, 128, 256), 1);
+            tf32x3::wgmma_rs_n136(acc, x[ss].hi, desc(base + kHItem, 128, 256), 1);
+            tf32x3::wgmma_rs_n136(acc, x[ss].hi, desc(base, 128, 256), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      // a = lrelu(h), zero past T and Cc, split, into the slot's K-major image
+      const int slot = n & 1;
+      unsigned char* as = aslots + slot * kASlot;
+      mbar_wait(&a_empty[slot], (uint32_t)(((n >> 1) & 1) ^ 1));
+#pragma unroll
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = l.row + 8 * half;
+          const bool row_ok = u0 + q < h.T;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = acc[nt * 4 + 2 * half + e];
+            const int cl = 2 * l.tig + e;
+            const float v = row_ok && c0 + 8 * nt + cl < h.cc ? (x >= 0.f ? x : kSlope * x) : 0.f;
+            uint32_t hi, lo;
+            split(v, hi, lo);
+            const int off = nt * kAGroup + (q >> 2) * 128 + cl * 16 + (q & 3) * 4;
+            *reinterpret_cast<uint32_t*>(as + off) = hi;
+            *reinterpret_cast<uint32_t*>(as + kAImg + off) = lo;
+          }
+        }
+      }
+      fence_proxy_async();
+      release(&a_full[slot]);
+      if (l.wt == 0 && k + kW1Ahead < k_end) ask_g(k + kW1Ahead, n + kW1Ahead);
+    }
+    return;
+  }
+  if (wg == 1) {
+    w1_products<OT, 72>(a, l, aslots, gring, g_full, g_empty, a_full, a_empty, i, c0, o0, 0,
+                        k_begin, k_end);
+  } else {
+    w1_products<OT, 64>(a, l, aslots, gring, g_full, g_empty, a_full, a_empty, i, c0, o0, 72,
+                        k_begin, k_end);
+  }
+}
+
+// -- (d): dW0, dhbias and the edges as X^T dh
+//
+// k2_xdh_kernel's shared memory: a ring of kXStages stages of 64 rows x 128
+// columns of dh (16 TMA boxes of 8 columns, each its 64 rows of 32 bytes);
+// two slots of the step's X image (hi, then lo, each 4 groups of 8 columns
+// x 64 rows, K-major); the barriers. Two CTAs an SM.
+constexpr int kXStages = 2;
+constexpr int kXRows = 64;                      // rows a step (the products' K)
+constexpr int kDhBox = kXRows * 32;             // 2048: 8 columns of dh
+constexpr int kXStage = 16 * kDhBox;            // 32768: 128 columns, 64 a warpgroup
+constexpr int kXN = 32;                         // columns of X a CTA (the products' N)
+constexpr int kXGroup = kXRows * 32;            // 2048: 8 columns of X, every row (SBO)
+constexpr int kXImg = (kXN / 8) * kXGroup;      // 8192: X, hi or lo
+constexpr size_t kXSmem = (size_t)kXStages * kXStage + 4 * (size_t)kXImg + 16 * kXStages + 1024;
+static_assert(2 * kXSmem <= kSmemMax + 1024, "k2_xdh_kernel: two CTAs an SM");
+
+struct XArgs {
+  HArgs h;
+  float* pw0;            // (B parts, K, n*Cc): X^T dh per part of a batch row
+  int parts, prows, kx;  // parts a batch row, rows a part (a multiple of 64), K = 3E + 3
+  CUtensorMap dh_map;    // the dh scratch as (c: n Cc, 1, t: T, b: B), box (8, 1, 64, 1)
+};
+
+__global__ void __launch_bounds__(kThreads, 2) k2_xdh_kernel(const __grid_constant__ XArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* xs = ring + kXStages * kXStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + 4 * kXImg);
+  uint64_t* empty = full + kXStages;
+
+  const HArgs& h = a.h;
+  const int col0 = blockIdx.x * 128;
+  const int sp = blockIdx.y;  // (batch row, part)
+  const int b = sp / a.parts;
+  const int r0 = (sp - b * a.parts) * a.prows;
+  const int r1 = min(h.T, r0 + a.prows);
+  const int nsteps = (r1 - r0 + kXRows - 1) / kXRows;
+  const int k0 = blockIdx.z * kXN;
+  const int warp = warp_index();
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kXStages; ++k) {
+      mbar_init(&full[k], 1);
+      mbar_init(&empty[k], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    if (threadIdx.x == 256) {
+      prefetch_map(&a.dh_map);
+      for (int n = 0; n < nsteps; ++n) {
+        const int st = slot_of<kXStages>(n);
+        unsigned char* dst = ring + st * kXStage;
+        mbar_wait(&empty[st], parity_of<kXStages>(n) ^ 1);
+        mbar_arrive_expect_tx(&full[st], kXStage);
+        for (int q = 0; q < 16; ++q) {
+          tma_load_4d(dst + q * kDhBox, &a.dh_map, &full[st], col0 + 8 * q, 0, r0 + kXRows * n, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const Lane l;
+  const int n0 = h.n * h.cc;
+  // X[t0 + r][k0 + kk], zero past the part's rows, split, into slot `slot`:
+  // thread ct builds column kk = ct % 32 of rows 4 (idx / 32) .. + 3 for
+  // idx = ct and ct + 256, 16 bytes each of hi and lo. Its column is x_at's
+  // for every row: exc's column e of tap j (src, from row j - 1 on), the
+  // ones, an edge row (-1 at row `edge`) or zeros
+  const int ct = threadIdx.x;
+  const int kk = ct & 31, kx = k0 + kk;
+  const int tap = kx < 3 * h.E ? (kx >= h.E) + (kx >= 2 * h.E) : -1;
+  const float* src = h.exc + (size_t)b * h.T * h.E + (tap >= 0 ? kx - tap * h.E : 0);
+  const float ones = kx == 3 * h.E ? 1.f : 0.f;
+  const int edge = kx == 3 * h.E + 1 ? 0 : kx == 3 * h.E + 2 ? h.T - 1 : -1;
+  auto build = [&](int t0, int slot) {
+    unsigned char* dst = xs + slot * 2 * kXImg;
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int tg = (ct >> 5) + 8 * z;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int u = t0 + 4 * tg + x;
+        const int t = u + tap - 1;
+        float v = u == edge ? -1.f : ones;
+        if (tap >= 0) v = t >= 0 && t < h.T ? __ldg(src + (size_t)t * h.E) : 0.f;
+        split(u < r1 ? v : 0.f, hi[x], lo[x]);
+      }
+      const int off = (kk >> 3) * kXGroup + tg * 128 + (kk & 7) * 16;
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + kXImg + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
-
-  float acc[3][NTW][4];
+  // D^T[c][k] = sum_t dh[t][c] X[t][k]: this thread's A element (m, k) of a
+  // step's k-slice kk is dh[8 kk + k][col0 + 64 wg + m], in box 8 wg + m / 8
+  const int fo = (8 * wg + (l.row >> 3)) * (kDhBox / 4) + l.tig * 8 + (l.row & 7);
+  // the accumulators take one step, then are added into tot in f32 (a long
+  // run of wgmma's accumulation drifts: k2_w1_kernel)
+  float acc[kXN / 2], tot[kXN / 2];
+  zero(tot);
+  build(r0, 0);
+  for (int n = 0; n < nsteps; ++n) {
+    fence_proxy_async();
+    bar_sync(1, 256);  // the step's X in place; every warp done with the last step's
+    const int st = slot_of<kXStages>(n);
+    mbar_wait(&full[st], parity_of<kXStages>(n));
+    const float* ds = reinterpret_cast<const float*>(ring + st * kXStage) + fo;
+    XFrag f[kXRows / 8];
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[j][nt][v] = 0.f;
-
-  for (int sub = 0; sub < kWStages - 1; ++sub) {
-    if (sub < nsub) load(sub, false);
-    cp_async_commit();
-  }
-  for (int sub = 0; sub < nsub; ++sub) {
-    cp_async_wait<kWStages - 2>();
-    load(sub, true);
-    __syncthreads();  // stage sub landed and split; stage sub-1 is free
-    if (sub + kWStages - 1 < nsub) load(sub + kWStages - 1, false);
-    cp_async_commit();
-    const float* xd = xs + (sub % kWStages) * 2 * G::kXlo;
-    const float* yd = ys + (sub % kWStages) * 2 * G::kYlo;
-#pragma unroll 2
-    for (int kk = 0; kk < kWRows; kk += 8) {
-      // A[m][k] = X[row kk + k][m]; B_j[k][n] = Y[row kk + k + j - 1][n] = yd row kk + k + j
-      const FragA fa = load_a_split(xd + (kk + tig) * G::kLdx + wm * 16 + grp, G::kXlo, 1, G::kLdx);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-#pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
-          const FragB fb = load_b_split(yd + (kk + tig + j) * G::kLdy + (wn * NTW + nt) * 8 + grp,
-                                        G::kYlo, G::kLdy);
-          mma3(acc[j][nt], fa, fb);
-        }
-      }
+    for (int kk = 0; kk < kXRows / 8; ++kk) {
+      const float* d0 = ds + 64 * kk;
+      split(d0[0], f[kk].hi[0], f[kk].lo[0]);
+      split(d0[kDhBox / 4], f[kk].hi[1], f[kk].lo[1]);
+      split(d0[32], f[kk].hi[2], f[kk].lo[2]);
+      split(d0[kDhBox / 4 + 32], f[kk].hi[3], f[kk].lo[3]);
+      fence_regs(f[kk].hi);
+      fence_regs(f[kk].lo);
     }
-  }
-  cp_async_wait<0>();
-
-  const size_t ldo = (size_t)w.G * w.M;
+    release(&empty[st]);  // the stage is in registers
+    const uint32_t xb = smem_u32(xs + (n & 1) * 2 * kXImg);
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    float* out = w.part + ((size_t)s * 3 + j) * w.N * ldo + (size_t)grp_i * w.M;
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 16 + grp + 8 * half;
-        if (m >= w.M) continue;
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int nn = n0 + (wn * NTW + nt) * 8 + 2 * tig + u;
-          if (nn < w.N) out[nn * ldo + m] = acc[j][nt][2 * half + u];
-        }
-      }
+    for (int kk = 0; kk < kXRows / 8; ++kk) {
+      tf32x3::wgmma_rs_n32(acc, f[kk].lo, desc(xb + 256 * kk, 128, kXGroup), kk > 0);
+      tf32x3::wgmma_rs_n32(acc, f[kk].hi, desc(xb + kXImg + 256 * kk, 128, kXGroup), 1);
+      tf32x3::wgmma_rs_n32(acc, f[kk].hi, desc(xb + 256 * kk, 128, kXGroup), 1);
     }
+    wgmma_commit();
+    if (n + 1 < nsteps) build(r0 + kXRows * (n + 1), (n + 1) & 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int v = 0; v < kXN / 2; ++v) tot[v] += acc[v];
+  }
+#pragma unroll
+  for (int v = 0; v < kXN / 2; ++v) {
+    const int c = col0 + 64 * wg + l.row + 8 * ((v >> 1) & 1);
+    const int k = k0 + 8 * (v >> 2) + 2 * l.tig + (v & 1);
+    if (k < a.kx && c < n0) a.pw0[((size_t)sp * a.kx + k) * n0 + c] = tot[v];
   }
 }
 
-// out[o*len + k] = scale * sum_{s < S} part[o*ostride + s*sstride + k], s in order.
-__global__ void k2_reduce_kernel(const float* part, float* out, long long len, int S,
-                                 long long sstride, long long ostride, float scale) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long o = blockIdx.y;
-  if (k >= len) return;
-  const float* p = part + o * ostride + k;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += p[(long long)s * sstride];
-  out[o * len + k] = scale * acc;
-}
-
-// The split-K plan of one weight grad D = X^T Y (M x N per group, G groups)
-// over R = B*T rows.
-struct Wgrad {
-  int ntw, mblocks, nblocks, S, chunk;
-  size_t smem;
+// -- (e): the reduce
+//
+// One job of k2_reduce_kernel: out[o*len + k] = sum_{s < S} part[o*ostride +
+// s*sstride + k], s in order, for o < outer, k < len.
+struct ReduceJob {
+  const float* part;
+  float* out;
+  long long len, sstride, ostride, first;  // first: its first element in the launch
+  int outer, S;
+};
+constexpr int kMaxJobs = 6;
+struct ReduceArgs {
+  ReduceJob job[kMaxJobs];
+  int n;
+  long long total;
 };
 
-template <int NTW>
-void wgrad_shape(Wgrad& p, int M, int N) {
-  using G = WgradGeom<NTW>;
-  p.ntw = NTW;
-  p.mblocks = (M + G::kBM - 1) / G::kBM;
-  p.nblocks = (N + G::kBN - 1) / G::kBN;
-  p.smem = G::kSmem;
+__global__ void k2_reduce_kernel(const __grid_constant__ ReduceArgs r) {
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= r.total) return;
+  int j = 0;
+  while (j + 1 < r.n && x >= r.job[j + 1].first) ++j;
+  const ReduceJob& jb = r.job[j];
+  const long long e = x - jb.first;
+  const long long o = e / jb.len;
+  const long long k = e - o * jb.len;
+  const float* p = jb.part + o * jb.ostride + k;
+  float acc = 0.f;
+  for (int s = 0; s < jb.S; ++s) acc += p[(long long)s * jb.sstride];
+  jb.out[o * jb.len + k] = acc;
 }
 
-Wgrad wgrad_plan(int M, int N, int G, int B, int T) {
-  Wgrad p;
-  if (N <= 8) {
-    wgrad_shape<1>(p, M, N);
-  } else {
-    wgrad_shape<3>(p, M, N);
-  }
-  const int prows = B * (T + 1);
-  const int tiles = p.mblocks * p.nblocks * G;
-  int S = (kTargetCtas + tiles - 1) / tiles;
-  const int max_s = (prows + 4 * kWRows - 1) / (4 * kWRows);  // at least 4 stages a CTA
-  if (S > max_s) S = max_s;
-  if (S < 1) S = 1;
-  p.chunk = ((prows + S - 1) / S + kWRows - 1) / kWRows * kWRows;
-  p.S = (prows + p.chunk - 1) / p.chunk;
-  return p;
+// the job of an (outer, len) sum of partials S apart at `part`
+void add_job(ReduceArgs& r, const float* part, float* out, long long len, int outer, int S,
+             long long sstride, long long ostride) {
+  ReduceJob& j = r.job[r.n++];
+  j.part = part;
+  j.out = out;
+  j.len = len;
+  j.outer = outer;
+  j.S = S;
+  j.sstride = sstride;
+  j.ostride = ostride;
+  j.first = r.total;
+  r.total += len * outer;
 }
-
 
 // Everything the launch needs, from the shapes alone; ok = false for shapes
-// the kernels do not take. Offsets are in floats of the workspace.
+// the kernels do not take. Offsets are in floats of the workspace, each on a
+// 256-byte boundary.
 struct Plan {
   bool ok;
-  int ntiles, no, ne, nimg;
-  Wgrad w1, w0;
-  size_t off_a, off_dh, off_phb, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, total;
-  size_t h_image;  // bytes
+  int ntiles, no, ne, nimg;                 // (a), (b)
+  int ot, notiles, nsub, units, chunk, run, s1, runs;  // (c)
+  int kx, xcols, xks, parts, prows, s0;     // (d)
+  size_t h_image;                           // bytes
+  size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, total;
 };
 
 Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
@@ -711,20 +958,40 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   p.ne = (E + 7) / 8;
   p.nimg = per_row ? B : 1;
   p.h_image = h_image_bytes(n, cc, E);
-  const size_t R = (size_t)B * T;
+  const int npass = passes(cc);
+  // (c): (block, pass, OT output channels) tiles times chunks of units, one wave
+  p.ot = two_c <= 32 ? 32 : 64;
+  p.notiles = (two_c + p.ot - 1) / p.ot;
+  p.nsub = (T + kUnit - 1) / kUnit;
+  p.units = B * p.nsub;
+  const long long tiles = (long long)n * npass * p.notiles;
+  const int s1 = (int)std::min<long long>(std::max<long long>(1, kSmCount / tiles), p.units);
+  const int chunk = (p.units + s1 - 1) / s1;
+  const int nruns = (chunk + kW1Run - 1) / kW1Run;  // a chunk is nruns runs of at most kW1Run
+  p.run = (chunk + nruns - 1) / nruns;
+  p.chunk = p.run * nruns;
+  p.s1 = (p.units + p.chunk - 1) / p.chunk;
+  p.runs = (p.units + p.run - 1) / p.run;
+  // (d): (batch row, part) chunks times (128 columns of dh, 32 columns of X)
+  // tiles, at least four waves of two CTAs an SM, so that the last wave's
+  // idle SMs cost little
   const size_t n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
-  p.w1 = wgrad_plan(two_c, cc, n, B, T);
-  p.w0 = wgrad_plan((int)n0, E, 1, B, T);
-  if (p.w1.smem > kSmemMax || p.w0.smem > kSmemMax) return p;
-  auto up = [](size_t x) { return (x + 63) / 64 * 64; };  // 256-byte boundaries
-  const size_t npass = passes(cc);
-  p.off_a = 0;
-  p.off_dh = p.off_a + R * n0;
-  p.off_phb = p.off_dh + R * n0;
-  p.off_pb1 = p.off_phb + (size_t)B * 8 * p.ntiles * n0;
-  p.off_pw1 = p.off_pb1 + (size_t)B * p.ntiles * n2;
-  p.off_pw0 = p.off_pw1 + (size_t)p.w1.S * 3 * cc * n2;
-  p.off_imh = up(p.off_pw0 + (size_t)p.w0.S * 3 * E * n0);
+  p.kx = 3 * E + 3;
+  p.xcols = (int)((n0 + 127) / 128);
+  p.xks = (p.kx + kXN - 1) / kXN;
+  const long long per_b = (long long)B * p.xcols * p.xks;
+  const int parts = (int)std::min<long long>(
+      std::max<long long>(1, (8 * kSmCount + per_b - 1) / per_b), 65535 / B);
+  p.prows = ((T + parts - 1) / parts + kXRows - 1) / kXRows * kXRows;
+  p.parts = (T + p.prows - 1) / p.prows;
+  p.s0 = B * p.parts;
+  auto up = [](size_t x) { return (x + 63) / 64 * 64; };
+  const size_t R = (size_t)B * T;
+  p.off_dh = 0;
+  p.off_pb1 = up(R * n0);
+  p.off_pw1 = up(p.off_pb1 + (size_t)B * p.ntiles * n2);
+  p.off_pw0 = up(p.off_pw1 + (size_t)p.runs * 3 * cc * n2);
+  p.off_imh = up(p.off_pw0 + (size_t)p.s0 * p.kx * n0);
   p.off_imw1 = up(p.off_imh + p.nimg * p.h_image / 4);
   p.off_imw0 = up(p.off_imw1 + (size_t)n * npass * p.no * kW1Item / 4);
   p.total = p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4;
@@ -732,62 +999,9 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   return p;
 }
 
-cudaError_t launch_data(const DataArgs& d, const Plan& p, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(k2_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kDataSmem);
-  if (e != cudaSuccess) return e;
-  k2_data_kernel<<<dim3((unsigned)p.ntiles, (unsigned)B), kThreads, kDataSmem, stream>>>(d);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_reduce(const float* part, float* out, long long len, int outer, int S,
-                          long long sstride, long long ostride, float scale,
-                          cudaStream_t stream) {
-  const int threads = 256;
-  dim3 grid((unsigned)((len + threads - 1) / threads), (unsigned)outer);
-  k2_reduce_kernel<<<grid, threads, 0, stream>>>(part, out, len, S, sstride, ostride, scale);
-  return cudaGetLastError();
-}
-
-template <int NTW, bool kYVec>
-cudaError_t launch_wgrad_t(const Wgrad& p, const WgradArgs& w, int G, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(k2_wgrad_kernel<NTW, kYVec>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)p.smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)(p.mblocks * p.nblocks), (unsigned)G, (unsigned)p.S);
-  k2_wgrad_kernel<NTW, kYVec><<<grid, WgradGeom<NTW>::kThreads, p.smem, stream>>>(w);
-  return cudaGetLastError();
-}
-
-// D[grp][j] = X_grp^T Y_grp(shifted by j - 1) into part (S, 3, N, G*M)
-cudaError_t launch_wgrad(const Wgrad& p, const float* X, long long ldx, int xgoff, int M,
-                         const float* Y, long long ldy, int ygoff, int N, int G, int B, int T,
-                         float* part, cudaStream_t stream) {
-  WgradArgs w;
-  w.X = X;
-  w.ldx = ldx;
-  w.xgoff = xgoff;
-  w.M = M;
-  w.Y = Y;
-  w.ldy = ldy;
-  w.ygoff = ygoff;
-  w.N = N;
-  w.part = part;
-  w.T = T;
-  w.G = G;
-  w.prows = B * (T + 1);
-  w.chunk = p.chunk;
-  if (ldy % 4 == 0) {
-    return p.ntw == 1 ? launch_wgrad_t<1, true>(p, w, G, stream)
-                      : launch_wgrad_t<3, true>(p, w, G, stream);
-  }
-  return p.ntw == 1 ? launch_wgrad_t<1, false>(p, w, G, stream)
-                    : launch_wgrad_t<3, false>(p, w, G, stream);
-}
-// Device time of a call's kernels, for measurement (smoke phase 8): while
-// on, a call records an event before its first launch and after the images,
-// the data kernel, each weight-grad kernel and the last reduce, on its stream
+// Device time of each of a call's five launches, for measurement (smoke
+// phase 8): while on, a call records an event before its first launch and
+// after each one, on its stream
 bool g_timed = false;
 cudaEvent_t g_marks[6];
 
@@ -807,9 +1021,8 @@ extern "C" int cond_chain_bwd_time_kernels(int on) {
 }
 
 // ms[0..4]: the last timed call's k2_images_kernel, k2_data_kernel,
-// k2_wgrad_kernel for dW1, k2_wgrad_kernel for dW0 and its k2_reduce_kernel
-// launches (4 to 6), each from the end of the launch before it (synchronize
-// first)
+// k2_w1_kernel, k2_xdh_kernel and k2_reduce_kernel, each from the end of the
+// launch before it (synchronize first)
 extern "C" int cond_chain_bwd_kernel_ms(float* ms) {
   for (int k = 0; k < 5; ++k) {
     const cudaError_t err = cudaEventElapsedTime(&ms[k], g_marks[k], g_marks[k + 1]);
@@ -849,32 +1062,60 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int n0 = n * cc;
   const int n2 = n * two_c;
-  float* a_s = ws + p.off_a;
   float* dh_s = ws + p.off_dh;
+  float* pb1 = ws + p.off_pb1;
+  float* pw1 = ws + p.off_pw1;
+  float* pw0 = ws + p.off_pw0;
   unsigned char* img_h = reinterpret_cast<unsigned char*>(ws + p.off_imh);
   unsigned char* img_w1 = reinterpret_cast<unsigned char*>(ws + p.off_imw1);
   unsigned char* img_w0 = reinterpret_cast<unsigned char*>(ws + p.off_imw0);
+  const HArgs h{exc, T, E, n, cc, passes(cc), h_slices(E)};
+  const long long h_image = per_row ? (long long)p.h_image : 0;
 
   DataArgs d;
-  d.h = HArgs{exc, T, E, n, cc, passes(cc), h_slices(E)};
+  d.h = h;
   d.img_h = img_h;
-  d.h_image = per_row ? (long long)p.h_image : 0;
+  d.h_image = h_image;
   d.img_w1 = img_w1;
   d.img_w0 = img_w0;
-  d.a_out = a_s;
   d.dh_out = dh_s;
   d.dexc = dexc;
-  d.phb = ws + p.off_phb;
-  d.pb1 = ws + p.off_pb1;
+  d.pb1 = pb1;
   d.two_c = two_c;
   d.no = p.no;
   d.ne = p.ne;
   d.ntiles = p.ntiles;
+  W1Args w;
+  w.h = h;
+  w.img_h = img_h;
+  w.h_image = h_image;
+  w.pw1 = pw1;
+  w.two_c = two_c;
+  w.notiles = p.notiles;
+  w.nsub = p.nsub;
+  w.units = p.units;
+  w.chunk = p.chunk;
+  w.run = p.run;
+  XArgs x;
+  x.h = h;
+  x.pw0 = pw0;
+  x.parts = p.parts;
+  x.prows = p.prows;
+  x.kx = p.kx;
   const cuuint64_t o = (cuuint64_t)two_c;
   const cuuint64_t g_dims[4] = {o, (cuuint64_t)n, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t g_strides[3] = {o * 4, o * 4 * n, o * 4 * n * T};
   const cuuint32_t g_box[4] = {4, 1, (cuuint32_t)kGBox, 1};
-  if (!make_map_f32(&d.g_map, g, 4, g_dims, g_strides, g_box)) return (int)cudaErrorInvalidValue;
+  const cuuint32_t g_box_w1[4] = {8, 1, (cuuint32_t)kGUnitRows, 1};
+  const cuuint64_t ld = (cuuint64_t)n0 * 4;
+  const cuuint64_t dh_dims[4] = {(cuuint64_t)n0, 1, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dh_strides[3] = {ld, ld, ld * T};
+  const cuuint32_t dh_box[4] = {8, 1, (cuuint32_t)kXRows, 1};
+  if (!make_map_f32(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
+      !make_map_f32(&w.g_map, g, 4, g_dims, g_strides, g_box_w1) ||
+      !make_map_f32(&x.dh_map, dh_s, 4, dh_dims, dh_strides, dh_box)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const ImageArgs im{WhArgs{w0, hbias, hbias_bstride, edge0, edge_t, E, n, cc}, w1, img_h, img_w1,
                      img_w0, p.nimg, two_c, p.no, p.ne};
 
@@ -886,39 +1127,37 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   mark(1);
-  if ((e = launch_data(d, p, B, stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2_data_kernel, dim3((unsigned)p.ntiles, (unsigned)B), kThreads,
+                         kDataSmem, d, stream)) != cudaSuccess) return (int)e;
   mark(2);
-
-  // dW1^T from g and lrelu(h) (shifted); dW0^T from dh and exc (shifted)
-  if ((e = launch_wgrad(p.w1, g, n2, two_c, two_c, a_s, n0, cc, cc, n, B, T, ws + p.off_pw1,
-                        stream)) != cudaSuccess) return (int)e;
+  const dim3 w1_grid((unsigned)(n * passes(cc) * p.notiles), (unsigned)p.s1);
+  e = p.ot == 32 ? launch_kernel(k2_w1_kernel<32>, w1_grid, kW1Threads, kW1Smem, w, stream)
+                 : launch_kernel(k2_w1_kernel<64>, w1_grid, kW1Threads, kW1Smem, w, stream);
+  if (e != cudaSuccess) return (int)e;
   mark(3);
-  if ((e = launch_wgrad(p.w0, dh_s, n0, 0, n0, exc, E, 0, E, 1, B, T, ws + p.off_pw0,
-                        stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2_xdh_kernel, dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks),
+                         kThreads, kXSmem, x, stream)) != cudaSuccess) return (int)e;
   mark(4);
 
-  const long long len1 = 3LL * cc * n2;
-  const long long len0 = 3LL * E * n0;
-  const int parts = 8 * p.ntiles;  // dhbias's partials a batch row: one a consumer warp
-  if ((e = launch_reduce(ws + p.off_pw1, dw1, len1, 1, p.w1.S, len1, 0, 1.f, stream)) !=
-      cudaSuccess) return (int)e;
-  if ((e = launch_reduce(ws + p.off_pw0, dw0, len0, 1, p.w0.S, len0, 0, 1.f, stream)) !=
-      cudaSuccess) return (int)e;
-  if ((e = launch_reduce(ws + p.off_pb1, db1, n2, 1, B * p.ntiles, n2, 0, 1.f, stream)) !=
-      cudaSuccess) return (int)e;
+  // dW1 over the runs of units; db1 over every (batch row, time tile);
+  // dW0 over every (batch row, part); dhbias, the edges over a batch row's
+  // parts (dhbias over all of them when hbias is shared)
+  ReduceArgs r{};
+  const long long xs = (long long)p.kx * n0;
+  add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.runs, 3LL * cc * n2, 0);
+  add_job(r, pb1, db1, n2, 1, B * p.ntiles, n2, 0);
+  add_job(r, pw0, dw0, 3LL * E * n0, 1, p.s0, xs, 0);
   if (hbias_bstride) {
-    e = launch_reduce(ws + p.off_phb, dhbias, n0, B, parts, n0, (long long)parts * n0, 1.f,
-                      stream);
+    add_job(r, pw0 + 3LL * E * n0, dhbias, n0, B, p.parts, xs, p.parts * xs);
   } else {
-    e = launch_reduce(ws + p.off_phb, dhbias, n0, 1, B * parts, n0, 0, 1.f, stream);
+    add_job(r, pw0 + 3LL * E * n0, dhbias, n0, 1, p.s0, xs, 0);
   }
-  if (e != cudaSuccess) return (int)e;
   if (edge0) {
-    if ((e = launch_reduce(dh_s, dedge0, n0, B, 1, 0, (long long)T * n0, -1.f, stream)) !=
-        cudaSuccess) return (int)e;
-    if ((e = launch_reduce(dh_s + (size_t)(T - 1) * n0, dedge_t, n0, B, 1, 0,
-                           (long long)T * n0, -1.f, stream)) != cudaSuccess) return (int)e;
+    add_job(r, pw0 + (3LL * E + 1) * n0, dedge0, n0, B, p.parts, xs, p.parts * xs);
+    add_job(r, pw0 + (3LL * E + 2) * n0, dedge_t, n0, B, p.parts, xs, p.parts * xs);
   }
+  k2_reduce_kernel<<<(unsigned)((r.total + 255) / 256), 256, 0, stream>>>(r);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   mark(5);
   return 0;
 }

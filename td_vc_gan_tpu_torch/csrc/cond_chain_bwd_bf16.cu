@@ -379,13 +379,6 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
   }
 }
 
-// The warp's index, broadcast from lane 0 so that ptxas sees it uniform
-// across the warp: wgmma in a branch on a value it cannot prove uniform is
-// serialized (C7520)
-__device__ __forceinline__ int warp_index() {
-  return __shfl_sync(0xFFFFFFFFu, (int)(threadIdx.x >> 5), 0);
-}
-
 // k2b_w1_kernel's CTA: three warpgroups, 384 threads (168 registers a
 // thread: three warps on each of the SM's four register files). Warpgroup
 // 0 recomputes each unit's a and keeps the ring of g tiles fed (its first
@@ -912,16 +905,6 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   return p;
 }
 
-template <class Kernel, class Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& args,
-                   cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, stream>>>(args);
-  return cudaGetLastError();
-}
-
 // the job of an (outer, len) sum of partials S apart at `part`
 void add_job(ReduceArgs& r, const float* part, void* out, long long len, int outer, int S,
              long long sstride, long long ostride) {
@@ -1080,15 +1063,16 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   cudaError_t e = launch_images(im, stream);
   if (e != cudaSuccess) return (int)e;
   mark(1);
-  if ((e = launch(k2b_data_kernel, dim3((unsigned)p.ntiles, (unsigned)B), kThreads, kDataSmem,
-                  d, stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2b_data_kernel, dim3((unsigned)p.ntiles, (unsigned)B), kThreads,
+                         kDataSmem, d, stream)) != cudaSuccess) return (int)e;
   mark(2);
-  if ((e = launch(k2b_w1_kernel,
-                  dim3((unsigned)(n * p.geo.npass * p.notiles), (unsigned)p.s1), kW1Threads,
-                  kW1Smem, w, stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2b_w1_kernel,
+                         dim3((unsigned)(n * p.geo.npass * p.notiles), (unsigned)p.s1),
+                         kW1Threads, kW1Smem, w, stream)) != cudaSuccess) return (int)e;
   mark(3);
-  if ((e = launch(k2b_xdh_kernel, dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks),
-                  kThreads, kXSmem, x, stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2b_xdh_kernel,
+                         dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks), kThreads,
+                         kXSmem, x, stream)) != cudaSuccess) return (int)e;
   mark(4);
 
   // dW1, db1 over the chunks of units; dW0 over every (batch row, part);

@@ -174,6 +174,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
   for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[r])::"memory");
 }
 
+// The warp's index, broadcast from lane 0 so that ptxas sees it uniform
+// across the warp: wgmma in a branch on a value it cannot prove uniform is
+// serialized (C7520)
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xFFFFFFFFu, (int)(threadIdx.x >> 5), 0);
+}
+
 // d (64 x 8) += A (64 x 16) B (16 x 8), both in shared memory, each K-major (0) or
 // MN-major (1)
 template <int kTransA = 0, int kTransB = 0>
@@ -310,6 +317,18 @@ __device__ __forceinline__ void wgmma_ss_n72(float (&d)[36], uint64_t da, uint64
 }
 
 // -- host
+
+// `kernel` on `grid` with `smem` bytes of dynamic shared memory (above the
+// 48 KB default only after the attribute call) and the launch's error
+template <class Kernel, class Args>
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
+                          const Args& args, cudaStream_t stream) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

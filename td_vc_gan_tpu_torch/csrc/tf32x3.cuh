@@ -1,7 +1,7 @@
 // f32-accurate matrix products on Hopper's tensor cores: the 3xTF32 split,
-// the warp-level mma.sync tile and cp.async (K2, cond_chain_bwd.cu), and the
-// warpgroup-level wgmma tf32 products (K1, cond_chain.cu), shared by the
-// FiLM cond-chain kernels.
+// the warp-level mma.sync tile (K2's dexc, cond_chain_bwd.cu) and the
+// warpgroup-level wgmma tf32 products (K1, cond_chain.cu; every other
+// product of K2), shared by the f32 FiLM cond-chain kernels.
 //
 // The split. Every f32 operand x is cut into x = hi + lo with hi = tf32(x)
 // and lo = tf32(x - hi), both rounded to nearest with ties away from zero,
@@ -23,10 +23,6 @@
 //   B (8 x 8, k-major):    b0 = B[tig][grp],    b1 = B[tig + 4][grp]
 //   D (16 x 8):            d0 = D[grp][2 tig],  d1 = D[grp][2 tig + 1],
 //                          d2 = D[grp + 8][2 tig], d3 = D[grp + 8][2 tig + 1]
-// The kernels read fragments from shared memory with row strides chosen so
-// that a warp's 32 loads fall in 32 different banks: a stride of 4 (mod 8)
-// words for A read along its rows (stride = 4, 12, 20 or 28 mod 32), and 8
-// or 24 mod 32 for A or B read along k (row_read_stride and k_read_stride below).
 //
 // wgmma (sm_90a): a warpgroup (4 warps) takes an m64nNk8 tf32 product with
 // f32 accumulators in registers, in the D layout of the tile above per warp
@@ -46,8 +42,6 @@
 
 namespace tf32x3 {
 
-// -- primitives (inline PTX)
-
 // d += a * b on one m16n8k8 TF32 tile
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -57,34 +51,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-// 16 bytes global -> shared, asynchronously; zeros when !pred (nothing is read)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously (through L1); zero when !pred
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// -- end primitives
 
 // x rounded to TF32, nearest, ties away from zero (cvt.rna.tf32.f32's
 // result for finite x; an overflow gives inf, as there)
@@ -103,52 +69,6 @@ struct FragB {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// A fragment from p = &A[grp][tig], element (r, k) at p[r * rs + k * ks]
-__device__ __forceinline__ FragA load_a(const float* p, int rs, int ks) {
-  FragA f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * rs], f.hi[1], f.lo[1]);
-  split(p[4 * ks], f.hi[2], f.lo[2]);
-  split(p[8 * rs + 4 * ks], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// B fragment from two values the caller loaded (b0 = B[tig][grp], b1 = B[tig + 4][grp])
-__device__ __forceinline__ FragB make_b(float b0, float b1) {
-  FragB f;
-  split(b0, f.hi[0], f.lo[0]);
-  split(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-// An operand staged in shared memory is split once where it lands: a thread
-// replaces the 4 floats at p by their hi parts and writes their lo parts at
-// p + lo_off. The fragment loaders below then read both halves.
-__device__ __forceinline__ void split_in_place(float* p, int lo_off) {
-  float4 v = *reinterpret_cast<float4*>(p);
-  uint32_t h[4], l[4];
-  split(v.x, h[0], l[0]);
-  split(v.y, h[1], l[1]);
-  split(v.z, h[2], l[2]);
-  split(v.w, h[3], l[3]);
-  *reinterpret_cast<float4*>(p) = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                                              __uint_as_float(h[2]), __uint_as_float(h[3]));
-  *reinterpret_cast<float4*>(p + lo_off) = make_float4(
-      __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
-}
-
-// A fragment of a pre-split operand: hi at p (as load_a), lo at p + lo_off
-__device__ __forceinline__ FragA load_a_split(const float* p, int lo_off, int rs, int ks) {
-  FragA f;
-  const int off[4] = {0, 8 * rs, 4 * ks, 8 * rs + 4 * ks};
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    f.hi[v] = __float_as_uint(p[off[v]]);
-    f.lo[v] = __float_as_uint(p[off[v] + lo_off]);
-  }
-  return f;
 }
 
 // B fragment of a pre-split operand: p = &B[tig][grp], element (k, n) of the
@@ -232,11 +152,45 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-}  // namespace tf32x3
+// d (64 x 72) += A (64 x 8, registers, as wgmma_rs_n136's) B (72 x 8, shared memory,
+// K-major)
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
-// Shared-memory row strides, in floats (multiples of 4, so that 16-byte
-// cp.async rows stay aligned), for which a warp's 32 fragment loads hit 32
-// different banks: read along rows (element (grp, tig)) the stride must be
-// 4 mod 8; read along k (element (tig, grp)) it must be 8 or 24 mod 32.
-__host__ __device__ constexpr int row_read_stride(int cols) { return (cols + 7) / 8 * 8 + 4; }
-__host__ __device__ constexpr int k_read_stride(int cols) { return (cols + 31) / 32 * 32 + 8; }
+// d (64 x 64) += A (64 x 8, registers, as wgmma_rs_n136's) B (64 x 8, shared memory,
+// K-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) += A (64 x 8, registers, as wgmma_rs_n136's) B (32 x 8, shared memory,
+// K-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+}  // namespace tf32x3

@@ -24,7 +24,8 @@ from TF32 products). K1 and K2's data kernel are Hopper kernels: ``wgmma``
 on operands that bulk and TMA copies bring through ``mbarrier`` rings
 (``csrc/cond_chain_f32.cuh``, ``csrc/hopper_bf16.cuh``), on images of the
 weights the libraries make at each launch in a workspace the wrapper
-allocates; K2's weight grads run on ``mma.sync`` from a scratch. Both are
+allocates; K2's weight grads recompute lrelu(h) rather than read it from a
+scratch, and take dW0, dhbias and the edges as one product. Both are
 tied together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors
 launch the kernels (or raise for a device, dtype or layout they do not
 take), CPU tensors run :func:`cond_chain_plain` and
@@ -359,8 +360,8 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
 
 
 # The widths each kernel takes, as the multiples of (Cc, 2C) it needs: K2's
-# cp.async and tensor map and K2-bf16's tensor maps copy rows in 16-byte
-# pieces, K1 stores output columns in pairs. Other widths are padded with
+# and K2-bf16's tensor maps copy rows in 16-byte pieces, K1 stores output
+# columns in pairs. Other widths are padded with
 # zero channels per block (_pad_widths) and the results cut back
 # (_cut_grads, _cut_blocks).
 _GRAIN = {"fwd": (1, 2), "bwd": (4, 4), "fwd_bf16": (4, 4), "bwd_bf16": (4, 8)}
@@ -501,9 +502,7 @@ def _launch_bwd(exc, w0, hbias, w1, g, edge0, edge_t):
 def _launch_bwd_f32(exc, w0, hbias, w1, g, edge0, edge_t, b, t, e, n, cc, two_c):
     """K2 on checked f32 operands at widths it takes: the gradients."""
     global bwd_launches
-    g = _aligned16(g)  # the data kernel's tensor map; the weight grads' 16-byte copies
-    if e % 4 == 0:
-        exc = _aligned16(exc)  # dW0 copies its rows in 16-byte pieces where E allows
+    g = _aligned16(g)  # the tensor maps of g
     libs = _library()
     fwd, bwd = libs["fwd"], libs["bwd"]
     dev = exc.device

@@ -1,8 +1,8 @@
 """The tiling of the Hopper f32 cond-chain kernels, emulated in numpy, and the
 wrapper's width repair.
 
-K1 (``csrc/cond_chain.cu``) and K2's data kernel (``csrc/cond_chain_bwd.cu``)
-run on the card only. Their index arithmetic, their 3xTF32 rounding and the
+K1 (``csrc/cond_chain.cu``) and K2's kernels (``csrc/cond_chain_bwd.cu``) run
+on the card only. Their index arithmetic, their 3xTF32 rounding and the
 order of their products are emulated here step by step as the kernels take
 them (``csrc/cond_chain_f32.cuh`` describes the CTA) and held to the plain
 versions (``cond_chain_plain``, ``cond_chain_bwd_plain``) within
@@ -21,15 +21,25 @@ on the card:
 - K1: lrelu(h) of a pass (zero outside [0, T) and past Cc) is the A of
   out = b1 + sum_j A(rows j ..) @ W1_i[j], the pass's k-slices, each with
   its three taps, summed over the passes;
-- K2's data kernel: lrelu(h) of the own rows to the scratch; da from g's
-  rows 62 w + q + 2 - j of the CTA's 128-row tile; dh = lrelu'(h) da; dexc
-  as P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] with dh's accumulator
-  pairs as the m16n8k8 A fragment (the image's K order permuted to match),
-  then dexc[t] = P_0[t+1] + P_1[t] + P_2[t-1], summed over blocks and
-  passes; dhbias per warp (16 rows) and db1 per CTA, reduced in order; dW1
-  and dW0 from the scratch (the weight-grad kernel, unchanged).
+- K2's data kernel: da from g's rows 62 w + q + 2 - j of the CTA's 128-row
+  tile; dh = lrelu'(h) da, its own rows to the dh scratch; dexc as
+  P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] with dh's accumulator pairs as
+  the m16n8k8 A fragment (the image's K order permuted to match), then
+  dexc[t] = P_0[t+1] + P_1[t] + P_2[t-1], summed over blocks and passes;
+  db1 per CTA;
+- k2_w1_kernel: per (block, pass, tile of 64 or 32 output channels) and
+  64-row unit, lrelu(h) recomputed with the data kernel's bits (checked),
+  written split into a K-major image (element (c, s) at (c / 8) 2048 +
+  (s / 4) 128 + (c % 8) 16 + (s % 4) 4 bytes) and read back through the
+  products' descriptors; A = g^T read from the raw TMA stage of g with the
+  rows shifted by the tap, the three taps stacked as M = 64 rows (tap, o);
+  a partial per run of at most 16 units;
+- k2_xdh_kernel: X = [exc taps | 1 | -[t == 0] | -[t == T-1]] built per step
+  of 64 rows into its K-major image, A = dh^T from the raw stage of the dh
+  scratch, X^T dh per (batch row, part); the reduce sums every kind of
+  partial in order.
 
-Numpy and torch's CPU ops only, no JAX compile: ~10 s of one worker.
+Numpy and torch's CPU ops only, no JAX compile.
 """
 
 import numpy as np
@@ -106,22 +116,31 @@ def wh_block(w0, hbias, edge0, edge_t, i, cc, b, k8):
     return wh
 
 
-def _h(exc, w0, hbias, edge0, edge_t, i, p, cc):
-    """h of block i's pass p for every CTA and warpgroup, before leaky_relu:
-    (B, tiles, 2, 64, 136); the rows u (tiles, 2, 64); where h is in [0, T)
-    and within Cc."""
-    b, t, e = exc.shape
-    ntiles = -(-t // TILE)
-    u = (np.arange(ntiles)[:, None, None] * TILE + OWN * np.arange(2)[None, :, None] - 1
-         + np.arange(ROWS)[None, None, :])
-    x = x_rows(exc, u.reshape(-1)).reshape(b, ntiles, 2, ROWS, -1)
+def h_at(exc, w0, hbias, edge0, edge_t, i, p, cc, u):
+    """h of block i's pass p at the rows u (any shape, rows of 64 last),
+    before leaky_relu, as h_pass takes it: (B, *u.shape, 136)."""
+    b = exc.shape[0]
+    x = x_rows(exc, u.reshape(-1)).reshape(b, *u.shape, -1)
     wh = wh_block(w0, hbias, edge0, edge_t, i, cc, b, x.shape[-1])
     cols = np.zeros((b, x.shape[-1], PASS), np.float32)
     width = min(PASS, cc - PASS * p)
     cols[..., :width] = wh[..., PASS * p:PASS * p + width]
-    acc = np.zeros((b, ntiles, 2, ROWS, PASS), np.float32)
+    cols = cols.reshape(b, *([1] * (u.ndim - 1)), x.shape[-1], PASS)
+    acc = np.zeros((b, *u.shape, PASS), np.float32)
     for s in range(x.shape[-1] // 8):
-        add3(acc, x[..., 8 * s:8 * s + 8], cols[:, None, None, 8 * s:8 * s + 8])
+        add3(acc, x[..., 8 * s:8 * s + 8], cols[..., 8 * s:8 * s + 8, :])
+    return acc
+
+
+def _h(exc, w0, hbias, edge0, edge_t, i, p, cc):
+    """h of block i's pass p for every CTA and warpgroup, before leaky_relu:
+    (B, tiles, 2, 64, 136); the rows u (tiles, 2, 64); where h is in [0, T)
+    and within Cc."""
+    t = exc.shape[1]
+    ntiles = -(-t // TILE)
+    u = (np.arange(ntiles)[:, None, None] * TILE + OWN * np.arange(2)[None, :, None] - 1
+         + np.arange(ROWS)[None, None, :])
+    acc = h_at(exc, w0, hbias, edge0, edge_t, i, p, cc, u)
     ok = (u >= 0) & (u < t)
     chan_ok = PASS * p + np.arange(PASS) < cc
     return acc, u, ok[None, ..., None] & chan_ok
@@ -168,17 +187,17 @@ def dh_as_a(d):
     return a
 
 
-def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
-    """The chain's backward as K2 takes it: the data kernel tile by tile,
-    then the weight grads and the reduces on its partials."""
+def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
+    """K2's data kernel tile by tile: (dexc, the dh scratch, db1's partials
+    (B, tiles, n*2C), h of every tile's rows with those rows (for the
+    recompute's check))."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     ntiles = -(-t // TILE)
     n0 = n * cc
-    a_s = np.zeros((b, t, n0), np.float32)
     dh_s = np.zeros((b, t, n0), np.float32)
     dexc = np.zeros((b, t, e), np.float32)
-    phb = np.zeros((b, ntiles, 2, 4, n0), np.float32)  # one partial a consumer warp
     pb1 = np.zeros((b, ntiles, n * two_c), np.float32)
+    hs = {}
     # g's 128-row tile of each CTA: times t0 - 2 .. t0 + 125, zero outside [0, T)
     tt = np.arange(ntiles)[:, None] * TILE - 2 + np.arange(TILE + 4)[None]
     gt = np.where(((tt >= 0) & (tt < t))[None, ..., None],
@@ -187,11 +206,11 @@ def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
         gi = gt[..., i * two_c:(i + 1) * two_c]
         for p in range(-(-cc // PASS)):
             h, u, ok = _h(exc, w0, hbias, edge0, edge_t, i, p, cc)
+            hs[i, p] = h, u
             own = (np.arange(ROWS) >= 1) & (np.arange(ROWS) <= OWN)
             own = own[None, None, None, :, None] & ok
             chans = slice(i * cc + PASS * p, i * cc + min(PASS * (p + 1), cc))
             width = chans.stop - chans.start
-            put_own(a_s, np.where(h >= 0, h, SLOPE * h).astype(np.float32), own, u, chans, width)
             # da: tap j reads g's tile rows 62 w + q + 2 - j
             da = np.zeros_like(h)
             for so in range(-(-two_c // 8)):
@@ -205,9 +224,6 @@ def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
                     add3(da, gw, wt)
             dh = np.where(ok, np.where(h >= 0, da, SLOPE * da), 0).astype(np.float32)
             put_own(dh_s, dh, own, u, chans, width)
-            # dhbias: each warp's 16 rows, its own ones
-            sums = np.where(own, dh, 0).reshape(b, ntiles, 2, 4, 16, PASS).sum(4)
-            phb[..., chans] = sums[..., :width]
             # dexc: P = dh @ W0 taps per chunk of 8 columns of exc, K permuted
             for ec in range(-(-e // 8)):
                 pac = np.zeros((b, ntiles, 2, ROWS, 24), np.float32)
@@ -225,20 +241,196 @@ def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
                 dexc[..., 8 * ec:8 * ec + v.shape[-1]] += v
         # db1: each CTA's rows of g, per channel
         pb1[..., i * two_c:(i + 1) * two_c] = gi[:, :, 2:TILE + 2].sum(2)
-    out = dict(exc=dexc, b1=pb1.sum((0, 1)))
-    parts = phb.reshape(b, -1, n0)  # the reduce's order: tile, warpgroup, warp
-    out["hbias"] = parts.sum(1) if hbias.ndim == 2 else parts.sum((0, 1))
+    return dexc, dh_s, pb1, hs
+
+
+# --- k2_w1_kernel and k2_xdh_kernel, as their threads read and write shared memory
+
+UNIT = 64          # a's rows a unit of k2_w1_kernel (its products' K)
+GBOX = 68 * 8      # floats of a box of 8 channels of g in a stage (66 rows used)
+AGROUP = 2048      # bytes of 8 columns of a's image, every row (SBO)
+AIMG = 17 * AGROUP  # bytes of a's image, hi or lo
+SM_COUNT = 132
+W1_RUN = 16        # units of a run of k2_w1_kernel's accumulators at most (one partial each)
+
+
+def ordered_sum(parts):
+    """parts summed along axis 0, one after the other (the reduce's order)."""
+    acc = np.zeros_like(parts[0])
+    for x in parts:
+        acc += x
+    return acc
+
+
+def kmajor_store(img, c, k, v):
+    """Element (row c, k) of a K-major core-matrix image (rows of 64 k, 8-row
+    groups 2048 bytes apart, 4-k halves 128): the words of ``img`` at
+    (c / 8) 2048 + (k / 4) 128 + (c % 8) 16 + (k % 4) 4 bytes."""
+    img[((c // 8) * 2048 + (k // 4) * 128 + (c % 8) * 16 + (k % 4) * 4) // 4] = v
+
+
+def desc_read(img, start, rows, lbo, sbo):
+    """The rows x 8 K-major operand a wgmma descriptor reads at byte
+    ``start`` of ``img``: element (r, k) at start + (r / 8) sbo + (k / 4) lbo
+    + (r % 8) 16 + (k % 4) 4."""
+    r, k = np.arange(rows)[:, None], np.arange(8)[None]
+    return img[(start + (r // 8) * sbo + (k // 4) * lbo + (r % 8) * 16 + (k % 4) * 4) // 4]
+
+
+def add3s(acc, a, b):
+    """acc += a @ b^T of operands split already ((hi, lo) each): lo.hi, hi.lo,
+    hi.hi, in that order."""
+    for x, y in ((a[1], b[0]), (a[0], b[1]), (a[0], b[0])):
+        acc += np.matmul(x, y.T, dtype=np.float32)
+    return acc
+
+
+def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs):
+    """dW1 (3, Cc, n*2C) as k2_w1_kernel takes it: per (block, pass, o-tile)
+    and unit, a recomputed (checked bit for bit against the data kernel's h
+    at the same rows, ``hs``) into its K-major image; A = g^T from the
+    stage's rows shifted by the tap; the accumulators' runs of units (a
+    CTA's chunk of units cut into runs of at most W1_RUN) summed in order."""
+    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+    ot = 32 if two_c <= 32 else 64
+    nsub = -(-t // UNIT)
+    units = b * nsub
+    tiles = n * -(-cc // PASS) * -(-two_c // ot)
+    chunk = -(-units // min(max(1, SM_COUNT // tiles), units))
+    run = -(-chunk // -(-chunk // W1_RUN))
+    nch = -(-3 * ot // 64)
+    n2 = n * two_c
+    runs = -(-units // run)
+    pw1 = np.zeros((runs, 3, cc, n2), np.float32)
+    r = np.arange(64 * nch)
+    j_r, o_r = r // ot, r % ot
+    for i in range(n):
+        for p in range(-(-cc // PASS)):
+            c0 = PASS * p
+            u = np.arange(nsub)[:, None] * UNIT + np.arange(UNIT)[None]
+            h = h_at(exc, w0, hbias, edge0, edge_t, i, p, cc, u)  # (B, nsub, 64, 136)
+            # the same bits as the data kernel's h at every row it owns
+            hd, ud = hs[i, p]
+            own = ud[:, :, 1:OWN + 1]
+            rows = own[own < t]
+            np.testing.assert_array_equal(h[:, rows // UNIT, rows % UNIT],
+                                          hd[:, :, :, 1:OWN + 1][:, own < t])
+            ok = (u < t)[None, ..., None] & (c0 + np.arange(PASS) < cc)
+            a = np.where(ok, np.where(h >= 0, h, SLOPE * h), 0).astype(np.float32)
+            cl, q = np.meshgrid(np.arange(PASS), np.arange(UNIT), indexing="ij")
+            for o0 in range(0, two_c, ot):
+                for r_i in range(runs):
+                    acc = np.zeros((64 * nch, PASS), np.float32)
+                    for k in range(r_i * run, min(units, (r_i + 1) * run)):
+                        bb, sub = divmod(k, nsub)
+                        s0 = sub * UNIT
+                        img = np.zeros(2 * AIMG // 4, np.float32)
+                        hi, lo = split(a[bb, sub].T)  # (136 c, 64 s)
+                        kmajor_store(img, cl, q, hi)
+                        kmajor_store(img[AIMG // 4:], cl, q, lo)
+                        # the g stage: rows s0 - 1 .. s0 + 64 of channels o0 .., in boxes of 8
+                        stage = np.zeros((ot // 8, 68, 8), np.float32)
+                        rows = np.arange(s0 - 1, s0 + 67)
+                        rok = (rows >= 0) & (rows < t) & (np.arange(68) < UNIT + 2)
+                        for bx in range(ot // 8):
+                            oo = o0 + 8 * bx + np.arange(8)
+                            cols = oo < two_c
+                            stage[bx][np.ix_(rok, cols)] = g[bb, rows[rok]][:, i * two_c + oo[cols]]
+                        flat = stage.reshape(-1)
+                        for kk in range(UNIT // 8):
+                            kcol = np.arange(8)[None]
+                            idx = (o_r // 8)[:, None] * GBOX + (2 - j_r[:, None] + kcol) * 8 \
+                                + (o_r % 8)[:, None] + 64 * kk
+                            av = np.where((r < 3 * ot)[:, None], flat[np.clip(idx, 0, None)], 0)
+                            fa = split(av.astype(np.float32))
+                            for cw, nn in ((0, 72), (72, 64)):
+                                start = (cw // 8) * AGROUP + 256 * kk
+                                fb = (desc_read(img, start, nn, 128, AGROUP),
+                                      desc_read(img, AIMG + start, nn, 128, AGROUP))
+                                for m in range(nch):
+                                    rm = slice(64 * m, 64 * m + 64)
+                                    add3s(acc[rm, cw:cw + nn], (fa[0][rm], fa[1][rm]), fb)
+                    for rr in range(3 * ot):
+                        o = o0 + o_r[rr]
+                        if o < two_c:
+                            width = min(PASS, cc - c0)
+                            pw1[r_i, j_r[rr], c0:c0 + width, i * two_c + o] = acc[rr, :width]
+    return ordered_sum(pw1)
+
+
+def xdh_emulated(exc, dh_s, kx):
+    """X^T dh as k2_xdh_kernel takes it: per CTA (128 columns of dh, 32 of X,
+    one part of a batch row), X's K-major image built per step of 64 rows,
+    A = dh^T from the raw stage; (B parts, K, n*Cc) partials, parts a batch
+    row."""
+    b, t, e = exc.shape
+    n0 = dh_s.shape[-1]
+    xcols, xks = -(-n0 // 128), -(-kx // 32)
+    per_b = b * xcols * xks
+    parts = min(max(1, -(-8 * SM_COUNT // per_b)), 65535 // b)
+    prows = -(-(-(-t // parts)) // 64) * 64
+    parts = -(-t // prows)
+    pw0 = np.zeros((b * parts, kx, n0), np.float32)
+    kk8, tg = np.meshgrid(np.arange(32), np.arange(64), indexing="ij")
+    for sp in range(b * parts):
+        bb, part = divmod(sp, parts)
+        r0 = part * prows
+        r1 = min(t, r0 + prows)
+        u = np.arange(r0, r0 + -(-(r1 - r0) // 64) * 64)
+        x_all = x_rows(exc[bb:bb + 1], u)[0]              # (rows, K8)
+        x_all[u >= r1] = 0
+        x_all = np.pad(x_all, ((0, 0), (0, xks * 32 - x_all.shape[1]))) \
+            if x_all.shape[1] < xks * 32 else x_all
+        for col0 in range(0, n0, 128):
+            for k0 in range(0, xks * 32, 32):
+                tot = np.zeros((128, 32), np.float32)
+                for st in range(len(u) // 64):
+                    acc = np.zeros((128, 32), np.float32)  # a step's, then added to tot
+                    t0 = r0 + 64 * st
+                    img = np.zeros(2 * 8192 // 4, np.float32)
+                    hi, lo = split(x_all[64 * st:64 * st + 64, k0:k0 + 32].T)  # (32 k, 64 t)
+                    kmajor_store(img, kk8, tg, hi)
+                    kmajor_store(img[8192 // 4:], kk8, tg, lo)
+                    # the dh stage: 16 boxes of 8 columns x 64 rows, zeros past T and n0
+                    stage = np.zeros((16, 64, 8), np.float32)
+                    rows = np.arange(t0, t0 + 64)
+                    for q in range(16):
+                        cols = col0 + 8 * q + np.arange(8)
+                        okc = cols < n0
+                        rok = rows < t
+                        stage[q][np.ix_(rok, okc)] = dh_s[bb][np.ix_(rows[rok], cols[okc])]
+                    flat = stage.reshape(-1)
+                    m, kc = np.arange(64)[:, None], np.arange(8)[None]
+                    for kk in range(8):
+                        fb = (desc_read(img, 256 * kk, 32, 128, 2048),
+                              desc_read(img, 8192 + 256 * kk, 32, 128, 2048))
+                        for wg in range(2):
+                            idx = (8 * wg + m // 8) * 512 + kc * 8 + m % 8 + 64 * kk
+                            add3s(acc[64 * wg:64 * wg + 64], split(flat[idx]), fb)
+                    tot += acc
+                keep = min(32, kx - k0)
+                width = min(128, n0 - col0)
+                if keep > 0:
+                    pw0[sp, k0:k0 + keep, col0:col0 + width] = tot[:width, :keep].T
+    return pw0, parts
+
+
+def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
+    """The chain's backward as K2 takes it: the data kernel tile by tile,
+    then k2_w1_kernel, k2_xdh_kernel and the ordered reduce of their
+    partials."""
+    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+    dexc, dh_s, pb1, hs = k2_data_emulated(exc, w0, hbias, w1, g, edge0, edge_t)
+    out = dict(exc=dexc, b1=ordered_sum(pb1.reshape(-1, n * two_c)))
+    out["w1"] = w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs)
+    pw0, parts = xdh_emulated(exc, dh_s, 3 * e + 3)
+    out["w0"] = ordered_sum(pw0[:, :3 * e]).reshape(3, e, n * cc)
+    per_b = pw0.reshape(b, parts, *pw0.shape[1:])
+    dhb = np.stack([ordered_sum(per_b[bb, :, 3 * e]) for bb in range(b)])
+    out["hbias"] = dhb if hbias.ndim == 2 else ordered_sum(pw0[:, 3 * e])
     if edge0 is not None:
-        out.update(edge0=-dh_s[:, 0], edge_t=-dh_s[:, t - 1])
-    # the weight grads from the scratch, as the weight-grad kernel takes them
-    pad = lambda x, j: np.pad(x, ((0, 0), (1, 1), (0, 0)))[:, j:j + t]  # noqa: E731
-    out["w1"] = np.stack([np.concatenate([
-        add3(np.zeros((cc, two_c), np.float32),
-             pad(a_s, j)[..., i * cc:(i + 1) * cc].reshape(-1, cc).T,
-             g[..., i * two_c:(i + 1) * two_c].reshape(-1, two_c)) for i in range(n)], -1)
-        for j in range(3)])
-    out["w0"] = np.stack([add3(np.zeros((e, n0), np.float32), pad(exc, j).reshape(-1, e).T,
-                               dh_s.reshape(-1, n0)) for j in range(3)])
+        out.update(edge0=np.stack([ordered_sum(per_b[bb, :, 3 * e + 1]) for bb in range(b)]),
+                   edge_t=np.stack([ordered_sum(per_b[bb, :, 3 * e + 2]) for bb in range(b)]))
     return out
 
 
@@ -286,17 +478,38 @@ def test_k1_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
     assert_parity(k1_emulated(**np32(ops)), want, "K1")
 
 
-@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", CASES, ids=IDS)
+# K2's cases add E = 10 with Cc = 138 and 2C = 6, which the wrapper pads to
+# 140 and 8 (two passes, k2_w1_kernel's 32-channel o-tile); 2C = 72 (two
+# 64-channel o-tiles, the second ragged) over 18 units of 64 rows; and 36
+# (block, pass, o-tile) tiles over 5 units, so that k2_w1_kernel's CTAs
+# take runs of two units (the last of one)
+K2_CASES = CASES + [(True, 1, 70, 10, 1, 138, 6), (False, 2, 530, 0, 1, 16, 72),
+                    (True, 1, 300, 8, 6, 150, 136)]
+K2_IDS = IDS + ["split-E10-padded", "concat-two-otiles", "split-runs-of-two"]
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", K2_CASES, ids=K2_IDS)
 def test_k2_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
+    """K2's kernels emulated at the widths the wrapper gives them, cut back:
+    the data kernel, then k2_w1_kernel (lrelu(h) recomputed with the data
+    kernel's bits, its K-major image, the tap shift on A) and k2_xdh_kernel
+    (X^T dh with the ones and edge columns), their partials reduced in
+    order."""
     ops = operands(split_form, b, t, e, n, cc, two_c, seed=t + cc + 1)
     ops.pop("b1")
     g = torch.from_numpy(np.random.default_rng(t).standard_normal(
         (b, t, n * two_c)).astype(np.float32))
     want = cond_chain.cond_chain_bwd_plain(g=g, **ops)
-    got = k2_emulated(g=g.numpy(), **np32(ops))
+    cc_p, two_c_p = cond_chain._padded_widths("bwd", cc, two_c)
+    rest = {k: v for k, v in ops.items() if k != "exc"}
+    padded = cond_chain._pad_widths({**rest, "g": g}, n, cc, two_c, cc_p, two_c_p)
+    got = k2_emulated(exc=ops["exc"].numpy(), **np32(padded))
+    got = cond_chain._cut_grads({k: torch.from_numpy(v) for k, v in got.items()},
+                                n, cc, two_c, cc_p, two_c_p)
     assert set(got) == set(want)
     for k in want:
-        assert_parity(got[k], want[k].numpy(), f"d{k}")
+        assert got[k].shape == want[k].shape, k
+        assert_parity(got[k].numpy(), want[k].numpy(), f"d{k}")
 
 
 def test_dexc_permutation_is_the_fragment_layout():
