@@ -196,8 +196,16 @@ interface: K1 with a workspace, K2 on W1 in its own layout)
 against this tree's, alternated for 5 rounds at the conversion's chain
 shapes and the train step's (f32 at batch 16, bf16 at batch 64), the two
 versions' outputs held to each other, each backward's time by kernel and
-workspace for each version; its last line is a JSON object of each dtype's
-and path's per-round totals.
+workspace for each version, then K1-bf16 and K2 at the options'
+bottleneck shapes and at concat E = Cc = 600, with cuDNN beside them; its
+last line is a JSON object of each dtype's and path's per-round totals.
+
+    python3 chip_smoke.py --timers
+
+runs the card and build phases, then K1-bf16 built with -DCOND_CHAIN_TIMERS
+(a diagnostic build: each consumer warpgroup's clock64 cycles by phase,
+h's product, P's products and the epilogue) at the bottleneck shapes and
+the bf16 conversion's stage shapes. The two flags combine.
 """
 
 from __future__ import annotations
@@ -298,8 +306,9 @@ TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
 # section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before their Hopper
 # redesign (K1 whole, K2's data kernel); K1-bf16 and
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
-# through L1), K2-bf16 before its weight grads moved to wgmma, and K2 before
-# its weight grads did. As (path
+# through L1), K2-bf16 before its weight grads moved to wgmma, K2 before
+# its weight grads did, K1-bf16 before its output chunks got CTAs of their
+# own, and K2 before dexc's read-modify-write was batched. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
@@ -309,10 +318,16 @@ EARLIER_MS = {
     "cond_chain_bwd": [(None, 38.793, "train step",
                         "with its data kernel on mma.sync m16n8k8"),
                        (None, 25.571, "train step",
-                        "with its weight grads on mma.sync from the a scratch")],
+                        "with its weight grads on mma.sync from the a scratch"),
+                       (None, 19.392, "train step",
+                        "with dexc's read-modify-write one element at a time")],
     "cond_chain_fwd_bf16": [
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
-        ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version")],
+        ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version"),
+        ("convert", 5.150, "bf16 convert call (4 calls)",
+         "with one CTA walking every output chunk"),
+        ("train", 8.058, "batch-64 train step (8 calls)",
+         "with one CTA walking every output chunk")],
     "cond_chain_bwd_bf16": [
         (None, 89.301, "batch-64 train step (8 calls)", "in their first bf16 version"),
         (None, 41.269, "batch-64 train step (8 calls)",
@@ -349,10 +364,14 @@ B64 = 64                    # the JAX package's headline train batch (bench.py:1
 BF16_ULP_SHARE = 1e-2
 # ... and max|d| <= this of max|plain|.
 BF16_MAX_REL = 2.0 ** -7
-# Converted audio (in [-1, 1]), bf16 kernel path vs plain-bf16-chain path:
-# the two paths' chain outputs differ by one bf16 ulp in a few elements,
-# which the ~40 bf16 layers after them carry to the output.
-BF16_AUDIO_ATOL = 2e-2
+# Converted audio, bf16 kernel path vs plain-bf16-chain path, as a share of
+# max|plain|: the two paths' chain outputs differ by one bf16 ulp in a few
+# elements, which the ~40 bf16 layers after them carry to the output, at the
+# output's scale. Measured (NVIDIA H100 80GB HBM3, 700 W, with K1-bf16 as it
+# was before its output chunks got CTAs of their own): the default G 1.221e-3
+# at max|y| 0.0266 (4.6e-2 of it) with the conv encoder, 1.709e-3 at 0.0457
+# (3.7e-2) with WavLM; the options G 2.637e-2 at 0.9883 (2.7e-2).
+BF16_AUDIO_RTOL = 8e-2
 # bf16 conversion against the f32 one (same weights and draws): a gate on
 # gross faults, not a quality claim.
 BF16_SNR_DB = 20.0
@@ -595,6 +614,10 @@ def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool, c: int | 
         k2_bound = bounds(k2_work(2, t, ew, n, cc, 2 * c)[0], 0)[0]
         part += (f"; K1 {k1_ms:.3f} ms (bound {k1_bound:.3f}), K2 {k2_ms:.3f} ms "
                  f"(bound {k2_bound:.3f})")
+        if form == "concat":
+            lib_fwd, lib_bwd = cudnn_chain(dict(concat, g=g), n)
+            part += (f", cuDNN forward {cuda_ms(lib_fwd, iters=5):.3f} ms, backward "
+                     f"{cuda_ms(lib_bwd, iters=3):.3f} ms")
     if not (r_fwd <= PARITY_RTOL and r_bwd <= PARITY_RTOL):
         raise AssertionError(f"cond-chain kernels disagree with their plain versions at "
                              f"{form} Cc={cc} E={ew} T={t}")
@@ -1634,11 +1657,18 @@ def bf16_chain_parity(cfg, card):
         ew = fwd["exc"].shape[-1]
         cc_p, c2_p = cc_mod._padded_widths("bwd_bf16", cc, 2 * c)
         tiles.add((form, cc, ew, 2 * c,
-                   libs["fwd_bf16"].cond_chain_fwd_bf16_tile(ew, cc_p, c2_p),
+                   libs["fwd_bf16"].cond_chain_fwd_bf16_tile(
+                       cc_mod._padded_e("fwd_bf16", ew),
+                       *cc_mod._padded_widths("fwd_bf16", cc, 2 * c)),
                    libs["bwd_bf16"].cond_chain_bwd_bf16_rows(2, t, ew, n, cc_p, c2_p)))
         sh, rel, d = ulp_parity(f"K1-bf16 {form} Cc={cc} T={t} 2C={2 * c}",
                                 cc_mod.cond_chain(**fwd), cc_mod.cond_chain_plain(**fwd))
         w1 = max(w1, d)
+        if form == "concat" and (form, s, e) in {x[:3] for x in BF16_WIDE_CASES}:
+            lib_fwd = cudnn_chain(dict(concat, g=cotangent(split, 0).to(torch.bfloat16)), n)[0]
+            say(f"bf16 wide: K1-bf16 concat B=2 T={t} Cc=E={cc} 2C={2 * c} n={n}: kernel "
+                f"{cuda_ms(lambda: cc_mod.cond_chain(**fwd), iters=5, warmup=1):.3f} ms, cuDNN "
+                f"bf16 {cuda_ms(lib_fwd, iters=5):.3f} ms [{card}]")
         worst_share, worst_rel = max(worst_share, sh), max(worst_rel, rel)
         g = cotangent(split, seed=1500 + s + i).to(torch.bfloat16)
         got = cc_mod._launch_bwd(g=g, **bwd)
@@ -1916,8 +1946,7 @@ def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
                                / max(np.sum((got - ref).astype(np.float64) ** 2), 1e-30)))
 
 
-def phase_bf16_convert(cfg, card, encoders=("conv", "wavlm"), label="bf16 convert",
-                       plain_atol: float = BF16_AUDIO_ATOL) -> int:
+def phase_bf16_convert(cfg, card, encoders=("conv", "wavlm"), label="bf16 convert") -> int:
     """Phase 15: bf16 conversion of phase 4's batch with each encoder: K1-bf16
     launches (one a decoder stage and one a bottleneck block, no f32 K1),
     output checks, the plain-bf16-chain path, the f32 conversion with the
@@ -1960,9 +1989,10 @@ def phase_bf16_convert(cfg, card, encoders=("conv", "wavlm"), label="bf16 conver
         finally:
             cc_mod.cond_chain = kernel_op
         d_plain = float(np.abs(wav - wav_plain).max())
-        if d_plain > plain_atol:
+        rel_plain = d_plain / max(float(np.abs(wav_plain).max()), 1e-30)
+        if not rel_plain <= BF16_AUDIO_RTOL:
             raise AssertionError(f"{label} ({enc}): the kernel path and the plain-bf16 "
-                                 f"path differ by {d_plain:.3e}")
+                                 f"path differ by {d_plain:.3e}, {rel_plain:.2e} of max|plain|")
         g32 = generator_from_config(cfg.model.generator if enc == "conv" else
                                     wavlm_cfg(cfg).model.generator, num_classes=100, seed=0)
         wav32 = Converter(cfg, g32, crepe_from_seed(1), decoder="viterbi").convert_batch(
@@ -1979,7 +2009,8 @@ def phase_bf16_convert(cfg, card, encoders=("conv", "wavlm"), label="bf16 conver
         audio_s = B * UTT / bcfg.model.sample_rate
         say(f"{label} ({enc}): G built in {build_s:.1f} s; K1-bf16 launches {k1_bf16}, K1 "
             f"(f32) {k1_f32}; output f32, finite, max|y| {np.abs(wav).max():.4f}; kernel path vs "
-            f"plain-bf16-chain path max|d| {d_plain:.3e} (tolerance {plain_atol}); against "
+            f"plain-bf16-chain path max|d| {d_plain:.3e} ({rel_plain:.2e} of max|plain|, "
+            f"tolerance {BF16_AUDIO_RTOL:.0e}); against "
             f"the f32 conversion (same weights and draws) max|d| {d32:.3e} "
             f"({d32 / float(np.abs(wav32).max()):.2e} of max|ref|), SNR {snr:.1f} dB (at least "
             f"{BF16_SNR_DB:.0f}); convert_tensors {ms:.2f} ms per call: RTF "
@@ -2804,13 +2835,6 @@ BOTTLENECK_SHAPES = ((128, 28), (128, 224), (256, 28), (256, 224))
 # STEP_MU_RTOL of its own max|ref| or of this share of its net's largest,
 # whichever is larger: to 1e-4 of the net's largest at least.
 OPTIONS_MU_FLOOR = 1e-2
-# The options G's bf16 conversion, kernel path vs plain-bf16-chain path: its
-# output is near full scale (max|y| 0.99; the default G's, for which
-# BF16_AUDIO_ATOL was set, is 0.03-0.05), and its CIN slots renormalise the
-# one-ulp differences of the chain outputs at every scale; 2.64e-2 measured
-# (NVIDIA H100 80GB HBM3, 700 W). Held to 5% of full scale; its SNR against
-# the f32 conversion is held to BF16_SNR_DB as the default G's is.
-OPTIONS_BF16_AUDIO_ATOL = 5e-2
 OPTIONS_F0_RTOL = 1e-4    # F0Estimator on the card against the CPU, of max|ref|
 
 
@@ -2838,10 +2862,8 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
     out = {}
     two_c = 256
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-        ops = bottleneck_operands(b, t, cc, seed, dtype)
-        c, w0, b0, w1, b1 = (ops[k] for k in ("c", "w0", "b0", "w1", "b1"))
-        gen = torch.Generator(device=c.device).manual_seed(seed + 1)
-        g = torch.randn((b, t, two_c), generator=gen, device=c.device).to(dtype)
+        ops = wide_operands(None, b, t, cc, two_c, 1, seed, dtype)
+        c, w0, b0, w1, b1, g = (ops[k] for k in ("c", "w0", "b0", "w1", "b1", "g"))
         bwd_args = dict(exc=c, w0=w0, hbias=b0, w1=w1, g=g, edge0=None, edge_t=None)
         fwd = lambda: cc_mod.film_cond_chain(c, w0, b0, w1, b1)  # noqa: E731
         fwd_plain = lambda: cc_mod.cond_chain_plain(c, w0, b0, w1, b1)  # noqa: E731
@@ -2865,17 +2887,7 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
             else:
                 _, _, d = ulp_parity(f"bottleneck {kernel}{suffix} at {label}, {part}", a, w)
             errs[kernel] = max(errs.get(kernel, 0.0), d)
-        cin = c.transpose(1, 2).contiguous()
-        w0c, w1c = w0.permute(2, 1, 0), w1.permute(2, 1, 0)
-
-        def cudnn_fwd(*xs):
-            x, a0, c0, a1, c1 = xs or (cin, w0c, b0, w1c, b1)
-            return F.conv1d(F.leaky_relu(F.conv1d(x, a0, c0, padding=1), 0.2), a1, c1,
-                            padding=1)
-
-        leaves = [x.clone().requires_grad_() for x in (cin, w0c, b0, w1c, b1)]
-        lout, gt = cudnn_fwd(*leaves), g.transpose(1, 2)
-        cudnn_bwd = lambda: torch.autograd.grad(lout, leaves, gt, retain_graph=True)  # noqa: E731
+        cudnn_fwd, cudnn_bwd = cudnn_chain(ops, 1)
         size = 4 if dtype == torch.float32 else 2
         weights_ = 3 * cc * cc + cc + 3 * cc * two_c + two_c
         work = {"fwd": (2.0 * b * t * 3 * cc * (cc + two_c),
@@ -2902,7 +2914,7 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
             out[name] = (errs[kernel], dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                             bound_simt_ms=bound_simt, library_ms=l_ms,
                                             flops=flops, bytes=nbytes))
-        del ops, c, w0, b0, w1, b1, g, bwd_args, pairs, got, again, want, leaves, lout
+        del ops, c, w0, b0, w1, b1, g, bwd_args, pairs, got, again, want, cudnn_bwd
         torch.cuda.empty_cache()
     return out
 
@@ -2949,8 +2961,7 @@ def phase_options(card, convert_ms: float, step_ms: float) -> dict:
                                               mu_floor=OPTIONS_MU_FLOOR)
     say(f"options train: median {median:.2f} ms per step against phase 7's {step_ms:.2f} ms "
         f"({median / step_ms - 1:+.1%}) [{card}]")
-    bf16_k1 = phase_bf16_convert(ocfg, card, ("conv",), "options bf16 convert",
-                                 OPTIONS_BF16_AUDIO_ATOL)
+    bf16_k1 = phase_bf16_convert(ocfg, card, ("conv",), "options bf16 convert")
     options_f0_estimator(card)
     say(f"options: phase 22 {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"launches": {"options_convert": convert_k1, "options_train": (train_k1, train_k2),
@@ -3016,8 +3027,8 @@ def old_k1(fwd, split: dict):
     exc, w0, hbias, w1, b1 = (split[k] for k in ("exc", "w0", "hbias", "w1", "b1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
     out = torch.empty((b, t, n * two_c), device=exc.device, dtype=exc.dtype)
-    args = (ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(split["edge0"]), ptr(split["edge_t"]),
-            ptr(w1), ptr(b1), ptr(out))
+    args = (ptr(exc), ptr(w0), ptr(hbias), n * cc if hbias.dim() == 2 else 0,
+            ptr(split["edge0"]), ptr(split["edge_t"]), ptr(w1), ptr(b1), ptr(out))
     if exc.dtype == torch.float32:
         nbytes = fwd.cond_chain_fwd_f32_workspace(b, e, n, cc, two_c, 1)
         launch = fwd.cond_chain_fwd_f32
@@ -3037,7 +3048,8 @@ def old_k2(bwd, args: dict, g):
     in bytes) on split-form operands: the gradients' dict."""
     exc, w0, hbias, w1 = (args[k] for k in ("exc", "w0", "hbias", "w1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
-    out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")}
+    out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")
+           if args[k] is not None}
     out["b1"] = torch.empty(n * two_c, device=exc.device, dtype=exc.dtype)
     if exc.dtype == torch.float32:
         ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c, 1)),
@@ -3048,9 +3060,10 @@ def old_k2(bwd, args: dict, g):
                          device=exc.device, dtype=torch.uint8)
         launch = bwd.cond_chain_bwd_bf16
     err = launch(
-        ptr(exc), ptr(w0), ptr(hbias), n * cc, ptr(args["edge0"]), ptr(args["edge_t"]), ptr(w1),
-        ptr(g), ptr(out["exc"]), ptr(out["w0"]), ptr(out["hbias"]), ptr(out["edge0"]),
-        ptr(out["edge_t"]), ptr(out["w1"]), ptr(out["b1"]), ptr(ws), ws.numel(),
+        ptr(exc), ptr(w0), ptr(hbias), n * cc if hbias.dim() == 2 else 0, ptr(args["edge0"]),
+        ptr(args["edge_t"]), ptr(w1),
+        ptr(g), ptr(out["exc"]), ptr(out["w0"]), ptr(out["hbias"]), ptr(out.get("edge0")),
+        ptr(out.get("edge_t")), ptr(out["w1"]), ptr(out["b1"]), ptr(ws), ws.numel(),
         b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the earlier backward kernels failed to launch ({err})")
@@ -3159,17 +3172,158 @@ def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
     return out
 
 
+def wide_shapes(cfg) -> list[tuple[str, int, int, int, int, int]]:
+    """The concat-form shapes where K1-bf16 and K2 (f32) lost to cuDNN in
+    their earlier versions (``PERF.md`` section 6), as (label, B, T,
+    Cc = E, 2C, n): the
+    bottleneck's four (BOTTLENECK_SHAPES, B = 16, n = 1) and phase 6's
+    E = Cc = 600 (B = 2, the second stage's T and 2C, n = 9)."""
+    t, c = stage_shapes(SEG, cfg)[1]
+    out = [(f"bottleneck Cc=E={cc} T={tt}", B, tt, cc, 256, 1) for cc, tt in BOTTLENECK_SHAPES]
+    return out + [(f"wide Cc=E=600 T={t}", 2, t, 600, 2 * c, 9)]
+
+
+def wide_operands(cfg, b: int, t: int, cc: int, two_c: int, n: int, seed: int, dtype) -> dict:
+    """Concat-form operands (``chain_inputs(exact_h=True)``) at one of
+    ``wide_shapes``: c, w0, b0, w1, b1 and a cotangent g (n = 1: the
+    bottleneck's, 2C = 256, ``cfg`` unused)."""
+    if n == 1:
+        ops = bottleneck_operands(b, t, cc, seed, dtype)
+    else:
+        wcfg = copy.deepcopy(cfg)
+        wcfg.model.generator.conditional_dim = cc - 8
+        _, ops, _, _ = chain_inputs(b, t, two_c // 2, wcfg, seed, exact_h=True, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ops["g"] = torch.randn((b, t, n * two_c), generator=gen, device="cuda").to(dtype)
+    return ops
+
+
+def cudnn_chain(ops: dict, n: int):
+    """cuDNN's calls for the chain on concat-form operands (conv1d, leaky_relu,
+    grouped conv1d; a yardstick the port never calls): (forward, backward of
+    the same chain for ``ops["g"]``)."""
+    cin = ops["c"].transpose(1, 2).contiguous()
+    w0c, w1c = ops["w0"].permute(2, 1, 0), ops["w1"].permute(2, 1, 0)
+
+    def fwd(x=cin, a0=w0c, c0=ops["b0"], a1=w1c, c1=ops["b1"]):
+        return F.conv1d(F.leaky_relu(F.conv1d(x, a0, c0, padding=1), 0.2), a1, c1, padding=1,
+                        groups=n)
+
+    leaves = [x.clone().requires_grad_() for x in (cin, w0c, ops["b0"], w1c, ops["b1"])]
+    out, gt = fwd(*leaves), ops["g"].transpose(1, 2)
+    return fwd, lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True)
+
+
+def ab_wide(cfg, card, fwd_bf16, bwd) -> dict:
+    """The two kernels this tree redesigned at wide E, K1-bf16 and K2 (f32),
+    earlier (libraries ``fwd_bf16``, ``bwd``) against this tree's at
+    ``wide_shapes``, alternated, each version's outputs held to the other's,
+    cuDNN's forward (bf16) and backward (f32) of the same chain beside them,
+    and K2's time by kernel for each version; returns {label: {kernel: times}}.
+    Both versions are called the same way, through their C entry points
+    (``old_k1``, ``old_k2``): at these sizes a call's host work is as long as
+    its kernels."""
+    libs = cc_mod._library()
+    out = {}
+    for k, (label, b, t, cc, two_c, n) in enumerate(wide_shapes(cfg)):
+        ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.bfloat16)
+        fwd = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], b1=ops["b1"],
+                   edge0=None, edge_t=None)
+        # this tree's K1-bf16 on E as its wrapper pads it
+        padded = dict(fwd)
+        padded["exc"], padded["w0"] = cc_mod._pad_exc(fwd["exc"], fwd["w0"],
+                                                      cc_mod._padded_e("fwd_bf16", cc))
+        ulp_parity(f"ab K1-bf16 {label}", old_k1(libs["fwd_bf16"], padded),
+                   old_k1(fwd_bf16, fwd))
+        k1 = ab_times(lambda: old_k1(fwd_bf16, fwd), lambda: old_k1(libs["fwd_bf16"], padded),
+                      iters=5)
+        l1 = cuda_ms(cudnn_chain(ops, n)[0], iters=5)
+        del ops, fwd, padded
+        ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.float32)
+        args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], edge0=None,
+                    edge_t=None)
+        new, old = old_k2(libs["bwd"], args, ops["g"]), old_k2(bwd, args, ops["g"])
+        for key in new:
+            ab_f32_agree(f"ab K2 {label} d{key}", new[key], old[key])
+        del new, old
+        k2 = ab_times(lambda: old_k2(bwd, args, ops["g"]),
+                      lambda: old_k2(libs["bwd"], args, ops["g"]), iters=3)
+        l2 = cuda_ms(cudnn_chain(ops, n)[1], iters=3)
+        for version, fn in (("old", lambda: old_k2(bwd, args, ops["g"])),
+                            ("new", lambda: old_k2(libs["bwd"], args, ops["g"]))):
+            say(f"ab k2 kernels ({version}) {label}: {breakdown_line(kernel_breakdown(fn))} "
+                f"[{card}]")
+        say(f"ab {label}: K1-bf16 old {np.median(k1['old']):.4f} ms, new "
+            f"{np.median(k1['new']):.4f} ms, cuDNN bf16 {l1:.4f} ms; K2 old "
+            f"{np.median(k2['old']):.4f} ms, new {np.median(k2['new']):.4f} ms, cuDNN backward "
+            f"{l2:.4f} ms ({AB_ROUNDS} rounds alternated, medians) [{card}]")
+        out[label] = {"k1_bf16": k1, "k1_bf16_cudnn_ms": l1, "k2": k2, "k2_cudnn_ms": l2}
+        del ops, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_ab(cfg, card, src_dir: Path) -> dict:
     """The earlier kernels (built from ``src_dir``) against this tree's: the
-    f32 pair (K1, K2), then the bf16 pair (K1-bf16, K2-bf16) (``ab_pair``);
-    returns the summaries by dtype and path."""
+    f32 pair (K1, K2), then the bf16 pair (K1-bf16, K2-bf16) (``ab_pair``),
+    then K1-bf16 and K2 at wide E (``ab_wide``); returns the summaries by
+    dtype and path."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         libs, log = ab_libraries(src_dir, Path(tmp))
         say(f"ab: the earlier libraries built in {time.perf_counter() - t0:.1f} s; "
             + " | ".join(ptxas_summary(log)))
         return {"f32": ab_pair(cfg, card, libs["fwd"], libs["bwd"], torch.float32),
-                "bf16": ab_pair(cfg, card, libs["fwd_bf16"], libs["bwd_bf16"], torch.bfloat16)}
+                "bf16": ab_pair(cfg, card, libs["fwd_bf16"], libs["bwd_bf16"], torch.bfloat16),
+                "wide": ab_wide(cfg, card, libs["fwd_bf16"], libs["bwd"])}
+
+
+def phase_timers(cfg, card) -> None:
+    """K1-bf16's phases timed by the kernel's own clock64 counters: this
+    tree's csrc/cond_chain_bf16.cu built with -DCOND_CHAIN_TIMERS into a temp
+    dir, run at ``wide_shapes``' bottleneck shapes and the bf16 conversion's
+    four stage shapes; per shape, each consumer warpgroup's cycles in h's
+    product and lrelu, in P's products and in the epilogue, as shares of its
+    cycles in the kernel, and the launch's time."""
+    src = cc_mod.BF16_SOURCES[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = Path(tmp) / "k1b_timers.so"
+        done = subprocess.run([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-DCOND_CHAIN_TIMERS", "-o",
+                               str(lib_path), str(src)], capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"nvcc failed on {src} with timers:\n{done.stdout}{done.stderr}")
+        lib = ctypes.CDLL(str(lib_path))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+        lib.cond_chain_fwd_bf16.restype = i
+        lib.cond_chain_fwd_bf16_workspace.restype = ll
+        lib.cond_chain_fwd_bf16_timers.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
+        cyc = (ctypes.c_ulonglong * 5)()
+        shapes = [(label, b, t, cc, two_c, n) for label, b, t, cc, two_c, n in wide_shapes(cfg)
+                  if n == 1]
+        shapes += [(f"convert stage {k} C={c}", B, t, None, 2 * c, None)
+                   for k, (t, c) in enumerate(stage_shapes(UTT, cfg))]
+        for k, (label, b, t, cc, two_c, n) in enumerate(shapes):
+            if cc is None:
+                fwd, _, _, _ = chain_inputs(b, t, two_c // 2, cfg, seed=3400 + k,
+                                            dtype=torch.bfloat16)
+            else:
+                ops = wide_operands(cfg, b, t, cc, two_c, n, 3400 + k, torch.bfloat16)
+                fwd = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
+                           b1=ops["b1"], edge0=None, edge_t=None)
+            ulp_parity(f"timers K1-bf16 {label}", old_k1(lib, fwd), cc_mod.cond_chain_plain(**fwd))
+            reps = 5
+            lib.cond_chain_fwd_bf16_timers(cyc, 1)
+            ms = cuda_ms(lambda: old_k1(lib, fwd), iters=reps, warmup=0)
+            if lib.cond_chain_fwd_bf16_timers(cyc, 1):
+                raise RuntimeError("the timers could not be read")
+            h_c, p_c, e_c, whole, wgs = (float(x) for x in cyc)
+            say(f"timers K1-bf16 {label} (B={b} T={t}): {ms:.4f} ms a launch; per consumer "
+                f"warpgroup {whole / wgs:.0f} cycles ({wgs / reps:.0f} warpgroups a launch): h "
+                f"{h_c / whole:.1%}, P {p_c / whole:.1%}, epilogue {e_c / whole:.1%}, other "
+                f"{1 - (h_c + p_c + e_c) / whole:.1%} [{card}]")
+            del fwd
+            torch.cuda.empty_cache()
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -3267,7 +3421,9 @@ HEADLINES = {
                          r"k2-bf16 kernels per batch-64 train step \(8 calls\): (.*?) \[", "first")],
     "15 bf16 convert": [("ms per call (conv, wavlm)",
                          r"bf16 convert \(\w+\):.*?convert_tensors ([\d.]+) ms", "all"),
-                        ("SNR dB", r"SNR ([\d.]+) dB", "all")],
+                        ("SNR dB", r"SNR ([\d.]+) dB", "all"),
+                        ("max|d| vs the plain chain (conv, wavlm)",
+                         r"plain-bf16-chain path max\|d\| ([\d.e+-]+)", "all")],
     "16 bf16 train": [("ms per b64 step (wavlm, conv)", r"steps: median ([\d.]+) ms", "all")],
     "17 bf16 CLIs": [("loop ms per step", r"loop step median of steps 1-4 ([\d.]+) ms", "first")],
     "18 stage steps": [("ms per step (S1, S21, W1)", r"median ([\d.]+) ms per step", "all")],
@@ -3332,7 +3488,7 @@ class Phases:
             f"lanes of phases {LANES} overlap) [{card}]")
 
 
-def main(ab_dir: Path | None = None) -> int:
+def main(ab_dir: Path | None = None, timers: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
@@ -3354,8 +3510,11 @@ def main(ab_dir: Path | None = None) -> int:
 
     phases.run("2 build", build)
     cfg = Config()
+    if timers:
+        phase_timers(cfg, card)
     if ab_dir is not None:
         say(json.dumps({"ab": phase_ab(cfg, card, ab_dir), "card": card}))
+    if timers or ab_dir is not None:
         return 0
     run = phases.run
     with tempfile.TemporaryDirectory() as tmp:
@@ -3519,10 +3678,13 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ab", type=Path, default=None, metavar="DIR",
                         help="only the A/B of the kernels against earlier sources in DIR")
+    parser.add_argument("--timers", action="store_true",
+                        help="only K1-bf16's phases timed by its clock64 counters (a "
+                             "diagnostic build)")
     cli = parser.parse_args()
     adopt_orphans()
     try:
-        rc = main(cli.ab)
+        rc = main(cli.ab, cli.timers)
     finally:
         end_children()
     sys.exit(rc)

@@ -39,11 +39,11 @@
 //      the data kernel's products read, split into hi and lo (K-major,
 //      without swizzle: tf32x3.cuh): Wh (cond_chain_f32.cuh), W1_i[j]^T for
 //      da and W0_i[j]^T for dexc.
-//  (b) k2_data_kernel: one CTA per (batch row, 124-row time tile), two
-//      consumer warpgroups of 64 rows of h and a producer warp
-//      (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of the images;
-//      TMA copies of g, whose zero fill outside [0, T) gives the 'same'
-//      conv's zero rows). Per block i and pass of 136 channels:
+//  (b) k2_data_kernel: one CTA per (124-row time tile, batch row, pass of
+//      136 channels of h), two consumer warpgroups of 64 rows of h and a
+//      producer warp (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of
+//      the images; TMA copies of g, whose zero fill outside [0, T) gives the
+//      'same' conv's zero rows). Per block i:
 //       - h on wgmma as K1 takes it (the same operands in the same order);
 //         the sign of h as 68 bits a thread, so that h's registers take da;
 //       - da_i, M = 64, N = 136, K = 3 x 2C in slices of 8 output channels:
@@ -54,7 +54,8 @@
 //         in the first pass one warp per channel of the slice sums the
 //         CTA's rows of g (db1) while the products run;
 //       - dh = lrelu'(h) da in place, zero outside [0, T) and past Cc; the
-//         own rows to the dh scratch (for (d));
+//         own rows to the dh scratch (for (d)); past E = 9, lrelu(h) of the
+//         own rows to the a scratch too (for (c));
 //       - dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] for E in chunks
 //         of 8 (K = the pass's channels), on mma.sync m16n8k8 per warp (its
 //         16 rows, one accumulator a tap: small products that need no
@@ -63,7 +64,10 @@
 //         the A fragment's columns tig and tig + 4 when the image's K order
 //         is permuted to match (k -> 2k (k < 4), 2(k - 4) + 1); then
 //         dexc[t] += P_0[t+1] + P_1[t] + P_2[t-1] through shared memory,
-//         a sum the CTA owns, over the blocks and passes in order.
+//         a sum the CTA owns, over the blocks in order; where Cc takes
+//         several passes each pass's CTAs write a partial of dexc of their
+//         own, which (e) sums in order (so that the passes run in parallel:
+//         at the options' bottleneck, Cc = 256, 16 CTAs became 32).
 //  (c) k2_w1_kernel, dW1 with no scratch of lrelu(h). A CTA owns (block i,
 //      pass p, a tile of OT = 64 output channels o, 32 where 2C <= 32) and
 //      a chunk of units, a unit being a batch row's 64 rows s0 .. s0 + 63 of
@@ -77,9 +81,14 @@
 //         K-major images: element (c, s) at (c / 8) 2048 + (s / 4) 128 +
 //         (c % 8) 16 + (s % 4) 4 bytes, rows past T and channels past Cc
 //         zero. The transpose tf32 wgmma needs (K = time) costs nothing: it
-//         is the store. Its first thread asks for each unit's rows of g
-//         s0 - 1 .. s0 + 64 (TMA, boxes of 8 channels, zeros outside [0, T)
-//         and past 2C) two units ahead;
+//         is the store. Where K = 3E + 3 > 32 (E > 9) Wh's image does not
+//         fit the one slot held across units, and the recompute would
+//         stream it once per unit and output tile (0.8 MB a unit at
+//         E = 256): there warpgroup 0 reads
+//         lrelu(h) from the scratch (b) wrote instead, 35 KB a unit, the
+//         data kernel's bits by construction. Its first thread asks for each
+//         unit's rows of g s0 - 1 .. s0 + 64 (TMA, boxes of 8 channels, zeros
+//         outside [0, T) and past 2C) two units ahead;
 //       - warpgroups 1 and 2 take dW1_i[j][c][o] += sum_s g[s - j + 1][o]
 //         a[s][c] on wgmma, on 72 and 64 columns c: M = 64 rows (tap, o),
 //         the three taps of OT channels stacked (3 products at OT = 64, 2 at
@@ -110,13 +119,15 @@
 //      and are then added into its f32 sums. dh is read raw (4 bytes an
 //      element) rather than written by (b) as a split image (8 bytes): its
 //      bytes are the kernel's bound.
-//  (e) k2_reduce_kernel sums every kind of partial (dW1, db1, dW0, dhbias,
-//      the edges) over its chunks in order, in one launch.
+//  (e) k2_reduce_kernel sums every kind of partial (dexc where Cc takes
+//      several passes, dW1, db1, dW0, dhbias, the edges) over its chunks in
+//      order, in one launch.
 //
 // Nothing of it grows with Cc or E: one tile for every width (Wh's image is
-// fetched by (c) in chunks of 4 k-slices, once a batch row where it fits one
-// chunk). The dh scratch ((B, T, n*Cc) f32, 1.4 GB at B = 32, T = 8960) lives
-// in device memory; keeping it on chip is later work.
+// fetched by (c) once a batch row, where it fits one chunk of 4 k-slices).
+// The dh scratch ((B, T, n*Cc) f32, 1.4 GB at B = 32, T = 8960), and past
+// E = 9 the a scratch of the same size, live in device memory; keeping them
+// on chip is later work.
 //
 // Numerics: 3xTF32 products into f32 accumulators, no TF32-only product and
 // no library call anywhere; the sums run in another order than the plain
@@ -169,7 +180,9 @@ struct DataArgs {
   const unsigned char* img_w1;  // da's B: [i][p][so][j][hi, lo][136 rows c x 8 o]
   const unsigned char* img_w0;  // dexc's B: [i][p][ec][s][hi, lo][24 rows (j, e) x 8 c]
   float* dh_out;                // (B, T, n*Cc) scratch: dh
-  float* dexc;                  // (B, T, E)
+  float* a_out;                 // (B, T, n*Cc) scratch: lrelu(h), or null (k2_w1_kernel recomputes it)
+  float* dexc;                  // (B, T, E), or (npass, B, T, E) partials where Cc takes
+                                // several passes (a CTA per pass, summed by (e))
   float* pb1;                   // (B, ntiles, n*2C): g summed over a CTA's rows
   int two_c, no, ne, ntiles;    // no, ne: slices of 8 of 2C and of E
   CUtensorMap g_map;            // g as (o: 2C, i: n, t: T, b: B), box (4, 1, 128, 1)
@@ -191,6 +204,7 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
   const HArgs& h = a.h;
   const int b = blockIdx.y;
   const int tix = blockIdx.x;
+  const int p = blockIdx.z;  // the CTA's pass of 136 channels of h
   const int t0 = tix * kTile;
   const int warp = threadIdx.x >> 5;
 
@@ -204,34 +218,33 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
   __syncthreads();
 
   if (warp == 8) {
-    // the producer: per block i and pass p, Wh's k-slices, then per slice of
-    // 8 output channels g's rows and W1's image, then dexc's B per chunk of E
+    // the producer: per block i, Wh's k-slices, then per slice of 8 output
+    // channels g's rows and W1's image, then dexc's B per chunk of E
     if (threadIdx.x == 256) {
       prefetch_map(&a.g_map);
       const unsigned char* img_h = a.img_h + (size_t)b * a.h_image;
       int k = 0;
-      for (int i = 0; i < h.n; ++i)
-        for (int p = 0; p < h.npass; ++p) {
-          const size_t ip = (size_t)i * h.npass + p;
-          for (int s = 0; s < h.nkh; ++s) {
-            put<kDStages, kDSlot>(ring, full, empty, k, img_h + (ip * h.nkh + s) * 2 * kHItem,
-                                  2 * kHItem);
-          }
-          for (int so = 0; so < a.no; ++so) {
-            const int slot = slot_of<kDStages>(k);
-            mbar_wait(&empty[slot], parity_of<kDStages>(k) ^ 1);
-            mbar_arrive_expect_tx(&full[slot], kGTile + kW1Item);
-            unsigned char* dst = ring + slot * kDSlot;
-            tma_load_4d(dst, &a.g_map, &full[slot], 8 * so, i, t0 - 2, b);
-            tma_load_4d(dst + kGTile / 2, &a.g_map, &full[slot], 8 * so + 4, i, t0 - 2, b);
-            bulk_load(dst + kGTile, a.img_w1 + (ip * a.no + so) * kW1Item, kW1Item, &full[slot]);
-            ++k;
-          }
-          for (int ec = 0; ec < a.ne; ++ec) {
-            put<kDStages, kDSlot>(ring, full, empty, k, a.img_w0 + (ip * a.ne + ec) * kW0Item,
-                                  kW0Item);
-          }
+      for (int i = 0; i < h.n; ++i) {
+        const size_t ip = (size_t)i * h.npass + p;
+        for (int s = 0; s < h.nkh; ++s) {
+          put<kDStages, kDSlot>(ring, full, empty, k, img_h + (ip * h.nkh + s) * 2 * kHItem,
+                                2 * kHItem);
         }
+        for (int so = 0; so < a.no; ++so) {
+          const int slot = slot_of<kDStages>(k);
+          mbar_wait(&empty[slot], parity_of<kDStages>(k) ^ 1);
+          mbar_arrive_expect_tx(&full[slot], kGTile + kW1Item);
+          unsigned char* dst = ring + slot * kDSlot;
+          tma_load_4d(dst, &a.g_map, &full[slot], 8 * so, i, t0 - 2, b);
+          tma_load_4d(dst + kGTile / 2, &a.g_map, &full[slot], 8 * so + 4, i, t0 - 2, b);
+          bulk_load(dst + kGTile, a.img_w1 + (ip * a.no + so) * kW1Item, kW1Item, &full[slot]);
+          ++k;
+        }
+        for (int ec = 0; ec < a.ne; ++ec) {
+          put<kDStages, kDSlot>(ring, full, empty, k, a.img_w0 + (ip * a.ne + ec) * kW0Item,
+                                kW0Item);
+        }
+      }
     }
     return;
   }
@@ -251,68 +264,22 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
 #pragma unroll
     for (int r = 0; r < 4; ++r) none[s].hi[r] = none[s].lo[r] = 0u;
 
+  // this pass's dexc: the output where Cc is one pass, else its partial
+  float* const dexc = a.dexc + (size_t)p * gridDim.y * h.T * h.E;
   int k = 0;
   for (int i = 0; i < h.n; ++i) {
-    for (int p = 0; p < h.npass; ++p) {
-      const int c0 = kPass * p;
-      float acc[68];
-      // 1. h; where h >= 0, as bits
-      h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
-      uint32_t pos[3] = {0u, 0u, 0u};
+    const int c0 = kPass * p;
+    float acc[68];
+    // 1. h; where h >= 0, as bits
+    h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
+    uint32_t pos[3] = {0u, 0u, 0u};
 #pragma unroll
-      for (int r = 0; r < 68; ++r) {
-        if (acc[r] >= 0.f) pos[r >> 5] |= 1u << (r & 31);
-      }
-      // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
-      zero(acc);
-      for (int so = 0; so < a.no; ++so) {
-        const int slot = slot_of<kDStages>(k);
-        mbar_wait(&full[slot], parity_of<kDStages>(k));
-        const float* graw = reinterpret_cast<const float*>(ring + slot * kDSlot);
-        // tap j's A: g at the h row's time - j + 1, the tile's row 62 wg + q + 2 - j
-        XFrag gf[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float* g0 = graw + (kOwn * wg + l.row + 2 - j) * 4 + l.tig;
-          split(g0[0], gf[j].hi[0], gf[j].lo[0]);
-          split(g0[32], gf[j].hi[1], gf[j].lo[1]);
-          split(g0[kGBox * 4], gf[j].hi[2], gf[j].lo[2]);
-          split(g0[kGBox * 4 + 32], gf[j].hi[3], gf[j].lo[3]);
-          fence_regs(gf[j].hi);
-          fence_regs(gf[j].lo);
-        }
-        const uint32_t base = smem_u32(ring + slot * kDSlot) + kGTile;
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const uint32_t bh = base + 2 * j * kHItem;
-          tf32x3::wgmma_rs_n136(acc, gf[j].lo, desc(bh, 128, 256), 1);
-          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh + kHItem, 128, 256), 1);
-          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh, 128, 256), 1);
-        }
-        wgmma_commit();
-        if (p == 0) {
-          // db1, while the products run: warp w sums channel 8 so + w over the
-          // CTA's rows t0 .. t0 + 123
-          const int o = 8 * so + warp;
-          const float* col = graw + (warp >> 2) * kGBox * 4 + (warp & 3);
-          float sv = 0.f;
-          for (int r = 2 + lane; r < 2 + kTile; r += 32) {
-            if (t0 - 2 + r < h.T) sv += col[r * 4];
-          }
-#pragma unroll
-          for (int m = 16; m >= 1; m >>= 1) sv += __shfl_xor_sync(0xffffffffu, sv, m);
-          if (lane == 0 && o < a.two_c) {
-            a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + o] = sv;
-          }
-        }
-        wgmma_wait<0>();
-        fence_regs(acc);
-        release(&empty[slot]);
-        ++k;
-      }
-      // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc; the own rows to
-      // the scratch
+    for (int r = 0; r < 68; ++r) {
+      if (acc[r] >= 0.f) pos[r >> 5] |= 1u << (r & 31);
+    }
+    if (a.a_out) {
+      // lrelu(h) of the own rows, for k2_w1_kernel where it would stream
+      // Wh's image once per unit
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt) {
 #pragma unroll
@@ -320,67 +287,145 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
           const int q = l.row + 8 * half;
           const int u = u0 + q;
           const int c = c0 + nt * 8 + 2 * l.tig;
-          const bool ok = u >= 0 && u < h.T && c < h.cc;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int r = nt * 4 + 2 * half + e;
-            acc[r] = ok ? ((pos[r >> 5] >> (r & 31)) & 1u ? acc[r] : kSlope * acc[r]) : 0.f;
-          }
-          if (ok && q >= 1 && q <= kOwn) {
-            *reinterpret_cast<float2*>(a.dh_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
-                make_float2(acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1]);
+          if (q >= 1 && q <= kOwn && u < h.T && c < h.cc) {
+            const float x0 = acc[nt * 4 + 2 * half], x1 = acc[nt * 4 + 2 * half + 1];
+            *reinterpret_cast<float2*>(a.a_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
+                make_float2(x0 >= 0.f ? x0 : kSlope * x0, x1 >= 0.f ? x1 : kSlope * x1);
           }
         }
       }
-      // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
-      // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
-      // tile is the warp's part of the wgmma layout), one accumulator a tap
-      const int ns = pass_slices(h, p);
-      for (int ec = 0; ec < a.ne; ++ec) {
-        float pac[3][4] = {};
-        const int slot = slot_of<kDStages>(k);
-        mbar_wait(&full[slot], parity_of<kDStages>(k));
-        // B[k][n] of tap j at (n / 8 = j) 256 + (k / 4) 128 + (n % 8) 16 + (k % 4) 4
-        const float* w0i = reinterpret_cast<const float*>(ring + slot * kDSlot) +
-                           (lane >> 2) * 4 + l.tig;
+    }
+    // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
+    zero(acc);
+    for (int so = 0; so < a.no; ++so) {
+      const int slot = slot_of<kDStages>(k);
+      mbar_wait(&full[slot], parity_of<kDStages>(k));
+      const float* graw = reinterpret_cast<const float*>(ring + slot * kDSlot);
+      // tap j's A: g at the h row's time - j + 1, the tile's row 62 wg + q + 2 - j
+      XFrag gf[3];
 #pragma unroll
-        for (int s = 0; s < kPassSlices; ++s) {
-          if (s < ns) {
-            FragA f;
-            split(acc[4 * s], f.hi[0], f.lo[0]);
-            split(acc[4 * s + 2], f.hi[1], f.lo[1]);
-            split(acc[4 * s + 1], f.hi[2], f.lo[2]);
-            split(acc[4 * s + 3], f.hi[3], f.lo[3]);
+      for (int j = 0; j < 3; ++j) {
+        const float* g0 = graw + (kOwn * wg + l.row + 2 - j) * 4 + l.tig;
+        split(g0[0], gf[j].hi[0], gf[j].lo[0]);
+        split(g0[32], gf[j].hi[1], gf[j].lo[1]);
+        split(g0[kGBox * 4], gf[j].hi[2], gf[j].lo[2]);
+        split(g0[kGBox * 4 + 32], gf[j].hi[3], gf[j].lo[3]);
+        fence_regs(gf[j].hi);
+        fence_regs(gf[j].lo);
+      }
+      const uint32_t base = smem_u32(ring + slot * kDSlot) + kGTile;
+      wgmma_fence();
 #pragma unroll
-            for (int j = 0; j < 3; ++j) {
-              mma3(pac[j], f, load_b_split(w0i + 2 * s * (kW0Block / 4) + j * 64,
-                                           kW0Block / 4, 8));
-            }
+      for (int j = 0; j < 3; ++j) {
+        const uint32_t bh = base + 2 * j * kHItem;
+        tf32x3::wgmma_rs_n136(acc, gf[j].lo, desc(bh, 128, 256), 1);
+        tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh + kHItem, 128, 256), 1);
+        tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh, 128, 256), 1);
+      }
+      wgmma_commit();
+      if (p == 0) {
+        // db1, while the products run: warp w sums channel 8 so + w over the
+        // CTA's rows t0 .. t0 + 123
+        const int o = 8 * so + warp;
+        const float* col = graw + (warp >> 2) * kGBox * 4 + (warp & 3);
+        float sv = 0.f;
+        for (int r = 2 + lane; r < 2 + kTile; r += 32) {
+          if (t0 - 2 + r < h.T) sv += col[r * 4];
+        }
+#pragma unroll
+        for (int m = 16; m >= 1; m >>= 1) sv += __shfl_xor_sync(0xffffffffu, sv, m);
+        if (lane == 0 && o < a.two_c) {
+          a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + o] = sv;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&empty[slot]);
+      ++k;
+    }
+    // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc; the own rows to
+    // the scratch
+#pragma unroll
+    for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = l.row + 8 * half;
+        const int u = u0 + q;
+        const int c = c0 + nt * 8 + 2 * l.tig;
+        const bool ok = u >= 0 && u < h.T && c < h.cc;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = nt * 4 + 2 * half + e;
+          acc[r] = ok ? ((pos[r >> 5] >> (r & 31)) & 1u ? acc[r] : kSlope * acc[r]) : 0.f;
+        }
+        if (ok && q >= 1 && q <= kOwn) {
+          *reinterpret_cast<float2*>(a.dh_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
+              make_float2(acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1]);
+        }
+      }
+    }
+    // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
+    // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
+    // tile is the warp's part of the wgmma layout), one accumulator a tap
+    const int ns = pass_slices(h, p);
+    for (int ec = 0; ec < a.ne; ++ec) {
+      float pac[3][4] = {};
+      const int slot = slot_of<kDStages>(k);
+      mbar_wait(&full[slot], parity_of<kDStages>(k));
+      // B[k][n] of tap j at (n / 8 = j) 256 + (k / 4) 128 + (n % 8) 16 + (k % 4) 4
+      const float* w0i = reinterpret_cast<const float*>(ring + slot * kDSlot) +
+                         (lane >> 2) * 4 + l.tig;
+#pragma unroll
+      for (int s = 0; s < kPassSlices; ++s) {
+        if (s < ns) {
+          FragA f;
+          split(acc[4 * s], f.hi[0], f.lo[0]);
+          split(acc[4 * s + 2], f.hi[1], f.lo[1]);
+          split(acc[4 * s + 1], f.hi[2], f.lo[2]);
+          split(acc[4 * s + 3], f.hi[3], f.lo[3]);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            mma3(pac[j], f, load_b_split(w0i + 2 * s * (kW0Block / 4) + j * 64,
+                                         kW0Block / 4, 8));
           }
         }
-        release(&empty[slot]);
-        ++k;
-        // dexc[tb + r] += P_0[r + 2] + P_1[r + 1] + P_2[r] (P's row q is dh's time u0 + q)
-        bar_sync(bar, 128);  // the previous chunk's reads of pw are done
+      }
+      release(&empty[slot]);
+      ++k;
+      // dexc[tb + r] += P_0[r + 2] + P_1[r + 1] + P_2[r] (P's row q is dh's time u0 + q)
+      bar_sync(bar, 128);  // the previous chunk's reads of pw are done
 #pragma unroll
-        for (int jj = 0; jj < 3; ++jj) {
+      for (int jj = 0; jj < 3; ++jj) {
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + jj * 8 + 2 * l.tig) =
-                make_float2(pac[jj][2 * half], pac[jj][2 * half + 1]);
-          }
+        for (int half = 0; half < 2; ++half) {
+          *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + jj * 8 + 2 * l.tig) =
+              make_float2(pac[jj][2 * half], pac[jj][2 * half + 1]);
         }
-        bar_sync(bar, 128);
-        for (int x = l.wt; x < kOwn * 8; x += 128) {
-          const int r = x >> 3;
-          const int e = 8 * ec + (x & 7);
-          const int t = tb + r;
-          if (t < h.T && e < h.E) {
-            const float v = (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
-                            pw[r * kPLd + 16 + (x & 7)];
-            float* d = a.dexc + ((size_t)b * h.T + t) * h.E + e;
-            *d = i == 0 && p == 0 ? v : *d + v;
-          }
+      }
+      bar_sync(bar, 128);
+      // this thread's (row, column) pairs x = wt + 128 z of the chunk's
+      // 62 x 8; the sums so far are all read before any is written (one
+      // wait on memory, not four)
+      const bool first = i == 0;
+      float prev[4];
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int x = l.wt + 128 * z;
+        const int t = tb + (x >> 3), e = 8 * ec + (x & 7);
+        prev[z] = !first && x < kOwn * 8 && t < h.T && e < h.E
+                      ? dexc[((size_t)b * h.T + t) * h.E + e]
+                      : 0.f;
+      }
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int x = l.wt + 128 * z;
+        const int r = x >> 3;
+        const int e = 8 * ec + (x & 7);
+        const int t = tb + r;
+        if (x < kOwn * 8 && t < h.T && e < h.E) {
+          const float v = (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
+                          pw[r * kPLd + 16 + (x & 7)];
+          dexc[((size_t)b * h.T + t) * h.E + e] = first ? v : prev[z] + v;
         }
       }
     }
@@ -469,7 +514,8 @@ __global__ void k2_images_kernel(ImageArgs a) {
 // thread). Shared memory: two slots of a's image (hi, then lo, each 17
 // groups of 8 columns c x 64 rows s); a ring of kW1Stages stages of g (OT
 // channels in boxes of 8, each 66 rows of 32 bytes in a 2176-byte slot); a
-// chunk of Wh's image (up to 4 k-slices, hi and lo); the barriers.
+// Wh's image where it is recomputed (up to 4 k-slices, hi and lo); the
+// barriers.
 constexpr int kW1Threads = 384;
 constexpr int kUnit = 64;                            // a's rows a unit (dW1's K)
 constexpr int kGUnitRows = kUnit + 2;                // g's rows a unit: s0 - 1 .. s0 + 64
@@ -482,7 +528,7 @@ constexpr int kW1Run = 16;                           // units a run at most (the
 constexpr int kAGroup = kUnit * 32;                  // 2048: 8 columns of a, every row (SBO)
 constexpr int kAImg = (kPass / 8) * kAGroup;         // 34816: a, hi or lo
 constexpr int kASlot = 2 * kAImg;
-constexpr int kWhChunk = 4;                          // k-slices of Wh a fetch
+constexpr int kWhChunk = 4;                          // k-slices of Wh recomputed from
 constexpr int kWhBytes = kWhChunk * 2 * kHItem;      // 34816
 constexpr size_t kW1Smem = 2 * (size_t)kASlot + (size_t)kW1Stages * kW1GStage + kWhBytes +
                            8 * (2 * kW1Stages + 5) + 1024;
@@ -493,6 +539,7 @@ struct W1Args {
   HArgs h;
   const unsigned char* img_h;  // Wh's images, as the data kernel's
   long long h_image;           // bytes of one batch row's (0: one for every row)
+  const float* a_in;           // lrelu(h) (B, T, n*Cc) from the data kernel, or null (recomputed)
   float* pw1;                  // (runs, 3, Cc, n*2C): dW1 per run of units
   int two_c, notiles, nsub, units, chunk, run;  // units = B nsub of 64 rows; chunk: units a
                                                 // CTA, whole runs of `run` units
@@ -649,40 +696,55 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
       prefetch_map(&a.g_map);
       for (int n = 0; n < kW1Ahead && k_begin + n < k_end; ++n) ask_g(k_begin + n, n);
     }
-    // chunk kc of batch row b's image of Wh (block i, pass p) into the slot,
-    // once every recompute thread is done with what it held
-    const int nkc = (h.nkh + kWhChunk - 1) / kWhChunk;
+    // batch row b's image of Wh (block i, pass p; at most kWhChunk k-slices
+    // where it is recomputed) into the slot, once every recompute thread is
+    // done with what it held
     int loads = 0, held = -1;
-    auto fetch = [&](int b, int kc) {
-      const int sl = min(kWhChunk, h.nkh - kWhChunk * kc);
+    auto fetch = [&](int b) {
       bar_sync(1, 128);
       if (l.wt == 0) {
-        mbar_arrive_expect_tx(w_full, (uint32_t)(sl * 2 * kHItem));
-        bulk_load(wh,
-                  a.img_h + (size_t)b * a.h_image +
-                      (((size_t)i * h.npass + p) * h.nkh + kWhChunk * kc) * 2 * kHItem,
-                  (uint32_t)(sl * 2 * kHItem), w_full);
+        mbar_arrive_expect_tx(w_full, (uint32_t)(h.nkh * 2 * kHItem));
+        bulk_load(wh, a.img_h + (size_t)b * a.h_image + ((size_t)i * h.npass + p) * h.nkh * 2 * kHItem,
+                  (uint32_t)(h.nkh * 2 * kHItem), w_full);
       }
       mbar_wait(w_full, (uint32_t)(loads & 1));
       ++loads;
     };
     const uint32_t whb = smem_u32(wh);
+    const size_t n0 = (size_t)h.n * h.cc;
     float acc[68];
     for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
       const int b = k / a.nsub;
       const int u0 = (k - b * a.nsub) * kUnit;  // a's row q = 0
-      // h for rows u0 + q as the data kernel's h_pass takes it: slice by
+      if (a.a_in) {
+        // lrelu(h) of rows u0 + q as the data kernel wrote it (E > 9)
+#pragma unroll
+        for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int u = u0 + l.row + 8 * half;
+            const int c = c0 + 8 * nt + 2 * l.tig;
+            float2 v = make_float2(0.f, 0.f);
+            if (u < h.T && c < h.cc) {
+              v = __ldg(reinterpret_cast<const float2*>(a.a_in + ((size_t)b * h.T + u) * n0 +
+                                                        (size_t)i * h.cc + c));
+            }
+            acc[nt * 4 + 2 * half] = v.x;
+            acc[nt * 4 + 2 * half + 1] = v.y;
+          }
+        }
+      }
+      // else h for rows u0 + q as the data kernel's h_pass takes it: slice by
       // slice, X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi
-      zero(acc);
-      for (int kc = 0; kc < nkc; ++kc) {
-        if (nkc > 1 || held < 0 || (a.h_image && b != held)) fetch(b, kc);
+      if (!a.a_in) {
+        zero(acc);
+        if (held < 0 || (a.h_image && b != held)) fetch(b);
         held = b;
-        const int sl = min(kWhChunk, h.nkh - kWhChunk * kc);
         XFrag x[kWhChunk];
 #pragma unroll
         for (int ss = 0; ss < kWhChunk; ++ss) {
-          if (ss < sl) {
-            x[ss] = x_frag(h, b, u0, l, kWhChunk * kc + ss);
+          if (ss < h.nkh) {
+            x[ss] = x_frag(h, b, u0, l, ss);
             fence_regs(x[ss].hi);
             fence_regs(x[ss].lo);
           }
@@ -690,7 +752,7 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
         wgmma_fence();
 #pragma unroll
         for (int ss = 0; ss < kWhChunk; ++ss) {
-          if (ss < sl) {
+          if (ss < h.nkh) {
             const uint32_t base = whb + ss * 2 * kHItem;
             tf32x3::wgmma_rs_n136(acc, x[ss].lo, desc(base, 128, 256), 1);
             tf32x3::wgmma_rs_n136(acc, x[ss].hi, desc(base + kHItem, 128, 256), 1);
@@ -715,7 +777,9 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
           for (int e = 0; e < 2; ++e) {
             const float x = acc[nt * 4 + 2 * half + e];
             const int cl = 2 * l.tig + e;
-            const float v = row_ok && c0 + 8 * nt + cl < h.cc ? (x >= 0.f ? x : kSlope * x) : 0.f;
+            const float v = !(row_ok && c0 + 8 * nt + cl < h.cc) ? 0.f
+                            : a.a_in || x >= 0.f                 ? x
+                                                                 : kSlope * x;
             uint32_t hi, lo;
             split(v, hi, lo);
             const int off = nt * kAGroup + (q >> 2) * 128 + cl * 16 + (q & 3) * 4;
@@ -897,7 +961,7 @@ struct ReduceJob {
   long long len, sstride, ostride, first;  // first: its first element in the launch
   int outer, S;
 };
-constexpr int kMaxJobs = 6;
+constexpr int kMaxJobs = 7;
 struct ReduceArgs {
   ReduceJob job[kMaxJobs];
   int n;
@@ -943,7 +1007,8 @@ struct Plan {
   int ot, notiles, nsub, units, chunk, run, s1, runs;  // (c)
   int kx, xcols, xks, parts, prows, s0;     // (d)
   size_t h_image;                           // bytes
-  size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, total;
+  bool scratch_a;                           // (b) writes lrelu(h) for (c)
+  size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, off_a, off_dx, total;
 };
 
 Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
@@ -994,7 +1059,15 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   p.off_imh = up(p.off_pw0 + (size_t)p.s0 * p.kx * n0);
   p.off_imw1 = up(p.off_imh + p.nimg * p.h_image / 4);
   p.off_imw0 = up(p.off_imw1 + (size_t)n * npass * p.no * kW1Item / 4);
-  p.total = p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4;
+  p.off_a = up(p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4);
+  // (c) recomputes lrelu(h) where Wh's image fits one fetch, held across
+  // units (K = 3E + 3 <= 32, the decoder's E = 8); past that it would stream
+  // the image once per unit and output tile, so (b) writes lrelu(h) instead
+  p.scratch_a = h_slices(E) > kWhChunk;
+  // (b) takes one pass of 136 channels a CTA; where Cc takes several, each
+  // writes its own partial of dexc, which (e) sums in order
+  p.off_dx = up(p.off_a + (p.scratch_a ? R * n0 : 0));
+  p.total = p.off_dx + (npass > 1 ? (size_t)npass * R * E : 0);
   p.ok = true;
   return p;
 }
@@ -1079,7 +1152,8 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   d.img_w1 = img_w1;
   d.img_w0 = img_w0;
   d.dh_out = dh_s;
-  d.dexc = dexc;
+  d.a_out = p.scratch_a ? ws + p.off_a : nullptr;
+  d.dexc = passes(cc) > 1 ? ws + p.off_dx : dexc;
   d.pb1 = pb1;
   d.two_c = two_c;
   d.no = p.no;
@@ -1089,6 +1163,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   w.h = h;
   w.img_h = img_h;
   w.h_image = h_image;
+  w.a_in = d.a_out;
   w.pw1 = pw1;
   w.two_c = two_c;
   w.notiles = p.notiles;
@@ -1127,7 +1202,8 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   mark(1);
-  if ((e = launch_kernel(k2_data_kernel, dim3((unsigned)p.ntiles, (unsigned)B), kThreads,
+  if ((e = launch_kernel(k2_data_kernel,
+                         dim3((unsigned)p.ntiles, (unsigned)B, (unsigned)passes(cc)), kThreads,
                          kDataSmem, d, stream)) != cudaSuccess) return (int)e;
   mark(2);
   const dim3 w1_grid((unsigned)(n * passes(cc) * p.notiles), (unsigned)p.s1);
@@ -1139,11 +1215,14 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
                          kThreads, kXSmem, x, stream)) != cudaSuccess) return (int)e;
   mark(4);
 
-  // dW1 over the runs of units; db1 over every (batch row, time tile);
+  // dexc over the passes (where Cc takes several); dW1 over the runs of
+  // units; db1 over every (batch row, time tile);
   // dW0 over every (batch row, part); dhbias, the edges over a batch row's
   // parts (dhbias over all of them when hbias is shared)
   ReduceArgs r{};
   const long long xs = (long long)p.kx * n0;
+  if (passes(cc) > 1) add_job(r, d.dexc, dexc, (long long)B * T * E, 1, passes(cc),
+                              (long long)B * T * E, 0);
   add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.runs, 3LL * cc * n2, 0);
   add_job(r, pb1, db1, n2, 1, B * p.ntiles, n2, 0);
   add_job(r, pw0, dw0, 3LL * E * n0, 1, p.s0, xs, 0);

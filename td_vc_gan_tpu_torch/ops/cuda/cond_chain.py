@@ -39,7 +39,8 @@ of 136 channels of h). Where a kernel takes Cc or 2C in multiples only
 (``_GRAIN``), the wrapper pads each block's channels with zeros and cuts the
 results back (:func:`_pad_widths`, :func:`_cut_grads`; exact: a zero
 channel of h is zero after leaky_relu, and zero rows or columns of W1 add
-nothing).
+nothing); K1-bf16 takes E in multiples too (:func:`_padded_e`; exc and W0
+padded with zero channels, which add nothing to h).
 
 The operands are all float32 or all bfloat16 (the JAX package's bf16
 compute scope). bfloat16 operands take the kernels' bf16 instances, K1-bf16
@@ -367,6 +368,16 @@ def _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t):
 _GRAIN = {"fwd": (1, 2), "bwd": (4, 4), "fwd_bf16": (4, 4), "bwd_bf16": (4, 8)}
 
 
+def _padded_e(kind: str, e: int) -> int:
+    """E as the kernel ``kind`` takes it. K1-bf16 stages exc by TMA in rows
+    of 8 channels up to E = 16, else of 64 (a group of 8 k, or a chunk of 64,
+    of cond_0's product is then one tap's channels): exc and W0 are padded
+    with zero channels (_pad_exc; exact: a zero channel adds nothing to h)."""
+    if kind != "fwd_bf16":
+        return e
+    return _round_up(e, 8 if e <= 16 else 64)
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -392,6 +403,15 @@ def _cut_blocks(x, n, width, keep):
 
 
 _CC_KEYS = ("w0", "hbias", "edge0", "edge_t")  # operands with n*Cc columns
+
+
+def _pad_exc(exc, w0, e_to):
+    """exc (B, T, E) and w0 (3, E, n*Cc) with E padded to ``e_to`` zero
+    channels."""
+    e = exc.shape[-1]
+    if e_to == e:
+        return exc, w0
+    return F.pad(exc, (0, e_to - e)), F.pad(w0, (0, 0, 0, e_to - e))
 
 
 def _pad_widths(ops: dict, n, cc, two_c, cc_to, two_c_to) -> dict:
@@ -443,6 +463,11 @@ def _launch(exc, w0, hbias, w1, b1, edge0, edge_t):
     kernel takes, the output cut back)."""
     b, t, e, n, cc, two_c = _check_operands(exc, w0, hbias, w1, b1, edge0, edge_t)
     kind = "fwd_bf16" if exc.dtype == torch.bfloat16 else "fwd"
+    if _padded_e(kind, e) != e:
+        exc, w0 = _pad_exc(exc, w0, _padded_e(kind, e))
+        e = exc.shape[-1]
+    if kind == "fwd_bf16":
+        exc = _aligned16(exc)  # its tensor map
     cc_p, two_c_p = _padded_widths(kind, cc, two_c)
     if (cc_p, two_c_p) == (cc, two_c):
         return _launch_fwd(kind, exc, w0, hbias, w1, b1, edge0, edge_t, b, t, e, n, cc, two_c)

@@ -15,7 +15,11 @@ within one bf16 ulp, as ``chip_smoke.py`` holds the kernels on the card:
 - columns of h go in passes of 136; as the K of the next product a pass is
   144 columns, the last 8 zero in A against W1's next columns (K1) or zero
   in both (K2's dexc);
-- K1: P = a @ [W1_0 | W1_1 | W1_2] on chunks of 32 or 64 output columns,
+- K1: E padded to a multiple of 8, or of 64 past 16; cond_0's X read from
+  the exc rows t0 - 2 .. t0 + 125 a CTA stages (zero filled outside
+  [0, T); boxes of 8 channels, or of 64 with TMA's 128-byte swizzle), tap j
+  j rows down; CTAs over output chunks (every chunk in one CTA, or one
+  each); P = a @ [W1_0 | W1_1 | W1_2] on chunks of 32 or 64 output columns,
   then out[t] = b1 + P_0[t-1] + P_1[t] + P_2[t+1] (route (a)), rounded once;
 - K2's data kernel: g's tap windows read rows t0 + 62 w - j, zero outside
   [0, T) (the TMA copy's zero fill); da in h's accumulator layout; the
@@ -160,46 +164,136 @@ def act(ops, b, u, i, p, kh):
     return np.where(ok, a, np.float32(0))
 
 
-def k1_emulated(ops):
-    """K1-bf16's arithmetic as its CTAs take it: (B, T, n*2C), f32 values of bf16."""
-    bsz, t, e = ops["exc"].shape
+def k1_plan(bsz, t, e, cc, two_c, sms=SMS):
+    """K1-bf16's grid over output chunks (fwd_plan): (W, chunks, chunks a
+    CTA); W = 32 where 2C <= 32 or Cc takes several passes. A CTA takes
+    every chunk (h once a tile) where the tiles fill the SMs and Cc is one
+    pass, else one chunk (h per chunk)."""
+    width = 32 if two_c <= 32 or cc > PASS else 64
+    noc = -(-two_c // width)
+    split = cc > PASS or -(-t // TILE) * bsz < sms
+    return width, noc, 1 if split else noc
+
+
+def x_tile(exc, b, t0):
+    """The exc boxes a CTA stages: rows t0 - 2 .. t0 + 125 (128), zero
+    outside [0, T) (TMA's fill), every channel."""
+    t = exc.shape[1]
+    rows = t0 - 2 + np.arange(128)
+    ok = (rows >= 0) & (rows < t)
+    return np.where(ok[:, None], exc[b, np.clip(rows, 0, t - 1)], 0).astype(np.float32)
+
+
+def swizzled(box):
+    """A box of 128-byte rows (64 bf16 channels) as TMA's 128-byte swizzle
+    lays it in shared memory: 16-byte piece p of row R at piece p ^ R % 8."""
+    out = np.empty_like(box)
+    for r in range(box.shape[0]):
+        for piece in range(8):
+            dst = piece ^ (r % 8)
+            out[r, 8 * dst:8 * dst + 8] = box[r, 8 * piece:8 * piece + 8]
+    return out
+
+
+def x_from_tile(tile, w, u0, t, k16):
+    """X of warpgroup w's 64 rows (u0 + q) as K1-bf16's ldmatrix reads it
+    from the staged boxes, tap j at the box row R = 62 w + q + j. E <= 16:
+    group g < 3E/8 of 8 k is channels 8 (g % nbx) .. of tap j = g // nbx.
+    E > 16 (a multiple of 64): chunk kc of 64 k is tap kc // (E/64)'s box of
+    channels 64 (kc % (E/64)) .., swizzled, its piece p of row R read at
+    p ^ R % 8. Then the group [1, -[u == 0], -[u == T-1], 0 ...] made in
+    registers, zeros past it."""
+    e = tile.shape[1]
+    nbx = e // 8
+    q = np.arange(ROWS)
+    u = u0 + q
+    x = np.zeros((ROWS, k16), np.float32)
+    boxes = [swizzled(tile[:, c:c + 64]) for c in range(0, e, 64)] if e > 16 else None
+    for g in range(k16 // 8):
+        if g < 3 * nbx and boxes is None:
+            j, eb = divmod(g, nbx)
+            x[:, 8 * g:8 * g + 8] = tile[OWN * w + q + j, 8 * eb:8 * eb + 8]
+        elif g < 3 * nbx:
+            kc, piece = divmod(g, 8)
+            j, m = divmod(kc, e // 64)
+            rr = OWN * w + q + j
+            cols = 8 * (piece ^ (rr % 8))[:, None] + np.arange(8)[None]
+            x[:, 8 * g:8 * g + 8] = boxes[m][rr[:, None], cols]
+        elif g == 3 * nbx:
+            x[:, 8 * g] = 1
+            x[:, 8 * g + 1] = -(u == 0).astype(np.float32)
+            x[:, 8 * g + 2] = -(u == t - 1).astype(np.float32)
+    return x
+
+
+def k1_emulated(ops, cpc=None):
+    """K1-bf16's arithmetic as its CTAs take it: (B, T, n*2C), f32 values of
+    bf16. E padded to a multiple of 8, or of 64 past 16 (the wrapper's
+    _padded_e, _pad_exc); CTAs over
+    (time tile, batch row, group of ``cpc`` output chunks, by default
+    k1_plan's); X read from each CTA's staged exc boxes."""
     cc = ops["w1"].shape[1]
     n = ops["w0"].shape[2] // cc
     two_c = ops["w1"].shape[2] // n
-    npass, kh = geo(e, cc)
-    width = 32 if two_c <= 32 else 64
+    e = ops["exc"].shape[2]
+    exc, w0 = (x.numpy() for x in cond_chain._pad_exc(
+        torch.from_numpy(ops["exc"]), torch.from_numpy(ops["w0"]),
+        cond_chain._padded_e("fwd_bf16", e)))
+    ops = dict(ops, exc=exc, w0=w0)
+    bsz, t, e8 = exc.shape
+    npass = -(-cc // PASS)
+    k16 = -(-(3 * e8 + 3) // 16) * 16
+    width, noc, plan_cpc = k1_plan(bsz, t, e8, cc, two_c)
+    cpc = cpc or plan_cpc
     cc8 = -(-cc // 8) * 8
     # W1 transposed and padded, (n, 3, 2C, Cc8), read in atoms of 64 columns
     # of c (the tensor map's zero fill beyond Cc8 and 2C)
     w1t = np.zeros((n, 3, two_c, cc8 + PASS + 64), np.float32)
     w1t[..., :cc] = ops["w1"].reshape(3, cc, n, two_c).transpose(2, 0, 3, 1)
     out = np.zeros((bsz, t, n * two_c), np.float32)
+    written = np.zeros((bsz, -(-t // TILE), noc), int)
     for b in range(bsz):
-        for _, _, u0 in wg_rows(t):
-            u = u0 + np.arange(ROWS)
-            for i in range(n):
-                a = [bf16(act(ops, b, u, i, p, kh)) for p in range(npass)]
-                for oc in range(-(-two_c // width)):
-                    o = oc * width + np.arange(width)
-                    p_acc = np.zeros((ROWS, 3 * width), np.float32)
-                    for p in range(npass):
-                        ap = np.concatenate([a[p], np.zeros((ROWS, 8), np.float32)], 1)
-                        # B: the three taps' W x 144 columns of the pass, the
-                        # last 8 the next columns of W1 (against zeros in A)
-                        bt = np.zeros((144, 3 * width), np.float32)
-                        for j in range(3):
-                            ok = o < two_c
-                            bt[:, j * width + np.arange(width)[ok]] = \
-                                w1t[i, j, o[ok], p * PASS:p * PASS + 144].T
-                        p_acc = slices16(ap, bt, p_acc)
-                    r = np.arange(OWN)
-                    tt = u0 + 1 + r
-                    okr, oko = tt < t, o < two_c
-                    col = i * two_c + o[oko]
-                    s = ((ops["b1"][col][None] + p_acc[r][:, :width][:, oko])
-                         + p_acc[r + 1][:, width:2 * width][:, oko]) \
-                        + p_acc[r + 2][:, 2 * width:][:, oko]
-                    out[b, tt[okr][:, None], col[None]] = bf16(s[okr])
+        for tix in range(-(-t // TILE)):
+            tile = x_tile(exc, b, tix * TILE)
+            for z in range(noc // cpc):
+                chunks = range(z * cpc, (z + 1) * cpc)
+                written[b, tix, list(chunks)] += 1
+                for w in (0, 1):
+                    u0 = tix * TILE + OWN * w - 1
+                    u = u0 + np.arange(ROWS)
+                    x = x_from_tile(tile, w, u0, t, k16)
+                    np.testing.assert_array_equal(x, x_rows(ops, b, u, k16))
+                    for i in range(n):
+                        a = []
+                        for p in range(npass):
+                            h = slices16(x, wh_block(ops, b, i, p, k16))
+                            ok = ((u >= 0) & (u < t))[:, None] & \
+                                (np.arange(p * PASS, (p + 1) * PASS) < cc)[None]
+                            a.append(bf16(np.where(ok, np.where(h >= 0, h + np.float32(0),
+                                                                SLOPE * h), np.float32(0))))
+                        for oc in chunks:
+                            o = oc * width + np.arange(width)
+                            p_acc = np.zeros((ROWS, 3 * width), np.float32)
+                            for p in range(npass):
+                                ap = np.concatenate([a[p], np.zeros((ROWS, 8), np.float32)], 1)
+                                # B: the three taps' W x 144 columns of the pass, the
+                                # last 8 the next columns of W1 (against zeros in A)
+                                bt = np.zeros((144, 3 * width), np.float32)
+                                for j in range(3):
+                                    ok = o < two_c
+                                    bt[:, j * width + np.arange(width)[ok]] = \
+                                        w1t[i, j, o[ok], p * PASS:p * PASS + 144].T
+                                p_acc = slices16(ap, bt, p_acc)
+                            # out = b1 + P_0[r] + P_1[r + 1] + P_2[r + 2]
+                            r = np.arange(OWN)
+                            tt = u0 + 1 + r
+                            okr, oko = tt < t, o < two_c
+                            col = i * two_c + o[oko]
+                            s = ((ops["b1"][col][None] + p_acc[r][:, :width][:, oko])
+                                 + p_acc[r + 1][:, width:2 * width][:, oko]) \
+                                + p_acc[r + 2][:, 2 * width:][:, oko]
+                            out[b, tt[okr][:, None], col[None]] = bf16(s[okr])
+    assert (written == 1).all()
     return out
 
 
@@ -360,12 +454,54 @@ CASES = [("decoder", 2, 150, 8, 2, 136, 32, False),
          ("concat", 2, 70, 24, 2, 24, 16, True)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+# K1-bf16's cases add T shorter than one tile with 2C = 256 (four output
+# chunks), E = 16 (K = 51: one chunk of W0's image, two exc boxes kept for
+# the CTA) on two tiles, and the options' bottleneck, the concat form at
+# Cc = E = 256 (two passes; K = 771 in 13 chunks, the exc boxes streamed with
+# them), at B = 1
+K1_CASES = CASES + [("t28-2c256", 2, 28, 8, 2, 136, 256, False),
+                    ("e16", 1, 130, 16, 1, 136, 64, False),
+                    ("bottleneck-256", 1, 28, 256, 1, 256, 256, True)]
+
+
+@pytest.mark.parametrize("case", K1_CASES, ids=[c[0] for c in K1_CASES])
 def test_k1_bf16_tiles_emulated(case):
     _, b, t, e, n, cc, two_c, concat = case
     ops = chain_ops(b, t, e, n, cc, two_c, seed=cc + two_c + e, concat=concat)
     want = cond_chain.cond_chain_plain(**torch_ops(ops))
     assert_ulp(k1_emulated(ops), want, "out")
+
+
+def test_k1_bf16_grid_over_output_chunks():
+    """fwd_plan's choice: at the bottleneck (16 x 28, Cc = E = 128 and 256,
+    2C = 256: 16 tiles; at 256 two passes) a CTA per chunk; on the
+    conversion's first stage (16 x 2240, 2C = 256: 304 tiles) every chunk in
+    one CTA, h once a tile. Both groupings give the same output, each chunk
+    written by one CTA."""
+    assert k1_plan(16, 28, 128, 128, 256) == (64, 4, 1)
+    assert k1_plan(16, 28, 256, 256, 256) == (32, 8, 1)
+    assert k1_plan(16, 2240, 8, 136, 256) == (64, 4, 4)
+    ops = chain_ops(1, 130, 8, 2, 136, 256, seed=3)
+    np.testing.assert_array_equal(k1_emulated(ops, cpc=1), k1_emulated(ops, cpc=4))
+
+
+def test_padding_widths_for_k1_bf16():
+    """E to a multiple of 8 up to 16, else of 64; Cc and 2C to multiples of 4."""
+    assert [cond_chain._padded_e("fwd_bf16", e) for e in (6, 8, 10, 16, 24, 256, 600)] == \
+        [8, 8, 16, 16, 64, 256, 640]
+    assert cond_chain._padded_e("fwd", 6) == 6 and cond_chain._padded_e("bwd_bf16", 6) == 6
+    assert cond_chain._padded_widths("fwd_bf16", 11, 6) == (12, 8)
+
+
+def test_padding_e_to_a_multiple_of_8_is_exact():
+    """K1-bf16 runs E at the next multiple of 8, exc and W0 padded with zero
+    channels (``_pad_exc``): the plain chain on the padded operands gives
+    the same bits."""
+    ops = torch_ops(chain_ops(2, 40, 10, 3, 20, 12, seed=7))
+    want = cond_chain.cond_chain_plain(**ops)
+    exc, w0 = cond_chain._pad_exc(ops["exc"], ops["w0"], 16)
+    assert exc.shape == (2, 40, 16) and w0.shape == (3, 16, 60)
+    assert torch.equal(cond_chain.cond_chain_plain(**dict(ops, exc=exc, w0=w0)), want)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])

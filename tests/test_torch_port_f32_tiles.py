@@ -187,15 +187,26 @@ def dh_as_a(d):
     return a
 
 
+def scratch_a(e):
+    """K2 takes lrelu(h) from the data kernel (make_plan's scratch_a) where
+    Wh's image is more than one fetch of k2_w1_kernel, K = 3E + 3 past 32;
+    else k2_w1_kernel recomputes it."""
+    return -(-(3 * e + 3) // 8) > WH_CHUNK
+
+
 def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
-    """K2's data kernel tile by tile: (dexc, the dh scratch, db1's partials
+    """K2's data kernel tile by tile and pass by pass: (dexc, the dh scratch, db1's partials
     (B, tiles, n*2C), h of every tile's rows with those rows (for the
-    recompute's check))."""
+    recompute's check), the lrelu(h) scratch (None where k2_w1_kernel
+    recomputes it))."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     ntiles = -(-t // TILE)
     n0 = n * cc
     dh_s = np.zeros((b, t, n0), np.float32)
-    dexc = np.zeros((b, t, e), np.float32)
+    a_s = np.zeros((b, t, n0), np.float32) if scratch_a(e) else None
+    # dexc per pass of 136 channels (a CTA each), summed over the blocks in
+    # order, then over the passes in order (the reduce)
+    dexc_p = np.zeros((-(-cc // PASS), b, t, e), np.float32)
     pb1 = np.zeros((b, ntiles, n * two_c), np.float32)
     hs = {}
     # g's 128-row tile of each CTA: times t0 - 2 .. t0 + 125, zero outside [0, T)
@@ -211,6 +222,8 @@ def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
             own = own[None, None, None, :, None] & ok
             chans = slice(i * cc + PASS * p, i * cc + min(PASS * (p + 1), cc))
             width = chans.stop - chans.start
+            if a_s is not None:
+                put_own(a_s, np.where(h >= 0, h, SLOPE * h), own, u, chans, width)
             # da: tap j reads g's tile rows 62 w + q + 2 - j
             da = np.zeros_like(h)
             for so in range(-(-two_c // 8)):
@@ -238,10 +251,10 @@ def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
                     add3(pac, dh_as_a(dh[..., 8 * s:8 * s + 8]), w)
                 v = (pac[..., 2:OWN + 2, 0:8] + pac[..., 1:OWN + 1, 8:16]) + pac[..., :OWN, 16:24]
                 v = v.reshape(b, -1, 8)[:, :t, :min(8, e - 8 * ec)]
-                dexc[..., 8 * ec:8 * ec + v.shape[-1]] += v
+                dexc_p[p][..., 8 * ec:8 * ec + v.shape[-1]] += v
         # db1: each CTA's rows of g, per channel
         pb1[..., i * two_c:(i + 1) * two_c] = gi[:, :, 2:TILE + 2].sum(2)
-    return dexc, dh_s, pb1, hs
+    return ordered_sum(dexc_p), dh_s, pb1, hs, a_s
 
 
 # --- k2_w1_kernel and k2_xdh_kernel, as their threads read and write shared memory
@@ -251,6 +264,7 @@ GBOX = 68 * 8      # floats of a box of 8 channels of g in a stage (66 rows used
 AGROUP = 2048      # bytes of 8 columns of a's image, every row (SBO)
 AIMG = 17 * AGROUP  # bytes of a's image, hi or lo
 SM_COUNT = 132
+WH_CHUNK = 4       # k-slices of Wh's image k2_w1_kernel fetches at once
 W1_RUN = 16        # units of a run of k2_w1_kernel's accumulators at most (one partial each)
 
 
@@ -285,11 +299,12 @@ def add3s(acc, a, b):
     return acc
 
 
-def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs):
+def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s=None):
     """dW1 (3, Cc, n*2C) as k2_w1_kernel takes it: per (block, pass, o-tile)
     and unit, a recomputed (checked bit for bit against the data kernel's h
-    at the same rows, ``hs``) into its K-major image; A = g^T from the
-    stage's rows shifted by the tap; the accumulators' runs of units (a
+    at the same rows, ``hs``), or read from the data kernel's scratch
+    ``a_s`` at wide E (the same bits), into its K-major image; A = g^T from
+    the stage's rows shifted by the tap; the accumulators' runs of units (a
     CTA's chunk of units cut into runs of at most W1_RUN) summed in order."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     ot = 32 if two_c <= 32 else 64
@@ -317,6 +332,11 @@ def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs):
                                           hd[:, :, :, 1:OWN + 1][:, own < t])
             ok = (u < t)[None, ..., None] & (c0 + np.arange(PASS) < cc)
             a = np.where(ok, np.where(h >= 0, h, SLOPE * h), 0).astype(np.float32)
+            if a_s is not None:
+                cols = np.clip(i * cc + c0 + np.arange(PASS), 0, n * cc - 1)
+                read = np.where(ok, a_s[:, np.clip(u, 0, t - 1)][..., cols], 0)
+                np.testing.assert_array_equal(read, a)
+                a = read.astype(np.float32)
             cl, q = np.meshgrid(np.arange(PASS), np.arange(UNIT), indexing="ij")
             for o0 in range(0, two_c, ot):
                 for r_i in range(runs):
@@ -420,9 +440,9 @@ def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
     then k2_w1_kernel, k2_xdh_kernel and the ordered reduce of their
     partials."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
-    dexc, dh_s, pb1, hs = k2_data_emulated(exc, w0, hbias, w1, g, edge0, edge_t)
+    dexc, dh_s, pb1, hs, a_s = k2_data_emulated(exc, w0, hbias, w1, g, edge0, edge_t)
     out = dict(exc=dexc, b1=ordered_sum(pb1.reshape(-1, n * two_c)))
-    out["w1"] = w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs)
+    out["w1"] = w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s)
     pw0, parts = xdh_emulated(exc, dh_s, 3 * e + 3)
     out["w0"] = ordered_sum(pw0[:, :3 * e]).reshape(3, e, n * cc)
     per_b = pw0.reshape(b, parts, *pw0.shape[1:])
@@ -482,10 +502,13 @@ def test_k1_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
 # 140 and 8 (two passes, k2_w1_kernel's 32-channel o-tile); 2C = 72 (two
 # 64-channel o-tiles, the second ragged) over 18 units of 64 rows; and 36
 # (block, pass, o-tile) tiles over 5 units, so that k2_w1_kernel's CTAs
-# take runs of two units (the last of one)
+# take runs of two units (the last of one); and the concat form at
+# E = Cc = 48 (K = 147, 19 k-slices of Wh), where k2_w1_kernel reads
+# lrelu(h) from the data kernel's scratch (as at every E past 9)
 K2_CASES = CASES + [(True, 1, 70, 10, 1, 138, 6), (False, 2, 530, 0, 1, 16, 72),
-                    (True, 1, 300, 8, 6, 150, 136)]
-K2_IDS = IDS + ["split-E10-padded", "concat-two-otiles", "split-runs-of-two"]
+                    (True, 1, 300, 8, 6, 150, 136), (False, 2, 150, 0, 1, 48, 40)]
+K2_IDS = IDS + ["split-E10-padded", "concat-two-otiles", "split-runs-of-two",
+                "concat-E48-a-scratch"]
 
 
 @pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", K2_CASES, ids=K2_IDS)
