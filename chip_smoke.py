@@ -196,16 +196,19 @@ interface: K1 with a workspace, K2 on W1 in its own layout)
 against this tree's, alternated for 5 rounds at the conversion's chain
 shapes and the train step's (f32 at batch 16, bf16 at batch 64), the two
 versions' outputs held to each other, each backward's time by kernel and
-workspace for each version, then K1-bf16 and K2 at the options'
+workspace for each version, then K1-bf16, K2 and K2-bf16 at the options'
 bottleneck shapes and at concat E = Cc = 600, with cuDNN beside them; its
 last line is a JSON object of each dtype's and path's per-round totals.
 
     python3 chip_smoke.py --timers
 
-runs the card and build phases, then K1-bf16 built with -DCOND_CHAIN_TIMERS
-(a diagnostic build: each consumer warpgroup's clock64 cycles by phase,
-h's product, P's products and the epilogue) at the bottleneck shapes and
-the bf16 conversion's stage shapes. The two flags combine.
+runs the card and build phases, then K1-bf16, K2 (f32) and K2-bf16 built
+with -DCOND_CHAIN_TIMERS (diagnostic builds: each consumer warpgroup's
+clock64 cycles by phase; in K1-bf16 h's product, P's products and the
+epilogue at the bottleneck shapes and the bf16 conversion's stage shapes;
+in the backward data kernels h, da, dh and dexc and their parts at the
+step's stage shapes, K2-bf16's also at the bottleneck shapes). The two
+flags combine.
 """
 
 from __future__ import annotations
@@ -308,7 +311,8 @@ TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
 # through L1), K2-bf16 before its weight grads moved to wgmma, K2 before
 # its weight grads did, K1-bf16 before its output chunks got CTAs of their
-# own, and K2 before dexc's read-modify-write was batched. As (path
+# own, K2 before dexc's read-modify-write was batched, and K2-bf16 before
+# its data kernel took X^T dh on chip. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
@@ -329,6 +333,8 @@ EARLIER_MS = {
         ("train", 8.058, "batch-64 train step (8 calls)",
          "with one CTA walking every output chunk")],
     "cond_chain_bwd_bf16": [
+        (None, 26.800, "batch-64 train step (8 calls)",
+         "with a CTA a tile, its phases in turn, and the dh scratch"),
         (None, 89.301, "batch-64 train step (8 calls)", "in their first bf16 version"),
         (None, 41.269, "batch-64 train step (8 calls)",
          "with the mma.sync weight grads and the a scratch (PR 15's proof)")]}
@@ -1805,9 +1811,10 @@ def k2b_label(name: str) -> str | None:
     return m.group(1) + (f"<{','.join(targs)}>" if targs else "")
 
 
-# K2-bf16's launches in a call, as cond_chain_bwd_bf16_kernel_ms orders them
-K2B_LAUNCHES = ("w_images_kernel", "k2b_data_kernel", "k2b_w1_kernel", "k2b_xdh_kernel",
-                "k2b_reduce_kernel")
+# K2-bf16's launches in a call at E = 8, the step's, as
+# cond_chain_bwd_bf16_kernel_ms orders them (past E = 8 k2b_xdh_kernel before
+# the reduce)
+K2B_LAUNCHES = ("w_images_kernel", "k2b_data_kernel<1>", "k2b_w1_kernel", "k2b_reduce_kernel")
 
 
 def event_times(lib_name: str, prefix: str, launches: tuple, fn) -> dict:
@@ -1822,7 +1829,7 @@ def event_times(lib_name: str, prefix: str, launches: tuple, fn) -> dict:
     on, get = getattr(lib, f"{prefix}_time_kernels"), getattr(lib, f"{prefix}_kernel_ms")
     on.argtypes = [ctypes.c_int]
     get.argtypes = [ctypes.POINTER(ctypes.c_float)]
-    ms = (ctypes.c_float * len(launches))()
+    ms = (ctypes.c_float * 5)()
     if on(1):
         raise RuntimeError(f"{prefix} could not make its timing events")
     try:
@@ -3214,12 +3221,12 @@ def cudnn_chain(ops: dict, n: int):
     return fwd, lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True)
 
 
-def ab_wide(cfg, card, fwd_bf16, bwd) -> dict:
-    """The two kernels this tree redesigned at wide E, K1-bf16 and K2 (f32),
-    earlier (libraries ``fwd_bf16``, ``bwd``) against this tree's at
-    ``wide_shapes``, alternated, each version's outputs held to the other's,
-    cuDNN's forward (bf16) and backward (f32) of the same chain beside them,
-    and K2's time by kernel for each version; returns {label: {kernel: times}}.
+def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
+    """K1-bf16, K2 (f32) and K2-bf16 earlier (libraries ``fwd_bf16``, ``bwd``,
+    ``bwd_bf16``) against this tree's at ``wide_shapes``, alternated, each
+    version's outputs held to the other's, cuDNN's forward (bf16) and
+    backward (f32, bf16) of the same chain beside them, and each backward's
+    time by kernel for each version; returns {label: {kernel: times}}.
     Both versions are called the same way, through their C entry points
     (``old_k1``, ``old_k2``): at these sizes a call's host work is as long as
     its kernels."""
@@ -3229,13 +3236,14 @@ def ab_wide(cfg, card, fwd_bf16, bwd) -> dict:
         ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.bfloat16)
         fwd = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], b1=ops["b1"],
                    edge0=None, edge_t=None)
-        # this tree's K1-bf16 on E as its wrapper pads it
+        # both K1-bf16s on E as the wrapper pads it (the earlier one, since its
+        # redesign for wide E, takes E in the same multiples)
         padded = dict(fwd)
         padded["exc"], padded["w0"] = cc_mod._pad_exc(fwd["exc"], fwd["w0"],
                                                       cc_mod._padded_e("fwd_bf16", cc))
         ulp_parity(f"ab K1-bf16 {label}", old_k1(libs["fwd_bf16"], padded),
-                   old_k1(fwd_bf16, fwd))
-        k1 = ab_times(lambda: old_k1(fwd_bf16, fwd), lambda: old_k1(libs["fwd_bf16"], padded),
+                   old_k1(fwd_bf16, padded))
+        k1 = ab_times(lambda: old_k1(fwd_bf16, padded), lambda: old_k1(libs["fwd_bf16"], padded),
                       iters=5)
         l1 = cuda_ms(cudnn_chain(ops, n)[0], iters=5)
         del ops, fwd, padded
@@ -3253,11 +3261,30 @@ def ab_wide(cfg, card, fwd_bf16, bwd) -> dict:
                             ("new", lambda: old_k2(libs["bwd"], args, ops["g"]))):
             say(f"ab k2 kernels ({version}) {label}: {breakdown_line(kernel_breakdown(fn))} "
                 f"[{card}]")
+        del ops, args
+        torch.cuda.empty_cache()
+        ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.bfloat16)
+        args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], edge0=None,
+                    edge_t=None)
+        new, old = old_k2(libs["bwd_bf16"], args, ops["g"]), old_k2(bwd_bf16, args, ops["g"])
+        for key in new:
+            ulp_parity(f"ab K2-bf16 {label} d{key}", new[key], old[key])
+        del new, old
+        k2b = ab_times(lambda: old_k2(bwd_bf16, args, ops["g"]),
+                       lambda: old_k2(libs["bwd_bf16"], args, ops["g"]), iters=3)
+        l2b = cuda_ms(cudnn_chain(ops, n)[1], iters=3)
+        for version, fn in (("old", lambda: old_k2(bwd_bf16, args, ops["g"])),
+                            ("new", lambda: old_k2(libs["bwd_bf16"], args, ops["g"]))):
+            say(f"ab k2-bf16 kernels ({version}) {label}: "
+                f"{breakdown_line(kernel_breakdown(fn))} [{card}]")
         say(f"ab {label}: K1-bf16 old {np.median(k1['old']):.4f} ms, new "
             f"{np.median(k1['new']):.4f} ms, cuDNN bf16 {l1:.4f} ms; K2 old "
             f"{np.median(k2['old']):.4f} ms, new {np.median(k2['new']):.4f} ms, cuDNN backward "
-            f"{l2:.4f} ms ({AB_ROUNDS} rounds alternated, medians) [{card}]")
-        out[label] = {"k1_bf16": k1, "k1_bf16_cudnn_ms": l1, "k2": k2, "k2_cudnn_ms": l2}
+            f"{l2:.4f} ms; K2-bf16 old {np.median(k2b['old']):.4f} ms, new "
+            f"{np.median(k2b['new']):.4f} ms, cuDNN bf16 backward {l2b:.4f} ms ({AB_ROUNDS} "
+            f"rounds alternated, medians) [{card}]")
+        out[label] = {"k1_bf16": k1, "k1_bf16_cudnn_ms": l1, "k2": k2, "k2_cudnn_ms": l2,
+                      "k2_bf16": k2b, "k2_bf16_cudnn_ms": l2b}
         del ops, args
         torch.cuda.empty_cache()
     return out
@@ -3275,32 +3302,88 @@ def phase_ab(cfg, card, src_dir: Path) -> dict:
             + " | ".join(ptxas_summary(log)))
         return {"f32": ab_pair(cfg, card, libs["fwd"], libs["bwd"], torch.float32),
                 "bf16": ab_pair(cfg, card, libs["fwd_bf16"], libs["bwd_bf16"], torch.bfloat16),
-                "wide": ab_wide(cfg, card, libs["fwd_bf16"], libs["bwd"])}
+                "wide": ab_wide(cfg, card, libs["fwd_bf16"], libs["bwd"], libs["bwd_bf16"])}
+
+
+def timer_libraries(tmp: Path) -> dict:
+    """This tree's K1-bf16, K2 (f32) and K2-bf16 built with -DCOND_CHAIN_TIMERS
+    into ``tmp``, the three nvcc runs started together; {"fwd_bf16", "bwd",
+    "bwd_bf16": ctypes library with its timer reader's argtypes}."""
+    srcs = {"fwd_bf16": cc_mod.BF16_SOURCES[0], "bwd": cc_mod.SOURCES[1],
+            "bwd_bf16": cc_mod.BF16_SOURCES[1]}
+    procs = {name: subprocess.Popen([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-DCOND_CHAIN_TIMERS",
+                                     "-o", str(tmp / f"{name}_timers.so"), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, src in srcs.items()}
+    libs = {}
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {srcs[name]} with timers:\n{out}")
+        libs[name] = lib = ctypes.CDLL(str(tmp / f"{name}_timers.so"))
+    lib = libs["fwd_bf16"]
+    lib.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+    lib.cond_chain_fwd_bf16.restype = i
+    lib.cond_chain_fwd_bf16_workspace.restype = ll
+    lib.timers = lib.cond_chain_fwd_bf16_timers
+    lib = libs["bwd"]
+    lib.cond_chain_bwd_workspace.argtypes = [i] * 7
+    lib.cond_chain_bwd_workspace.restype = ll
+    lib.cond_chain_bwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
+                                       i, i, i, i, i, i, p]
+    lib.cond_chain_bwd_f32.restype = i
+    lib.timers = lib.cond_chain_bwd_timers
+    lib = libs["bwd_bf16"]
+    lib.cond_chain_bwd_bf16_workspace.argtypes = [i] * 6
+    lib.cond_chain_bwd_bf16_workspace.restype = ll
+    lib.cond_chain_bwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, p, p, p, p, p, p, ll,
+                                        i, i, i, i, i, i, p]
+    lib.cond_chain_bwd_bf16.restype = i
+    lib.timers = lib.cond_chain_bwd_bf16_timers
+    for lib in libs.values():
+        lib.timers.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
+        lib.timers.restype = i
+    return libs
+
+
+def read_timers(lib, n: int, fn, reps: int = 5) -> tuple[float, list[float]]:
+    """(ms a launch of ``fn``, the ``n`` cycle sums of ``reps`` launches) from
+    a timer library."""
+    cyc = (ctypes.c_ulonglong * n)()
+    lib.timers(cyc, 1)
+    ms = cuda_ms(fn, iters=reps, warmup=0)
+    if lib.timers(cyc, 1):
+        raise RuntimeError("the timers could not be read")
+    return ms, [float(x) for x in cyc]
+
+
+# the phases the timer builds count, in the order of their cycle sums; a
+# part of the phase before it is not counted again in "other" (K2-bf16's h
+# at E = 8: the wait for the product, issued within dexc's shift and store)
+K2B_PHASES = ("h", "da", "da's waits on full", "slope+dh", "dexc+X^T dh",
+              "their products", "X^T dh's sum", "dexc's shift and store")
+K2_PHASES = ("h", "da", "dh", "dexc")
+PHASE_PARTS = {"da's waits on full", "their products", "X^T dh's sum",
+               "dexc's shift and store"}
 
 
 def phase_timers(cfg, card) -> None:
-    """K1-bf16's phases timed by the kernel's own clock64 counters: this
-    tree's csrc/cond_chain_bf16.cu built with -DCOND_CHAIN_TIMERS into a temp
-    dir, run at ``wide_shapes``' bottleneck shapes and the bf16 conversion's
-    four stage shapes; per shape, each consumer warpgroup's cycles in h's
-    product and lrelu, in P's products and in the epilogue, as shares of its
-    cycles in the kernel, and the launch's time."""
-    src = cc_mod.BF16_SOURCES[0]
+    """The kernels' phases timed by their own clock64 counters (diagnostic
+    builds, ``timer_libraries``): K1-bf16 at ``wide_shapes``' bottleneck shapes
+    and the bf16 conversion's four stage shapes (each consumer warpgroup's
+    cycles in h's product and lrelu, in P's products and in the epilogue);
+    K2-bf16's data kernel at the batch-64 step's four stage shapes and the
+    bottleneck's four (K2B_PHASES, and the producer's waits on empty as a
+    share of its cycles); K2 (f32)'s data kernel at the f32 step's four stage
+    shapes (K2_PHASES). Per shape: the shares of the warpgroups' cycles and
+    the launch's time. Each launch is held to its plain version first."""
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = Path(tmp) / "k1b_timers.so"
-        done = subprocess.run([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-DCOND_CHAIN_TIMERS", "-o",
-                               str(lib_path), str(src)], capture_output=True, text=True)
-        if done.returncode:
-            raise RuntimeError(f"nvcc failed on {src} with timers:\n{done.stdout}{done.stderr}")
-        lib = ctypes.CDLL(str(lib_path))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
-        lib.cond_chain_fwd_bf16.restype = i
-        lib.cond_chain_fwd_bf16_workspace.restype = ll
-        lib.cond_chain_fwd_bf16_timers.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
-        cyc = (ctypes.c_ulonglong * 5)()
+        libs = timer_libraries(Path(tmp))
+        lib = libs["fwd_bf16"]
         shapes = [(label, b, t, cc, two_c, n) for label, b, t, cc, two_c, n in wide_shapes(cfg)
                   if n == 1]
+        bottleneck = list(shapes)
         shapes += [(f"convert stage {k} C={c}", B, t, None, 2 * c, None)
                    for k, (t, c) in enumerate(stage_shapes(UTT, cfg))]
         for k, (label, b, t, cc, two_c, n) in enumerate(shapes):
@@ -3312,36 +3395,86 @@ def phase_timers(cfg, card) -> None:
                 fwd = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
                            b1=ops["b1"], edge0=None, edge_t=None)
             ulp_parity(f"timers K1-bf16 {label}", old_k1(lib, fwd), cc_mod.cond_chain_plain(**fwd))
-            reps = 5
-            lib.cond_chain_fwd_bf16_timers(cyc, 1)
-            ms = cuda_ms(lambda: old_k1(lib, fwd), iters=reps, warmup=0)
-            if lib.cond_chain_fwd_bf16_timers(cyc, 1):
-                raise RuntimeError("the timers could not be read")
-            h_c, p_c, e_c, whole, wgs = (float(x) for x in cyc)
+            ms, (h_c, p_c, e_c, whole, wgs) = read_timers(lib, 5, lambda: old_k1(lib, fwd))
             say(f"timers K1-bf16 {label} (B={b} T={t}): {ms:.4f} ms a launch; per consumer "
-                f"warpgroup {whole / wgs:.0f} cycles ({wgs / reps:.0f} warpgroups a launch): h "
+                f"warpgroup {whole / wgs:.0f} cycles ({wgs / 5:.0f} warpgroups a launch): h "
                 f"{h_c / whole:.1%}, P {p_c / whole:.1%}, epilogue {e_c / whole:.1%}, other "
                 f"{1 - (h_c + p_c + e_c) / whole:.1%} [{card}]")
             del fwd
             torch.cuda.empty_cache()
+        for dtype, lib, phases, bsz, seed in (
+                (torch.bfloat16, libs["bwd_bf16"], K2B_PHASES, B64, 3500),
+                (torch.float32, libs["bwd"], K2_PHASES, B, 3600)):
+            name = "K2-bf16" if dtype == torch.bfloat16 else "K2 (f32)"
+            cases = [(f"step stage {k} C={c}", bsz, t, None, 2 * c, None)
+                     for k, (t, c) in enumerate(stage_shapes(SEG, cfg))]
+            if dtype == torch.bfloat16:
+                cases += bottleneck
+            for k, (label, b, t, cc, two_c, n) in enumerate(cases):
+                if cc is None:
+                    split, _, _, _ = chain_inputs(b, t, two_c // 2, cfg, seed=seed + k,
+                                                  exact_h=True, dtype=dtype)
+                    args = {key: v for key, v in split.items() if key != "b1"}
+                    g = cotangent(split, seed=seed + 50 + k).to(dtype)
+                else:
+                    ops = wide_operands(cfg, b, t, cc, two_c, n, seed + k, dtype)
+                    args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
+                                edge0=None, edge_t=None)
+                    g = ops["g"]
+                got, want = old_k2(lib, args, g), cc_mod.cond_chain_bwd_plain(g=g, **args)
+                for key in want:
+                    if dtype == torch.bfloat16:
+                        ulp_parity(f"timers {name} {label} d{key}", got[key], want[key])
+                    else:
+                        ab_f32_agree(f"timers {name} {label} d{key}", got[key], want[key])
+                del got, want
+                nt = len(phases) + 2 + (3 if dtype == torch.bfloat16 else 0)
+                ms, cyc = read_timers(lib, nt, lambda: old_k2(lib, args, g))
+                whole, wgs = cyc[len(phases)], cyc[len(phases) + 1]
+                shares = ", ".join(f"{ph} {cyc[x] / whole:.1%}" for x, ph in enumerate(phases))
+                counted = sum(c for c, ph in zip(cyc, phases) if ph not in PHASE_PARTS)
+                line = (f"timers {name} data kernel {label} (B={b} T={t}): {ms:.4f} ms a call; "
+                        f"per consumer warpgroup {whole / wgs:.0f} cycles ({wgs / 5:.0f} "
+                        f"warpgroups a launch): {shares}, other {1 - counted / whole:.1%}")
+                if dtype == torch.bfloat16:
+                    wait, pwhole, prods = cyc[-3:]
+                    line += (f"; producer {pwhole / prods:.0f} cycles, waits on empty "
+                             f"{wait / pwhole:.1%}")
+                say(line + f" [{card}]")
+                del args, g
+                torch.cuda.empty_cache()
+
+
+KERNEL_NAME = (r"(k1_f32_kernel|k1_images_kernel|cond_chain_fwd_kernel|k1_bf16_kernel|"
+               r"w_images_kernel|k2b?_\w+?_kernel)((?:I(?:L[ib]\d+E)+E)?)")
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v output."""
-    out, name = [], None
+    """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v
+    output, then 'kernel: C7520 <reason>' for every kernel whose wgmma ptxas
+    serializes (its warning C7520; the line as ptxas gives it where it names
+    no kernel)."""
+    out, warns, name = [], [], None
+
+    def kernel(m) -> str:
+        targs = re.findall(r"L[ib](\d+)E", m.group(2))
+        return m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(k1_f32_kernel|k1_images_kernel|"
-                      r"cond_chain_fwd_kernel|k1_bf16_kernel|w_images_kernel|k2b?_\w+?_kernel)"
-                      r"((?:I(?:L[ib]\d+E)+E)?)", ln)
+        if "C7520" in ln:
+            w = re.search(r"\(C7520\)\s*(.*?)\s*in the function '.*?" + KERNEL_NAME, ln)
+            warns.append(f"{kernel(re.search(KERNEL_NAME, w.group(0)))}: C7520 {w.group(1)}"
+                         if w else ln.strip()[:300])
+            continue
+        m = re.search(r"Compiling entry function '.*?" + KERNEL_NAME, ln)
         if m:
-            targs = re.findall(r"L[ib](\d+)E", m.group(2))
-            name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+            name = kernel(m)
         elif name and "spill" in ln:
             out.append(f"{name}: {ln.strip()}")
         elif name and "registers" in ln:
             out[-1] += f", {ln.split(':', 1)[1].strip()}"
             name = None
-    return out
+    return out + warns
 
 
 def say_earlier(rows):

@@ -227,138 +227,10 @@ inline cudaError_t launch_images(const ImageArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The weights ring, consumer side: two slots of kWSlot bytes, each with a
-// full and an empty barrier (one arrival per consumer warp), taken in the
-// order the producer fills them.
-struct WRing {
-  unsigned char* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int k;
-  __device__ __forceinline__ uint32_t wait() {
-    mbar_wait(&full[k & 1], (uint32_t)((k >> 1) & 1));
-    return smem_u32(slots + (k & 1) * kWSlot);
-  }
-  __device__ __forceinline__ void release() {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[k & 1]);
-    ++k;
-  }
-};
-
-// The producer's side: the next slot, once free, filled with `bytes` from `src`
-__device__ __forceinline__ void wring_put(const WRing& wr, int& k, const void* src,
-                                          uint32_t bytes) {
-  const int s = k & 1;
-  mbar_wait(&wr.empty[s], (uint32_t)(((k >> 1) & 1) ^ 1));
-  mbar_arrive_expect_tx(&wr.full[s], bytes);
-  bulk_load(wr.slots + s * kWSlot, src, bytes, &wr.full[s]);
-  ++k;
-}
-
-// X[u][k] (see above): exc[b][u + j - 1][e] for k = j E + e < 3E (0 outside
-// [0, T)), then 1, -[u == 0], -[u == T-1], then 0
-__device__ __forceinline__ uint32_t x_at(const HArgs& h, int b, int u, int k) {
-  constexpr uint32_t kOne = 0x3F80u, kMinusOne = 0xBF80u;  // bf16 1 and -1
-  if (k < 3 * h.E) {
-    const int j = (k >= h.E) + (k >= 2 * h.E);  // k / E, without the division
-    const int t = u + j - 1;
-    if (t < 0 || t >= h.T) return 0u;
-    return bits(h.exc[((size_t)b * h.T + t) * h.E + (k - j * h.E)]);
-  }
-  if (k == 3 * h.E) return kOne;
-  if (k == 3 * h.E + 1) return u == 0 ? kMinusOne : 0u;
-  if (k == 3 * h.E + 2) return u == h.T - 1 ? kMinusOne : 0u;
-  return 0u;
-}
-
-// The A registers of k-slice k0 of the h product: A[q][k] = X at h row u0 + q
-__device__ __forceinline__ void x_frag(const HArgs& h, uint32_t (&a)[4], int b, int u0,
-                                       const Lane& l, int k0) {
-  const int k = k0 + 2 * l.tig;
-  const int u = u0 + l.row;
-  a[0] = x_at(h, b, u, k) | (x_at(h, b, u, k + 1) << 16);
-  a[1] = x_at(h, b, u + 8, k) | (x_at(h, b, u + 8, k + 1) << 16);
-  a[2] = x_at(h, b, u, k + 8) | (x_at(h, b, u, k + 9) << 16);
-  a[3] = x_at(h, b, u + 8, k + 8) | (x_at(h, b, u + 8, k + 9) << 16);
-}
-
-// The A registers of the h product's first two k-slices, which the
-// warpgroup's rows keep for every block when K = 3E + 3 <= 32 (the
-// decoder's E = 8): `hoisted`
-struct XFrags {
-  uint32_t a[2][4];
-  bool hoisted;
-  __device__ __forceinline__ XFrags(const HArgs& h, const W0Geo& geo, int b, int u0) {
-    const Lane l;
-    hoisted = geo.nkc == 1 && geo.kc <= 32;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      if (hoisted && 16 * s < geo.kc) {
-        x_frag(h, a[s], b, u0, l, 16 * s);
-      } else {
-        a[s][0] = a[s][1] = a[s][2] = a[s][3] = 0u;
-      }
-    }
-  }
-};
-
 template <int R>
 __device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) d[r] = 0.f;
-}
-
-// acc = lrelu(h_i) for the warpgroup's rows u0 + q and the pass's columns
-// c0 + c (c < 136), in the accumulator layout, in f32; 0 outside [0, T) and
-// beyond Cc, and +0 where h is -0, so that the sign of bf16(acc) is the sign
-// of h (the slope of the backward). An M = 64, N = 136, K = 3E + 3 product
-// on wgmma (A: X from registers, B: img_h's chunks from the weights ring).
-// The slope is taken from the f32 h, as the Pallas kernel takes it.
-__device__ __forceinline__ void act_pass(const HArgs& h, float (&acc)[68], WRing& wr,
-                                         const W0Geo& geo, const XFrags& xf, int b, int u0,
-                                         int c0) {
-  const Lane l;
-  zero(acc);
-  for (int kc = 0; kc < geo.nkc; ++kc) {
-    const int k0 = kc * geo.kc;
-    const int slices = geo.kc / 16;
-    uint32_t a[4][4];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (xf.hoisted && s < 2) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v) a[s][v] = xf.a[s][v];
-      } else if (!xf.hoisted && s < slices) {
-        x_frag(h, a[s], b, u0, l, k0 + 16 * s);
-      } else {
-        a[s][0] = a[s][1] = a[s][2] = a[s][3] = 0u;
-      }
-      fence_regs(a[s]);
-    }
-    const uint32_t base = wr.wait();
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s < slices) {
-        wgmma_rs_n136(acc, a[s], make_desc(base + 256 * s, 128, geo.kc * 16, kLayoutNone), 1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    wr.release();
-  }
-#pragma unroll
-  for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int u = u0 + l.row + 8 * (v >> 1);
-      const int c = c0 + nt * 8 + 2 * l.tig + (v & 1);
-      float& x = acc[nt * 4 + v];
-      x = c < h.cc && u >= 0 && u < h.T ? (x >= 0.f ? x + 0.f : kSlope * x) : 0.f;  // -0 + 0 = +0
-    }
-  }
 }
 
 // The ring's stage k: its slot and the parity of the phase to wait for

@@ -155,6 +155,20 @@ using tf32x3::mma3;
 
 constexpr int kSmCount = 132;  // an H100's SMs: k2_w1_kernel's CTAs make one wave
 
+// A diagnostic build (-DCOND_CHAIN_TIMERS) sums each consumer warpgroup of
+// the data kernel's clock64 cycles by phase over the launch (h with its
+// sign bits, da's products, dh and its store, dexc, the whole kernel), read
+// by cond_chain_bwd_timers; the normal build has none.
+#ifdef COND_CHAIN_TIMERS
+constexpr int kTimers = 6;  // h, da, dh, dexc, whole, warpgroups
+__device__ unsigned long long g_timers[kTimers];
+#define TIMER_START(v) const long long v = clock64()
+#define TIMER_ADD(acc, since) acc += clock64() - since
+#else
+#define TIMER_START(v)
+#define TIMER_ADD(acc, since)
+#endif
+
 // -- (a), (b): the images and the data kernel
 
 constexpr int kDStages = 5;
@@ -267,10 +281,15 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
   // this pass's dexc: the output where Cc is one pass, else its partial
   float* const dexc = a.dexc + (size_t)p * gridDim.y * h.T * h.E;
   int k = 0;
+#ifdef COND_CHAIN_TIMERS
+  long long tm[4] = {0, 0, 0, 0};
+  const long long t_all = clock64();
+#endif
   for (int i = 0; i < h.n; ++i) {
     const int c0 = kPass * p;
     float acc[68];
     // 1. h; where h >= 0, as bits
+    TIMER_START(t_h);
     h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
     uint32_t pos[3] = {0u, 0u, 0u};
 #pragma unroll
@@ -295,7 +314,9 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
         }
       }
     }
+    TIMER_ADD(tm[0], t_h);
     // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
+    TIMER_START(t_da);
     zero(acc);
     for (int so = 0; so < a.no; ++so) {
       const int slot = slot_of<kDStages>(k);
@@ -343,8 +364,10 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
       release(&empty[slot]);
       ++k;
     }
+    TIMER_ADD(tm[1], t_da);
     // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc; the own rows to
     // the scratch
+    TIMER_START(t_dh);
 #pragma unroll
     for (int nt = 0; nt < kPass / 8; ++nt) {
 #pragma unroll
@@ -367,6 +390,8 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
     // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
     // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
     // tile is the warp's part of the wgmma layout), one accumulator a tap
+    TIMER_ADD(tm[2], t_dh);
+    TIMER_START(t_dx);
     const int ns = pass_slices(h, p);
     for (int ec = 0; ec < a.ne; ++ec) {
       float pac[3][4] = {};
@@ -429,7 +454,15 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
         }
       }
     }
+    TIMER_ADD(tm[3], t_dx);
   }
+#ifdef COND_CHAIN_TIMERS
+  if (l.wt == 0) {
+    for (int x = 0; x < 4; ++x) atomicAdd(&g_timers[x], (unsigned long long)tm[x]);
+    atomicAdd(&g_timers[4], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[5], 1ull);
+  }
+#endif
 }
 
 struct ImageArgs {
@@ -1092,6 +1125,20 @@ extern "C" int cond_chain_bwd_time_kernels(int on) {
   g_timed = on != 0;
   return 0;
 }
+
+#ifdef COND_CHAIN_TIMERS
+// The diagnostic build's cycle sums since the last reset (kTimers of them:
+// the data kernel's phases, see g_timers) into out; then zero them where
+// `reset`.
+extern "C" int cond_chain_bwd_timers(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_timers, sizeof(g_timers));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zeros[kTimers] = {};
+    e = cudaMemcpyToSymbol(g_timers, zeros, sizeof(zeros));
+  }
+  return (int)e;
+}
+#endif
 
 // ms[0..4]: the last timed call's k2_images_kernel, k2_data_kernel,
 // k2_w1_kernel, k2_xdh_kernel and k2_reduce_kernel, each from the end of the

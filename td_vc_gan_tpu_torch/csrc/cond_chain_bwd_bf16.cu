@@ -22,10 +22,10 @@
 //
 // What bounds it on an H100: hundreds of flops per byte at the decoder's
 // shapes, above the ridge of the card's dense bf16 tensor-core rate (295
-// flops per byte): bound by operations; after the products, by the bytes
-// of the dh scratch that the data kernel writes for dW0 and the edges and
-// that k2b_xdh_kernel reads back (2.8 GB each way at B = 128, T = 8960,
-// n Cc = 1224).
+// flops per byte): bound by operations. Past E = 8 also by the bytes of the
+// dh scratch that the data kernel writes for dW0 and the edges and that
+// k2b_xdh_kernel reads back; at E <= 8 (the decoder's E = 8) there is no
+// such scratch (it was 2 x 7.5 GB a batch-64 train step).
 //
 // What the design does about it: the work is split into kernels that each
 // own their outputs, every sum runs in a fixed order (the same result every
@@ -34,51 +34,60 @@
 // TMA or a bulk copy through mbarrier rings. Each kernel has the CTA of
 // cond_chain_bf16.cuh: two consumer warpgroups and a producer warp.
 //
-//  (a) k2b_data_kernel, one CTA per (batch row, 124-row time tile): two
-//      consumer warpgroups of 64 rows of h each. Per block i and pass of 136
-//      columns of h:
+//  (a) k2b_data_kernel, one CTA per (run of consecutive 124-row time tiles
+//      of one batch row, block i, pass of 136 columns of h): two consumer
+//      warpgroups of 64 rows of h each, walking the run's tiles (at most
+//      kRunTiles, and more runs where the CTAs would not fill two waves of
+//      the card). The warp roles come from a warp index ptxas sees uniform
+//      (warp_index), so that it does not serialize the wgmma (C7520). Per
+//      tile:
 //       - h_i on wgmma (M = 64, N = 136, K = 3E + 3: exc's taps, the bias
-//         and the edge corrections, A from registers; B a bulk copy of an
-//         image w_images_kernel makes at each launch), lrelu in f32, to
-//         shared memory as bf16 pairs (a);
+//         and the edge corrections; B an image w_images_kernel makes at
+//         each launch, held for the run at E <= 8). At E <= 8, A is X
+//         staged in shared memory by the consumer threads (one 16-byte
+//         load a tap at E = 8, the next tile's loaded under this tile's
+//         da), and the product is issued under the last tile's dexc shift
+//         and store; past E = 8 X is gathered into registers k-slice by
+//         k-slice and B streams through the weights ring. Only where h < 0
+//         is kept, as 68 bits a thread: the slope (lrelu(-0) = +0, as the
+//         f32 h);
 //       - da_i on wgmma in the same accumulator layout (M = 64, N = 136,
-//         K = 3 x 2C), both operands fed by TMA into a ring of 3 stages with
-//         full/empty mbarriers: a stage is 64 columns of g_i for one tap at
-//         each warpgroup's rows (the tap window t0 - j + 62 w: a 4-D tensor
-//         map over (2C, n, T, B) whose zero fill outside [0, T) gives the
-//         'same' conv's zero rows at both ends of every batch row, and past
-//         2C the zero columns of a ragged k-slice) and the matching 136 x 64
-//         tile of W1_i (a tensor map over (2C, n, Cc, 3)). The producer
-//         thread runs ahead across taps, passes and blocks, so block i+1's
-//         weights are in flight while block i finishes;
-//       - the slope where(h >= 0, 1, 0.2) is thread-local: each thread
-//         reads back the a it wrote, whose sign (lrelu(-0) = +0) is the
-//         sign of the f32 h, in da's layout; dh = bf16(slope da); no f32 h
-//         or dh buffer in shared memory, and a in shared memory rather than
-//         in registers, which da's accumulators need (ptxas caps the
-//         kernel at 168 registers a thread; spills overflow into L2, as the
-//         shared memory leaves L1 ~28 KB);
-//       - dh to shared memory in bf16; from there the own rows of dh go to
-//         the scratch (for (c)) in 16-byte pieces, rows ld = n Cc rounded
-//         up to 8 apart (a TMA stride);
-//       - the tile's dexc, an M = 64, N = 8 (E in chunks of 8), K = 3 x 144
-//         product on wgmma with both operands in shared memory (dh, and W0's
-//         image from the weights ring), added to an f32 sum over the blocks
-//         and passes (a scratch the CTA owns), rounded to bf16 after the
-//         last.
-//      The row shift of the dexc conv: dh lies in shared memory without
-//      swizzle, each 8-column chunk holding all its rows 16 bytes apart, so
-//      that tap j's window (dh one or two rows down) is the same descriptor
-//      16 or 32 bytes further on.
+//         K = 3 x 2C, the first k-slice at scale 0), both operands fed by
+//         TMA into a ring of 3 stages with full/empty mbarriers: a stage is
+//         64 columns of g_i for one tap at each warpgroup's rows (the tap
+//         window t0 - j + 62 w: a 4-D tensor map over (2C, n, T, B) whose
+//         zero fill outside [0, T) gives the 'same' conv's zero rows at both
+//         ends of every batch row, and past 2C the zero columns of a ragged
+//         k-slice) and the matching 136 x 64 tile of W1_i (a tensor map
+//         over (2C, n, Cc, 3)). The producer thread runs ahead across taps
+//         and tiles;
+//       - dh = bf16(slope da), zero outside [0, T), to shared memory, each
+//         8-column chunk holding all its rows 16 bytes apart (past E = 8 its
+//         own rows also to the scratch, for (c));
+//       - the block's and pass's dexc: the three taps' products of all 64
+//         rows as one product on wgmma (M = 64, N = 24: 8 columns of E a
+//         tap, K = 144; dh and W0's image in shared memory), then shifted
+//         and added through shared memory, dexc[r] = (P_0[r + 2] +
+//         P_1[r + 1]) + P_2[r], and stored as this block's and pass's f32
+//         partial (rounded to bf16 here where n npass = 1);
+//       - at E <= 8, in the same commit group, X^T dh for dW0, dhbias and
+//         both edges (see (c)): after a barrier of both warpgroups, each
+//         takes 72 of the pass's columns of dh (0 .. 71, 64 .. 135) over
+//         both windows' own rows (X's halo rows zeroed once h has read
+//         them), D = X^T dh with M = 64 columns k of X (A MN-major; the rows
+//         past X's 32 columns dropped), N = 72, K = 64 rows a window; each
+//         tile's D added in f32 to the run's sum in shared memory, written
+//         as the partial of (batch row, run) at its end. A run is at most 8
+//         tiles: 16 units of 62 rows, the most a partial sums.
 //  (b) k2b_w1_kernel, dW1 and db1, with no scratch of a. A CTA owns (block
 //      i, pass p, 64 columns o of g_i) and a chunk of units; a unit is a
 //      batch row's 62 rows t0 .. t0 + 61 of g. Three warpgroups, each with
 //      its own part (warp-specialized, so that the recompute of one unit
 //      overlaps the products of the one before):
 //       - warpgroup 0 recomputes a = bf16(lrelu(h_i)) for the unit's rows
-//         t0 - 1 .. t0 + 62 as (a) computes it (the same A registers, the
-//         same image of cond_0's weights, the same k-slices and the same
-//         m64n136 instruction: the same bits), and writes it to one of two
+//         t0 - 1 .. t0 + 62 as (a) computes h (the same X, the same image
+//         of cond_0's weights, the same k-slices and the same m64n136
+//         instruction: the same bits), and writes it to one of two
 //         slots of shared memory without swizzle, each 8-column chunk
 //         holding its 64 rows 16 bytes apart, then zeros (MN-major for the
 //         products' B). Its first thread asks for each unit's g (TMA, a map
@@ -98,8 +107,8 @@
 //         chunk of ones, M = 64, N = 8).
 //      It writes f32 partials per chunk of units. The chunks are as many as
 //      make the CTAs one wave of the card's 132 SMs (one CTA an SM).
-//  (c) k2b_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one product,
-//      X^T dh, with X the rows of h's A in (a),
+//  (c) past E = 8, k2b_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one
+//      product, X^T dh, with X the rows of h's A in (a),
 //        X[t] = [exc[t-1] | exc[t] | exc[t+1] | 1 | -[t == 0] | -[t == T-1]]   (K = 3E + 3),
 //      so that row jE + e of X^T dh is dW0[j][e], row 3E dhbias, rows 3E + 1
 //      and 3E + 2 dedge0 and dedge_t (each a single term). Taken as
@@ -112,8 +121,9 @@
 //      X and one part of one batch row's rows, so that one batch row's
 //      outputs (dhbias of a per-row hbias, the edges) never mix two batch
 //      rows.
-//  (d) k2b_reduce_kernel sums every kind of partial over its chunks in
-//      order and rounds once (one launch for all of them).
+//  (d) k2b_reduce_kernel sums every kind of partial (dexc where n npass >
+//      1, dW1, db1, dW0, dhbias, the edges) over its chunks in order and
+//      rounds once (one launch for all of them).
 //
 // Every width goes in passes of 136 columns of h and chunks of 64 columns
 // of g, so the kernels' shared memory does not grow with Cc or E: one tile
@@ -134,49 +144,172 @@ namespace {
 
 using namespace bf16chain;
 
-constexpr int kSmCount = 132;  // an H100's SMs: k2b_w1_kernel's CTAs make one wave
+constexpr int kSmCount = 132;  // an H100's SMs: the kernels' grids are sized by them
+
+// A diagnostic build (-DCOND_CHAIN_TIMERS) sums the data kernel's clock64
+// cycles by phase over the launch, read by cond_chain_bwd_bf16_timers: each
+// consumer warpgroup's h (the product and the sign bits, with the weights
+// ring's waits where E > 8; at E <= 8 the wait for the product, which is
+// issued under the last tile's dexc shift and counted there), da's
+// products (with the waits on full, also counted alone), the slope and
+// dh's store (with the two CTA barriers around it; where E > 8 also dh's
+// copy to the scratch), dexc and X^T dh (the products, X^T dh's sum in
+// shared memory and dexc's shift and store also counted alone), and the
+// whole kernel; the producer's waits on empty and its whole. The normal
+// build has none.
+#ifdef COND_CHAIN_TIMERS
+constexpr int kTimers = 13;  // h, da, da's waits, dh, dexc, dexc's products, X^T dh's
+                             // sum, dexc's shift, whole, warpgroups, producer wait,
+                             // whole, producers
+__device__ unsigned long long g_timers[kTimers];
+#define TIMER_START(v) const long long v = clock64()
+#define TIMER_ADD(acc, since) acc += clock64() - since
+#else
+#define TIMER_START(v)
+#define TIMER_ADD(acc, since)
+#endif
+
+// The weights ring, consumer side: two slots of kWSlot bytes, each with a
+// full and an empty barrier (one arrival per consumer warp), taken in the
+// order the producer fills them.
+struct WRing {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int k;
+  __device__ __forceinline__ uint32_t wait() {
+    mbar_wait(&full[k & 1], (uint32_t)((k >> 1) & 1));
+    return smem_u32(slots + (k & 1) * kWSlot);
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[k & 1]);
+    ++k;
+  }
+};
+
+// The producer's side: the next slot, once free, filled with `bytes` from `src`
+__device__ __forceinline__ void wring_put(const WRing& wr, int& k, const void* src,
+                                          uint32_t bytes) {
+  const int s = k & 1;
+  mbar_wait(&wr.empty[s], (uint32_t)(((k >> 1) & 1) ^ 1));
+  mbar_arrive_expect_tx(&wr.full[s], bytes);
+  bulk_load(wr.slots + s * kWSlot, src, bytes, &wr.full[s]);
+  ++k;
+}
+
+// X[u][k] (cond_chain_bf16.cuh): exc[b][u + j - 1][e] for k = j E + e < 3E
+// (0 outside [0, T)), then 1, -[u == 0], -[u == T-1], then 0
+__device__ __forceinline__ uint32_t x_at(const HArgs& h, int b, int u, int k) {
+  constexpr uint32_t kOne = 0x3F80u, kMinusOne = 0xBF80u;  // bf16 1 and -1
+  if (k < 3 * h.E) {
+    const int j = (k >= h.E) + (k >= 2 * h.E);  // k / E, without the division
+    const int t = u + j - 1;
+    if (t < 0 || t >= h.T) return 0u;
+    return bits(h.exc[((size_t)b * h.T + t) * h.E + (k - j * h.E)]);
+  }
+  if (k == 3 * h.E) return kOne;
+  if (k == 3 * h.E + 1) return u == 0 ? kMinusOne : 0u;
+  if (k == 3 * h.E + 2) return u == h.T - 1 ? kMinusOne : 0u;
+  return 0u;
+}
+
+// The A registers of k-slice k0 of the h product: A[q][k] = X at h row u0 + q
+__device__ __forceinline__ void x_frag(const HArgs& h, uint32_t (&a)[4], int b, int u0,
+                                       const Lane& l, int k0) {
+  const int k = k0 + 2 * l.tig;
+  const int u = u0 + l.row;
+  a[0] = x_at(h, b, u, k) | (x_at(h, b, u, k + 1) << 16);
+  a[1] = x_at(h, b, u + 8, k) | (x_at(h, b, u + 8, k + 1) << 16);
+  a[2] = x_at(h, b, u, k + 8) | (x_at(h, b, u, k + 9) << 16);
+  a[3] = x_at(h, b, u + 8, k + 8) | (x_at(h, b, u + 8, k + 9) << 16);
+}
+
+// X[u][8 c .. 8 c + 7] (K <= 32: c < 4) as 16 bytes: a tap of exc by one
+// 16-byte load where E = 8 and exc is 16-byte aligned (`vec`), else element
+// by element
+__device__ __forceinline__ uint4 x_chunk(const HArgs& h, int b, int u, int c, bool vec) {
+  if (vec && c < 3) {
+    const int t = u + c - 1;
+    return t >= 0 && t < h.T ? *reinterpret_cast<const uint4*>(h.exc + ((size_t)b * h.T + t) * 8)
+                             : make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = x_at(h, b, u, 8 * c + 2 * e) | (x_at(h, b, u, 8 * c + 2 * e + 1) << 16);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// x, which the compiler may not assume unchanged: what is computed from it
+// is computed where it is used, not hoisted and held in registers
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
 // The data kernel's shared memory: a ring of kStages stages of (64 rows of g
 // for each consumer warpgroup, 136 rows of W1), each 128-byte swizzled rows
-// of 64 columns; the weights ring (two slots); per warpgroup dh (19 chunks
-// of 8 columns x 64 rows x 16 bytes: the pass's 144 columns and a zero
-// chunk, which the last tap's window reads two rows into) and a in the same
-// layout (17 chunks); the barriers.
+// of 64 columns; the weights ring (two slots); at E <= 8 two slots per
+// warpgroup of X (4 chunks of 8 columns of K x 64 rows x 16 bytes; X^T dh's
+// A, 8 chunks, reads the 4 after them, whose rows of D it drops); per
+// warpgroup dh (19 chunks of 8 columns x 64 rows x 16 bytes: the pass's 144
+// columns and a zero chunk) and dexc's three taps' products (64 rows of 24
+// floats, rows kPLd floats apart); at E <= 8 the run's X^T dh in f32 (27
+// rows k x 136 columns c); the barriers.
 constexpr int kStages = 3;
 constexpr int kGBytes = kRows * 128;     // 8192
 constexpr int kW1Bytes = kPass * 128;    // 17408
 constexpr int kStageBytes = 2 * kGBytes + kW1Bytes;
 constexpr int kDhChunk = kRows * 16;     // 1024: the LBO of the dh operand
 constexpr int kDhBytes = (2 * kPassSlices + 1) * kDhChunk;
-constexpr int kABytes = (kPass / 8) * kDhChunk;
+constexpr int kXBytes = 4 * kDhChunk;    // X of 64 rows, K = 32
 constexpr int kW0xTap = 2 * kPassSlices * 128;  // 2304: one tap of an img_x chunk
-constexpr size_t kDataSmem = (size_t)kStages * kStageBytes + 2 * kWSlot +
-                             2 * (size_t)(kDhBytes + kABytes) + 16 * (kStages + 2) + 1024;
+constexpr int kPLd = 28;       // floats a row of dexc's products (24, padded: bank conflicts)
+constexpr int kPBytes = kRows * kPLd * 4;
+constexpr int kRunTiles = 8;  // tiles a CTA walks at most: 16 units of 62 rows a partial
+constexpr int kBarAll = 3;    // the named barrier of both consumer warpgroups
+constexpr int kXdhN = 72;     // X^T dh's N: a warpgroup's columns of dh (0 .. 71, 64 .. 135)
+constexpr int kXdhRows = 27;   // rows k of X^T dh at E <= 8: K = 3E + 3
+constexpr int kXdhBytes = kXdhRows * kPass * 4;
+constexpr size_t kDataSmem = (size_t)kStages * kStageBytes + 2 * kWSlot + 4 * (size_t)kXBytes +
+                             2 * (size_t)kDhBytes + 2 * (size_t)kPBytes + kXdhBytes +
+                             16 * (kStages + 2) + 1024;
 static_assert(kDataSmem <= kSmemMax, "K2-bf16's data kernel's shared memory");
+static_assert(kDhBytes >= kXBytes, "X^T dh's A reads 4 chunks past the last X, into dh");
 
 struct DataArgs {
   HArgs h;
   const bf16* img_h;   // cond_0's weights as h's B (cond_chain_bf16.cuh), per batch row
   const bf16* img_x;   // ... and as dexc's B
-  bf16* dh_out;        // (B, T, ld) scratch: dh
+  bf16* dh_out;        // E > 8: (B, T, ld) scratch: dh, for k2b_xdh_kernel
   long long ld;
-  float* dexc_acc;     // (B, T, E) scratch: dexc summed over the blocks and passes so far
-  bf16* dexc;          // (B, T, E)
-  int two_c, noc;
+  float* pdexc;        // (n npass, B, T, E): dexc of each block and pass, or null
+  bf16* dexc;          // (B, T, E), written here when n npass = 1
+  float* pw0;          // E <= 8: (B runs, K, n Cc): X^T dh of each run
+  int two_c, noc, run, nruns, kx;  // run: tiles a CTA walks; kx = 3E + 3
+  int vec;             // E = 8 and exc 16-byte aligned: X's taps by 16-byte loads
   W0Geo geo;
   CUtensorMap g_map;   // g as (o: 2C, i: n, t: T, b: B), box (64, 1, 64, 1)
   CUtensorMap w1_map;  // w1 as (o: 2C, i: n, c: Cc, j: 3), box (64, 1, 136, 1)
 };
 
+// kNarrow: E <= 8 (K = 3E + 3 <= 27: one k-chunk of h's weights, one of
+// dexc's), X staged in shared memory and X^T dh taken here; else X read
+// from exc k-slice by k-slice into registers and dh copied to the scratch.
+template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_constant__ DataArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* ring = smem;
   unsigned char* wslots = ring + kStages * kStageBytes;
-  unsigned char* dhs_all = wslots + 2 * kWSlot;
-  unsigned char* as_all = dhs_all + 2 * kDhBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(as_all + 2 * kABytes);
+  unsigned char* xs_all = wslots + 2 * kWSlot;  // [slot][warpgroup]
+  unsigned char* dhs_all = xs_all + 4 * kXBytes;
+  float* pbuf = reinterpret_cast<float*>(dhs_all + 2 * kDhBytes);  // [warpgroup][64][kPLd]
+  float* xacc = pbuf + 2 * kRows * kPLd;                            // [k][c]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xacc + kXdhRows * kPass);
   uint64_t* empty = full + kStages;
   uint64_t* wfull = empty + kStages;
   uint64_t* wempty = wfull + 2;
@@ -184,9 +317,13 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
   const HArgs& h = a.h;
   const W0Geo& geo = a.geo;
   const int b = blockIdx.y;
-  const int tix = blockIdx.x;
-  const int t0 = tix * kTile;
-  const int warp = threadIdx.x >> 5;
+  const int ip = blockIdx.z;  // the CTA's block i and pass p
+  const int i = ip / geo.npass;
+  const int p = ip - i * geo.npass;
+  const int c0 = p * kPass;
+  const int tile0 = blockIdx.x * a.run;
+  const int ntiles = min(a.run, (h.T + kTile - 1) / kTile - tile0);
+  const int warp = warp_index();
   const Ring rg{kStages};
 
   if (threadIdx.x == 0) {
@@ -200,96 +337,249 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
     }
     fence_barrier_init();
   }
-  // dh's columns 136..143, and the chunk after them, stay zero
+  // dh's columns 136..143, and the chunk after them, stay zero; the run's
+  // X^T dh starts from zero
   for (int idx = threadIdx.x; idx < 2 * kDhBytes / 16; idx += kThreads) {
     reinterpret_cast<uint4*>(dhs_all)[idx] = make_uint4(0u, 0u, 0u, 0u);
   }
+  for (int idx = threadIdx.x; idx < kXdhRows * kPass; idx += kThreads) xacc[idx] = 0.f;
   __syncthreads();
 
   if (warp == 8) {
-    // the producer, per block i and pass p: h's weights, then (tap j, chunk
-    // oc of g's 2C columns) stages, then dexc's weights, in the order the
+    // the producer: cond_0's weights of (i, p) (once, at E <= 8), then per
+    // tile of the run the (tap j, chunk oc of g's 2C columns) stages (and,
+    // past E = 8, the tile's chunks of the weights), in the order the
     // consumers take them
     if (threadIdx.x == 256) {
+#ifdef COND_CHAIN_TIMERS
+      long long t_w = 0;
+      const long long t_all = clock64();
+#endif
       prefetch_map(&a.g_map);
       prefetch_map(&a.w1_map);
       const unsigned char* img_h = reinterpret_cast<const unsigned char*>(a.img_h) +
                                    (h.hbias_bstride ? (size_t)b * geo.h_image : 0);
+      const unsigned char* img_x = reinterpret_cast<const unsigned char*>(a.img_x);
       const WRing pw{wslots, wfull, wempty, 0};
       int k = 0, wk = 0;
-      for (int i = 0; i < h.n; ++i)
-        for (int p = 0; p < geo.npass; ++p) {
-          const size_t unit = (size_t)i * geo.npass + p;
+      if (kNarrow) {
+        wring_put(pw, wk, img_h + (size_t)ip * geo.h_chunk, (uint32_t)geo.h_chunk);
+        wring_put(pw, wk, img_x + (size_t)ip * kXChunk, (uint32_t)kXChunk);
+      }
+      for (int tl = 0; tl < ntiles; ++tl) {
+        const int t0 = (tile0 + tl) * kTile;
+        if (!kNarrow) {
           for (int kc = 0; kc < geo.nkc; ++kc) {
-            wring_put(pw, wk, img_h + (unit * geo.nkc + kc) * geo.h_chunk,
+            TIMER_START(tw);
+            wring_put(pw, wk, img_h + ((size_t)ip * geo.nkc + kc) * geo.h_chunk,
                       (uint32_t)geo.h_chunk);
-          }
-          for (int j = 0; j < 3; ++j)
-            for (int oc = 0; oc < a.noc; ++oc, ++k) {
-              const int s = rg.slot(k);
-              unsigned char* st = ring + s * kStageBytes;
-              mbar_wait(&empty[s], rg.parity(k) ^ 1);
-              mbar_arrive_expect_tx(&full[s], kStageBytes);
-              // warpgroup w's A row q is h row t0 + 62 w - 1 + q: tap j reads g row t0 + 62 w - j + q
-              tma_load_4d(st, &a.g_map, &full[s], oc * 64, i, t0 - j, b);
-              tma_load_4d(st + kGBytes, &a.g_map, &full[s], oc * 64, i, t0 + kOwn - j, b);
-              tma_load_4d(st + 2 * kGBytes, &a.w1_map, &full[s], oc * 64, i, p * kPass, j);
-            }
-          for (int ec = 0; ec < geo.nec; ++ec) {
-            wring_put(pw, wk,
-                      reinterpret_cast<const unsigned char*>(a.img_x) +
-                          (unit * geo.nec + ec) * kXChunk,
-                      (uint32_t)kXChunk);
+            TIMER_ADD(t_w, tw);
           }
         }
+        for (int j = 0; j < 3; ++j)
+          for (int oc = 0; oc < a.noc; ++oc, ++k) {
+            const int s = rg.slot(k);
+            unsigned char* st = ring + s * kStageBytes;
+            TIMER_START(tw);
+            mbar_wait(&empty[s], rg.parity(k) ^ 1);
+            TIMER_ADD(t_w, tw);
+            mbar_arrive_expect_tx(&full[s], kStageBytes);
+            // warpgroup w's A row q is h row t0 + 62 w - 1 + q: tap j reads g row t0 + 62 w - j + q
+            tma_load_4d(st, &a.g_map, &full[s], oc * 64, i, t0 - j, b);
+            tma_load_4d(st + kGBytes, &a.g_map, &full[s], oc * 64, i, t0 + kOwn - j, b);
+            tma_load_4d(st + 2 * kGBytes, &a.w1_map, &full[s], oc * 64, i, c0, j);
+          }
+        if (!kNarrow) {
+          for (int ec = 0; ec < geo.nec; ++ec) {
+            TIMER_START(tw);
+            wring_put(pw, wk, img_x + ((size_t)ip * geo.nec + ec) * kXChunk, (uint32_t)kXChunk);
+            TIMER_ADD(t_w, tw);
+          }
+        }
+      }
+#ifdef COND_CHAIN_TIMERS
+      atomicAdd(&g_timers[10], (unsigned long long)t_w);
+      atomicAdd(&g_timers[11], (unsigned long long)(clock64() - t_all));
+      atomicAdd(&g_timers[12], 1ull);
+#endif
     }
     return;
   }
 
   const int wg = warp >> 2;
   const int bar = 1 + wg;
-  const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
-  const int u0 = tb - 1;          // its h row q = 0
   const Lane l;
   unsigned char* dhs = dhs_all + wg * kDhBytes;
-  unsigned char* as = as_all + wg * kABytes;
-  const uint32_t dhs_u = smem_u32(dhs);
-  const bool vec16 = h.cc % 8 == 0;  // block offsets in the scratch's rows 16-byte aligned
-  const XFrags xf(h, geo, b, u0);
+  float* pw = pbuf + wg * kRows * kPLd;
+  const bool direct = h.n * geo.npass == 1;  // dexc in bf16 here, no partials
+  const size_t bte = (size_t)gridDim.y * h.T * h.E;
   WRing wr{wslots, wfull, wempty, 0};
+  uint32_t hbase = 0, xbase = 0;
+  if (kNarrow) {  // cond_0's weights of (i, p), held for the run
+    hbase = wr.wait();
+    ++wr.k;
+    xbase = wr.wait();
+  }
 
-  float dd[68];  // h, then da, then dh
+  float acc[68];     // h, then da
+  uint4 xv[2];       // E <= 8: the next tile's X, 2 of the window's 256 pieces
+  auto x_load = [&](int tl) {
+    const int u0 = (tile0 + tl) * kTile + kOwn * wg - 1;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int idx = l.wt + 128 * m;  // chunk idx / 64, row idx % 64
+      xv[m] = x_chunk(h, b, u0 + (idx & 63), idx >> 6, a.vec != 0);
+    }
+  };
+  uint32_t neg[3];   // where h < 0, as bits: the slope's (lrelu(-0) = +0)
+#ifdef COND_CHAIN_TIMERS
+  long long tm[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#endif
+  // E <= 8: tile tl's X from xv to its slot and h = X Wh issued (the first
+  // k-slice at scale 0), not waited on
+  auto h_issue = [&](int tl) {
+    unsigned char* xw_p = xs_all + ((tl & 1) * 2 + wg) * kXBytes;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int idx = l.wt + 128 * m;
+      *reinterpret_cast<uint4*>(xw_p + (idx >> 6) * kDhChunk + (idx & 63) * 16) = xv[m];
+    }
+    fence_proxy_async();
+    bar_sync(bar, 128);
+    const uint32_t xw = opaque(smem_u32(xw_p));
+    const uint32_t hb = opaque(hbase);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (16 * s < geo.kc) {
+        wgmma_ss_n136(acc, make_desc(xw + 2 * s * kDhChunk, kDhChunk, 128, kLayoutNone),
+                      make_desc(hb + 256 * s, 128, geo.kc * 16, kLayoutNone), s);
+      }
+    }
+    wgmma_commit();
+  };
+  // ... and its end: the sign bits; the halo rows' X zeroed (X^T dh reads
+  // only the own rows); the tile after's X loaded, under da
+  auto h_finish = [&](int tl) {
+    TIMER_START(t_h);
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int x = 0; x < 3; ++x) neg[x] = 0u;
+#pragma unroll
+    for (int r = 0; r < 68; ++r) neg[r >> 5] |= (acc[r] < 0.f ? 1u : 0u) << (r & 31);
+    if (l.wt < 8) {
+      *reinterpret_cast<uint4*>(xs_all + ((tl & 1) * 2 + wg) * kXBytes + (l.wt & 3) * kDhChunk +
+                                (l.wt >> 2) * 63 * 16) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    x_load(tl + 1);
+    TIMER_ADD(tm[0], t_h);
+  };
   int k = 0;
-  for (int i = 0; i < h.n; ++i) {
-    for (int p = 0; p < geo.npass; ++p) {
-      const int c0 = p * kPass;
-      // a = bf16(lrelu(h)) to shared memory (chunk c / 8, row q), where the
-      // slope step reads its sign (h's) back
-      act_pass(h, dd, wr, geo, xf, b, u0, c0);
-      bar_sync(bar, 128);  // the last unit's reads of dhs and as are done
+#ifdef COND_CHAIN_TIMERS
+  const long long t_all = clock64();
+#endif
+  if (kNarrow) {
+    x_load(0);
+    h_issue(0);
+    h_finish(0);
+  }
+  for (int tl = 0; tl < ntiles; ++tl) {
+    const int t0 = (tile0 + tl) * kTile;
+    const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
+    const int u0 = tb - 1;          // its h row q = 0
+    // shared-memory addresses, made anew each tile (opaque to the compiler),
+    // so that the products' descriptors are not all held in registers
+    const uint32_t xs_u = opaque(smem_u32(xs_all)) + (tl & 1) * 2 * kXBytes;  // this tile's X
+    const uint32_t dhs_all_u = opaque(smem_u32(dhs_all));
+    const uint32_t dhs_u = dhs_all_u + wg * kDhBytes;
+
+    // past E = 8, h = X Wh here, X gathered into registers k-slice by
+    // k-slice (at E <= 8 it was issued under the last tile's epilogue)
+    if (!kNarrow) {
+      TIMER_START(t_h);
+      for (int kc = 0; kc < geo.nkc; ++kc) {
+        const int slices = geo.kc / 16;
+        uint32_t fa[4][4];
 #pragma unroll
-      for (int nt = 0; nt < kPass / 8; ++nt) {
+        for (int s = 0; s < 4; ++s) {
+          if (s < slices) {
+            x_frag(h, fa[s], b, u0, l, kc * geo.kc + 16 * s);
+          } else {
+            fa[s][0] = fa[s][1] = fa[s][2] = fa[s][3] = 0u;
+          }
+          fence_regs(fa[s]);
+        }
+        const uint32_t base = wr.wait();
+        wgmma_fence();
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int v = nt * 4 + 2 * half;
-          *reinterpret_cast<uint32_t*>(as + nt * kDhChunk + (l.row + 8 * half) * 16 +
-                                       4 * l.tig) = pack_rn(dd[v], dd[v + 1]);
+        for (int s = 0; s < 4; ++s) {
+          if (s < slices) {
+            wgmma_rs_n136(acc, fa[s], make_desc(base + 256 * s, 128, geo.kc * 16, kLayoutNone),
+                          kc + s > 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        wr.release();
+      }
+#pragma unroll
+      for (int x = 0; x < 3; ++x) neg[x] = 0u;
+#pragma unroll
+      for (int r = 0; r < 68; ++r) neg[r >> 5] |= (acc[r] < 0.f ? 1u : 0u) << (r & 31);
+      TIMER_ADD(tm[0], t_h);
+    }
+
+    // da[q][c] = sum_j sum_o g[u0 + q - j + 1][o] W1_i[j][c][o], the first
+    // k-slice at scale 0
+    TIMER_START(t_da);
+    // one commit group a stage; where the tile's three stages fit the ring
+    // (2C <= 64), one group for the tile (fewer waits on the products). Two
+    // loops, not one with the commits in branches: ptxas serializes wgmma
+    // whose commit or wait sits in a branch (C7520)
+    if (a.noc == 1) {
+      const int k0 = k;
+      wgmma_fence();
+      for (int j = 0; j < 3; ++j, ++k) {
+        const int s = rg.slot(k);
+        TIMER_START(t_w);
+        mbar_wait(&full[s], rg.parity(k));
+        TIMER_ADD(tm[2], t_w);
+        const uint32_t gbase = smem_u32(ring + s * kStageBytes + wg * kGBytes);
+        const uint32_t wbase = smem_u32(ring + s * kStageBytes + 2 * kGBytes);
+        const int slices = (min(64, a.two_c) + 15) / 16;
+#pragma unroll
+        for (int sl = 0; sl < 4; ++sl) {
+          if (sl < slices) {
+            wgmma_ss_n136(acc, desc_sw128(gbase + 32 * sl), desc_sw128(wbase + 32 * sl),
+                          j + sl > 0);
+          }
         }
       }
-
-      // da[q][c] = sum_j sum_o g[u0 + q - j + 1][o] W1_i[j][c][o]
-      zero(dd);
+      wgmma_commit();
+      wgmma_wait<0>();
+      for (int j = 0; j < 3; ++j) release(&empty[rg.slot(k0 + j)]);
+      fence_regs(acc);
+    } else {
       int prev = -1;
       for (int j = 0; j < 3; ++j) {
         for (int oc = 0; oc < a.noc; ++oc, ++k) {
           const int s = rg.slot(k);
           const int slices = (min(64, a.two_c - oc * 64) + 15) / 16;
+          TIMER_START(t_w);
           mbar_wait(&full[s], rg.parity(k));
+          TIMER_ADD(tm[2], t_w);
           const uint32_t gbase = smem_u32(ring + s * kStageBytes + wg * kGBytes);
           const uint32_t wbase = smem_u32(ring + s * kStageBytes + 2 * kGBytes);
+          const int first = j + oc;
           wgmma_fence();
-          for (int sl = 0; sl < slices; ++sl) {
-            wgmma_ss_n136(dd, desc_sw128(gbase + 32 * sl), desc_sw128(wbase + 32 * sl), 1);
+#pragma unroll
+          for (int sl = 0; sl < 4; ++sl) {
+            if (sl < slices) {
+              wgmma_ss_n136(acc, desc_sw128(gbase + 32 * sl), desc_sw128(wbase + 32 * sl),
+                            first + sl > 0);
+            }
           }
           wgmma_commit();
           wgmma_wait<1>();
@@ -299,84 +589,202 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
       }
       wgmma_wait<0>();
       release(&empty[prev]);
-      fence_regs(dd);
+      fence_regs(acc);
+    }
+    TIMER_ADD(tm[1], t_da);
 
-      // dh = bf16(lrelu'(h) da), zero outside [0, T), to shared memory
+    // dh = bf16(lrelu'(h) da), zero outside [0, T), to shared memory, once
+    // both warpgroups' products of the last tile are done with it
+    TIMER_START(t_dh);
+    if (kNarrow) {
+      bar_sync(kBarAll, 256);
+    } else {
+      bar_sync(bar, 128);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = l.row + 8 * half;
+      const bool valid = u0 + q >= 0 && u0 + q < h.T;
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int q = l.row + 8 * half;
-          const int u = u0 + q;
-          const bool valid = u >= 0 && u < h.T;
-          const int v = nt * 4 + 2 * half;
-          const int off = nt * kDhChunk + q * 16 + 4 * l.tig;
-          const uint32_t av = *reinterpret_cast<const uint32_t*>(as + off);
-          const float d0 = valid ? round_bf16(av & 0x8000u ? kSlope * dd[v] : dd[v]) : 0.f;
-          const float d1 =
-              valid ? round_bf16(av & 0x80000000u ? kSlope * dd[v + 1] : dd[v + 1]) : 0.f;
-          *reinterpret_cast<uint32_t*>(dhs + off) = pack_rn(d0, d1);
-        }
+        const int v = nt * 4 + 2 * half;
+        const bool n0 = (neg[v >> 5] >> (v & 31)) & 1u;
+        const bool n1 = (neg[(v + 1) >> 5] >> ((v + 1) & 31)) & 1u;
+        const float d0 = valid ? (n0 ? kSlope * acc[v] : acc[v]) : 0.f;
+        const float d1 = valid ? (n1 ? kSlope * acc[v + 1] : acc[v + 1]) : 0.f;
+        *reinterpret_cast<uint32_t*>(dhs + nt * kDhChunk + q * 16 + 4 * l.tig) = pack_rn(d0, d1);
       }
-      fence_proxy_async();
+    }
+    fence_proxy_async();
+    if (kNarrow) {
+      bar_sync(kBarAll, 256);  // both windows' dh and X in place
+    } else {
       bar_sync(bar, 128);
-
       // dh of the own rows (q = 1 .. 62) to the scratch (for k2b_xdh_kernel),
       // 8 columns a thread, consecutive threads along a row
+      const bool vec16 = h.cc % 8 == 0;  // block offsets in the scratch's rows 16-byte aligned
       for (int idx = l.wt; idx < kOwn * (kPass / 8); idx += 128) {
         const int q = 1 + idx / (kPass / 8);
         const int ch = idx - (q - 1) * (kPass / 8);
         const int c = c0 + ch * 8;
-        if (c >= h.cc || u0 + q >= h.T) continue;
-        const uint4 dv = *reinterpret_cast<const uint4*>(dhs + ch * kDhChunk + q * 16);
-        bf16* dst = a.dh_out + ((size_t)b * h.T + u0 + q) * a.ld + (size_t)i * h.cc + c;
-        if (vec16) {
-          *reinterpret_cast<uint4*>(dst) = dv;
-        } else {  // Cc a multiple of 4: 8-byte pieces
-          *reinterpret_cast<uint2*>(dst) = make_uint2(dv.x, dv.y);
-          if (c + 4 < h.cc) *reinterpret_cast<uint2*>(dst + 4) = make_uint2(dv.z, dv.w);
-        }
-      }
-
-      // dexc[tb + r] += sum_j sum_c dh[q = r + 2 - j][c] W0[j][e][i Cc + c]
-      const bool first = i == 0 && p == 0;
-      const bool last = i == h.n - 1 && p == geo.npass - 1;
-      for (int ec = 0; ec < geo.nec; ++ec) {
-        float dx[4];
-        zero(dx);
-        const uint32_t xbase = wr.wait();
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-#pragma unroll
-          for (int sl = 0; sl < kPassSlices; ++sl) {
-            wgmma_ss_n8(dx,
-                        make_desc(dhs_u + 2 * sl * kDhChunk + (2 - j) * 16, kDhChunk, 128,
-                                  kLayoutNone),
-                        make_desc(xbase + j * kW0xTap + 256 * sl, 128, 256, kLayoutNone), 1);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dx);
-        wr.release();
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int r = l.row + 8 * (v >> 1);
-          const int t = tb + r;
-          const int e = ec * 8 + 2 * l.tig + (v & 1);
-          if (r >= kOwn || t >= h.T || e >= h.E) continue;
-          const size_t idx = ((size_t)b * h.T + t) * h.E + e;
-          const float d = first ? dx[v] : a.dexc_acc[idx] + dx[v];
-          if (last) {
-            a.dexc[idx] = __float2bfloat16_rn(d);
-          } else {
-            a.dexc_acc[idx] = d;
+        if (c < h.cc && u0 + q < h.T) {
+          const uint4 dv = *reinterpret_cast<const uint4*>(dhs + ch * kDhChunk + q * 16);
+          bf16* dst = a.dh_out + ((size_t)b * h.T + u0 + q) * a.ld + (size_t)i * h.cc + c;
+          if (vec16) {
+            *reinterpret_cast<uint4*>(dst) = dv;
+          } else {  // Cc a multiple of 4: 8-byte pieces
+            *reinterpret_cast<uint2*>(dst) = make_uint2(dv.x, dv.y);
+            if (c + 4 < h.cc) *reinterpret_cast<uint2*>(dst + 4) = make_uint2(dv.z, dv.w);
           }
         }
       }
     }
+    TIMER_ADD(tm[3], t_dh);
+
+    // dexc: the three taps' products P_j[q][e] = sum_c dh[q][c] W0[j][e][i Cc
+    // + c] as one product (M = 64, N = 24: the taps of 8 columns of E, K =
+    // 144), then dexc[tb + r] = (P_0[r + 2] + P_1[r + 1]) + P_2[r] through
+    // shared memory: this block's and pass's part. At E <= 8 in the same
+    // commit group the tile's X^T dh, both windows' own rows, for this
+    // warpgroup's 72 columns c of dh (0 .. 71, or 64 .. 135): D[k][c] =
+    // sum_w sum_q X_w[q][k] dh_w[q][c] (M = 64 columns k of X, A MN-major;
+    // N = 72, B MN-major; K = 64 rows a window), added to the run's f32 sum
+    // in shared memory (each warpgroup its own columns)
+    TIMER_START(t_dx);
+    for (int ec = 0; ec < (kNarrow ? 1 : geo.nec); ++ec) {
+      float pj[12];
+      float xd[36];
+      const uint32_t xb = kNarrow ? opaque(xbase) : wr.wait();
+      TIMER_START(t_p);
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < kPassSlices; ++sl) {
+        wgmma_ss_n24(pj, make_desc(dhs_u + 2 * sl * kDhChunk, kDhChunk, 128, kLayoutNone),
+                     make_desc(xb + 256 * sl, 128, kW0xTap, kLayoutNone), sl);
+      }
+      if (kNarrow) {
+        const int cb = wg * 8;  // the warpgroup's first chunk of dh's columns
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int sl = 0; sl < kRows / 16; ++sl) {
+            wgmma_ss_n72<1, 1>(
+                xd, make_desc(xs_u + w * kXBytes + 256 * sl, 128, kDhChunk, kLayoutNone),
+                make_desc(dhs_all_u + w * kDhBytes + cb * kDhChunk + 256 * sl, 128, kDhChunk,
+                          kLayoutNone),
+                w + sl > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      TIMER_ADD(tm[5], t_p);
+      fence_regs(pj);
+      TIMER_START(t_s);
+      if (kNarrow) {
+        fence_regs(xd);
+        // rows k = l.row (+ 8) of D, columns wg * 64 + 8 kk + 2 tig (+ 1);
+        // warpgroup 1's columns 64 .. 71 are warpgroup 0's
+        if (l.row < kXdhRows) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int kk = l.row + 8 * half;
+#pragma unroll
+            for (int ch = 0; ch < kXdhN / 8; ++ch) {
+              if (ch >= wg && kk < kXdhRows) {
+                float2* x2 = reinterpret_cast<float2*>(xacc + kk * kPass + wg * 64 + 8 * ch +
+                                                       2 * l.tig);
+                const float2 v0 = *x2;
+                *x2 = make_float2(v0.x + xd[4 * ch + 2 * half], v0.y + xd[4 * ch + 2 * half + 1]);
+              }
+            }
+          }
+        }
+      } else {
+        wr.release();
+      }
+      TIMER_ADD(tm[6], t_s);
+      TIMER_START(t_sh);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + j * 8 + 2 * l.tig) =
+              make_float2(pj[4 * j + 2 * half], pj[4 * j + 2 * half + 1]);
+        }
+      }
+      if (kNarrow) {
+        // the next tile's h under the shift below (its barrier also the
+        // shift's; past the run's last tile a product no one reads)
+        h_issue(tl + 1);
+      } else {
+        bar_sync(bar, 128);
+      }
+      if (h.E % 8 == 0) {
+        // the 62 x 8 outputs, 4 columns a thread: one 16-byte read of each
+        // tap's products, one (aligned) store
+        if (l.wt < 2 * kOwn) {
+          const int r = l.wt >> 1, e4 = 4 * (l.wt & 1);
+          const int t = tb + r;
+          const float4 p0 = *reinterpret_cast<const float4*>(pw + (r + 2) * kPLd + e4);
+          const float4 p1 = *reinterpret_cast<const float4*>(pw + (r + 1) * kPLd + 8 + e4);
+          const float4 p2 = *reinterpret_cast<const float4*>(pw + r * kPLd + 16 + e4);
+          const float4 v = make_float4((p0.x + p1.x) + p2.x, (p0.y + p1.y) + p2.y,
+                                       (p0.z + p1.z) + p2.z, (p0.w + p1.w) + p2.w);
+          const size_t idx = ((size_t)b * h.T + t) * h.E + 8 * ec + e4;
+          if (t < h.T) {
+            if (direct) {
+              *reinterpret_cast<uint2*>(a.dexc + idx) =
+                  make_uint2(pack_rn(v.x, v.y), pack_rn(v.z, v.w));
+            } else {
+              *reinterpret_cast<float4*>(a.pdexc + (size_t)ip * bte + idx) = v;
+            }
+          }
+        }
+      } else {
+        // this thread's (row, column) pairs x = wt + 128 z of the 62 x 8 outputs
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int x = l.wt + 128 * z;
+          const int r = x >> 3, e = 8 * ec + (x & 7);
+          const int t = tb + r;
+          if (x < kOwn * 8 && t < h.T && e < h.E) {
+            const float v = (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
+                            pw[r * kPLd + 16 + (x & 7)];
+            const size_t idx = ((size_t)b * h.T + t) * h.E + e;
+            if (direct) {
+              a.dexc[idx] = __float2bfloat16_rn(v);
+            } else {
+              a.pdexc[(size_t)ip * bte + idx] = v;
+            }
+          }
+        }
+      }
+      if (geo.nec > 1) bar_sync(bar, 128);  // the next chunk's products go to pw
+      TIMER_ADD(tm[7], t_sh);
+    }
+    TIMER_ADD(tm[4], t_dx);
+    if (kNarrow) h_finish(tl + 1);
   }
+
+  if (kNarrow) {
+    // the run's X^T dh: row k of column i Cc + c0 + c of the (batch row, run) partial
+    bar_sync(kBarAll, 256);
+    const int cw = min(kPass, h.cc - c0);
+    const size_t n0 = (size_t)h.n * h.cc;
+    float* pd = a.pw0 + (size_t)(b * a.nruns + blockIdx.x) * a.kx * n0 + (size_t)i * h.cc + c0;
+    for (int idx = threadIdx.x; idx < a.kx * kPass; idx += 256) {
+      const int kk = idx / kPass, c = idx - kk * kPass;
+      if (c < cw) pd[(size_t)kk * n0 + c] = xacc[idx];
+    }
+  }
+#ifdef COND_CHAIN_TIMERS
+  if (l.wt == 0) {
+    for (int x = 0; x < 8; ++x) atomicAdd(&g_timers[x], (unsigned long long)tm[x]);
+    atomicAdd(&g_timers[8], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[9], 1ull);
+  }
+#endif
 }
 
 // k2b_w1_kernel's CTA: three warpgroups, 384 threads (168 registers a
@@ -512,8 +920,8 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2b_w1_kernel(const __grid_cons
 
   if (wg == 0) {
     // a = bf16(lrelu(h_i)) of the unit's rows u0 + q and the pass's columns,
-    // as k2b_data_kernel computes it (act_pass): the same A registers, image
-    // chunks, k-slices and instruction
+    // as k2b_data_kernel computes h: the same X, image chunks, k-slices and
+    // instruction
     if (l.wt == 0) {
       prefetch_map(&a.g_map);
       for (int n = 0; n < kW1Ahead && k_begin + n < k_end; ++n) ask_g(k_begin + n, n);
@@ -826,7 +1234,7 @@ struct ReduceJob {
   long long len, sstride, ostride, first;  // first: its first element in the launch
   int outer, S;
 };
-constexpr int kMaxJobs = 6;
+constexpr int kMaxJobs = 7;
 struct ReduceArgs {
   ReduceJob job[kMaxJobs];
   int n;
@@ -853,12 +1261,12 @@ size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 // Everything the launch needs, from the shapes alone; ok = false for shapes
 // the kernels do not take. Offsets are in bytes of the workspace.
 struct Plan {
-  bool ok;
-  int noc, ntiles;                          // (a)
+  bool ok, narrow;                          // narrow: E <= 8, X^T dh in (a)
+  int noc, ntiles, run, nruns;              // (a): runs of `run` tiles a batch row
   W0Geo geo;
-  long long ld;                             // the dh scratch's row stride
+  long long ld;                             // the dh scratch's row stride (E > 8)
   int notiles, nsub, units, chunk, s1;      // (b)
-  int kx, xcols, xks, parts, prows, s0;     // (c)
+  int kx, xcols, xks, parts, prows, s0;     // (c), and X^T dh's partials: parts a batch row
   size_t off_dh, off_dexc, off_pb1, off_pw1, off_pw0, off_imh, off_imx, total;
 };
 
@@ -870,8 +1278,17 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
     return p;
   }
   p.geo = w0_geo(E, n, cc);
+  p.narrow = E <= 8;
   p.noc = (two_c + 63) / 64;
   p.ntiles = (T + kTile - 1) / kTile;
+  // (a): a CTA per (run of tiles, batch row, block and pass); runs of at
+  // most kRunTiles tiles, more of them while the CTAs would not fill two
+  // waves of the card
+  const long long units_a = (long long)B * n * p.geo.npass;
+  int runs = (p.ntiles + kRunTiles - 1) / kRunTiles;
+  while (units_a * runs < 2 * kSmCount && runs < p.ntiles) ++runs;
+  p.run = (p.ntiles + runs - 1) / runs;
+  p.nruns = (p.ntiles + p.run - 1) / p.run;
   const size_t R = (size_t)B * T, n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.ld = (long long)(n0 + 7) / 8 * 8;
   // (b): (block, pass, 64 columns of g) tiles times chunks of units, one wave
@@ -882,20 +1299,26 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   const int s1 = (int)std::min<long long>(std::max<long long>(1, kSmCount / tiles), p.units);
   p.chunk = (p.units + s1 - 1) / s1;
   p.s1 = (p.units + p.chunk - 1) / p.chunk;
-  // (c): (batch row, part) chunks times (256 columns of dh, 32 columns of
-  // X) tiles, at least two CTAs an SM
   p.kx = 3 * E + 3;
-  p.xcols = (int)((n0 + 2 * kXCols - 1) / (2 * kXCols));
-  p.xks = (p.kx + kXK - 1) / kXK;
-  const long long per_b = (long long)B * p.xcols * p.xks;
-  const int parts = (int)std::min<long long>(std::max<long long>(1, (2 * kSmCount + per_b - 1) / per_b),
-                                             65535 / B);
-  p.prows = ((T + parts - 1) / parts + 63) / 64 * 64;
-  p.parts = (T + p.prows - 1) / p.prows;
+  if (p.narrow) {
+    // X^T dh in (a): a partial per (batch row, run)
+    p.parts = p.nruns;
+  } else {
+    // (c): (batch row, part) chunks times (256 columns of dh, 32 columns of
+    // X) tiles, at least two CTAs an SM
+    p.xcols = (int)((n0 + 2 * kXCols - 1) / (2 * kXCols));
+    p.xks = (p.kx + kXK - 1) / kXK;
+    const long long per_b = (long long)B * p.xcols * p.xks;
+    const int parts = (int)std::min<long long>(
+        std::max<long long>(1, (2 * kSmCount + per_b - 1) / per_b), 65535 / B);
+    p.prows = ((T + parts - 1) / parts + 63) / 64 * 64;
+    p.parts = (T + p.prows - 1) / p.prows;
+  }
   p.s0 = B * p.parts;
   p.off_dh = 0;
-  p.off_dexc = align256(p.off_dh + R * p.ld * 2);
-  p.off_pb1 = align256(p.off_dexc + ((size_t)n * p.geo.npass > 1 ? R * E * 4 : 0));
+  p.off_dexc = align256(p.off_dh + (p.narrow ? 0 : R * p.ld * 2));
+  const size_t nparts = (size_t)n * p.geo.npass;  // dexc's partials: one a block and pass
+  p.off_pb1 = align256(p.off_dexc + (nparts > 1 ? nparts * R * E * 4 : 0));
   p.off_pw1 = align256(p.off_pb1 + (size_t)p.s1 * n2 * 4);
   p.off_pw0 = align256(p.off_pw1 + (size_t)p.s1 * 3 * cc * n2 * 4);
   p.off_imh = align256(p.off_pw0 + (size_t)p.s0 * p.kx * n0 * 4);
@@ -920,11 +1343,12 @@ void add_job(ReduceArgs& r, const float* part, void* out, long long len, int out
   r.total += len * outer;
 }
 
-// Device time of each of a call's five launches, for measurement (smoke
-// phase 14): while on, a call records an event before its first launch and
-// after each one, on its stream
+// Device time of each of a call's launches (four, five past E = 8), for
+// measurement (smoke phase 14): while on, a call records an event before
+// its first launch and after each one, on its stream
 bool g_timed = false;
 cudaEvent_t g_marks[6];
+int g_launched = 0;  // the last timed call's launches
 
 }  // namespace
 
@@ -941,16 +1365,31 @@ extern "C" int cond_chain_bwd_bf16_time_kernels(int on) {
   return 0;
 }
 
-// ms[0..4]: the last timed call's w_images_kernel, k2b_data_kernel,
-// k2b_w1_kernel, k2b_xdh_kernel and k2b_reduce_kernel, each from the end of
-// the launch before it (synchronize first)
+// ms[0..3] or [0..4]: the last timed call's w_images_kernel,
+// k2b_data_kernel, k2b_w1_kernel, past E = 8 k2b_xdh_kernel, and
+// k2b_reduce_kernel, each from the end of the launch before it (synchronize
+// first)
 extern "C" int cond_chain_bwd_bf16_kernel_ms(float* ms) {
-  for (int k = 0; k < 5; ++k) {
+  for (int k = 0; k < g_launched; ++k) {
     const cudaError_t err = cudaEventElapsedTime(&ms[k], g_marks[k], g_marks[k + 1]);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
+
+#ifdef COND_CHAIN_TIMERS
+// The diagnostic build's cycle sums since the last reset (kTimers of them:
+// the data kernel's phases, see g_timers) into out; then zero them where
+// `reset`.
+extern "C" int cond_chain_bwd_bf16_timers(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_timers, sizeof(g_timers));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zeros[kTimers] = {};
+    e = cudaMemcpyToSymbol(g_timers, zeros, sizeof(zeros));
+  }
+  return (int)e;
+}
+#endif
 
 // The rows of the data kernel's time tile at these widths (124: every width
 // goes in passes of 136 columns), or 0 for shapes the kernels do not take.
@@ -1012,10 +1451,15 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   d.img_x = reinterpret_cast<const bf16*>(wsb + p.off_imx);
   d.dh_out = dh_s;
   d.ld = p.ld;
-  d.dexc_acc = reinterpret_cast<float*>(wsb + p.off_dexc);
+  d.pdexc = reinterpret_cast<float*>(wsb + p.off_dexc);
   d.dexc = static_cast<bf16*>(dexc);
+  d.pw0 = pw0;
   d.two_c = two_c;
   d.noc = p.noc;
+  d.run = p.run;
+  d.nruns = p.nruns;
+  d.kx = p.kx;
+  d.vec = E == 8 && (uintptr_t)exc % 16 == 0;
   d.geo = p.geo;
   W1Args w;
   w.h = h;
@@ -1051,35 +1495,48 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   if (!make_map(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
       !make_map(&d.w1_map, w1, 4, w_dims, w_strides, w_box) ||
       !make_map(&w.g_map, g, 4, g_dims, g_strides, g_box_w1) ||
-      !make_map(&x.dh_map, dh_s, 4, x_dims, x_strides, x_box)) {
+      (!p.narrow && !make_map(&x.dh_map, dh_s, 4, x_dims, x_strides, x_box))) {
     return (int)cudaErrorInvalidValue;
   }
   ImageArgs im{h, nullptr, reinterpret_cast<bf16*>(wsb + p.off_imh),
                reinterpret_cast<bf16*>(wsb + p.off_imx), nullptr, hbias_bstride ? B : 1, two_c};
-  auto mark = [&](int k) {
-    if (g_timed) cudaEventRecord(g_marks[k], stream);
+  int launched = 0;
+  auto mark = [&]() {
+    if (g_timed) cudaEventRecord(g_marks[launched], stream);
   };
-  mark(0);
+  mark();
   cudaError_t e = launch_images(im, stream);
   if (e != cudaSuccess) return (int)e;
-  mark(1);
-  if ((e = launch_kernel(k2b_data_kernel, dim3((unsigned)p.ntiles, (unsigned)B), kThreads,
-                         kDataSmem, d, stream)) != cudaSuccess) return (int)e;
-  mark(2);
+  ++launched;
+  mark();
+  const dim3 dgrid((unsigned)p.nruns, (unsigned)B, (unsigned)(n * p.geo.npass));
+  e = p.narrow ? launch_kernel(k2b_data_kernel<true>, dgrid, kThreads, kDataSmem, d, stream)
+               : launch_kernel(k2b_data_kernel<false>, dgrid, kThreads, kDataSmem, d, stream);
+  if (e != cudaSuccess) return (int)e;
+  ++launched;
+  mark();
   if ((e = launch_kernel(k2b_w1_kernel,
                          dim3((unsigned)(n * p.geo.npass * p.notiles), (unsigned)p.s1),
                          kW1Threads, kW1Smem, w, stream)) != cudaSuccess) return (int)e;
-  mark(3);
-  if ((e = launch_kernel(k2b_xdh_kernel,
-                         dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks), kThreads,
-                         kXSmem, x, stream)) != cudaSuccess) return (int)e;
-  mark(4);
+  ++launched;
+  mark();
+  if (!p.narrow) {
+    if ((e = launch_kernel(k2b_xdh_kernel,
+                           dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks), kThreads,
+                           kXSmem, x, stream)) != cudaSuccess) return (int)e;
+    ++launched;
+    mark();
+  }
 
-  // dW1, db1 over the chunks of units; dW0 over every (batch row, part);
-  // dhbias, the edges over a batch row's parts (dhbias over all of them
-  // when hbias is shared)
+  // dexc over the blocks and passes; dW1, db1 over the chunks of units; dW0
+  // over every (batch row, part); dhbias, the edges over a batch row's parts
+  // (dhbias over all of them when hbias is shared)
   ReduceArgs r{};
   const long long xs = (long long)p.kx * n0;
+  if (n * p.geo.npass > 1) {
+    const long long bte = (long long)B * T * E;
+    add_job(r, reinterpret_cast<float*>(wsb + p.off_dexc), dexc, bte, 1, n * p.geo.npass, bte, 0);
+  }
   add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.s1, 3LL * cc * n2, 0);
   add_job(r, pb1, db1, n2, 1, p.s1, n2, 0);
   add_job(r, pw0, dw0, 3LL * E * n0, 1, p.s0, xs, 0);
@@ -1093,6 +1550,8 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
     add_job(r, pw0 + (3LL * E + 2) * n0, dedge_t, n0, B, p.parts, xs, p.parts * xs);
   }
   k2b_reduce_kernel<<<(unsigned)((r.total + 255) / 256), 256, 0, stream>>>(r);
-  mark(5);
+  ++launched;
+  mark();
+  if (g_timed) g_launched = launched;
   return (int)cudaGetLastError();
 }

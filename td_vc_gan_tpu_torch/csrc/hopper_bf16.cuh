@@ -193,6 +193,17 @@ __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
+// d (64 x 24) += A (64 x 16) B (16 x 24), both in shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 136) += A (64 x 16, shared memory) B (136 x 16, shared memory, K-major)
 __device__ __forceinline__ void wgmma_ss_n136(float (&d)[68], uint64_t da, uint64_t db,
                                              int scale_d) {

@@ -21,16 +21,20 @@ within one bf16 ulp, as ``chip_smoke.py`` holds the kernels on the card:
   j rows down; CTAs over output chunks (every chunk in one CTA, or one
   each); P = a @ [W1_0 | W1_1 | W1_2] on chunks of 32 or 64 output columns,
   then out[t] = b1 + P_0[t-1] + P_1[t] + P_2[t+1] (route (a)), rounded once;
-- K2's data kernel: g's tap windows read rows t0 + 62 w - j, zero outside
-  [0, T) (the TMA copy's zero fill); da in h's accumulator layout; the
-  slope from the sign of bf16(lrelu(h)) (with lrelu(-0) = +0, the sign of
-  h); dexc summed over the blocks and passes in f32 and rounded once; dh to
-  the scratch;
+- K2's data kernel: a CTA per (run of consecutive tiles of one batch row,
+  block, pass), at most 8 tiles a run; g's tap windows read rows
+  t0 + 62 w - j, zero outside [0, T) (the TMA copy's zero fill); da in h's
+  accumulator layout; the slope from the sign of h (lrelu(-0) = +0); each
+  block's and pass's dexc the three taps' products of 64 rows, shifted and
+  added, a partial summed over the blocks and passes in f32 in order and
+  rounded once; at E <= 8 X^T dh (dW0, dhbias, the edges) of each tile's
+  own rows, added in f32 tile by tile into a partial per (batch row, run);
+  past E = 8 dh to the scratch;
 - K2's weight grads: dW1 and db1 over units of 62 rows of g (two zero rows
   after them), with a recomputed from exc for the rows t0 - 1 .. t0 + 62
-  and tap j reading a from row j, in chunks of units; dW0, dhbias and the
-  edges as X^T dh over the parts of each batch row; every kind of partial
-  summed over its chunks in order and rounded once.
+  and tap j reading a from row j, in chunks of units; past E = 8 dW0,
+  dhbias and the edges as X^T dh over the parts of each batch row; every
+  kind of partial summed over its chunks in order and rounded once.
 
 Operands are dyadic where a slope must agree (cond_0's sums exact in any
 order), as on the card. Numpy only, no JAX compile.
@@ -325,10 +329,26 @@ def in_order(parts):
     return tot
 
 
+def run_plan(bsz, t, n, npass, sms=None):
+    """The data kernel's runs (make_plan): a CTA walks a run of consecutive
+    time tiles of one batch row for one block and pass, at most 8 tiles (16
+    units of 62 rows, the most a partial of X^T dh sums), in more runs while
+    the CTAs would not fill two waves of SMS: (tiles a run, runs a batch row)."""
+    sms = SMS if sms is None else sms
+    ntiles = -(-t // TILE)
+    runs = -(-ntiles // 8)
+    while bsz * n * npass * runs < 2 * sms and runs < ntiles:
+        runs += 1
+    run = -(-ntiles // runs)
+    return run, -(-ntiles // run)
+
+
 def k2_emulated(ops, g):
-    """K2-bf16's arithmetic as its kernels take it (the data kernel's CTAs,
-    k2b_w1_kernel's units and chunks, k2b_xdh_kernel's parts, the ordered
-    reductions): the gradients' dict, f32 values of bf16."""
+    """K2-bf16's arithmetic as its kernels take it (the data kernel's runs of
+    tiles, its dexc partials and, at E <= 8, its X^T dh partials; past E = 8
+    the dh scratch and k2b_xdh_kernel's parts; k2b_w1_kernel's units and
+    chunks; the ordered reductions): the gradients' dict, f32 values of
+    bf16."""
     bsz, t, e = ops["exc"].shape
     cc = ops["w1"].shape[1]
     n = ops["w0"].shape[2] // cc
@@ -336,49 +356,71 @@ def k2_emulated(ops, g):
     npass, kh = geo(e, cc)
     nec = -(-e // 8)
     n0 = n * cc
+    kx = 3 * e + 3
+    narrow = e <= 8
+    run, nruns = run_plan(bsz, t, n, npass)
     dh_s = np.zeros((bsz, t, n0), np.float32)
-    dexc = np.zeros((bsz, t, e), np.float32)
+    pdexc = np.zeros((n * npass, bsz, t, e), np.float32)
+    pw0 = np.zeros((bsz * nruns, kx, n0), np.float32)
+    tiles = -(-t // TILE)
     for b in range(bsz):
-        for tile, w, u0 in wg_rows(t):
-            u = u0 + np.arange(ROWS)
-            valid = (u >= 0) & (u < t)
-            own = (np.arange(ROWS) >= 1) & (np.arange(ROWS) <= OWN) & (u < t)
-            acc = None
-            for i in range(n):
-                for p in range(npass):
-                    c = p * PASS + np.arange(PASS)
-                    a = bf16(act(ops, b, u, i, p, kh))
-                    # da: tap j, chunks of 64 columns of g, slices of 16
-                    da = np.zeros((ROWS, PASS), np.float32)
-                    for j in range(3):
-                        r = u + 1 - j
-                        ok = (r >= 0) & (r < t)
-                        gj = np.zeros((ROWS, -(-two_c // 16) * 16), np.float32)
-                        gj[ok, :two_c] = g[b, r[ok], i * two_c:(i + 1) * two_c]
-                        wj = np.zeros((gj.shape[1], PASS), np.float32)
-                        okc = c < cc
-                        wj[:two_c, okc] = ops["w1"][j, c[okc], i * two_c:(i + 1) * two_c].T
-                        da = slices16(gj, wj, da)
-                    neg = np.signbit(a)
-                    dh = np.where(valid[:, None], bf16(np.where(neg, SLOPE * da, da)), 0)
-                    okc = c < cc
-                    rows, cols = u[own], i * cc + c[okc]
-                    dh_s[b, rows[:, None], cols[None]] = dh[own][:, okc]
-                    # dexc: E in chunks of 8, dh rows r + 2 - j, K = 144
-                    dh144 = np.concatenate([dh, np.zeros((ROWS, 8), np.float32)], 1)
-                    w0x = np.zeros((3, 144, nec * 8), np.float32)
-                    w0x[:, :PASS][:, okc, :e] = ops["w0"][:, :, cols].transpose(0, 2, 1)
-                    dx = np.zeros((OWN, nec * 8), np.float32)
-                    for ec in range(nec):
-                        part = np.zeros((OWN, 8), np.float32)
+        for ip in range(n * npass):
+            i, p = divmod(ip, npass)
+            c = p * PASS + np.arange(PASS)
+            okc = c < cc
+            cols = i * cc + c[okc]
+            for rn in range(nruns):
+                xacc = None
+                for tile in range(rn * run, min(tiles, (rn + 1) * run)):
+                    dh_w, x_w = [], []
+                    for w in (0, 1):
+                        u0 = tile * TILE + OWN * w - 1
+                        u = u0 + np.arange(ROWS)
+                        valid = (u >= 0) & (u < t)
+                        own = (np.arange(ROWS) >= 1) & (np.arange(ROWS) <= OWN) & (u < t)
+                        a = bf16(act(ops, b, u, i, p, kh))
+                        # da: tap j, chunks of 64 columns of g, slices of 16
+                        da = np.zeros((ROWS, PASS), np.float32)
                         for j in range(3):
-                            part = slices16(dh144[2 - j:2 - j + OWN],
-                                            w0x[j][:, ec * 8:(ec + 1) * 8], part)
-                        dx[:, ec * 8:(ec + 1) * 8] = part
-                    acc = dx if acc is None else acc + dx
-            tt = u0 + 1 + np.arange(OWN)
-            ok = tt < t
-            dexc[b, tt[ok]] = bf16(acc[ok][:, :e])
+                            r = u + 1 - j
+                            ok = (r >= 0) & (r < t)
+                            gj = np.zeros((ROWS, -(-two_c // 16) * 16), np.float32)
+                            gj[ok, :two_c] = g[b, r[ok], i * two_c:(i + 1) * two_c]
+                            wj = np.zeros((gj.shape[1], PASS), np.float32)
+                            wj[:two_c, okc] = ops["w1"][j, c[okc], i * two_c:(i + 1) * two_c].T
+                            da = slices16(gj, wj, da)
+                        neg = np.signbit(a)
+                        dh = np.where(valid[:, None], bf16(np.where(neg, SLOPE * da, da)), 0)
+                        if not narrow:
+                            rows = u[own]
+                            dh_s[b, rows[:, None], cols[None]] = dh[own][:, okc]
+                        # X^T dh's operands: the window's dh and X, X zero in the
+                        # halo rows (q = 0, 63), which other windows own
+                        x = x_rows(ops, b, u, kx)
+                        x[[0, ROWS - 1]] = 0
+                        dh_w.append(dh)
+                        x_w.append(x)
+                        # this block's and pass's dexc: E in chunks of 8, the three
+                        # taps' products P_j of all 64 rows (K = 144), then
+                        # dexc[r] = (P_0[r + 2] + P_1[r + 1]) + P_2[r]
+                        dh144 = np.concatenate([dh, np.zeros((ROWS, 8), np.float32)], 1)
+                        w0x = np.zeros((3, 144, nec * 8), np.float32)
+                        w0x[:, :PASS][:, okc, :e] = ops["w0"][:, :, cols].transpose(0, 2, 1)
+                        dx = np.zeros((OWN, nec * 8), np.float32)
+                        for ec in range(nec):
+                            pj = [slices16(dh144, w0x[j][:, ec * 8:(ec + 1) * 8]) for j in range(3)]
+                            dx[:, ec * 8:(ec + 1) * 8] = (pj[0][2:] + pj[1][1:-1]) + pj[2][:-2]
+                        tt = u0 + 1 + np.arange(OWN)
+                        ok = tt < t
+                        pdexc[ip, b, tt[ok]] = dx[ok][:, :e]
+                    if narrow:
+                        # X^T dh of the tile's rows (window 0 then 1, 16 rows a
+                        # slice) added to the run's sum
+                        tsum = slices16(x_w[1].T, dh_w[1], slices16(x_w[0].T, dh_w[0]))
+                        xacc = tsum if xacc is None else xacc + tsum
+                if narrow:
+                    pw0[b * nruns + rn][:, cols] = xacc[:, okc]
+    dexc = bf16(in_order(pdexc))
     # dW1 and db1 (k2b_w1_kernel): a unit is 62 rows t0 + r of g (zero
     # outside [0, T), then two zero rows); a is recomputed for the rows
     # t0 - 1 + q, q < 64 (then 8 zero rows), tap j's B is a from row j; each
@@ -407,23 +449,24 @@ def k2_emulated(ops, g):
             pw1[s, j, c[c < cc], i * two_c:(i + 1) * two_c] = v[:, c < cc].T
         for i, v in accb.items():
             pb1[s, i * two_c:(i + 1) * two_c] = v[:, 0]
-    # dW0, dhbias and the edges (k2b_xdh_kernel): X^T dh over the rows of
-    # each part of each batch row, 64 rows a step, X zero past the part
-    kx = 3 * e + 3
-    parts, prows = xdh_plan(bsz, t, e, n0)
-    pw0 = np.zeros((bsz * parts, kx, n0), np.float32)
-    for b in range(bsz):
-        for part in range(parts):
-            r0, r1 = part * prows, min(t, (part + 1) * prows)
-            acc = None
-            for t0 in range(r0, r1, ROWS):
-                u = t0 + np.arange(ROWS)
-                ok = u < r1
-                x = np.where(ok[:, None], x_rows(ops, b, u, kx), np.float32(0))
-                d = np.zeros((ROWS, n0), np.float32)
-                d[ok] = dh_s[b, u[ok]]
-                acc = slices16(x.T, d, acc)
-            pw0[b * parts + part] = acc
+    # past E = 8, dW0, dhbias and the edges (k2b_xdh_kernel): X^T dh over the
+    # rows of each part of each batch row, 64 rows a step, X zero past the part
+    parts = nruns
+    if not narrow:
+        parts, prows = xdh_plan(bsz, t, e, n0)
+        pw0 = np.zeros((bsz * parts, kx, n0), np.float32)
+        for b in range(bsz):
+            for part in range(parts):
+                r0, r1 = part * prows, min(t, (part + 1) * prows)
+                acc = None
+                for t0 in range(r0, r1, ROWS):
+                    u = t0 + np.arange(ROWS)
+                    ok = u < r1
+                    x = np.where(ok[:, None], x_rows(ops, b, u, kx), np.float32(0))
+                    d = np.zeros((ROWS, n0), np.float32)
+                    d[ok] = dh_s[b, u[ok]]
+                    acc = slices16(x.T, d, acc)
+                pw0[b * parts + part] = acc
     per_b = pw0.reshape(bsz, parts, kx, n0)
     out = dict(exc=dexc, w0=bf16(in_order(pw0[:, :3 * e]).reshape(3, e, n0)),
                w1=bf16(in_order(pw1)), b1=bf16(in_order(pb1)))
@@ -528,6 +571,26 @@ def test_k2_bf16_weight_grads_in_chunks_of_units(monkeypatch):
     assert w1_plan(3, 200, 1, 1, two_c) == (4, 12, 6, 2)
     ops = chain_ops(3, 200, e, 1, cc, two_c, seed=11)
     g = bf16(np.random.default_rng(12).standard_normal((3, 200, two_c)).astype(np.float32))
+    tops = {k: v for k, v in torch_ops(ops).items() if k != "b1"}
+    want = cond_chain.cond_chain_bwd_plain(g=torch.from_numpy(g).to(BF), **tops)
+    got = k2_emulated(ops, g)
+    for k in want:
+        assert_ulp(got[k], want[k], k)
+
+
+def test_k2_bf16_runs_of_tiles_to_a_ragged_row_end(monkeypatch):
+    """The data kernel's runs on a card of 1 SM: two runs of 8 tiles a batch
+    row (T = 1900: 16 tiles, the last of 40 rows), so that each X^T dh
+    partial sums its run's 16 units of 62 rows, the most it may, and the
+    second run ends at the batch row's ragged end; the runs the plan takes
+    at the step's largest and smallest calls and at the bottleneck."""
+    assert run_plan(128, 8960, 9, 1) == (8, 10)
+    assert run_plan(64, 280, 9, 1) == (3, 1)
+    assert run_plan(16, 224, 1, 1) == (1, 2)
+    monkeypatch.setattr(sys.modules[__name__], "SMS", 1)
+    assert run_plan(2, 1900, 1, 1) == (8, 2)
+    ops = chain_ops(2, 1900, 8, 1, 136, 16, seed=21)
+    g = bf16(np.random.default_rng(22).standard_normal((2, 1900, 16)).astype(np.float32))
     tops = {k: v for k, v in torch_ops(ops).items() if k != "b1"}
     want = cond_chain.cond_chain_bwd_plain(g=torch.from_numpy(g).to(BF), **tops)
     got = k2_emulated(ops, g)
