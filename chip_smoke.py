@@ -163,7 +163,8 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    K2-bf16 against their plain versions at the bottleneck's chain shapes
    (the concat form, n = 1, B = 16, E = Cc = 128 and 256, 2C = 256, T = 28
    and 224), the backward kernels bit for bit in a second run, each one's
-   time beside its bound, plain version and cuDNN; (b) f32 conversion of
+   time through the wrapper and through its C entry point beside its bound,
+   plain version and cuDNN; (b) f32 conversion of
    phase 4's batch: K1 launches (4 decoder stages + 2 bottleneck blocks),
    the plain-chain path, a small input against the CPU, ms and RTF beside
    phase 4's, a profile; (c) the f32 train step at 16 x 8960 as phase 7's
@@ -195,16 +196,19 @@ four .cu files and the headers they include, with this tree's C
 interface: K1 with a workspace, K2 on W1 in its own layout)
 against this tree's, alternated for 5 rounds at the conversion's chain
 shapes and the train step's (f32 at batch 16, bf16 at batch 64), the two
-versions' outputs held to each other, each backward's time by kernel and
-workspace for each version, then K1-bf16, K2 and K2-bf16 at the options'
-bottleneck shapes and at concat E = Cc = 600, with cuDNN beside them; its
-last line is a JSON object of each dtype's and path's per-round totals.
+versions' outputs held to each other, K1's time by kernel at the convert
+shapes and each backward's time by kernel and workspace for each version,
+then all four kernels at the options' bottleneck shapes and at concat
+E = Cc = 600 through their C entry points, with cuDNN beside them; its last
+line is a JSON object of each dtype's and path's per-round totals.
 
     python3 chip_smoke.py --timers
 
-runs the card and build phases, then K1-bf16, K2 (f32) and K2-bf16 built
-with -DCOND_CHAIN_TIMERS (diagnostic builds: each consumer warpgroup's
-clock64 cycles by phase; in K1-bf16 h's product, P's products and the
+runs the card and build phases, then the four kernels built with
+-DCOND_CHAIN_TIMERS (diagnostic builds: each consumer warpgroup's clock64
+cycles by phase; in K1 (f32) h, A's store, its barriers, P's products and
+their waits and the output at the f32 conversion's and the B = 32 step's
+stage shapes and the bottleneck's Cc = E = 256; in K1-bf16 h's product, P's products and the
 epilogue at the bottleneck shapes and the bf16 conversion's stage shapes;
 in the backward data kernels h, da, dh and dexc and their parts at the
 step's stage shapes, K2-bf16's also at the bottleneck shapes). The two
@@ -311,14 +315,21 @@ TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
 # K2-bf16 in their first versions (bf16 mma.sync, operands read per fragment
 # through L1), K2-bf16 before its weight grads moved to wgmma, K2 before
 # its weight grads did, K1-bf16 before its output chunks got CTAs of their
-# own, K2 before dexc's read-modify-write was batched, and K2-bf16 before
-# its data kernel took X^T dh on chip. As (path
+# own, K2 before dexc's read-modify-write was batched, K2-bf16 before
+# its data kernel took X^T dh on chip, and K1 before its redesign for the
+# narrow stages. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
 EARLIER_MS = {
     "cond_chain_fwd": [(None, 25.468, "convert call",
-                        "on mma.sync m16n8k8 with cp.async staging")],
+                        "on mma.sync m16n8k8 with cp.async staging"),
+                       (None, 15.789, "convert call",
+                        "with its taps in one accumulator, a k-slice a ring item and "
+                        "its phases in turn"),
+                       ("train", 6.438, "train step (8 calls)",
+                        "with its taps in one accumulator, a k-slice a ring item and "
+                        "its phases in turn")],
     "cond_chain_bwd": [(None, 38.793, "train step",
                         "with its data kernel on mma.sync m16n8k8"),
                        (None, 25.571, "train step",
@@ -767,6 +778,20 @@ def profile_call(fn, label, card, top: int = 10):
     return busy
 
 
+def k1_l2_bytes(b: int, t: int, e: int, n: int, cc: int, two_c: int) -> float:
+    """Bytes K1's CTAs read of the weights' images in a launch, its rings'
+    bulk copies from L2 (``csrc/cond_chain.cu`` fwd_plan): each CTA (tile of
+    124 rows, batch row, output chunk of W columns) takes, for every block and
+    pass of 136 channels, h's k-slices (2 x 4352 bytes each) and the pass's
+    k-slices of W1 for its chunk (6 W 32 bytes each)."""
+    npass, nkh = -(-cc // 136), -(-(3 * e + 3) // 8)
+    wide = npass > 1 or nkh > 4
+    w = 32 if two_c <= 32 else 64 if two_c <= 64 or wide else 128
+    slices = sum(-(-min(136, cc - 136 * p) // 8) for p in range(npass))
+    per_cta = n * (npass * nkh * 2 * 4352 + slices * 6 * w * 32)
+    return float(-(-t // 124) * b * -(-two_c // w) * per_cta)
+
+
 def k1_stage(cfg, card, b, t, c, seed, label):
     """K1 at one (B, T, C): held against its plain version, then timed beside
     its bounds, the plain version and a cuDNN sequence (a yardstick the port
@@ -795,7 +820,8 @@ def k1_stage(cfg, card, b, t, c, seed, label):
         f"(3xTF32) / {bound_simt:.3f} ms (f32 CUDA cores) ({flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e9:.3f} GB; {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s achieved), "
         f"plain {p_ms:.3f} ms, cuDNN conv1d+lrelu+grouped conv1d {l_ms:.3f} ms, "
-        f"max|d| vs plain {d:.2e} [{card}]")
+        f"max|d| vs plain {d:.2e}; the weights' images read from L2 "
+        f"{k1_l2_bytes(b, t, e, n, cc, 2 * c) / 1e9:.2f} GB a launch [{card}]")
     del split, concat
     torch.cuda.empty_cache()
     return d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_simt_ms=bound_simt,
@@ -1795,14 +1821,15 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
 
 # K2's and K2-bf16's kernels, by the names the profiler gives them (demangled,
 # or not: "...15k2b_data_kernelENS_8DataArgsE"), template arguments kept
-K2B_KERNELS = re.compile(r"(w_images_kernel|k2b?_[A-Za-z0-9]+?_kernel)(<[^>]*>|I(?:L[ib]\d+E)+E)?")
+K2B_KERNELS = re.compile(r"(w_images_kernel|k1_(?:f32|images)_kernel|k2b?_[A-Za-z0-9]+?_kernel)"
+                         r"(<[^>]*>|I(?:L[ib]\d+E)+E)?")
 # the batch-64 step's largest K2-bf16 call, whose workspace phase 14 prints
 K2B_WS_SHAPE = (2 * B64, SEG, 8, 9, 136, 32)
 
 
 def k2b_label(name: str) -> str | None:
-    """'k2_w1_kernel<64>' for a profiler kernel name of K2's or K2-bf16's,
-    else None."""
+    """'k2_w1_kernel<64>' for a profiler kernel name of K2's or K2-bf16's
+    (or K1's: 'k1_f32_kernel<32,0>', 'k1_images_kernel'), else None."""
     m = K2B_KERNELS.search(name)
     if m is None:
         return None
@@ -1843,7 +1870,7 @@ def event_times(lib_name: str, prefix: str, launches: tuple, fn) -> dict:
 
 
 def kernel_breakdown(fn, attempts: int = 3) -> dict:
-    """{kernel: [device ms, launches]} of K2-bf16's kernels in one call of
+    """{kernel: [device ms, launches]} of K2-bf16's (or K2's, K1's) kernels in one call of
     ``fn`` (torch.profiler; ``fn`` warm), for ``--ab``, whose earlier
     library has no timing events; it runs first in its process, where the
     profiler works. The profiler starts tracing the card some time after its
@@ -2863,10 +2890,14 @@ def bottleneck_operands(b: int, t: int, cc: int, seed: int, dtype) -> dict:
 def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
     """K1, K2, K1-bf16 and K2-bf16 at one bottleneck shape: each against its
     plain version (f32: PARITY_RTOL of max|ref|; bf16: ``ulp_parity``), the
-    backward kernels bit for bit in a second run; then each one's time beside
-    its bound, its plain version and cuDNN's calls for the same chain (a
-    yardstick). Returns {kernel name: (max|d|, numbers for Totals)}."""
+    backward kernels bit for bit in a second run; then each one's time
+    through the wrapper and through its C entry point (``old_k1``,
+    ``old_k2`` on this tree's libraries: at these sizes the wrapper's host
+    work is as long as the kernels) beside its bound, its plain version and
+    cuDNN's calls for the same chain (a yardstick). Returns {kernel name:
+    (max|d|, numbers for Totals and c_entry_ms)}."""
     out = {}
+    libs = cc_mod._library()
     two_c = 256
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         ops = wide_operands(None, b, t, cc, two_c, 1, seed, dtype)
@@ -2876,6 +2907,10 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
         fwd_plain = lambda: cc_mod.cond_chain_plain(c, w0, b0, w1, b1)  # noqa: E731
         bwd = lambda: cc_mod._launch_bwd(**bwd_args)  # noqa: E731
         bwd_plain = lambda: cc_mod.cond_chain_bwd_plain(**bwd_args)  # noqa: E731
+        fwd_ops = dict(exc=c, w0=w0, hbias=b0, w1=w1, b1=b1, edge0=None, edge_t=None)
+        k2_ops = {k: v for k, v in bwd_args.items() if k != "g"}
+        c_entry = {"fwd": lambda: old_k1(libs["fwd" + suffix], fwd_ops),
+                   "bwd": lambda: old_k2(libs["bwd" + suffix], k2_ops, g)}
         label = f"B={b} T={t} Cc=E={cc} 2C={two_c} n=1"
         pairs = [("fwd", fwd(), fwd_plain())]
         got, again, want = bwd(), bwd(), bwd_plain()
@@ -2904,6 +2939,7 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
         for kernel, fn, plain, lib in (("fwd", fwd, fwd_plain, cudnn_fwd),
                                        ("bwd", bwd, bwd_plain, cudnn_bwd)):
             k_ms = cuda_ms(fn, iters=20, warmup=3)
+            c_ms = cuda_ms(c_entry[kernel], iters=20, warmup=3)
             p_ms = cuda_ms(plain, iters=5)
             l_ms = cuda_ms(lib, iters=5)
             flops, nbytes = work[kernel]
@@ -2915,13 +2951,15 @@ def bottleneck_kernels(card, b: int, t: int, cc: int, seed: int) -> dict:
                 (bound, by), bound_simt = bf16_bounds(flops, nbytes), 0.0
                 bound_text = f"bound {bound:.4f} ms ({by}, bf16 tensor cores)"
             name = f"cond_chain_{kernel}{suffix}"
-            say(f"options {name} {label}: kernel {k_ms:.4f} ms, {bound_text}, plain "
+            say(f"options {name} {label}: kernel {k_ms:.4f} ms through the wrapper, "
+                f"{c_ms:.4f} ms through its C entry point, {bound_text}, plain "
                 f"{p_ms:.4f} ms, cuDNN {l_ms:.4f} ms; max|d| vs plain {errs[kernel]:.2e} "
                 f"[{card}]")
             out[name] = (errs[kernel], dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                             bound_simt_ms=bound_simt, library_ms=l_ms,
-                                            flops=flops, bytes=nbytes))
+                                            flops=flops, bytes=nbytes, c_entry_ms=c_ms))
         del ops, c, w0, b0, w1, b1, g, bwd_args, pairs, got, again, want, cudnn_bwd
+        del fwd_ops, k2_ops, c_entry
         torch.cuda.empty_cache()
     return out
 
@@ -3117,6 +3155,7 @@ def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
     bsz = B if f32 else B64
     paths = {"k1 convert": [], "k1 train": [], "k2 train": []}
     parts: dict = {"old": {}, "new": {}}
+    k1_parts: dict = {"old": {}, "new": {}}
     seed = 700 if f32 else 1750
     shapes = [("convert", B, t, c, 1700 + i) for i, (t, c) in enumerate(stage_shapes(UTT, cfg))]
     shapes += [("train", b, t, c, seed + i) for b in (2 * bsz, bsz)
@@ -3135,6 +3174,13 @@ def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
         paths[f"k1 {path}"].append(k1)
         line = (f"ab B={b} T={t} C={c}: K1{name} old {np.median(k1['old']):.3f} ms, new "
                 f"{np.median(k1['new']):.3f} ms")
+        if path == "convert" and f32:
+            for version, fn in (("old", lambda: old_k1(fwd, split)),
+                                ("new", lambda: cc_mod.cond_chain(**split))):
+                part = kernel_breakdown(fn)
+                add_breakdown(k1_parts[version], part)
+                say(f"ab k1 kernels ({version}) B={b} T={t} C={c}: {breakdown_line(part)} "
+                    f"[{card}]")
         if path == "train":
             g = cotangent(split, seed=seed + 50).to(dtype)
             args = {k: v for k, v in split.items() if k != "b1"}
@@ -3166,6 +3212,9 @@ def ab_pair(cfg, card, fwd, bwd, dtype) -> dict:
         ws = {"old": bwd.cond_chain_bwd_bf16_workspace(*ws_shape),
               "new": cc_mod._library()["bwd_bf16"].cond_chain_bwd_bf16_workspace(*ws_shape)}
     for version in ("old", "new"):
+        if f32:
+            say(f"ab k1 kernels ({version}) per convert call (4 calls): "
+                f"{breakdown_line(k1_parts[version], 4)} [{card}]")
         say(f"ab k2{name} kernels ({version}) per {per} (8 calls): "
             f"{breakdown_line(parts[version], 8)}; workspace at (B, T, E, n, Cc, 2C) = "
             f"{ws_shape}: {ws[version] / 1e9:.3f} GB [{card}]")
@@ -3221,11 +3270,12 @@ def cudnn_chain(ops: dict, n: int):
     return fwd, lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True)
 
 
-def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
-    """K1-bf16, K2 (f32) and K2-bf16 earlier (libraries ``fwd_bf16``, ``bwd``,
-    ``bwd_bf16``) against this tree's at ``wide_shapes``, alternated, each
-    version's outputs held to the other's, cuDNN's forward (bf16) and
-    backward (f32, bf16) of the same chain beside them, and each backward's
+def ab_wide(cfg, card, fwd32, fwd_bf16, bwd, bwd_bf16) -> dict:
+    """K1 (f32), K1-bf16, K2 (f32) and K2-bf16 earlier (libraries ``fwd32``,
+    ``fwd_bf16``, ``bwd``, ``bwd_bf16``) against this tree's at
+    ``wide_shapes``, alternated, each version's outputs held to the other's,
+    cuDNN's forward (f32, bf16) and backward (f32, bf16) of the same chain
+    beside them, and each backward's
     time by kernel for each version; returns {label: {kernel: times}}.
     Both versions are called the same way, through their C entry points
     (``old_k1``, ``old_k2``): at these sizes a call's host work is as long as
@@ -3250,6 +3300,14 @@ def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
         ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.float32)
         args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], edge0=None,
                     edge_t=None)
+        f32 = dict(args, b1=ops["b1"])
+        ab_f32_agree(f"ab K1 {label}", old_k1(libs["fwd"], f32), old_k1(fwd32, f32))
+        k1f = ab_times(lambda: old_k1(fwd32, f32), lambda: old_k1(libs["fwd"], f32), iters=5)
+        l1f = cuda_ms(cudnn_chain(ops, n)[0], iters=5)
+        for version, fn in (("old", lambda: old_k1(fwd32, f32)),
+                            ("new", lambda: old_k1(libs["fwd"], f32))):
+            say(f"ab k1 kernels ({version}) {label}: {breakdown_line(kernel_breakdown(fn))} "
+                f"[{card}]")
         new, old = old_k2(libs["bwd"], args, ops["g"]), old_k2(bwd, args, ops["g"])
         for key in new:
             ab_f32_agree(f"ab K2 {label} d{key}", new[key], old[key])
@@ -3261,7 +3319,7 @@ def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
                             ("new", lambda: old_k2(libs["bwd"], args, ops["g"]))):
             say(f"ab k2 kernels ({version}) {label}: {breakdown_line(kernel_breakdown(fn))} "
                 f"[{card}]")
-        del ops, args
+        del ops, args, f32
         torch.cuda.empty_cache()
         ops = wide_operands(cfg, b, t, cc, two_c, n, 3300 + k, torch.bfloat16)
         args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"], edge0=None,
@@ -3277,13 +3335,16 @@ def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
                             ("new", lambda: old_k2(libs["bwd_bf16"], args, ops["g"]))):
             say(f"ab k2-bf16 kernels ({version}) {label}: "
                 f"{breakdown_line(kernel_breakdown(fn))} [{card}]")
-        say(f"ab {label}: K1-bf16 old {np.median(k1['old']):.4f} ms, new "
+        say(f"ab {label}: K1 old {np.median(k1f['old']):.4f} ms, new "
+            f"{np.median(k1f['new']):.4f} ms, cuDNN {l1f:.4f} ms; K1-bf16 old "
+            f"{np.median(k1['old']):.4f} ms, new "
             f"{np.median(k1['new']):.4f} ms, cuDNN bf16 {l1:.4f} ms; K2 old "
             f"{np.median(k2['old']):.4f} ms, new {np.median(k2['new']):.4f} ms, cuDNN backward "
             f"{l2:.4f} ms; K2-bf16 old {np.median(k2b['old']):.4f} ms, new "
             f"{np.median(k2b['new']):.4f} ms, cuDNN bf16 backward {l2b:.4f} ms ({AB_ROUNDS} "
             f"rounds alternated, medians) [{card}]")
-        out[label] = {"k1_bf16": k1, "k1_bf16_cudnn_ms": l1, "k2": k2, "k2_cudnn_ms": l2,
+        out[label] = {"k1": k1f, "k1_cudnn_ms": l1f, "k1_bf16": k1, "k1_bf16_cudnn_ms": l1,
+                      "k2": k2, "k2_cudnn_ms": l2,
                       "k2_bf16": k2b, "k2_bf16_cudnn_ms": l2b}
         del ops, args
         torch.cuda.empty_cache()
@@ -3293,8 +3354,8 @@ def ab_wide(cfg, card, fwd_bf16, bwd, bwd_bf16) -> dict:
 def phase_ab(cfg, card, src_dir: Path) -> dict:
     """The earlier kernels (built from ``src_dir``) against this tree's: the
     f32 pair (K1, K2), then the bf16 pair (K1-bf16, K2-bf16) (``ab_pair``),
-    then K1-bf16 and K2 at wide E (``ab_wide``); returns the summaries by
-    dtype and path."""
+    then all four at wide E (``ab_wide``); returns the summaries by dtype and
+    path."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         libs, log = ab_libraries(src_dir, Path(tmp))
@@ -3302,15 +3363,17 @@ def phase_ab(cfg, card, src_dir: Path) -> dict:
             + " | ".join(ptxas_summary(log)))
         return {"f32": ab_pair(cfg, card, libs["fwd"], libs["bwd"], torch.float32),
                 "bf16": ab_pair(cfg, card, libs["fwd_bf16"], libs["bwd_bf16"], torch.bfloat16),
-                "wide": ab_wide(cfg, card, libs["fwd_bf16"], libs["bwd"], libs["bwd_bf16"])}
+                "wide": ab_wide(cfg, card, libs["fwd"], libs["fwd_bf16"], libs["bwd"],
+                                libs["bwd_bf16"])}
 
 
 def timer_libraries(tmp: Path) -> dict:
-    """This tree's K1-bf16, K2 (f32) and K2-bf16 built with -DCOND_CHAIN_TIMERS
-    into ``tmp``, the three nvcc runs started together; {"fwd_bf16", "bwd",
-    "bwd_bf16": ctypes library with its timer reader's argtypes}."""
-    srcs = {"fwd_bf16": cc_mod.BF16_SOURCES[0], "bwd": cc_mod.SOURCES[1],
-            "bwd_bf16": cc_mod.BF16_SOURCES[1]}
+    """This tree's K1 (f32), K1-bf16, K2 (f32) and K2-bf16 built with
+    -DCOND_CHAIN_TIMERS into ``tmp``, the four nvcc runs started together;
+    {"fwd", "fwd_bf16", "bwd", "bwd_bf16": ctypes library with its timer
+    reader's argtypes}."""
+    srcs = {"fwd": cc_mod.SOURCES[0], "fwd_bf16": cc_mod.BF16_SOURCES[0],
+            "bwd": cc_mod.SOURCES[1], "bwd_bf16": cc_mod.BF16_SOURCES[1]}
     procs = {name: subprocess.Popen([cc_mod._nvcc(), *cc_mod.NVCC_FLAGS, "-DCOND_CHAIN_TIMERS",
                                      "-o", str(tmp / f"{name}_timers.so"), str(src)],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -3322,6 +3385,12 @@ def timer_libraries(tmp: Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {srcs[name]} with timers:\n{out}")
         libs[name] = lib = ctypes.CDLL(str(tmp / f"{name}_timers.so"))
+    lib = libs["fwd"]
+    lib.cond_chain_fwd_f32.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+    lib.cond_chain_fwd_f32.restype = i
+    lib.cond_chain_fwd_f32_workspace.argtypes = [i] * 6
+    lib.cond_chain_fwd_f32_workspace.restype = ll
+    lib.timers = lib.cond_chain_fwd_f32_timers
     lib = libs["fwd_bf16"]
     lib.cond_chain_fwd_bf16.argtypes = [p, p, p, ll, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
     lib.cond_chain_fwd_bf16.restype = i
@@ -3364,13 +3433,54 @@ def read_timers(lib, n: int, fn, reps: int = 5) -> tuple[float, list[float]]:
 K2B_PHASES = ("h", "da", "da's waits on full", "slope+dh", "dexc+X^T dh",
               "their products", "X^T dh's sum", "dexc's shift and store")
 K2_PHASES = ("h", "da", "dh", "dexc")
+K1_PHASES = ("h", "h's waits on full", "A", "barriers", "P", "P's waits on full", "output")
 PHASE_PARTS = {"da's waits on full", "their products", "X^T dh's sum",
-               "dexc's shift and store"}
+               "dexc's shift and store", "h's waits on full"}
+
+
+def k1_timer_cases(cfg) -> list[tuple[str, int, int, int | None, int, int | None]]:
+    """K1 (f32)'s timed shapes, as ``wide_shapes``' (label, B, T, Cc = E, 2C,
+    n), Cc None for the split form at a decoder stage (C = 2C / 2): the f32
+    conversion's four stages (B = 16), the f32 step's B = 32 four and the
+    bottleneck's Cc = E = 256 at T = 28 and 224."""
+    cases = [(f"convert stage {k} C={c}", B, t, None, 2 * c, None)
+             for k, (t, c) in enumerate(stage_shapes(UTT, cfg))]
+    cases += [(f"step stage {k} C={c}", 2 * B, t, None, 2 * c, None)
+              for k, (t, c) in enumerate(stage_shapes(SEG, cfg))]
+    return cases + [x for x in wide_shapes(cfg) if x[-1] == 1 and x[3] == 256]
+
+
+def k1_f32_timers(cfg, card, lib) -> None:
+    """K1 (f32) from its timer build at ``k1_timer_cases``: each launch held
+    to the plain version, then each consumer warpgroup's cycles by phase
+    (K1_PHASES) as shares of its whole, and the producer's waits on empty as a
+    share of its cycles."""
+    for k, (label, b, t, cc, two_c, n) in enumerate(k1_timer_cases(cfg)):
+        if cc is None:
+            fwd, _, _, _ = chain_inputs(b, t, two_c // 2, cfg, seed=3700 + k)
+        else:
+            ops = wide_operands(cfg, b, t, cc, two_c, n, 3700 + k, torch.float32)
+            fwd = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
+                       b1=ops["b1"], edge0=None, edge_t=None)
+            del ops
+        ab_f32_agree(f"timers K1 (f32) {label}", old_k1(lib, fwd), cc_mod.cond_chain_plain(**fwd))
+        ms, cyc = read_timers(lib, len(K1_PHASES) + 5, lambda: old_k1(lib, fwd))
+        whole, wgs = cyc[len(K1_PHASES)], cyc[len(K1_PHASES) + 1]
+        wait, pwhole, prods = cyc[-3:]
+        shares = ", ".join(f"{ph} {cyc[x] / whole:.1%}" for x, ph in enumerate(K1_PHASES))
+        counted = sum(c for c, ph in zip(cyc, K1_PHASES) if ph not in PHASE_PARTS)
+        say(f"timers K1 (f32) {label} (B={b} T={t}): {ms:.4f} ms a launch; per consumer "
+            f"warpgroup {whole / wgs:.0f} cycles ({wgs / 5:.0f} warpgroups a launch): {shares}, "
+            f"other {1 - counted / whole:.1%}; producer "
+            f"{pwhole / prods:.0f} cycles, waits on empty {wait / pwhole:.1%} [{card}]")
+        del fwd
+        torch.cuda.empty_cache()
 
 
 def phase_timers(cfg, card) -> None:
     """The kernels' phases timed by their own clock64 counters (diagnostic
-    builds, ``timer_libraries``): K1-bf16 at ``wide_shapes``' bottleneck shapes
+    builds, ``timer_libraries``): K1 (f32) at ``k1_timer_cases``
+    (``k1_f32_timers``); K1-bf16 at ``wide_shapes``' bottleneck shapes
     and the bf16 conversion's four stage shapes (each consumer warpgroup's
     cycles in h's product and lrelu, in P's products and in the epilogue);
     K2-bf16's data kernel at the batch-64 step's four stage shapes and the
@@ -3380,6 +3490,7 @@ def phase_timers(cfg, card) -> None:
     the launch's time. Each launch is held to its plain version first."""
     with tempfile.TemporaryDirectory() as tmp:
         libs = timer_libraries(Path(tmp))
+        k1_f32_timers(cfg, card, libs["fwd"])
         lib = libs["fwd_bf16"]
         shapes = [(label, b, t, cc, two_c, n) for label, b, t, cc, two_c, n in wide_shapes(cfg)
                   if n == 1]
@@ -3451,9 +3562,9 @@ KERNEL_NAME = (r"(k1_f32_kernel|k1_images_kernel|cond_chain_fwd_kernel|k1_bf16_k
 
 def ptxas_summary(log: str) -> list[str]:
     """'kernel: registers, spills' for every kernel in nvcc's -Xptxas -v
-    output, then 'kernel: C7520 <reason>' for every kernel whose wgmma ptxas
-    serializes (its warning C7520; the line as ptxas gives it where it names
-    no kernel)."""
+    output, then 'kernel: C75xx <reason>' for every kernel whose wgmma ptxas
+    serializes (its warnings C7510-C7520 that say so; the line as ptxas gives
+    it where it names no kernel)."""
     out, warns, name = [], [], None
 
     def kernel(m) -> str:
@@ -3461,10 +3572,13 @@ def ptxas_summary(log: str) -> list[str]:
         return m.group(1) + (f"<{','.join(targs)}>" if targs else "")
 
     for ln in log.splitlines():
-        if "C7520" in ln:
-            w = re.search(r"\(C7520\)\s*(.*?)\s*in the function '.*?" + KERNEL_NAME, ln)
-            warns.append(f"{kernel(re.search(KERNEL_NAME, w.group(0)))}: C7520 {w.group(1)}"
-                         if w else ln.strip()[:300])
+        code = re.search(r"\((C75\d\d)\)", ln)
+        if code and "serialized" in ln:
+            w = re.search(r"\(C75\d\d\)\s*(.*?)\s*in the function '.*?" + KERNEL_NAME, ln)
+            warns.append(f"{kernel(re.search(KERNEL_NAME, w.group(0)))}: {code.group(1)} "
+                         f"{w.group(1)}" if w else ln.strip()[:300])
+            continue
+        if code:  # ptxas's notes that it added a warpgroup.arrive: not a loss
             continue
         m = re.search(r"Compiling entry function '.*?" + KERNEL_NAME, ln)
         if m:
@@ -3742,8 +3856,8 @@ def main(ab_dir: Path | None = None, timers: bool = False) -> int:
                       (k1b_row, "cond_chain_fwd_bf16"), (k2b_row, "cond_chain_bwd_bf16")):
         row["max_abs_err"] = max(row["max_abs_err"], *(
             v["max_abs_err"] for v in options["bottleneck"][name].values()))
-        row["bottleneck"] = {shape: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                        "library_ms")}
+        row["bottleneck"] = {shape: {k: v[k] for k in ("ms", "c_entry_ms", "plain_ms",
+                                                        "bound_ms", "library_ms")}
                              for shape, v in options["bottleneck"][name].items()}
     say_earlier([k1_row, k2_row, k1b_row, k2b_row])
     phases.say_summary(card)

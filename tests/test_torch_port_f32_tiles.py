@@ -18,9 +18,13 @@ on the card:
 - cond_0 is one product, h = X @ Wh with X = [exc taps | 1 | -[u == 0] |
   -[u == T-1]] and Wh = [W0; hbias; edge0; edge_t], K = 3E + 3 in k-slices
   of 8, per pass of 136 columns of h;
-- K1: lrelu(h) of a pass (zero outside [0, T) and past Cc) is the A of
-  out = b1 + sum_j A(rows j ..) @ W1_i[j], the pass's k-slices, each with
-  its three taps, summed over the passes;
+- K1: lrelu(h) of a pass (zero outside [0, T) and past Cc) is the A of P;
+  at E <= 9, one pass and W <= 64 output columns a chunk the three taps are
+  P's N, P_j = A @ W1_i[j], and out = ((b1 + P_0[r]) + P_1[r + 1]) +
+  P_2[r + 2] from P staged in shared memory; else out = b1 + sum_j A(rows
+  j ..) @ W1_i[j], the pass's k-slices, each with its three taps, summed over
+  the passes; W1's image read back through the descriptors (at W = 32 each
+  slice's k order permuted, so that A's lo is h's accumulator as it lies);
 - K2's data kernel: da from g's rows 62 w + q + 2 - j of the CTA's 128-row
   tile; dh = lrelu'(h) da, its own rows to the dh scratch; dexc as
   P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] with dh's accumulator pairs as
@@ -146,14 +150,34 @@ def _h(exc, w0, hbias, edge0, edge_t, i, p, cc):
     return acc, u, ok[None, ..., None] & chan_ok
 
 
+def k1_wide(e, npass):
+    """K1's general instances (fwd_plan): Cc past one pass, or K = 3E + 3 past
+    4 k-slices (X then made per item of the ring, not kept)."""
+    return npass > 1 or -(-(3 * e + 3) // 8) > 4
+
+
+def k1_width(two_c, wide):
+    """The output columns of one of K1's chunks (fwd_plan): 32, 64, or 128
+    (at most 64 in the general instances)."""
+    return 32 if two_c <= 32 else 64 if two_c <= 64 or wide else 128
+
+
 def k1_emulated(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
-    """The chain's forward as K1 takes it (numpy f32 in, out)."""
+    """The chain's forward as K1 takes it (numpy f32 in, out): h once a tile
+    and pass for every output chunk of the CTA's column; outside the general
+    instances where W <= 64 (the taps as P's N), P_j = A @ W1_i[j] in an
+    accumulator of its own and out = ((b1 + P_0[r]) + P_1[r + 1]) + P_2[r + 2];
+    else P += A(rows j ..) @ W1_i[j] tap after tap in one accumulator over
+    every pass, out = b1 + P[r]. A column's sums do not depend on its chunk."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     ntiles = -(-t // TILE)
+    npass = -(-cc // PASS)
+    wide = k1_wide(e, npass)
+    taps_n = not wide and k1_width(two_c, wide) <= 64
     out = np.zeros((b, t, n * two_c), np.float32)
     for i in range(n):
-        pacc = np.zeros((b, ntiles, 2, ROWS, two_c), np.float32)
-        for p in range(-(-cc // PASS)):
+        pacc = np.zeros((3 if taps_n else 1, b, ntiles, 2, ROWS, two_c), np.float32)
+        for p in range(npass):
             h, u, ok = _h(exc, w0, hbias, edge0, edge_t, i, p, cc)
             a = np.where(ok, np.where(h >= 0, h, SLOPE * h), 0).astype(np.float32)
             # rows 64 and 65, which only the dropped output rows read
@@ -163,10 +187,38 @@ def k1_emulated(exc, w0, hbias, w1, b1, edge0=None, edge_t=None):
                     w = np.zeros((8, two_c), np.float32)
                     rows = np.arange(PASS * p + 8 * s, PASS * p + 8 * s + 8)
                     w[rows < cc] = w1[j][rows[rows < cc], i * two_c:(i + 1) * two_c]
-                    add3(pacc, a[..., j:j + ROWS, 8 * s:8 * s + 8], w)
-        own = pacc[..., :OWN, :] + b1[i * two_c:(i + 1) * two_c]
+                    if taps_n:
+                        add3(pacc[j], a[..., :ROWS, 8 * s:8 * s + 8], w)
+                    else:
+                        add3(pacc[0], a[..., j:j + ROWS, 8 * s:8 * s + 8], w)
+        bias = b1[i * two_c:(i + 1) * two_c]
+        if taps_n:
+            own = ((bias + pacc[0][..., :OWN, :]) + pacc[1][..., 1:OWN + 1, :]) \
+                + pacc[2][..., 2:OWN + 2, :]
+        else:
+            own = bias + pacc[0][..., :OWN, :]
         out[:, :, i * two_c:(i + 1) * two_c] = own.reshape(b, -1, two_c)[:, :t]
     return out
+
+
+def w1_image_slice(w1, i, two_c, oc, w, c0, perm=False):
+    """K1's image of W1 for block i, output chunk oc (w columns) and the
+    k-slice of channels c0 .. c0 + 7, as k1_images_kernel writes it: 16-byte
+    units (hi or lo) * 3 + tap, each a w-row x 8 k K-major image; as words.
+    ``perm``: position k holds the slice's channel perm(k) (the k order of
+    K1's W = 32 instance, whose A takes h's accumulator registers as they
+    lie)."""
+    cc = w1.shape[1]
+    jh, r = np.divmod(np.arange(6 * 2 * w), 2 * w)
+    o = oc * w + (r // 16) * 8 + r % 8
+    k0 = ((r % 16) // 8)[:, None] * 4
+    e = np.arange(4)[None]
+    c = c0 + (2 * e + k0 // 4 if perm else k0 + e)
+    ok = (c < cc) & (o < two_c)[:, None]
+    v = np.where(ok, w1[(jh % 3)[:, None], np.minimum(c, cc - 1),
+                        i * two_c + np.minimum(o, two_c - 1)[:, None]], 0).astype(np.float32)
+    hi, lo = split(v)
+    return np.where((jh // 3 == 0)[:, None], hi, lo).reshape(-1)
 
 
 def perm(k):
@@ -491,11 +543,53 @@ CASES = [(True, 2, 100, 8, 2, 20, 8), (True, 1, 300, 6, 1, 150, 40),
 IDS = ["split-one-tile", "split-two-passes", "concat-E12"]
 
 
-@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", CASES, ids=IDS)
+# K1's cases add each chunk width with the taps as N or not, over several
+# tiles of several batch rows with a ragged last tile: W = 32 (2C = 32,
+# three rows of three tiles), W = 64 (four tiles, the last of 28 rows), W = 128
+# (one chunk; and 2C = 256, two chunks); and a concat form of two passes
+# (Cc = 150) whose 2C = 136 takes three chunks of 64, the last ragged
+K1_CASES = CASES + [(True, 3, 300, 8, 2, 16, 32), (True, 2, 400, 8, 2, 24, 64),
+                    (True, 1, 130, 8, 1, 16, 128), (True, 2, 260, 8, 1, 20, 256),
+                    (False, 1, 140, 0, 1, 150, 136)]
+K1_IDS = IDS + ["W32-three-rows", "W64-ragged", "W128", "W128-two-chunks",
+                "concat-two-passes-three-chunks"]
+
+
+@pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", K1_CASES, ids=K1_IDS)
 def test_k1_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
     ops = operands(split_form, b, t, e, n, cc, two_c, seed=t + cc)
     want = cond_chain.cond_chain_plain(**ops).numpy()
     assert_parity(k1_emulated(**np32(ops)), want, "K1")
+
+
+@pytest.mark.parametrize("w,permuted", [(32, True), (64, False), (128, False)])
+def test_k1_w1_image_read_back(w, permuted):
+    """P's B read back through K1's descriptors from the image of W1 that
+    k1_images_kernel writes: the three taps side by side as N (3w rows, hi
+    at 0, lo 3w * 32 bytes on) and each tap alone (w rows at j w * 32
+    bytes), both the split of W1's columns of the chunk; at W = 32 each
+    slice's k order permuted (position k: column perm(k)), which reads A's
+    lo from h's accumulator registers as they lie (dh_as_a's layout)."""
+    rng = np.random.default_rng(w)
+    n, cc, two_c = 2, 20, w + w // 2  # a second, ragged chunk
+    w1 = rng.standard_normal((3, cc, n * two_c)).astype(np.float32)
+    order = [perm(k) for k in range(8)] if permuted else list(range(8))
+    for i, oc, c0 in ((1, 0, 8), (0, 1, 16)):
+        img = w1_image_slice(w1, i, two_c, oc, w, c0, permuted)
+        cols = oc * w + np.arange(w)
+        ks = c0 + np.arange(8)
+        want = np.zeros((3, w, 8), np.float32)
+        for j in range(3):
+            ok = (cols < two_c)[:, None] & (ks < cc)[None]
+            want[j][ok] = w1[j][np.ix_(np.minimum(ks, cc - 1), i * two_c
+                                       + np.minimum(cols, two_c - 1))].T[ok]
+        hi, lo = split(want[..., order])
+        np.testing.assert_array_equal(desc_read(img, 0, 3 * w, 128, 256), hi.reshape(3 * w, 8))
+        np.testing.assert_array_equal(desc_read(img, 3 * w * 32, 3 * w, 128, 256),
+                                      lo.reshape(3 * w, 8))
+        for j in range(3):
+            np.testing.assert_array_equal(desc_read(img, j * w * 32, w, 128, 256), hi[j])
+            np.testing.assert_array_equal(desc_read(img, (3 + j) * w * 32, w, 128, 256), lo[j])
 
 
 # K2's cases add E = 10 with Cc = 138 and 2C = 6, which the wrapper pads to
