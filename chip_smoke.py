@@ -210,9 +210,9 @@ cycles by phase; in K1 (f32) h, A's store, its barriers, P's products and
 their waits and the output at the f32 conversion's and the B = 32 step's
 stage shapes and the bottleneck's Cc = E = 256; in K1-bf16 h's product, P's products and the
 epilogue at the bottleneck shapes and the bf16 conversion's stage shapes;
-in the backward data kernels h, da, dh and dexc and their parts at the
-step's stage shapes, K2-bf16's also at the bottleneck shapes). The two
-flags combine.
+in the backward data kernels h, da, dh, dexc and X^T dh and their parts at
+the step's stage shapes, K2-bf16's also at the bottleneck shapes; the
+producers' waits on empty). The two flags combine.
 """
 
 from __future__ import annotations
@@ -316,8 +316,9 @@ TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
 # through L1), K2-bf16 before its weight grads moved to wgmma, K2 before
 # its weight grads did, K1-bf16 before its output chunks got CTAs of their
 # own, K2 before dexc's read-modify-write was batched, K2-bf16 before
-# its data kernel took X^T dh on chip, and K1 before its redesign for the
-# narrow stages. As (path
+# its data kernel took X^T dh on chip, K1 before its redesign for the
+# narrow stages, and K2 before its data kernel took a CTA per run of tiles
+# and X^T dh on chip. As (path
 # in the row's by_path, or None for the row's own ms,
 # ms, per what, which version). Printed beside this run's on lines of their
 # own, never in the JSON kernel table, which holds only this run's numbers.
@@ -335,7 +336,9 @@ EARLIER_MS = {
                        (None, 25.571, "train step",
                         "with its weight grads on mma.sync from the a scratch"),
                        (None, 19.392, "train step",
-                        "with dexc's read-modify-write one element at a time")],
+                        "with dexc's read-modify-write one element at a time"),
+                       (None, 17.476, "train step",
+                        "with a CTA per tile walking every block and dh through a scratch")],
     "cond_chain_fwd_bf16": [
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
         ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version"),
@@ -1007,10 +1010,11 @@ def k2_work(b, t, e, n, cc, two_c) -> tuple[float, float]:
     return flops, 4.0 * (ins + outs)
 
 
-# K2's launches in a call, as cond_chain_bwd_kernel_ms times them: (name,
-# launches)
+# K2's launches in a call at E <= 9, the step's (E = 8), as
+# cond_chain_bwd_kernel_ms times them: (name, launches); past E = 9
+# k2_xdh_kernel comes before the reduce (five launches)
 K2_LAUNCHES = (("k2_images_kernel", 1), ("k2_data_kernel", 1), ("k2_w1_kernel", 1),
-               ("k2_xdh_kernel", 1), ("k2_reduce_kernel", 1))
+               ("k2_reduce_kernel", 1))
 # the f32 step's largest K2 call, whose workspace phase 8 prints
 K2_WS_SHAPE = (2 * B, SEG, 8, 9, 136, 32)
 
@@ -1055,6 +1059,10 @@ def phase_k2_times(cfg, card, launches, parity_err):
             del h, out, leaves
             parts = event_times("bwd", "cond_chain_bwd", K2_LAUNCHES,
                                 lambda: cc_mod._launch_bwd(g=g, **args))
+            launched = cc_mod._library()["bwd"].cond_chain_bwd_launched()
+            if launched != len(K2_LAUNCHES):
+                raise AssertionError(f"K2 made {launched} launches a call at E = {e}, expected "
+                                     f"{len(K2_LAUNCHES)} (no k2_xdh_kernel at E <= 9)")
             add_breakdown(k2_parts, parts)
             say(f"k2 kernels B={bsz} T={t} C={c}: {breakdown_line(parts)} [{card}]")
             flops, nbytes = k2_work(bsz, t, e, n, cc, 2 * c)
@@ -1070,8 +1078,12 @@ def phase_k2_times(cfg, card, launches, parity_err):
             del split, g, args
             torch.cuda.empty_cache()
     ws = cc_mod._library()["bwd"].cond_chain_bwd_workspace(*K2_WS_SHAPE, 1)
+    b_ws, t_ws, _, n_ws, cc_ws, _ = K2_WS_SHAPE
+    if ws >= b_ws * t_ws * n_ws * cc_ws:
+        raise AssertionError(f"K2's workspace at {K2_WS_SHAPE} ({ws} floats) holds a dh scratch")
     say(f"k2 kernels per train step (8 calls): {breakdown_line(k2_parts, 8)}; workspace at "
-        f"(B, T, E, n, Cc, 2C) = {K2_WS_SHAPE}: {4 * ws / 1e9:.3f} GB [{card}]")
+        f"(B, T, E, n, Cc, 2C) = {K2_WS_SHAPE}: {4 * ws / 1e9:.3f} GB (a dh scratch would be "
+        f"{4 * b_ws * t_ws * n_ws * cc_ws / 1e9:.3f} GB alone) [{card}]")
     say(f"k2 per train step (8 calls): {totals.line()} [{card}]")
     return {"name": "cond_chain_bwd", "route": "cuda",
             "source": "td_vc_gan_tpu_torch/csrc/cond_chain_bwd.cu",
@@ -3432,7 +3444,7 @@ def read_timers(lib, n: int, fn, reps: int = 5) -> tuple[float, list[float]]:
 # at E = 8: the wait for the product, issued within dexc's shift and store)
 K2B_PHASES = ("h", "da", "da's waits on full", "slope+dh", "dexc+X^T dh",
               "their products", "X^T dh's sum", "dexc's shift and store")
-K2_PHASES = ("h", "da", "dh", "dexc")
+K2_PHASES = ("h", "da", "da's waits on full", "dh", "dexc", "X^T dh", "dexc's store")
 K1_PHASES = ("h", "h's waits on full", "A", "barriers", "P", "P's waits on full", "output")
 PHASE_PARTS = {"da's waits on full", "their products", "X^T dh's sum",
                "dexc's shift and store", "h's waits on full"}
@@ -3513,47 +3525,50 @@ def phase_timers(cfg, card) -> None:
                 f"{1 - (h_c + p_c + e_c) / whole:.1%} [{card}]")
             del fwd
             torch.cuda.empty_cache()
-        for dtype, lib, phases, bsz, seed in (
-                (torch.bfloat16, libs["bwd_bf16"], K2B_PHASES, B64, 3500),
-                (torch.float32, libs["bwd"], K2_PHASES, B, 3600)):
-            name = "K2-bf16" if dtype == torch.bfloat16 else "K2 (f32)"
-            cases = [(f"step stage {k} C={c}", bsz, t, None, 2 * c, None)
-                     for k, (t, c) in enumerate(stage_shapes(SEG, cfg))]
-            if dtype == torch.bfloat16:
-                cases += bottleneck
-            for k, (label, b, t, cc, two_c, n) in enumerate(cases):
-                if cc is None:
-                    split, _, _, _ = chain_inputs(b, t, two_c // 2, cfg, seed=seed + k,
-                                                  exact_h=True, dtype=dtype)
-                    args = {key: v for key, v in split.items() if key != "b1"}
-                    g = cotangent(split, seed=seed + 50 + k).to(dtype)
-                else:
-                    ops = wide_operands(cfg, b, t, cc, two_c, n, seed + k, dtype)
-                    args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
-                                edge0=None, edge_t=None)
-                    g = ops["g"]
-                got, want = old_k2(lib, args, g), cc_mod.cond_chain_bwd_plain(g=g, **args)
-                for key in want:
-                    if dtype == torch.bfloat16:
-                        ulp_parity(f"timers {name} {label} d{key}", got[key], want[key])
-                    else:
-                        ab_f32_agree(f"timers {name} {label} d{key}", got[key], want[key])
-                del got, want
-                nt = len(phases) + 2 + (3 if dtype == torch.bfloat16 else 0)
-                ms, cyc = read_timers(lib, nt, lambda: old_k2(lib, args, g))
-                whole, wgs = cyc[len(phases)], cyc[len(phases) + 1]
-                shares = ", ".join(f"{ph} {cyc[x] / whole:.1%}" for x, ph in enumerate(phases))
-                counted = sum(c for c, ph in zip(cyc, phases) if ph not in PHASE_PARTS)
-                line = (f"timers {name} data kernel {label} (B={b} T={t}): {ms:.4f} ms a call; "
-                        f"per consumer warpgroup {whole / wgs:.0f} cycles ({wgs / 5:.0f} "
-                        f"warpgroups a launch): {shares}, other {1 - counted / whole:.1%}")
-                if dtype == torch.bfloat16:
-                    wait, pwhole, prods = cyc[-3:]
-                    line += (f"; producer {pwhole / prods:.0f} cycles, waits on empty "
-                             f"{wait / pwhole:.1%}")
-                say(line + f" [{card}]")
-                del args, g
-                torch.cuda.empty_cache()
+        k2_data_timers(cfg, card, libs["bwd_bf16"], torch.bfloat16, bottleneck)
+        k2_data_timers(cfg, card, libs["bwd"], torch.float32)
+
+
+def k2_data_timers(cfg, card, lib, dtype, extra=()) -> None:
+    """K2-bf16's (batch 64) or K2 (f32)'s (batch 16) data kernel from its timer
+    build ``lib`` at the step's four stage shapes and the ``extra`` shapes
+    (``wide_shapes``'): each call held to the plain version, then each consumer
+    warpgroup's cycles by phase (K2B_PHASES, K2_PHASES) as shares of its
+    whole, and the producer's waits on empty as a share of its cycles."""
+    bf16 = dtype == torch.bfloat16
+    name, phases = ("K2-bf16", K2B_PHASES) if bf16 else ("K2 (f32)", K2_PHASES)
+    bsz, seed = (B64, 3500) if bf16 else (B, 3600)
+    cases = [(f"step stage {k} C={c}", bsz, t, None, 2 * c, None)
+             for k, (t, c) in enumerate(stage_shapes(SEG, cfg))]
+    for k, (label, b, t, cc, two_c, n) in enumerate([*cases, *extra]):
+        if cc is None:
+            split, _, _, _ = chain_inputs(b, t, two_c // 2, cfg, seed=seed + k, exact_h=True,
+                                          dtype=dtype)
+            args = {key: v for key, v in split.items() if key != "b1"}
+            g = cotangent(split, seed=seed + 50 + k).to(dtype)
+        else:
+            ops = wide_operands(cfg, b, t, cc, two_c, n, seed + k, dtype)
+            args = dict(exc=ops["c"], w0=ops["w0"], hbias=ops["b0"], w1=ops["w1"],
+                        edge0=None, edge_t=None)
+            g = ops["g"]
+        got, want = old_k2(lib, args, g), cc_mod.cond_chain_bwd_plain(g=g, **args)
+        for key in want:
+            if bf16:
+                ulp_parity(f"timers {name} {label} d{key}", got[key], want[key])
+            else:
+                ab_f32_agree(f"timers {name} {label} d{key}", got[key], want[key])
+        del got, want
+        ms, cyc = read_timers(lib, len(phases) + 5, lambda: old_k2(lib, args, g))
+        whole, wgs = cyc[len(phases)], cyc[len(phases) + 1]
+        wait, pwhole, prods = cyc[-3:]
+        shares = ", ".join(f"{ph} {cyc[x] / whole:.1%}" for x, ph in enumerate(phases))
+        counted = sum(c for c, ph in zip(cyc, phases) if ph not in PHASE_PARTS)
+        say(f"timers {name} data kernel {label} (B={b} T={t}): {ms:.4f} ms a call; per "
+            f"consumer warpgroup {whole / wgs:.0f} cycles ({wgs / 5:.0f} warpgroups a launch): "
+            f"{shares}, other {1 - counted / whole:.1%}; producer {pwhole / prods:.0f} cycles, "
+            f"waits on empty {wait / pwhole:.1%} [{card}]")
+        del args, g
+        torch.cuda.empty_cache()
 
 
 KERNEL_NAME = (r"(k1_f32_kernel|k1_images_kernel|cond_chain_fwd_kernel|k1_bf16_kernel|"

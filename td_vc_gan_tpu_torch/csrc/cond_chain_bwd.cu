@@ -28,53 +28,69 @@
 // operations, even counting the dh scratch below (written once, read once).
 //
 // What the design does about it. Every product runs on the tensor cores as
-// 3xTF32 (tf32x3.cuh: f32 accuracy at a third of the TF32 rate, 2.5x the
-// f32 CUDA-core peak), on Hopper's wgmma but for dexc's small products. The
-// TPU kernel accumulates the weight grads in VMEM across a grid that runs in
-// order; Hopper CTAs run in no order, so the work is split into kernels that
-// each own their outputs, and every sum runs in a fixed order (the results
-// are the same from run to run, with no atomics). Five launches:
+// 3xTF32 on Hopper's wgmma (tf32x3.cuh: f32 accuracy at a third of the
+// TF32 rate, 2.5x the f32 CUDA-core peak). The TPU kernel accumulates the
+// weight grads in VMEM across a grid that runs in order; Hopper CTAs run in
+// no order, so the work is split into kernels that each own their outputs,
+// and every sum runs in a fixed order (the results are the same from run to
+// run, with no atomics). Four launches at E <= 9 (the decoder's E = 8), five
+// past it:
 //
 //  (a) k2_images_kernel lays out, at each launch, the images of the weights
 //      the data kernel's products read, split into hi and lo (K-major,
 //      without swizzle: tf32x3.cuh): Wh (cond_chain_f32.cuh), W1_i[j]^T for
 //      da and W0_i[j]^T for dexc.
-//  (b) k2_data_kernel: one CTA per (124-row time tile, batch row, pass of
-//      136 channels of h), two consumer warpgroups of 64 rows of h and a
-//      producer warp (cond_chain_f32.cuh), a ring of 5 stages (bulk copies of
-//      the images; TMA copies of g, whose zero fill outside [0, T) gives the
-//      'same' conv's zero rows). Per block i:
-//       - h on wgmma as K1 takes it (the same operands in the same order);
-//         the sign of h as 68 bits a thread, so that h's registers take da;
+//  (b) k2_data_kernel: one CTA per (run of consecutive 124-row time tiles of
+//      one batch row, block i, pass of 136 channels of h), with two consumer
+//      warpgroups of 64 rows of h and a producer warp (cond_chain_f32.cuh).
+//      A run is at most 8 tiles; the runs are as long as make the CTAs'
+//      waves take least (at the step's first stage, B = 16 and T = 280, 432
+//      CTAs of one tile each). The
+//      producer keeps a ring of 3 stages (4 past E = 9) fed: bulk copies of
+//      the images, TMA copies of g, whose zero fill outside [0, T) gives the
+//      'same' conv's zero rows. Per tile:
+//       - h on wgmma as K1 takes it (the same operands in the same order),
+//         Wh's k-slices two an item; at E <= 9 its A read from X's image in
+//         shared memory (X's rows u0 .. u0 + 63, split, K-major with time
+//         contiguous: X^T dh's B too), built from X's values loaded under
+//         the tile before's X^T dh; the sign of h as 68 bits a thread, so
+//         that h's registers take da;
 //       - da_i, M = 64, N = 136, K = 3 x 2C in slices of 8 output channels:
 //         a stage is the slice of g for the CTA's 128 rows t0 - 2 ..
 //         t0 + 125 (two TMA boxes of 4 channels, raw f32) and the image of
 //         W1_i's three taps; A from registers: each thread loads its g
-//         fragment for tap j (the rows 2 - j further down) and splits it;
+//         fragment for tap j (the rows 2 - j further down) and splits it, a
+//         tap a commit group, the next tap's fragment loaded while one runs;
 //         in the first pass one warp per channel of the slice sums the
-//         CTA's rows of g (db1) while the products run;
-//       - dh = lrelu'(h) da in place, zero outside [0, T) and past Cc; the
-//         own rows to the dh scratch (for (d)); past E = 9, lrelu(h) of the
-//         own rows to the a scratch too (for (c));
+//         tile's rows of g (db1) while the products run;
+//       - dh = lrelu'(h) da, zero outside [0, T) and past Cc, raw (f32) to
+//         the warpgroup's shared memory, every row; past E = 9 the own rows
+//         also to the dh scratch (for (d)) and lrelu(h)'s to the a scratch
+//         (for (c)). dh's registers are free from here on;
+//       - at E <= 9, X^T dh (dW0, dhbias and the edges, see (d)) of the
+//         warpgroup's rows: M = 64 columns of dh (A from dh in shared
+//         memory, split as loaded), N = 32 columns of X (B: X's image, its
+//         halo rows zeroed), K = the 64 rows; three products (columns 0 ..,
+//         64 .. and 72 .., of which 128 .. 135 are kept), each added into
+//         the warpgroup's f32 sums in shared memory. At the run's end both
+//         warpgroups' sums, in order, make the (batch row, run) partial: at
+//         most 16 units of 62 rows (wgmma's f32 sums drift over longer runs,
+//         see (c));
 //       - dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] for E in chunks
-//         of 8 (K = the pass's channels), on mma.sync m16n8k8 per warp (its
-//         16 rows, one accumulator a tap: small products that need no
-//         asynchronous wait) with A from dh's registers: a warp's part of the
-//         wgmma accumulator layout is the m16n8k8 tile's, and its pairs are
-//         the A fragment's columns tig and tig + 4 when the image's K order
-//         is permuted to match (k -> 2k (k < 4), 2(k - 4) + 1); then
-//         dexc[t] += P_0[t+1] + P_1[t] + P_2[t-1] through shared memory,
-//         a sum the CTA owns, over the blocks in order; where Cc takes
-//         several passes each pass's CTAs write a partial of dexc of their
-//         own, which (e) sums in order (so that the passes run in parallel:
-//         at the options' bottleneck, Cc = 256, 16 CTAs became 32).
+//         of 8, one m64n24 product (K = the pass's channels, three k-slices
+//         a commit group) with A from dh in shared memory (an 8-byte load
+//         gives a thread two of its A registers when the image's K order is
+//         permuted: k -> 2k (k < 4), 2(k - 4) + 1); then dexc[t] = (P_0[t+1]
+//         + P_1[t]) + P_2[t-1] through shared memory (P in X's place), stored
+//         as this block's and pass's f32 part, which (e) sums in order: no
+//         read-modify-write across blocks.
 //  (c) k2_w1_kernel, dW1 with no scratch of lrelu(h). A CTA owns (block i,
 //      pass p, a tile of OT = 64 output channels o, 32 where 2C <= 32) and
 //      a chunk of units, a unit being a batch row's 64 rows s0 .. s0 + 63 of
 //      lrelu(h). Three warpgroups (warp-specialized, so that the recompute of
 //      one unit overlaps the products of the one before):
 //       - warpgroup 0 recomputes h_i for the unit's rows as (b) does (the same
-//         A registers, the same image of Wh, the same k-slices and the same
+//         A words, the same image of Wh, the same k-slices and the same
 //         m64n136k8 products in the same order: the same bits, so the slope
 //         (b) took and the a taken here never disagree), and writes
 //         lrelu(h), split, straight from its accumulators into one of two
@@ -103,8 +119,8 @@
 //      sum an add: 1.3e-4 of max|dW1| over a chunk of 320 units), so a
 //      chunk is whole runs of at most 16 units, and the accumulators take
 //      one run and write it as an f32 partial (one per run).
-//  (d) k2_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one product,
-//      X^T dh, with X the rows of h's A in (b),
+//  (d) past E = 9, k2_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one
+//      product, X^T dh, with X the rows of h's A in (b),
 //        X[t] = [exc[t-1] | exc[t] | exc[t+1] | 1 | -[t == 0] | -[t == T-1]]   (K = 3E + 3),
 //      so that row jE + e of X^T dh is dW0[j][e], row 3E dhbias, rows 3E + 1
 //      and 3E + 2 dedge0 and dedge_t (the taps are columns of X: no row
@@ -113,21 +129,21 @@
 //      channels), N = 32 columns of X (B: built by the consumer threads from
 //      exc straight into a K-major hi/lo image, time contiguous in a core
 //      matrix), K = 64 rows a stage of a 2-stage ring; two CTAs an SM, at
-//      least four waves of them. A CTA owns 128 columns of dh, 32 columns of
-//      X and one part of one batch row's rows, so that a per-row hbias and
-//      the edges never mix two batch rows; its accumulators take one stage
-//      and are then added into its f32 sums. dh is read raw (4 bytes an
-//      element) rather than written by (b) as a split image (8 bytes): its
-//      bytes are the kernel's bound.
-//  (e) k2_reduce_kernel sums every kind of partial (dexc where Cc takes
-//      several passes, dW1, db1, dW0, dhbias, the edges) over its chunks in
-//      order, in one launch.
+//      least four waves of them. A CTA owns 128 columns of dh, 32 columns
+//      of X and one part of one batch row's rows, so that a per-row hbias
+//      and the edges never mix two batch rows; its accumulators take one
+//      stage and are then added into its f32 sums. dh is read raw (4 bytes
+//      an element) rather than written by (b) as a split image (8 bytes):
+//      its bytes are the kernel's bound. At E <= 9 (b) takes X^T dh on chip
+//      instead, and there is no dh scratch.
+//  (e) k2_reduce_kernel sums every kind of partial (dexc's blocks and
+//      passes, dW1, db1, dW0, dhbias, the edges) over its chunks in order,
+//      in one launch.
 //
 // Nothing of it grows with Cc or E: one tile for every width (Wh's image is
 // fetched by (c) once a batch row, where it fits one chunk of 4 k-slices).
-// The dh scratch ((B, T, n*Cc) f32, 1.4 GB at B = 32, T = 8960), and past
-// E = 9 the a scratch of the same size, live in device memory; keeping them
-// on chip is later work.
+// Past E = 9 the dh scratch and the a scratch ((B, T, n*Cc) f32 each) live
+// in device memory.
 //
 // Numerics: 3xTF32 products into f32 accumulators, no TF32-only product and
 // no library call anywhere; the sums run in another order than the plain
@@ -149,18 +165,20 @@
 namespace {
 
 using namespace f32chain;
-using tf32x3::FragA;
-using tf32x3::load_b_split;
-using tf32x3::mma3;
 
-constexpr int kSmCount = 132;  // an H100's SMs: k2_w1_kernel's CTAs make one wave
+constexpr int kSmCount = 132;  // an H100's SMs: the grids are sized by them
 
-// A diagnostic build (-DCOND_CHAIN_TIMERS) sums each consumer warpgroup of
-// the data kernel's clock64 cycles by phase over the launch (h with its
-// sign bits, da's products, dh and its store, dexc, the whole kernel), read
-// by cond_chain_bwd_timers; the normal build has none.
+// A diagnostic build (-DCOND_CHAIN_TIMERS) sums the data kernel's clock64
+// cycles by phase over the launch, read by cond_chain_bwd_timers: each
+// consumer warpgroup's h (its products and sign bits; at E <= 9 with X's
+// image, its A, built first), da (its products and
+// loads), da's waits on full (also in da), dh (the slope and its stores),
+// dexc's products, X^T dh (its products and the
+// add into the run's sums), dexc's shift and store, and the whole kernel;
+// the producer's waits on empty and its whole. The normal build has none.
 #ifdef COND_CHAIN_TIMERS
-constexpr int kTimers = 6;  // h, da, dh, dexc, whole, warpgroups
+constexpr int kTimers = 12;  // h, da, da's waits, dh, dexc, X^T dh, dexc's store, whole,
+                             // warpgroups, producer waits, producer whole, producers
 __device__ unsigned long long g_timers[kTimers];
 #define TIMER_START(v) const long long v = clock64()
 #define TIMER_ADD(acc, since) acc += clock64() - since
@@ -171,21 +189,43 @@ __device__ unsigned long long g_timers[kTimers];
 
 // -- (a), (b): the images and the data kernel
 
-constexpr int kDStages = 5;
 constexpr int kGBox = kTile + 4;           // 128 rows of g a stage: t0 - 2 .. t0 + 125
 constexpr int kGTile = 2 * kGBox * 16;     // 4096: 8 channels of them, raw, 4 channels a box
 constexpr int kW1Item = 3 * 2 * kHItem;    // 26112: W1_i[j]^T's k-slice, 3 taps, hi and lo
 constexpr int kW0Rows = 24;                // dexc's N: 3 taps x 8 columns of exc
 constexpr int kW0Block = kW0Rows * 32;     // 768: a k-slice of dexc's B, hi or lo
 constexpr int kW0Item = kPassSlices * 2 * kW0Block;  // 26112: a pass of it
-constexpr int kDSlot = 30 * 1024;
-static_assert(kGTile + kW1Item <= kDSlot && kW0Item <= kDSlot && 2 * kHItem <= kDSlot,
+constexpr int kDSlot = kGTile + kW1Item;   // 30208: a ring slot (a multiple of 128: TMA)
+static_assert(kDSlot % 128 == 0 && kW0Item <= kDSlot && 2 * 2 * kHItem <= kDSlot,
               "ring items fit a slot");
 constexpr int kPLd = 28;                   // floats a row of dexc's P in shared memory
-constexpr int kPFloats = kRows * kPLd;
-constexpr size_t kDataSmem =
-    (size_t)kDStages * kDSlot + 2 * (size_t)kPFloats * 4 + 16 * kDStages + 1024;
-static_assert(kDataSmem <= kSmemMax, "K2's data kernel's shared memory");
+constexpr int kPBytes = kRows * kPLd * 4;  // 7168: a warpgroup's P
+constexpr int kRunTiles = 8;               // tiles a CTA walks at most: 16 units of 62 rows
+// A warpgroup's dh, raw: 17 boxes of 8 columns x 64 rows, 32 bytes a row
+// (dexc's and X^T dh's A); at E <= 9 (K = 3E + 3 <= 30) its X's image, h's A
+// and X^T dh's B (32 columns k x 64 rows t, K-major, hi then lo; dexc's P in
+// its place once X^T dh has read it), and the CTA's run's X^T dh in f32
+// (rows k < 30 of 136 columns c)
+constexpr int kDhBox = kRows * 32;               // 2048
+constexpr int kDhRaw = kPassSlices * kDhBox;     // 34816
+constexpr int kXdhN = 32;                        // X^T dh's N: columns k of X
+constexpr int kXGroup = kRows * 32;              // 2048: 8 columns of X, every row (SBO)
+constexpr int kXImg = (kXdhN / 8) * kXGroup;     // 8192: X, hi or lo
+constexpr int kXdhRows = 30;                     // K = 3E + 3 at E = 9
+constexpr int kSumBytes = kXdhRows * kPass * 4;  // 16320
+static_assert(kPBytes <= 2 * kXImg, "dexc's P lies in X's place once X^T dh has read it");
+
+// The data kernel's shared memory: the ring, then each consumer warpgroup's
+// own part (dh raw; at E <= 9 X's image and the run's X^T dh, else dexc's
+// P), then the barriers
+template <bool kNarrow>
+struct DataSmem {
+  static constexpr int kStages = kNarrow ? 3 : 4;
+  static constexpr int kOwnBytes = kDhRaw + (kNarrow ? 2 * kXImg + kSumBytes : kPBytes);
+  static constexpr size_t kBytes =
+      (size_t)kStages * kDSlot + 2 * (size_t)kOwnBytes + 16 * kStages + 1024;
+  static_assert(kBytes <= kSmemMax, "K2's data kernel's shared memory");
+};
 
 struct DataArgs {
   HArgs h;
@@ -193,112 +233,294 @@ struct DataArgs {
   long long h_image;            // bytes of one batch row's (0: one for every row)
   const unsigned char* img_w1;  // da's B: [i][p][so][j][hi, lo][136 rows c x 8 o]
   const unsigned char* img_w0;  // dexc's B: [i][p][ec][s][hi, lo][24 rows (j, e) x 8 c]
-  float* dh_out;                // (B, T, n*Cc) scratch: dh
-  float* a_out;                 // (B, T, n*Cc) scratch: lrelu(h), or null (k2_w1_kernel recomputes it)
-  float* dexc;                  // (B, T, E), or (npass, B, T, E) partials where Cc takes
-                                // several passes (a CTA per pass, summed by (e))
-  float* pb1;                   // (B, ntiles, n*2C): g summed over a CTA's rows
-  int two_c, no, ne, ntiles;    // no, ne: slices of 8 of 2C and of E
+  float* dh_out;                // E > 9: (B, T, n*Cc) scratch: dh, for k2_xdh_kernel
+  float* a_out;                 // E > 9: (B, T, n*Cc) scratch: lrelu(h), for k2_w1_kernel
+  float* dexc;                  // (B, T, E) where n npass = 1, else (n npass, B, T, E):
+                                // each block's and pass's part, summed in order by (e)
+  float* pb1;                   // (B, ntiles, n*2C): g summed over a tile's rows
+  float* pw0;                   // E <= 9: (B nruns, K, n*Cc): X^T dh of each (batch row, run)
+  int two_c, no, ne, ntiles, run, nruns, kx;  // no, ne: slices of 8 of 2C and of E; run:
+                                              // tiles a CTA walks; kx = 3E + 3
   CUtensorMap g_map;            // g as (o: 2C, i: n, t: T, b: B), box (4, 1, 128, 1)
 };
 
 // dexc's K order within a slice: image column k holds channel perm(k), so
-// that dh's accumulator pair (2 tig, 2 tig + 1) is the A fragment's (tig, tig + 4)
+// that dh's neighbours (2 tig, 2 tig + 1), one 8-byte load, are the A
+// fragment's columns (tig, tig + 4)
 __device__ __forceinline__ int perm(int k) { return k < 4 ? 2 * k : 2 * (k - 4) + 1; }
 
+// X[u0 + q][k] for the warpgroup's rows q and k < 32 (x_at's values): thread
+// wt's 16, column wt % 32 of the row quads wt / 32 + 4 z
+__device__ __forceinline__ void x_load(const HArgs& h, int b, int u0, const Lane& l,
+                                       float (&xv)[16]) {
+  const int kk = l.wt & 31;
+  const int tap = kk < 3 * h.E ? (kk >= h.E) + (kk >= 2 * h.E) : -1;
+  const float* src = h.exc + (size_t)b * h.T * h.E + (tap >= 0 ? kk - tap * h.E : 0);
+  const float ones = kk == 3 * h.E ? 1.f : 0.f;
+  const int edge = kk == 3 * h.E + 1 ? 0 : kk == 3 * h.E + 2 ? h.T - 1 : -1;
+#pragma unroll
+  for (int z = 0; z < 4; ++z) {
+    const int tg = (l.wt >> 5) + 4 * z;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int u = u0 + 4 * tg + x;
+      const int t = u + tap - 1;
+      float v = u == edge ? -1.f : ones;
+      if (tap >= 0) v = t >= 0 && t < h.T ? __ldg(src + (size_t)t * h.E) : 0.f;
+      xv[4 * z + x] = v;
+    }
+  }
+}
+
+// x_load's values split into X's K-major image at dst (hi, then lo kXImg
+// on): element (k, q) at (k / 8) 2048 + (q / 4) 128 + (k % 8) 16 + (q % 4) 4
+// bytes, 16 bytes each of hi and lo a row quad. h's A reads it
+// (x_frag_image), then X^T dh's B, once its halo rows are zeroed (x_halo).
+__device__ __forceinline__ void x_image(const float (&xv)[16], const Lane& l, unsigned char* dst) {
+  const int kk = l.wt & 31;
+#pragma unroll
+  for (int z = 0; z < 4; ++z) {
+    const int tg = (l.wt >> 5) + 4 * z;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) split(xv[4 * z + x], hi[x], lo[x]);
+    const int off = (kk >> 3) * kXGroup + tg * 128 + (kk & 7) * 16;
+    *reinterpret_cast<uint4*>(dst + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + kXImg + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// X's halo rows q = 0 and 63 zeroed in its image (hi and lo), so that X^T dh
+// sums the own rows only: one word a thread
+__device__ __forceinline__ void x_halo(const Lane& l, unsigned char* dst) {
+  const int kk = l.wt & 31, w = l.wt >> 5;
+  const int off = (kk >> 3) * kXGroup + (kk & 7) * 16 + ((w & 1) ? 15 * 128 + 12 : 0);
+  *reinterpret_cast<uint32_t*>(dst + (w >> 1) * kXImg + off) = 0u;
+}
+
+// dexc's products P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] for 8 columns
+// of exc: M = 64, N = 24 (the three taps), K = the pass's 136 channels; A
+// from dh raw (dh_row: the thread's row l.row of box 0, 2 tig on; the
+// image's permuted K order makes each 8-byte load two of its A registers),
+// split two k-slices a commit group, one group in flight while the next is
+// loaded; B the image at wb.
+__device__ __forceinline__ void dexc_products(const float* dh_row, float (&pj)[12], uint32_t wb) {
+  XFrag fa[2][3];
+#pragma unroll
+  for (int g = 0; g < (kPassSlices + 2) / 3; ++g) {
+#pragma unroll
+    for (int ss = 0; ss < 3; ++ss) {
+      const int s = 3 * g + ss;
+      if (s < kPassSlices) {
+        XFrag& f = fa[g & 1][ss];
+        const float2 r0 = *reinterpret_cast<const float2*>(dh_row + s * (kDhBox / 4));
+        const float2 r1 = *reinterpret_cast<const float2*>(dh_row + s * (kDhBox / 4) + 64);
+        split(r0.x, f.hi[0], f.lo[0]);
+        split(r1.x, f.hi[1], f.lo[1]);
+        split(r0.y, f.hi[2], f.lo[2]);
+        split(r1.y, f.hi[3], f.lo[3]);
+        fence_regs(f.hi);
+        fence_regs(f.lo);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ss = 0; ss < 3; ++ss) {
+      const int s = 3 * g + ss;
+      if (s < kPassSlices) {
+        const XFrag& f = fa[g & 1][ss];
+        const uint32_t bh = wb + 2 * s * kW0Block;
+        tf32x3::wgmma_rs_n24(pj, f.lo, desc(bh, 128, 256), s > 0);
+        tf32x3::wgmma_rs_n24(pj, f.hi, desc(bh + kW0Block, 128, 256), 1);
+        tf32x3::wgmma_rs_n24(pj, f.hi, desc(bh, 128, 256), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(pj);
+}
+
+// dexc[tb + r] = (P_0[r + 2] + P_1[r + 1]) + P_2[r] for the 62 own rows r and
+// the 8 columns of chunk ec (P's row q is dh's time u0 + q = tb - 1 + q),
+// through the warpgroup's buffer pw: each row's three taps are other threads'
+__device__ __forceinline__ void dexc_store(const HArgs& h, const Lane& l, int bar, int b, int tb,
+                                           int ec, const float (&pj)[12], float* pw,
+                                           float* dexc) {
+#pragma unroll
+  for (int jj = 0; jj < 3; ++jj) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + jj * 8 + 2 * l.tig) =
+          make_float2(pj[4 * jj + 2 * half], pj[4 * jj + 2 * half + 1]);
+    }
+  }
+  bar_sync(bar, 128);
+  if (h.E % 8 == 0) {
+    // 4 columns a thread: one 16-byte read of each tap's products, one store
+    if (l.wt < 2 * kOwn) {
+      const int r = l.wt >> 1, e4 = 4 * (l.wt & 1);
+      const int t = tb + r;
+      const float4 p0 = *reinterpret_cast<const float4*>(pw + (r + 2) * kPLd + e4);
+      const float4 p1 = *reinterpret_cast<const float4*>(pw + (r + 1) * kPLd + 8 + e4);
+      const float4 p2 = *reinterpret_cast<const float4*>(pw + r * kPLd + 16 + e4);
+      if (t < h.T) {
+        *reinterpret_cast<float4*>(dexc + ((size_t)b * h.T + t) * h.E + 8 * ec + e4) =
+            make_float4((p0.x + p1.x) + p2.x, (p0.y + p1.y) + p2.y, (p0.z + p1.z) + p2.z,
+                        (p0.w + p1.w) + p2.w);
+      }
+    }
+  } else {
+    // this thread's (row, column) pairs x = wt + 128 z of the 62 x 8
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+      const int x = l.wt + 128 * z;
+      const int r = x >> 3, e = 8 * ec + (x & 7);
+      const int t = tb + r;
+      if (x < kOwn * 8 && t < h.T && e < h.E) {
+        dexc[((size_t)b * h.T + t) * h.E + e] =
+            (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
+            pw[r * kPLd + 16 + (x & 7)];
+      }
+    }
+  }
+  bar_sync(bar, 128);  // every read of pw done before it is written again
+}
+
+// kNarrow: E <= 9 (K = 3E + 3 <= 30), X^T dh taken here from dh and X in
+// shared memory; else dh (and lrelu(h)) to the scratch for k2_xdh_kernel
+// (and k2_w1_kernel).
+template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_constant__ DataArgs a) {
+  using Smem = DataSmem<kNarrow>;
+  constexpr int kS = Smem::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* ring = smem;
-  float* pbuf = reinterpret_cast<float*>(ring + kDStages * kDSlot);  // [wg][64][kPLd]
-  uint64_t* full = reinterpret_cast<uint64_t*>(pbuf + 2 * kPFloats);
-  uint64_t* empty = full + kDStages;
+  unsigned char* owns = ring + kS * kDSlot;  // [warpgroup][Smem::kOwnBytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(owns + 2 * Smem::kOwnBytes);
+  uint64_t* empty = full + kS;
 
   const HArgs& h = a.h;
   const int b = blockIdx.y;
-  const int tix = blockIdx.x;
-  const int p = blockIdx.z;  // the CTA's pass of 136 channels of h
-  const int t0 = tix * kTile;
-  const int warp = threadIdx.x >> 5;
+  const int ip = blockIdx.z;  // the CTA's block i and pass p of 136 channels of h
+  const int i = ip / h.npass;
+  const int p = ip - i * h.npass;
+  const int c0 = kPass * p;
+  const int tile0 = blockIdx.x * a.run;
+  const int ntl = min(a.run, a.ntiles - tile0);
+  const int warp = warp_index();
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kDStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     fence_barrier_init();
   }
+  if (kNarrow) {  // the run's X^T dh starts from zero
+    for (int idx = threadIdx.x; idx < 2 * kXdhRows * kPass; idx += kThreads) {
+      const int w = idx / (kXdhRows * kPass);
+      reinterpret_cast<float*>(owns + w * Smem::kOwnBytes + kDhRaw +
+                               2 * kXImg)[idx - w * kXdhRows * kPass] = 0.f;
+    }
+  }
   __syncthreads();
 
   if (warp == 8) {
-    // the producer: per block i, Wh's k-slices, then per slice of 8 output
-    // channels g's rows and W1's image, then dexc's B per chunk of E
+    // the producer: per tile of the run, Wh's k-slices (two an item), then per slice of 8
+    // output channels g's rows and W1's image, then dexc's B per chunk of E
     if (threadIdx.x == 256) {
+#ifdef COND_CHAIN_TIMERS
+      long long t_w = 0;
+      const long long t_all = clock64();
+#endif
       prefetch_map(&a.g_map);
-      const unsigned char* img_h = a.img_h + (size_t)b * a.h_image;
+      const unsigned char* img_h = a.img_h + (size_t)b * a.h_image + (size_t)ip * h.nkh * 2 * kHItem;
+      const unsigned char* img_w1 = a.img_w1 + (size_t)ip * a.no * kW1Item;
+      const unsigned char* img_w0 = a.img_w0 + (size_t)ip * a.ne * kW0Item;
       int k = 0;
-      for (int i = 0; i < h.n; ++i) {
-        const size_t ip = (size_t)i * h.npass + p;
-        for (int s = 0; s < h.nkh; ++s) {
-          put<kDStages, kDSlot>(ring, full, empty, k, img_h + (ip * h.nkh + s) * 2 * kHItem,
-                                2 * kHItem);
+      auto put_item = [&](const void* src, uint32_t bytes) {
+        const int slot = slot_of<kS>(k);
+        TIMER_START(tw);
+        mbar_wait(&empty[slot], parity_of<kS>(k) ^ 1);
+        TIMER_ADD(t_w, tw);
+        mbar_arrive_expect_tx(&full[slot], bytes);
+        bulk_load(ring + slot * kDSlot, src, bytes, &full[slot]);
+        ++k;
+      };
+      for (int tl = 0; tl < ntl; ++tl) {
+        const int t0 = (tile0 + tl) * kTile;
+        for (int s = 0; s < h.nkh; s += 2) {
+          put_item(img_h + (size_t)s * 2 * kHItem, (uint32_t)min(2, h.nkh - s) * 2 * kHItem);
         }
         for (int so = 0; so < a.no; ++so) {
-          const int slot = slot_of<kDStages>(k);
-          mbar_wait(&empty[slot], parity_of<kDStages>(k) ^ 1);
+          const int slot = slot_of<kS>(k);
+          TIMER_START(tw);
+          mbar_wait(&empty[slot], parity_of<kS>(k) ^ 1);
+          TIMER_ADD(t_w, tw);
           mbar_arrive_expect_tx(&full[slot], kGTile + kW1Item);
           unsigned char* dst = ring + slot * kDSlot;
           tma_load_4d(dst, &a.g_map, &full[slot], 8 * so, i, t0 - 2, b);
           tma_load_4d(dst + kGTile / 2, &a.g_map, &full[slot], 8 * so + 4, i, t0 - 2, b);
-          bulk_load(dst + kGTile, a.img_w1 + (ip * a.no + so) * kW1Item, kW1Item, &full[slot]);
+          bulk_load(dst + kGTile, img_w1 + (size_t)so * kW1Item, kW1Item, &full[slot]);
           ++k;
         }
-        for (int ec = 0; ec < a.ne; ++ec) {
-          put<kDStages, kDSlot>(ring, full, empty, k, a.img_w0 + (ip * a.ne + ec) * kW0Item,
-                                kW0Item);
-        }
+        for (int ec = 0; ec < a.ne; ++ec) put_item(img_w0 + (size_t)ec * kW0Item, kW0Item);
       }
+#ifdef COND_CHAIN_TIMERS
+      atomicAdd(&g_timers[9], (unsigned long long)t_w);
+      atomicAdd(&g_timers[10], (unsigned long long)(clock64() - t_all));
+      atomicAdd(&g_timers[11], 1ull);
+#endif
     }
     return;
   }
 
   const int wg = warp >> 2;
   const int bar = 1 + wg;
-  const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
-  const int u0 = tb - 1;          // its h row q = 0
   const Lane l;
   const int lane = threadIdx.x & 31;
   const int n0 = h.n * h.cc;
   const int n2 = h.n * a.two_c;
-  float* pw = pbuf + wg * kPFloats;
-  XFrag none[4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) none[s].hi[r] = none[s].lo[r] = 0u;
-
-  // this pass's dexc: the output where Cc is one pass, else its partial
-  float* const dexc = a.dexc + (size_t)p * gridDim.y * h.T * h.E;
-  int k = 0;
+  unsigned char* own = owns + wg * Smem::kOwnBytes;
+  const float* dhr = reinterpret_cast<const float*>(own);  // dh raw: [c / 8][q][c % 8]
+  unsigned char* ximg = own + kDhRaw;                       // E <= 9: X's image
+  float* pw = reinterpret_cast<float*>(own + kDhRaw);      // dexc's P (at E <= 9 in X's place)
+  float* sums = reinterpret_cast<float*>(own + kDhRaw + 2 * kXImg);  // [k][c]: the run's X^T dh
+  // this block's and pass's dexc: the output where n npass = 1, else its part
+  float* const dexc =
+      a.dexc + (h.n * h.npass == 1 ? 0 : (size_t)ip * gridDim.y * h.T * h.E);
 #ifdef COND_CHAIN_TIMERS
-  long long tm[4] = {0, 0, 0, 0};
+  long long tm[7] = {0, 0, 0, 0, 0, 0, 0};
   const long long t_all = clock64();
 #endif
-  for (int i = 0; i < h.n; ++i) {
-    const int c0 = kPass * p;
+  int k = 0;
+  float xv[16];
+  if (kNarrow) x_load(h, b, tile0 * kTile + kOwn * wg - 1, l, xv);
+  for (int tl = 0; tl < ntl; ++tl) {
+    const int t0 = (tile0 + tl) * kTile;
+    const int tb = t0 + kOwn * wg;  // the warpgroup's first own row
+    const int u0 = tb - 1;          // its h row q = 0
     float acc[68];
-    // 1. h; where h >= 0, as bits
+    // 1. h; where h >= 0, as bits. At E <= 9 its A from X's image (X^T dh's
+    // B too), written first from the values loaded under the last tile's X^T dh
     TIMER_START(t_h);
-    h_pass<kDStages, kDSlot>(h, acc, ring, full, empty, k, none, false, b, u0, l);
+    if (kNarrow) {
+      x_image(xv, l, ximg);
+      bar_sync(bar, 128);
+    }
+    h_pass<kS, kDSlot>(h, acc, ring, full, empty, k, b, u0, l, kNarrow ? ximg : nullptr);
     uint32_t pos[3] = {0u, 0u, 0u};
 #pragma unroll
     for (int r = 0; r < 68; ++r) {
       if (acc[r] >= 0.f) pos[r >> 5] |= 1u << (r & 31);
     }
-    if (a.a_out) {
-      // lrelu(h) of the own rows, for k2_w1_kernel where it would stream
-      // Wh's image once per unit
+    if (!kNarrow) {
+      // lrelu(h) of the own rows, for k2_w1_kernel, which would stream Wh's
+      // image once per unit
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt) {
 #pragma unroll
@@ -315,58 +537,67 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
       }
     }
     TIMER_ADD(tm[0], t_h);
-    // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an item
+    // 2. da = sum_j g[t - j + 1] @ W1_i[j]^T, a slice of 8 output channels an
+    // item, a tap a commit group: tap j's A (g at the h row's time - j + 1,
+    // the stage's row 62 wg + q + 2 - j) loaded and split while the tap before
+    // runs; an item's slot released once its last tap is done
     TIMER_START(t_da);
     zero(acc);
-    for (int so = 0; so < a.no; ++so) {
-      const int slot = slot_of<kDStages>(k);
-      mbar_wait(&full[slot], parity_of<kDStages>(k));
-      const float* graw = reinterpret_cast<const float*>(ring + slot * kDSlot);
-      // tap j's A: g at the h row's time - j + 1, the tile's row 62 wg + q + 2 - j
+    {
       XFrag gf[3];
+      int prev = -1;
+      for (int so = 0; so < a.no; ++so) {
+        const int slot = slot_of<kS>(k);
+        TIMER_START(t_w);
+        mbar_wait(&full[slot], parity_of<kS>(k));
+        TIMER_ADD(tm[2], t_w);
+        const float* graw = reinterpret_cast<const float*>(ring + slot * kDSlot);
+        const uint32_t base = smem_u32(ring + slot * kDSlot) + kGTile;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float* g0 = graw + (kOwn * wg + l.row + 2 - j) * 4 + l.tig;
-        split(g0[0], gf[j].hi[0], gf[j].lo[0]);
-        split(g0[32], gf[j].hi[1], gf[j].lo[1]);
-        split(g0[kGBox * 4], gf[j].hi[2], gf[j].lo[2]);
-        split(g0[kGBox * 4 + 32], gf[j].hi[3], gf[j].lo[3]);
-        fence_regs(gf[j].hi);
-        fence_regs(gf[j].lo);
-      }
-      const uint32_t base = smem_u32(ring + slot * kDSlot) + kGTile;
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const uint32_t bh = base + 2 * j * kHItem;
-        tf32x3::wgmma_rs_n136(acc, gf[j].lo, desc(bh, 128, 256), 1);
-        tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh + kHItem, 128, 256), 1);
-        tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh, 128, 256), 1);
-      }
-      wgmma_commit();
-      if (p == 0) {
-        // db1, while the products run: warp w sums channel 8 so + w over the
-        // CTA's rows t0 .. t0 + 123
-        const int o = 8 * so + warp;
-        const float* col = graw + (warp >> 2) * kGBox * 4 + (warp & 3);
-        float sv = 0.f;
-        for (int r = 2 + lane; r < 2 + kTile; r += 32) {
-          if (t0 - 2 + r < h.T) sv += col[r * 4];
+        for (int j = 0; j < 3; ++j) {
+          const float* g0 = graw + (kOwn * wg + l.row + 2 - j) * 4 + l.tig;
+          split(g0[0], gf[j].hi[0], gf[j].lo[0]);
+          split(g0[32], gf[j].hi[1], gf[j].lo[1]);
+          split(g0[kGBox * 4], gf[j].hi[2], gf[j].lo[2]);
+          split(g0[kGBox * 4 + 32], gf[j].hi[3], gf[j].lo[3]);
+          fence_regs(gf[j].hi);
+          fence_regs(gf[j].lo);
+          const uint32_t bh = base + 2 * j * kHItem;
+          wgmma_fence();
+          tf32x3::wgmma_rs_n136(acc, gf[j].lo, desc(bh, 128, 256), 1);
+          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh + kHItem, 128, 256), 1);
+          tf32x3::wgmma_rs_n136(acc, gf[j].hi, desc(bh, 128, 256), 1);
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (j == 0 && prev >= 0) release(&empty[prev]);
         }
+        if (p == 0) {
+          // db1, while the last tap runs: warp w sums channel 8 so + w over
+          // the tile's rows t0 .. t0 + 123
+          const int o = 8 * so + warp;
+          const float* col = graw + (warp >> 2) * kGBox * 4 + (warp & 3);
+          float sv = 0.f;
+          for (int r = 2 + lane; r < 2 + kTile; r += 32) {
+            if (t0 - 2 + r < h.T) sv += col[r * 4];
+          }
 #pragma unroll
-        for (int m = 16; m >= 1; m >>= 1) sv += __shfl_xor_sync(0xffffffffu, sv, m);
-        if (lane == 0 && o < a.two_c) {
-          a.pb1[((size_t)b * a.ntiles + tix) * n2 + i * a.two_c + o] = sv;
+          for (int m = 16; m >= 1; m >>= 1) sv += __shfl_xor_sync(0xffffffffu, sv, m);
+          if (lane == 0 && o < a.two_c) {
+            a.pb1[((size_t)b * a.ntiles + tile0 + tl) * n2 + i * a.two_c + o] = sv;
+          }
         }
+        prev = slot;
+        ++k;
       }
       wgmma_wait<0>();
       fence_regs(acc);
-      release(&empty[slot]);
-      ++k;
+      release(&empty[prev]);
     }
     TIMER_ADD(tm[1], t_da);
-    // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc; the own rows to
-    // the scratch
+    // 3. dh = lrelu'(h) da, zero outside [0, T) and past Cc, raw to shared
+    // memory (every row: the A of dexc and X^T dh), past E = 9 the own rows
+    // also to the scratch; dh's registers are free after it. At E <= 9 X's
+    // halo rows zeroed (X^T dh's B)
     TIMER_START(t_dh);
 #pragma unroll
     for (int nt = 0; nt < kPass / 8; ++nt) {
@@ -376,91 +607,105 @@ __global__ void __launch_bounds__(kThreads, 1) k2_data_kernel(const __grid_const
         const int u = u0 + q;
         const int c = c0 + nt * 8 + 2 * l.tig;
         const bool ok = u >= 0 && u < h.T && c < h.cc;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = nt * 4 + 2 * half + e;
-          acc[r] = ok ? ((pos[r >> 5] >> (r & 31)) & 1u ? acc[r] : kSlope * acc[r]) : 0.f;
-        }
-        if (ok && q >= 1 && q <= kOwn) {
-          *reinterpret_cast<float2*>(a.dh_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) =
-              make_float2(acc[nt * 4 + 2 * half], acc[nt * 4 + 2 * half + 1]);
+        float2 v;
+        v.x = ok ? ((pos[(nt * 4 + 2 * half) >> 5] >> ((nt * 4 + 2 * half) & 31)) & 1u
+                        ? acc[nt * 4 + 2 * half] : kSlope * acc[nt * 4 + 2 * half]) : 0.f;
+        v.y = ok ? ((pos[(nt * 4 + 2 * half + 1) >> 5] >> ((nt * 4 + 2 * half + 1) & 31)) & 1u
+                        ? acc[nt * 4 + 2 * half + 1] : kSlope * acc[nt * 4 + 2 * half + 1]) : 0.f;
+        *reinterpret_cast<float2*>(own + nt * kDhBox + q * 32 + 8 * l.tig) = v;
+        if (!kNarrow && ok && q >= 1 && q <= kOwn) {
+          *reinterpret_cast<float2*>(a.dh_out + ((size_t)b * h.T + u) * n0 + i * h.cc + c) = v;
         }
       }
     }
-    // 4. dexc: P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T], E in chunks of
-    // 8, on mma.sync m16n8k8 per warp (its 16 rows; the A fragment of that
-    // tile is the warp's part of the wgmma layout), one accumulator a tap
-    TIMER_ADD(tm[2], t_dh);
-    TIMER_START(t_dx);
-    const int ns = pass_slices(h, p);
-    for (int ec = 0; ec < a.ne; ++ec) {
-      float pac[3][4] = {};
-      const int slot = slot_of<kDStages>(k);
-      mbar_wait(&full[slot], parity_of<kDStages>(k));
-      // B[k][n] of tap j at (n / 8 = j) 256 + (k / 4) 128 + (n % 8) 16 + (k % 4) 4
-      const float* w0i = reinterpret_cast<const float*>(ring + slot * kDSlot) +
-                         (lane >> 2) * 4 + l.tig;
+    if (kNarrow) {
+      x_halo(l, ximg);
+      fence_proxy_async();  // X's image, for the async proxy
+    }
+    bar_sync(bar, 128);     // dh (and X) in place
+    TIMER_ADD(tm[3], t_dh);
+    if (kNarrow) {
+      // 4. X^T dh of the warpgroup's rows, D^T[c][k] = sum_q dh[q][c] X[q][k]:
+      // M = 64 columns c of dh (0 .., 64 .., and 72 .., of which 128 .. 135
+      // are kept), N = 32 columns k of X (B: its image), K = the 64 rows in
+      // slices of 8; A from dh raw, the thread's element (m, kk) of slice ks
+      // dh[8 ks + kk][cm + m]; each product added into the run's sums
+      TIMER_START(t_x);
+      const uint32_t xb = smem_u32(ximg);
+      if (tl + 1 < ntl) x_load(h, b, u0 + kTile, l, xv);
 #pragma unroll
-      for (int s = 0; s < kPassSlices; ++s) {
-        if (s < ns) {
-          FragA f;
-          split(acc[4 * s], f.hi[0], f.lo[0]);
-          split(acc[4 * s + 2], f.hi[1], f.lo[1]);
-          split(acc[4 * s + 1], f.hi[2], f.lo[2]);
-          split(acc[4 * s + 3], f.hi[3], f.lo[3]);
+      for (int m = 0; m < 3; ++m) {
+        const int cm = m == 2 ? kPass - 64 : 64 * m;
+        const float* ap = dhr + ((cm >> 3) + 2 * (l.row >> 4)) * (kDhBox / 4) + (l.row & 7) +
+                          8 * l.tig;
+        XFrag f[kRows / 8];
 #pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            mma3(pac[j], f, load_b_split(w0i + 2 * s * (kW0Block / 4) + j * 64,
-                                         kW0Block / 4, 8));
-          }
+        for (int ks = 0; ks < kRows / 8; ++ks) {
+          const float* d0 = ap + 64 * ks;
+          split(d0[0], f[ks].hi[0], f[ks].lo[0]);
+          split(d0[kDhBox / 4], f[ks].hi[1], f[ks].lo[1]);
+          split(d0[32], f[ks].hi[2], f[ks].lo[2]);
+          split(d0[kDhBox / 4 + 32], f[ks].hi[3], f[ks].lo[3]);
+          fence_regs(f[ks].hi);
+          fence_regs(f[ks].lo);
+        }
+        float d[kXdhN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kRows / 8; ++ks) {
+          tf32x3::wgmma_rs_n32(d, f[ks].lo, desc(xb + 256 * ks, 128, kXGroup), ks > 0);
+          tf32x3::wgmma_rs_n32(d, f[ks].hi, desc(xb + kXImg + 256 * ks, 128, kXGroup), 1);
+          tf32x3::wgmma_rs_n32(d, f[ks].hi, desc(xb + 256 * ks, 128, kXGroup), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
+        // d[4 nb + v]: column c = cm + l.row + 8 ((v >> 1) & 1), k = 8 nb + 2 tig + (v & 1)
+#pragma unroll
+        for (int v = 0; v < kXdhN / 2; ++v) {
+          const int mm = l.row + 8 * ((v >> 1) & 1);
+          const int kx = 8 * (v >> 2) + 2 * l.tig + (v & 1);
+          if ((m < 2 || cm + mm >= 128) && kx < kXdhRows) sums[kx * kPass + cm + mm] += d[v];
         }
       }
+      bar_sync(bar, 128);  // X read by every product before P takes its place
+      TIMER_ADD(tm[5], t_x);
+    }
+    // 5. dexc: per chunk of 8 columns of E, P = dh @ [W0_i[0]^T | W0_i[1]^T |
+    // W0_i[2]^T], then dexc[tb + r] = (P_0[r + 2] + P_1[r + 1]) + P_2[r],
+    // stored as this block's and pass's part
+    for (int ec = 0; ec < a.ne; ++ec) {
+      TIMER_START(t_dx);
+      const int slot = slot_of<kS>(k);
+      mbar_wait(&full[slot], parity_of<kS>(k));
+      float pj[12];
+      dexc_products(dhr + l.row * 8 + 2 * l.tig, pj, smem_u32(ring + slot * kDSlot));
       release(&empty[slot]);
       ++k;
-      // dexc[tb + r] += P_0[r + 2] + P_1[r + 1] + P_2[r] (P's row q is dh's time u0 + q)
-      bar_sync(bar, 128);  // the previous chunk's reads of pw are done
-#pragma unroll
-      for (int jj = 0; jj < 3; ++jj) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          *reinterpret_cast<float2*>(pw + (l.row + 8 * half) * kPLd + jj * 8 + 2 * l.tig) =
-              make_float2(pac[jj][2 * half], pac[jj][2 * half + 1]);
-        }
-      }
-      bar_sync(bar, 128);
-      // this thread's (row, column) pairs x = wt + 128 z of the chunk's
-      // 62 x 8; the sums so far are all read before any is written (one
-      // wait on memory, not four)
-      const bool first = i == 0;
-      float prev[4];
-#pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        const int x = l.wt + 128 * z;
-        const int t = tb + (x >> 3), e = 8 * ec + (x & 7);
-        prev[z] = !first && x < kOwn * 8 && t < h.T && e < h.E
-                      ? dexc[((size_t)b * h.T + t) * h.E + e]
-                      : 0.f;
-      }
-#pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        const int x = l.wt + 128 * z;
-        const int r = x >> 3;
-        const int e = 8 * ec + (x & 7);
-        const int t = tb + r;
-        if (x < kOwn * 8 && t < h.T && e < h.E) {
-          const float v = (pw[(r + 2) * kPLd + (x & 7)] + pw[(r + 1) * kPLd + 8 + (x & 7)]) +
-                          pw[r * kPLd + 16 + (x & 7)];
-          dexc[((size_t)b * h.T + t) * h.E + e] = first ? v : prev[z] + v;
-        }
-      }
+      TIMER_ADD(tm[4], t_dx);
+      TIMER_START(t_s);
+      dexc_store(h, l, bar, b, tb, ec, pj, pw, dexc);
+      TIMER_ADD(tm[6], t_s);
     }
-    TIMER_ADD(tm[3], t_dx);
+  }
+  if (kNarrow) {
+    // the run's X^T dh, both warpgroups' sums in order: rows k of columns
+    // i Cc + c0 + c of the (batch row, run) partial
+    bar_sync(3, 256);
+    const int cw = min(kPass, h.cc - c0);
+    const float* s0 = reinterpret_cast<const float*>(owns + kDhRaw + 2 * kXImg);
+    const float* s1 = reinterpret_cast<const float*>(owns + Smem::kOwnBytes + kDhRaw + 2 * kXImg);
+    float* pd = a.pw0 + ((size_t)b * a.nruns + blockIdx.x) * a.kx * n0 + (size_t)i * h.cc + c0;
+    for (int idx = threadIdx.x; idx < a.kx * kPass; idx += 256) {
+      const int kk = idx / kPass, c = idx - kk * kPass;
+      if (c < cw) pd[(size_t)kk * n0 + c] = s0[idx] + s1[idx];
+    }
   }
 #ifdef COND_CHAIN_TIMERS
   if (l.wt == 0) {
-    for (int x = 0; x < 4; ++x) atomicAdd(&g_timers[x], (unsigned long long)tm[x]);
-    atomicAdd(&g_timers[4], (unsigned long long)(clock64() - t_all));
-    atomicAdd(&g_timers[5], 1ull);
+    for (int x = 0; x < 7; ++x) atomicAdd(&g_timers[x], (unsigned long long)tm[x]);
+    atomicAdd(&g_timers[7], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[8], 1ull);
   }
 #endif
 }
@@ -836,19 +1081,17 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
   }
 }
 
-// -- (d): dW0, dhbias and the edges as X^T dh
+// -- (d): past E = 9, dW0, dhbias and the edges as X^T dh
 //
 // k2_xdh_kernel's shared memory: a ring of kXStages stages of 64 rows x 128
 // columns of dh (16 TMA boxes of 8 columns, each its 64 rows of 32 bytes);
 // two slots of the step's X image (hi, then lo, each 4 groups of 8 columns
-// x 64 rows, K-major); the barriers. Two CTAs an SM.
+// x 64 rows, K-major); the barriers. Two CTAs an SM: ptxas serializes its
+// wgmma there for want of registers (C7512), and still the kernel runs 1.4x
+// faster than at one CTA an SM with a ring of 4 stages, which has no C7512.
 constexpr int kXStages = 2;
 constexpr int kXRows = 64;                      // rows a step (the products' K)
-constexpr int kDhBox = kXRows * 32;             // 2048: 8 columns of dh
 constexpr int kXStage = 16 * kDhBox;            // 32768: 128 columns, 64 a warpgroup
-constexpr int kXN = 32;                         // columns of X a CTA (the products' N)
-constexpr int kXGroup = kXRows * 32;            // 2048: 8 columns of X, every row (SBO)
-constexpr int kXImg = (kXN / 8) * kXGroup;      // 8192: X, hi or lo
 constexpr size_t kXSmem = (size_t)kXStages * kXStage + 4 * (size_t)kXImg + 16 * kXStages + 1024;
 static_assert(2 * kXSmem <= kSmemMax + 1024, "k2_xdh_kernel: two CTAs an SM");
 
@@ -874,7 +1117,7 @@ __global__ void __launch_bounds__(kThreads, 2) k2_xdh_kernel(const __grid_consta
   const int r0 = (sp - b * a.parts) * a.prows;
   const int r1 = min(h.T, r0 + a.prows);
   const int nsteps = (r1 - r0 + kXRows - 1) / kXRows;
-  const int k0 = blockIdx.z * kXN;
+  const int k0 = blockIdx.z * kXdhN;
   const int warp = warp_index();
 
   if (threadIdx.x == 0) {
@@ -940,7 +1183,7 @@ __global__ void __launch_bounds__(kThreads, 2) k2_xdh_kernel(const __grid_consta
   const int fo = (8 * wg + (l.row >> 3)) * (kDhBox / 4) + l.tig * 8 + (l.row & 7);
   // the accumulators take one step, then are added into tot in f32 (a long
   // run of wgmma's accumulation drifts: k2_w1_kernel)
-  float acc[kXN / 2], tot[kXN / 2];
+  float acc[kXdhN / 2], tot[kXdhN / 2];
   zero(tot);
   build(r0, 0);
   for (int n = 0; n < nsteps; ++n) {
@@ -974,10 +1217,10 @@ __global__ void __launch_bounds__(kThreads, 2) k2_xdh_kernel(const __grid_consta
     wgmma_wait<0>();
     fence_regs(acc);
 #pragma unroll
-    for (int v = 0; v < kXN / 2; ++v) tot[v] += acc[v];
+    for (int v = 0; v < kXdhN / 2; ++v) tot[v] += acc[v];
   }
 #pragma unroll
-  for (int v = 0; v < kXN / 2; ++v) {
+  for (int v = 0; v < kXdhN / 2; ++v) {
     const int c = col0 + 64 * wg + l.row + 8 * ((v >> 1) & 1);
     const int k = k0 + 8 * (v >> 2) + 2 * l.tig + (v & 1);
     if (k < a.kx && c < n0) a.pw0[((size_t)sp * a.kx + k) * n0 + c] = tot[v];
@@ -1011,8 +1254,17 @@ __global__ void k2_reduce_kernel(const __grid_constant__ ReduceArgs r) {
   const long long o = e / jb.len;
   const long long k = e - o * jb.len;
   const float* p = jb.part + o * jb.ostride + k;
+  // in order, eight loads in flight at a time
   float acc = 0.f;
-  for (int s = 0; s < jb.S; ++s) acc += p[(long long)s * jb.sstride];
+  int s = 0;
+  for (; s + 8 <= jb.S; s += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = p[(long long)(s + u) * jb.sstride];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  for (; s < jb.S; ++s) acc += p[(long long)s * jb.sstride];
   jb.out[o * jb.len + k] = acc;
 }
 
@@ -1036,11 +1288,12 @@ void add_job(ReduceArgs& r, const float* part, float* out, long long len, int ou
 // 256-byte boundary.
 struct Plan {
   bool ok;
-  int ntiles, no, ne, nimg;                 // (a), (b)
-  int ot, notiles, nsub, units, chunk, run, s1, runs;  // (c)
-  int kx, xcols, xks, parts, prows, s0;     // (d)
+  bool narrow;                              // E <= 9: X^T dh in (b); else (b) writes the
+                                            // dh and lrelu(h) scratches, for (d) and (c)
+  int ntiles, no, ne, nimg, run, nruns;     // (a), (b): runs of `run` tiles a batch row
+  int ot, notiles, nsub, units, chunk, wrun, s1, runs;  // (c)
+  int kx, xcols, xks, parts, prows, s0;     // (d), and X^T dh's partials: parts a batch row
   size_t h_image;                           // bytes
-  bool scratch_a;                           // (b) writes lrelu(h) for (c)
   size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, off_a, off_dx, total;
 };
 
@@ -1048,15 +1301,36 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   Plan p{};
   p.ok = false;
   if (B <= 0 || B > 65535 || T <= 0 || E <= 0 || n <= 0 || cc <= 0 || two_c <= 0 ||
-      cc % 4 || two_c % 4 || (long long)B * (T + 1) > (1LL << 30)) {
+      cc % 4 || two_c % 4 || (long long)B * (T + 1) > (1LL << 30) ||
+      (long long)n * passes(cc) > 65535) {
     return p;
   }
+  // (b) takes X^T dh where Wh's image fits one fetch of (c), K = 3E + 3 <= 32
+  // (the decoder's E = 8); past that (c) would stream that image once per
+  // unit and output tile, so (b) writes lrelu(h) for it, and dh for (d)
+  p.narrow = h_slices(E) <= kWhChunk;
   p.ntiles = (T + kTile - 1) / kTile;
   p.no = (two_c + 7) / 8;
   p.ne = (E + 7) / 8;
   p.nimg = per_row ? B : 1;
   p.h_image = h_image_bytes(n, cc, E);
   const int npass = passes(cc);
+  // (b): a CTA per (run of tiles, batch row, block and pass); runs of at
+  // most kRunTiles tiles, as long as the CTAs' waves on the card take least:
+  // a wave of runs of r tiles counted as r + 1/4 tiles (a CTA's start and its
+  // partial), the longest run first where two take as long
+  const long long per_run = (long long)B * n * npass;
+  p.run = std::min(kRunTiles, p.ntiles);
+  long long best = -1;
+  for (int run = std::min(kRunTiles, p.ntiles); run >= 1; --run) {
+    const long long ctas = per_run * ((p.ntiles + run - 1) / run);
+    const long long cost = (ctas + kSmCount - 1) / kSmCount * (4 * run + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.run = run;
+    }
+  }
+  p.nruns = (p.ntiles + p.run - 1) / p.run;
   // (c): (block, pass, OT output channels) tiles times chunks of units, one wave
   p.ot = two_c <= 32 ? 32 : 64;
   p.notiles = (two_c + p.ot - 1) / p.ot;
@@ -1065,51 +1339,51 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   const long long tiles = (long long)n * npass * p.notiles;
   const int s1 = (int)std::min<long long>(std::max<long long>(1, kSmCount / tiles), p.units);
   const int chunk = (p.units + s1 - 1) / s1;
-  const int nruns = (chunk + kW1Run - 1) / kW1Run;  // a chunk is nruns runs of at most kW1Run
-  p.run = (chunk + nruns - 1) / nruns;
-  p.chunk = p.run * nruns;
+  const int nwruns = (chunk + kW1Run - 1) / kW1Run;  // a chunk is nwruns runs of at most kW1Run
+  p.wrun = (chunk + nwruns - 1) / nwruns;
+  p.chunk = p.wrun * nwruns;
   p.s1 = (p.units + p.chunk - 1) / p.chunk;
-  p.runs = (p.units + p.run - 1) / p.run;
-  // (d): (batch row, part) chunks times (128 columns of dh, 32 columns of X)
-  // tiles, at least four waves of two CTAs an SM, so that the last wave's
-  // idle SMs cost little
-  const size_t n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
+  p.runs = (p.units + p.wrun - 1) / p.wrun;
   p.kx = 3 * E + 3;
-  p.xcols = (int)((n0 + 127) / 128);
-  p.xks = (p.kx + kXN - 1) / kXN;
-  const long long per_b = (long long)B * p.xcols * p.xks;
-  const int parts = (int)std::min<long long>(
-      std::max<long long>(1, (8 * kSmCount + per_b - 1) / per_b), 65535 / B);
-  p.prows = ((T + parts - 1) / parts + kXRows - 1) / kXRows * kXRows;
-  p.parts = (T + p.prows - 1) / p.prows;
+  if (p.narrow) {
+    // X^T dh in (b): a partial per (batch row, run)
+    p.parts = p.nruns;
+  } else {
+    // (d): (batch row, part) chunks times (128 columns of dh, 32 columns of
+    // X) tiles, at least four waves of two CTAs an SM, so that the last
+    // wave's idle SMs cost little
+    p.xcols = (int)((n * cc + 127) / 128);
+    p.xks = (p.kx + kXdhN - 1) / kXdhN;
+    const long long per_b = (long long)B * p.xcols * p.xks;
+    const int parts = (int)std::min<long long>(
+        std::max<long long>(1, (8 * kSmCount + per_b - 1) / per_b), 65535 / B);
+    p.prows = ((T + parts - 1) / parts + kXRows - 1) / kXRows * kXRows;
+    p.parts = (T + p.prows - 1) / p.prows;
+  }
   p.s0 = B * p.parts;
   auto up = [](size_t x) { return (x + 63) / 64 * 64; };
-  const size_t R = (size_t)B * T;
+  const size_t R = (size_t)B * T, n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.off_dh = 0;
-  p.off_pb1 = up(R * n0);
+  p.off_pb1 = up(p.narrow ? 0 : R * n0);
   p.off_pw1 = up(p.off_pb1 + (size_t)B * p.ntiles * n2);
   p.off_pw0 = up(p.off_pw1 + (size_t)p.runs * 3 * cc * n2);
   p.off_imh = up(p.off_pw0 + (size_t)p.s0 * p.kx * n0);
   p.off_imw1 = up(p.off_imh + p.nimg * p.h_image / 4);
   p.off_imw0 = up(p.off_imw1 + (size_t)n * npass * p.no * kW1Item / 4);
   p.off_a = up(p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4);
-  // (c) recomputes lrelu(h) where Wh's image fits one fetch, held across
-  // units (K = 3E + 3 <= 32, the decoder's E = 8); past that it would stream
-  // the image once per unit and output tile, so (b) writes lrelu(h) instead
-  p.scratch_a = h_slices(E) > kWhChunk;
-  // (b) takes one pass of 136 channels a CTA; where Cc takes several, each
-  // writes its own partial of dexc, which (e) sums in order
-  p.off_dx = up(p.off_a + (p.scratch_a ? R * n0 : 0));
-  p.total = p.off_dx + (npass > 1 ? (size_t)npass * R * E : 0);
+  // dexc: one part a block and pass, which (e) sums in order
+  p.off_dx = up(p.off_a + (p.narrow ? 0 : R * n0));
+  p.total = p.off_dx + ((size_t)n * npass > 1 ? (size_t)n * npass * R * E : 0);
   p.ok = true;
   return p;
 }
 
-// Device time of each of a call's five launches, for measurement (smoke
-// phase 8): while on, a call records an event before its first launch and
-// after each one, on its stream
+// Device time of each of a call's launches, for measurement (smoke phase 8):
+// while on, a call records an event before its first launch and after each
+// one, on its stream
 bool g_timed = false;
 cudaEvent_t g_marks[6];
+int g_launched = 0;  // the last timed call's launches
 
 }  // namespace
 
@@ -1140,16 +1414,21 @@ extern "C" int cond_chain_bwd_timers(unsigned long long* out, int reset) {
 }
 #endif
 
-// ms[0..4]: the last timed call's k2_images_kernel, k2_data_kernel,
-// k2_w1_kernel, k2_xdh_kernel and k2_reduce_kernel, each from the end of the
-// launch before it (synchronize first)
+// ms[0..]: the last timed call's k2_images_kernel, k2_data_kernel,
+// k2_w1_kernel, past E = 9 k2_xdh_kernel, and k2_reduce_kernel (four
+// launches at E <= 9, five past), each from the end of the launch before it
+// (synchronize first)
 extern "C" int cond_chain_bwd_kernel_ms(float* ms) {
-  for (int k = 0; k < 5; ++k) {
+  for (int k = 0; k < g_launched; ++k) {
     const cudaError_t err = cudaEventElapsedTime(&ms[k], g_marks[k], g_marks[k + 1]);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
+
+// The launches of the last call timed (cond_chain_bwd_time_kernels): four at
+// E <= 9, five past it
+extern "C" int cond_chain_bwd_launched() { return g_launched; }
 
 // Floats of device scratch cond_chain_bwd_f32 needs for these shapes (0 for
 // shapes the kernels do not take); per_row: hbias or the edges differ per
@@ -1182,7 +1461,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int n0 = n * cc;
   const int n2 = n * two_c;
-  float* dh_s = ws + p.off_dh;
+  const int nparts = n * passes(cc);  // dexc's parts, one a block and pass
   float* pb1 = ws + p.off_pb1;
   float* pw1 = ws + p.off_pw1;
   float* pw0 = ws + p.off_pw0;
@@ -1198,14 +1477,18 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   d.h_image = h_image;
   d.img_w1 = img_w1;
   d.img_w0 = img_w0;
-  d.dh_out = dh_s;
-  d.a_out = p.scratch_a ? ws + p.off_a : nullptr;
-  d.dexc = passes(cc) > 1 ? ws + p.off_dx : dexc;
+  d.dh_out = p.narrow ? nullptr : ws + p.off_dh;
+  d.a_out = p.narrow ? nullptr : ws + p.off_a;
+  d.dexc = nparts > 1 ? ws + p.off_dx : dexc;
   d.pb1 = pb1;
+  d.pw0 = pw0;
   d.two_c = two_c;
   d.no = p.no;
   d.ne = p.ne;
   d.ntiles = p.ntiles;
+  d.run = p.run;
+  d.nruns = p.nruns;
+  d.kx = p.kx;
   W1Args w;
   w.h = h;
   w.img_h = img_h;
@@ -1217,7 +1500,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   w.nsub = p.nsub;
   w.units = p.units;
   w.chunk = p.chunk;
-  w.run = p.run;
+  w.run = p.wrun;
   XArgs x;
   x.h = h;
   x.pw0 = pw0;
@@ -1235,41 +1518,51 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   const cuuint32_t dh_box[4] = {8, 1, (cuuint32_t)kXRows, 1};
   if (!make_map_f32(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
       !make_map_f32(&w.g_map, g, 4, g_dims, g_strides, g_box_w1) ||
-      !make_map_f32(&x.dh_map, dh_s, 4, dh_dims, dh_strides, dh_box)) {
+      (!p.narrow && !make_map_f32(&x.dh_map, d.dh_out, 4, dh_dims, dh_strides, dh_box))) {
     return (int)cudaErrorInvalidValue;
   }
   const ImageArgs im{WhArgs{w0, hbias, hbias_bstride, edge0, edge_t, E, n, cc}, w1, img_h, img_w1,
                      img_w0, p.nimg, two_c, p.no, p.ne};
 
-  auto mark = [&](int k) {
-    if (g_timed) cudaEventRecord(g_marks[k], stream);
+  int launched = 0;
+  auto mark = [&]() {
+    if (g_timed) cudaEventRecord(g_marks[launched], stream);
   };
-  mark(0);
+  mark();
   k2_images_kernel<<<264, 256, 0, stream>>>(im);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mark(1);
-  if ((e = launch_kernel(k2_data_kernel,
-                         dim3((unsigned)p.ntiles, (unsigned)B, (unsigned)passes(cc)), kThreads,
-                         kDataSmem, d, stream)) != cudaSuccess) return (int)e;
-  mark(2);
+  ++launched;
+  mark();
+  const dim3 dgrid((unsigned)p.nruns, (unsigned)B, (unsigned)nparts);
+  e = p.narrow ? launch_kernel(k2_data_kernel<true>, dgrid, kThreads, DataSmem<true>::kBytes, d,
+                               stream)
+               : launch_kernel(k2_data_kernel<false>, dgrid, kThreads, DataSmem<false>::kBytes, d,
+                               stream);
+  if (e != cudaSuccess) return (int)e;
+  ++launched;
+  mark();
   const dim3 w1_grid((unsigned)(n * passes(cc) * p.notiles), (unsigned)p.s1);
   e = p.ot == 32 ? launch_kernel(k2_w1_kernel<32>, w1_grid, kW1Threads, kW1Smem, w, stream)
                  : launch_kernel(k2_w1_kernel<64>, w1_grid, kW1Threads, kW1Smem, w, stream);
   if (e != cudaSuccess) return (int)e;
-  mark(3);
-  if ((e = launch_kernel(k2_xdh_kernel, dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks),
-                         kThreads, kXSmem, x, stream)) != cudaSuccess) return (int)e;
-  mark(4);
+  ++launched;
+  mark();
+  if (!p.narrow) {
+    if ((e = launch_kernel(k2_xdh_kernel, dim3((unsigned)p.xcols, (unsigned)p.s0, (unsigned)p.xks),
+                           kThreads, kXSmem, x, stream)) != cudaSuccess) return (int)e;
+    ++launched;
+    mark();
+  }
 
-  // dexc over the passes (where Cc takes several); dW1 over the runs of
-  // units; db1 over every (batch row, time tile);
-  // dW0 over every (batch row, part); dhbias, the edges over a batch row's
-  // parts (dhbias over all of them when hbias is shared)
+  // dexc over the blocks and passes; dW1 over the runs of units; db1 over
+  // every (batch row, time tile); dW0 over every (batch row, part); dhbias,
+  // the edges over a batch row's parts (dhbias over all of them when hbias
+  // is shared)
   ReduceArgs r{};
   const long long xs = (long long)p.kx * n0;
-  if (passes(cc) > 1) add_job(r, d.dexc, dexc, (long long)B * T * E, 1, passes(cc),
-                              (long long)B * T * E, 0);
+  if (nparts > 1) add_job(r, d.dexc, dexc, (long long)B * T * E, 1, nparts,
+                          (long long)B * T * E, 0);
   add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.runs, 3LL * cc * n2, 0);
   add_job(r, pb1, db1, n2, 1, B * p.ntiles, n2, 0);
   add_job(r, pw0, dw0, 3LL * E * n0, 1, p.s0, xs, 0);
@@ -1284,6 +1577,8 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   }
   k2_reduce_kernel<<<(unsigned)((r.total + 255) / 256), 256, 0, stream>>>(r);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mark(5);
+  ++launched;
+  mark();
+  if (g_timed) g_launched = launched;
   return 0;
 }

@@ -157,45 +157,78 @@ __device__ __forceinline__ int pass_slices(const HArgs& h, int p) {
   return (width + 7) / 8;
 }
 
+// X's k-slice s for the warpgroup's rows q from X's image in shared memory
+// (cond_chain_bwd.cu's x_image: element (k, q), split, at (k / 8) 2048 +
+// (q / 4) 128 + (k % 8) 16 + (q % 4) 4 bytes, hi then lo 8192 on): the same
+// words as x_frag's
+__device__ __forceinline__ XFrag x_frag_image(const unsigned char* xs, const Lane& l, int s) {
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(xs + s * 2048 + (l.row >> 2) * 128 +
+                                                        l.tig * 16 + (l.row & 3) * 4);
+  XFrag f;
+  f.hi[0] = p[0];
+  f.hi[1] = p[64];
+  f.hi[2] = p[16];
+  f.hi[3] = p[80];
+  f.lo[0] = p[2048];
+  f.lo[1] = p[2048 + 64];
+  f.lo[2] = p[2048 + 16];
+  f.lo[3] = p[2048 + 80];
+  return f;
+}
+
 // hacc = h for the warpgroup's rows u0 + q and the pass's 136 columns, in
-// the accumulator layout, before leaky_relu: M = 64, N = 136, K = 3E + 3, one
-// k-slice of Wh an item of the ring (items k ..), each waited for, its three
-// products (X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi) taken and the slot released.
-// xf: X's first four k-slices where `hoisted`, else they are made per slice.
+// the accumulator layout, before leaky_relu: M = 64, N = 136, K = 3E + 3, two
+// k-slices of Wh an item of the ring (items k ..), X's A registers made four
+// k-slices at a time (from exc, or where xs is given from X's image there);
+// each item's products (per slice X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi) a
+// commit group, issued as soon as the item is in, the slot of the item
+// before released once its products are done (one group in flight while
+// the next item is waited for).
 template <int S, int kSlot>
 __device__ __forceinline__ void h_pass(const HArgs& h, float (&hacc)[68], unsigned char* ring,
-                                       uint64_t* full, uint64_t* empty, int& k,
-                                       const XFrag (&xf)[4], bool hoisted, int b, int u0,
-                                       const Lane& l) {
+                                       uint64_t* full, uint64_t* empty, int& k, int b, int u0,
+                                       const Lane& l, const unsigned char* xs) {
   zero(hacc);
+  XFrag x[4];
+  int prev = -1;
   for (int s0 = 0; s0 < h.nkh; s0 += 4) {
+    if (s0 > 0) wgmma_wait<0>();  // the four slices before are done with x
 #pragma unroll
     for (int ss = 0; ss < 4; ++ss) {
-      const int s = s0 + ss;
-      if (s < h.nkh) {
-        XFrag x;
-        if (hoisted) {
-          x = xf[ss];
-        } else {
-          x = x_frag(h, b, u0, l, s);
-        }
-        fence_regs(x.hi);
-        fence_regs(x.lo);
+      if (s0 + ss < h.nkh) {
+        x[ss] = xs ? x_frag_image(xs, l, s0 + ss) : x_frag(h, b, u0, l, s0 + ss);
+        fence_regs(x[ss].hi);
+        fence_regs(x[ss].lo);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      if (s0 + 2 * it < h.nkh) {
         const int slot = slot_of<S>(k);
         mbar_wait(&full[slot], parity_of<S>(k));
         const uint32_t base = smem_u32(ring + slot * kSlot);
         wgmma_fence();
-        tf32x3::wgmma_rs_n136(hacc, x.lo, desc(base, 128, 256), 1);
-        tf32x3::wgmma_rs_n136(hacc, x.hi, desc(base + kHItem, 128, 256), 1);
-        tf32x3::wgmma_rs_n136(hacc, x.hi, desc(base, 128, 256), 1);
+#pragma unroll
+        for (int ss = 0; ss < 2; ++ss) {
+          if (s0 + 2 * it + ss < h.nkh) {
+            const XFrag& xf = x[2 * it + ss];
+            const uint32_t bs = base + ss * 2 * kHItem;
+            tf32x3::wgmma_rs_n136(hacc, xf.lo, desc(bs, 128, 256), 1);
+            tf32x3::wgmma_rs_n136(hacc, xf.hi, desc(bs + kHItem, 128, 256), 1);
+            tf32x3::wgmma_rs_n136(hacc, xf.hi, desc(bs, 128, 256), 1);
+          }
+        }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(hacc);
-        release(&empty[slot]);
+        wgmma_wait<1>();
+        if (prev >= 0) release(&empty[prev]);
+        prev = slot;
         ++k;
       }
     }
   }
+  wgmma_wait<0>();
+  fence_regs(hacc);
+  release(&empty[prev]);
 }
 
 // -- the image of Wh (made by the image kernels)

@@ -1,7 +1,6 @@
-// f32-accurate matrix products on Hopper's tensor cores: the 3xTF32 split,
-// the warp-level mma.sync tile (K2's dexc, cond_chain_bwd.cu) and the
-// warpgroup-level wgmma tf32 products (K1, cond_chain.cu; every other
-// product of K2), shared by the f32 FiLM cond-chain kernels.
+// f32-accurate matrix products on Hopper's tensor cores: the 3xTF32 split
+// and the warpgroup-level wgmma tf32 products of the f32 FiLM cond-chain
+// kernels (K1, cond_chain.cu; K2, cond_chain_bwd.cu).
 //
 // The split. Every f32 operand x is cut into x = hi + lo with hi = tf32(x)
 // and lo = tf32(x - hi), both rounded to nearest with ties away from zero,
@@ -16,8 +15,8 @@
 // f32 CUDA-core peak. An operand with at most 11 significant bits (10
 // explicit ones) has lo = 0 and is taken exactly.
 //
-// The tile. mma.sync.aligned.m16n8k8 with TF32 inputs and f32 accumulators,
-// one warp, lane = 4 * grp + tig (grp = lane / 4, tig = lane % 4):
+// The m16n8k8 tile's layout (TF32 inputs, f32 accumulators), one warp,
+// lane = 4 * grp + tig (grp = lane / 4, tig = lane % 4):
 //   A (16 x 8, row-major): a0 = A[grp][tig],    a1 = A[grp + 8][tig],
 //                          a2 = A[grp][tig + 4], a3 = A[grp + 8][tig + 4]
 //   B (8 x 8, k-major):    b0 = B[tig][grp],    b1 = B[tig + 4][grp]
@@ -42,51 +41,15 @@
 
 namespace tf32x3 {
 
-// d += a * b on one m16n8k8 TF32 tile
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // x rounded to TF32, nearest, ties away from zero (cvt.rna.tf32.f32's
 // result for finite x; an overflow gives inf, as there)
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// B fragment of a pre-split operand: p = &B[tig][grp], element (k, n) of the
-// hi parts at p[k * ks + n], of the lo parts lo_off further
-__device__ __forceinline__ FragB load_b_split(const float* p, int lo_off, int ks) {
-  FragB f;
-  f.hi[0] = __float_as_uint(p[0]);
-  f.hi[1] = __float_as_uint(p[4 * ks]);
-  f.lo[0] = __float_as_uint(p[lo_off]);
-  f.lo[1] = __float_as_uint(p[4 * ks + lo_off]);
-  return f;
-}
-
-// d += a * b in f32 accuracy: three TF32 products, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
 }
 
 // -- wgmma, tf32 (sm_90a)
@@ -230,6 +193,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 24) += A (64 x 8, registers, as wgmma_rs_n136's) B (24 x 8, shared memory,
+// K-major)
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -25,7 +25,8 @@ on operands that bulk and TMA copies bring through ``mbarrier`` rings
 (``csrc/cond_chain_f32.cuh``, ``csrc/hopper_bf16.cuh``), on images of the
 weights the libraries make at each launch in a workspace the wrapper
 allocates; K2's weight grads recompute lrelu(h) rather than read it from a
-scratch, and take dW0, dhbias and the edges as one product. Both are
+scratch, and take dW0, dhbias and the edges as one product (in K2's data
+kernel itself at E <= 9, with no scratch of dh). Both are
 tied together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors
 launch the kernels (or raise for a device, dtype or layout they do not
 take), CPU tensors run :func:`cond_chain_plain` and
@@ -207,6 +208,8 @@ def _library() -> dict:
         bwd.cond_chain_bwd_time_kernels.restype = i
         bwd.cond_chain_bwd_kernel_ms.argtypes = [ctypes.POINTER(ctypes.c_float)]
         bwd.cond_chain_bwd_kernel_ms.restype = i
+        bwd.cond_chain_bwd_launched.argtypes = []
+        bwd.cond_chain_bwd_launched.restype = i
         bwd = libs["bwd_bf16"]
         bwd.cond_chain_bwd_bf16_rows.argtypes = [i, i, i, i, i, i]
         bwd.cond_chain_bwd_bf16_rows.restype = i

@@ -25,12 +25,17 @@ on the card:
   j ..) @ W1_i[j], the pass's k-slices, each with its three taps, summed over
   the passes; W1's image read back through the descriptors (at W = 32 each
   slice's k order permuted, so that A's lo is h's accumulator as it lies);
-- K2's data kernel: da from g's rows 62 w + q + 2 - j of the CTA's 128-row
-  tile; dh = lrelu'(h) da, its own rows to the dh scratch; dexc as
-  P = dh @ [W0_i[0]^T | W0_i[1]^T | W0_i[2]^T] with dh's accumulator pairs as
-  the m16n8k8 A fragment (the image's K order permuted to match), then
-  dexc[t] = P_0[t+1] + P_1[t] + P_2[t-1], summed over blocks and passes;
-  db1 per CTA;
+- K2's data kernel: a CTA per (run of tiles of one batch row, block, pass),
+  the runs as make_plan chooses them (``k2_plan``); da from g's rows
+  62 w + q + 2 - j of the tile's 128-row stage; dh = lrelu'(h) da (past
+  E = 9 its own rows to the dh scratch); dexc as P = dh @ [W0_i[0]^T |
+  W0_i[1]^T | W0_i[2]^T] with dh's neighbours (2 tig, 2 tig + 1) as the A
+  fragment's columns (tig, tig + 4) (the image's K order permuted to match),
+  then dexc[t] = (P_0[t+1] + P_1[t]) + P_2[t-1] as each block's and pass's
+  part, the parts summed in order; at E <= 9 X^T dh per tile and warpgroup
+  from dh and X (its halo rows zeroed), added into each warpgroup's sums
+  tile by tile, the two warpgroups' sums added at the run's end: a partial
+  per (batch row, run); db1 per tile;
 - k2_w1_kernel: per (block, pass, tile of 64 or 32 output channels) and
   64-row unit, lrelu(h) recomputed with the data kernel's bits (checked),
   written split into a K-major image (element (c, s) at (c / 8) 2048 +
@@ -38,10 +43,10 @@ on the card:
   products' descriptors; A = g^T read from the raw TMA stage of g with the
   rows shifted by the tap, the three taps stacked as M = 64 rows (tap, o);
   a partial per run of at most 16 units;
-- k2_xdh_kernel: X = [exc taps | 1 | -[t == 0] | -[t == T-1]] built per step
-  of 64 rows into its K-major image, A = dh^T from the raw stage of the dh
-  scratch, X^T dh per (batch row, part); the reduce sums every kind of
-  partial in order.
+- k2_xdh_kernel (past E = 9 only): X = [exc taps | 1 | -[t == 0] |
+  -[t == T-1]] built per step of 64 rows into its K-major image, A = dh^T
+  from the raw stage of the dh scratch, X^T dh per (batch row, part); the
+  reduce sums every kind of partial in order.
 
 Numpy and torch's CPU ops only, no JAX compile.
 """
@@ -240,43 +245,67 @@ def dh_as_a(d):
 
 
 def scratch_a(e):
-    """K2 takes lrelu(h) from the data kernel (make_plan's scratch_a) where
-    Wh's image is more than one fetch of k2_w1_kernel, K = 3E + 3 past 32;
-    else k2_w1_kernel recomputes it."""
+    """K2 takes lrelu(h) from the data kernel (make_plan's wide E) where Wh's
+    image is more than one fetch of k2_w1_kernel, K = 3E + 3 past 32; else
+    k2_w1_kernel recomputes it, and the data kernel takes X^T dh on chip."""
     return -(-(3 * e + 3) // 8) > WH_CHUNK
 
 
-def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
-    """K2's data kernel tile by tile and pass by pass: (dexc, the dh scratch, db1's partials
-    (B, tiles, n*2C), h of every tile's rows with those rows (for the
-    recompute's check), the lrelu(h) scratch (None where k2_w1_kernel
-    recomputes it))."""
+RUN_TILES = 8      # tiles a data-kernel CTA walks at most: 16 units of 62 rows a partial
+
+
+def k2_plan(b, t, n, cc, run=None):
+    """(run, nruns): the data kernel's runs of tiles of one batch row
+    (make_plan): at most RUN_TILES, as long as make the CTAs' waves on the
+    card take least, a wave of runs of r tiles counted as r + 1/4, the
+    longest run first where two take as long. ``run`` given: that run."""
+    ntiles = -(-t // TILE)
+    if run is None:
+        per_run = b * n * -(-cc // PASS)
+        best = None
+        for r in range(min(RUN_TILES, ntiles), 0, -1):
+            cost = -(-per_run * -(-ntiles // r) // SM_COUNT) * (4 * r + 1)
+            if best is None or cost < best:
+                best, run = cost, r
+    return run, -(-ntiles // run)
+
+
+def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None, run=None):
+    """K2's data kernel tile by tile, block by block and pass by pass: (dexc,
+    the dh scratch (None at E <= 9), db1's partials (B, tiles, n*2C), h of
+    every tile's rows with those rows (for the recompute's check), the
+    lrelu(h) scratch (None where k2_w1_kernel recomputes it), at E <= 9 X^T
+    dh's partials (B nruns, K, n*Cc) and nruns (else None, None))."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     ntiles = -(-t // TILE)
+    npass = -(-cc // PASS)
     n0 = n * cc
-    dh_s = np.zeros((b, t, n0), np.float32)
-    a_s = np.zeros((b, t, n0), np.float32) if scratch_a(e) else None
-    # dexc per pass of 136 channels (a CTA each), summed over the blocks in
-    # order, then over the passes in order (the reduce)
-    dexc_p = np.zeros((-(-cc // PASS), b, t, e), np.float32)
+    wide = scratch_a(e)
+    dh_s = np.zeros((b, t, n0), np.float32) if wide else None
+    a_s = np.zeros((b, t, n0), np.float32) if wide else None
+    # dexc per block and pass (a part each), summed in order by the reduce
+    dexc_p = np.zeros((n * npass, b, t, e), np.float32)
     pb1 = np.zeros((b, ntiles, n * two_c), np.float32)
+    kx = 3 * e + 3
+    run, nruns = k2_plan(b, t, n, cc, run)
+    pw0 = None if wide else np.zeros((b * nruns, kx, n0), np.float32)
     hs = {}
-    # g's 128-row tile of each CTA: times t0 - 2 .. t0 + 125, zero outside [0, T)
+    # g's 128-row stage of each tile: times t0 - 2 .. t0 + 125, zero outside [0, T)
     tt = np.arange(ntiles)[:, None] * TILE - 2 + np.arange(TILE + 4)[None]
     gt = np.where(((tt >= 0) & (tt < t))[None, ..., None],
                   g[:, np.clip(tt, 0, t - 1)], 0).astype(np.float32)
     for i in range(n):
         gi = gt[..., i * two_c:(i + 1) * two_c]
-        for p in range(-(-cc // PASS)):
+        for p in range(npass):
             h, u, ok = _h(exc, w0, hbias, edge0, edge_t, i, p, cc)
             hs[i, p] = h, u
             own = (np.arange(ROWS) >= 1) & (np.arange(ROWS) <= OWN)
             own = own[None, None, None, :, None] & ok
             chans = slice(i * cc + PASS * p, i * cc + min(PASS * (p + 1), cc))
             width = chans.stop - chans.start
-            if a_s is not None:
+            if wide:
                 put_own(a_s, np.where(h >= 0, h, SLOPE * h), own, u, chans, width)
-            # da: tap j reads g's tile rows 62 w + q + 2 - j
+            # da: tap j reads g's stage rows 62 w + q + 2 - j
             da = np.zeros_like(h)
             for so in range(-(-two_c // 8)):
                 for j in range(3):
@@ -288,25 +317,45 @@ def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
                     wt[:len(o), :width] = w1[j][PASS * p:PASS * p + width, i * two_c + o].T
                     add3(da, gw, wt)
             dh = np.where(ok, np.where(h >= 0, da, SLOPE * da), 0).astype(np.float32)
-            put_own(dh_s, dh, own, u, chans, width)
-            # dexc: P = dh @ W0 taps per chunk of 8 columns of exc, K permuted
+            if wide:
+                put_own(dh_s, dh, own, u, chans, width)
+            else:
+                # X^T dh of each tile's two windows (X's halo rows zero), k-slice
+                # by k-slice of 8 rows; each window's sums take its tiles in
+                # order, the two sums added at the run's end
+                x = x_rows(exc, u.reshape(-1)).reshape(b, ntiles, 2, ROWS, -1)
+                x = np.pad(x, [(0, 0)] * 4 + [(0, 32 - x.shape[-1])])
+                x[..., [0, ROWS - 1], :] = 0
+                d = np.zeros((b, ntiles, 2, PASS, 32), np.float32)
+                for ks in range(ROWS // 8):
+                    rows = slice(8 * ks, 8 * ks + 8)
+                    add3(d, dh[..., rows, :].swapaxes(-1, -2), x[..., rows, :])
+                for r_i in range(nruns):
+                    sums = np.zeros((b, 2, PASS, 32), np.float32)
+                    for tile in range(r_i * run, min(ntiles, (r_i + 1) * run)):
+                        sums += d[:, tile]
+                    part = sums[:, 0] + sums[:, 1]
+                    pw0[np.arange(b) * nruns + r_i, :, chans] = \
+                        part[:, :width, :kx].swapaxes(-1, -2)
+            # dexc: P = dh @ W0 taps per chunk of 8 columns of exc, K permuted,
+            # every slice of the pass
             for ec in range(-(-e // 8)):
                 pac = np.zeros((b, ntiles, 2, ROWS, 24), np.float32)
-                for s in range(-(-width // 8)):
+                for s_ in range(PASS // 8):
                     w = np.zeros((8, 24), np.float32)
                     for j in range(3):
                         for k in range(8):
-                            c = PASS * p + 8 * s + perm(k)
+                            c = PASS * p + 8 * s_ + perm(k)
                             ee = np.arange(8 * ec, min(8 * ec + 8, e))
                             if c < cc:
                                 w[k, 8 * j:8 * j + len(ee)] = w0[j][ee, i * cc + c]
-                    add3(pac, dh_as_a(dh[..., 8 * s:8 * s + 8]), w)
+                    add3(pac, dh_as_a(dh[..., 8 * s_:8 * s_ + 8]), w)
                 v = (pac[..., 2:OWN + 2, 0:8] + pac[..., 1:OWN + 1, 8:16]) + pac[..., :OWN, 16:24]
                 v = v.reshape(b, -1, 8)[:, :t, :min(8, e - 8 * ec)]
-                dexc_p[p][..., 8 * ec:8 * ec + v.shape[-1]] += v
-        # db1: each CTA's rows of g, per channel
+                dexc_p[i * npass + p][..., 8 * ec:8 * ec + v.shape[-1]] = v
+        # db1: each tile's rows of g, per channel
         pb1[..., i * two_c:(i + 1) * two_c] = gi[:, :, 2:TILE + 2].sum(2)
-    return ordered_sum(dexc_p), dh_s, pb1, hs, a_s
+    return ordered_sum(dexc_p), dh_s, pb1, hs, a_s, pw0, None if wide else nruns
 
 
 # --- k2_w1_kernel and k2_xdh_kernel, as their threads read and write shared memory
@@ -487,15 +536,18 @@ def xdh_emulated(exc, dh_s, kx):
     return pw0, parts
 
 
-def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None):
-    """The chain's backward as K2 takes it: the data kernel tile by tile,
-    then k2_w1_kernel, k2_xdh_kernel and the ordered reduce of their
-    partials."""
+def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None, run=None):
+    """The chain's backward as K2 takes it: the data kernel tile by tile (at
+    E <= 9 with X^T dh), then k2_w1_kernel, past E = 9 k2_xdh_kernel, and the
+    ordered reduce of their partials. ``run``: the data kernel's runs of
+    tiles, where not make_plan's."""
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
-    dexc, dh_s, pb1, hs, a_s = k2_data_emulated(exc, w0, hbias, w1, g, edge0, edge_t)
+    dexc, dh_s, pb1, hs, a_s, pw0, parts = k2_data_emulated(exc, w0, hbias, w1, g, edge0,
+                                                            edge_t, run)
     out = dict(exc=dexc, b1=ordered_sum(pb1.reshape(-1, n * two_c)))
     out["w1"] = w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s)
-    pw0, parts = xdh_emulated(exc, dh_s, 3 * e + 3)
+    if pw0 is None:
+        pw0, parts = xdh_emulated(exc, dh_s, 3 * e + 3)
     out["w0"] = ordered_sum(pw0[:, :3 * e]).reshape(3, e, n * cc)
     per_b = pw0.reshape(b, parts, *pw0.shape[1:])
     dhb = np.stack([ordered_sum(per_b[bb, :, 3 * e]) for bb in range(b)])
@@ -599,17 +651,29 @@ def test_k1_w1_image_read_back(w, permuted):
 # take runs of two units (the last of one); and the concat form at
 # E = Cc = 48 (K = 147, 19 k-slices of Wh), where k2_w1_kernel reads
 # lrelu(h) from the data kernel's scratch (as at every E past 9)
+# The data kernel's runs: the last case gives runs of RUN_TILES tiles (the
+# kernel's plan takes them at the step's B = 32, T = 4480; at a test's size
+# it takes shorter ones) to a ragged row end, 12 tiles of which the last has
+# 78 rows: one run of 8 tiles, each (batch row, run) partial of X^T dh at its
+# limit of 16 units of 62 rows, and one of 4. Then E = 9, the last width
+# with X^T dh in the data kernel (K = 30), and a concat form of two passes
+# (E = Cc = 140), which takes the scratch route
 K2_CASES = CASES + [(True, 1, 70, 10, 1, 138, 6), (False, 2, 530, 0, 1, 16, 72),
-                    (True, 1, 300, 8, 6, 150, 136), (False, 2, 150, 0, 1, 48, 40)]
+                    (True, 1, 300, 8, 6, 150, 136), (False, 2, 150, 0, 1, 48, 40),
+                    (True, 2, 200, 9, 2, 20, 16), (False, 1, 130, 0, 1, 140, 8),
+                    (True, 1, 1442, 8, 1, 12, 8)]
 K2_IDS = IDS + ["split-E10-padded", "concat-two-otiles", "split-runs-of-two",
-                "concat-E48-a-scratch"]
+                "concat-E48-a-scratch", "split-E9-on-chip", "concat-two-passes-scratch",
+                "split-run-of-8-ragged"]
+K2_RUNS = {"split-run-of-8-ragged": RUN_TILES}
 
 
 @pytest.mark.parametrize("split_form,b,t,e,n,cc,two_c", K2_CASES, ids=K2_IDS)
-def test_k2_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
+def test_k2_emulation_matches_plain(request, split_form, b, t, e, n, cc, two_c):
     """K2's kernels emulated at the widths the wrapper gives them, cut back:
-    the data kernel, then k2_w1_kernel (lrelu(h) recomputed with the data
-    kernel's bits, its K-major image, the tap shift on A) and k2_xdh_kernel
+    the data kernel (at E <= 9 with X^T dh, its partials per (batch row, run)
+    of tiles), then k2_w1_kernel (lrelu(h) recomputed with the data kernel's
+    bits, its K-major image, the tap shift on A) and past E = 9 k2_xdh_kernel
     (X^T dh with the ones and edge columns), their partials reduced in
     order."""
     ops = operands(split_form, b, t, e, n, cc, two_c, seed=t + cc + 1)
@@ -620,13 +684,89 @@ def test_k2_emulation_matches_plain(split_form, b, t, e, n, cc, two_c):
     cc_p, two_c_p = cond_chain._padded_widths("bwd", cc, two_c)
     rest = {k: v for k, v in ops.items() if k != "exc"}
     padded = cond_chain._pad_widths({**rest, "g": g}, n, cc, two_c, cc_p, two_c_p)
-    got = k2_emulated(exc=ops["exc"].numpy(), **np32(padded))
+    got = k2_emulated(exc=ops["exc"].numpy(), **np32(padded),
+                      run=K2_RUNS.get(request.node.callspec.id))
     got = cond_chain._cut_grads({k: torch.from_numpy(v) for k, v in got.items()},
                                 n, cc, two_c, cc_p, two_c_p)
     assert set(got) == set(want)
     for k in want:
         assert got[k].shape == want[k].shape, k
         assert_parity(got[k].numpy(), want[k].numpy(), f"d{k}")
+
+
+def test_k2_plan_runs():
+    """The data kernel's runs at the f32 step's shapes (B = 16 and 32, n = 9,
+    one pass) fill the card: at least two waves of CTAs, a run at most 8
+    tiles (16 units of 62 rows a partial of X^T dh)."""
+    for b in (16, 32):
+        for t in (280, 2240, 4480, 8960):
+            run, nruns = k2_plan(b, t, 9, 136)
+            assert 1 <= run <= RUN_TILES and (nruns - 1) * run < -(-t // TILE) <= nruns * run
+            assert b * 9 * nruns >= 2 * SM_COUNT, (b, t, run)
+    assert k2_plan(16, 280, 9, 136) == (1, 3)  # 432 CTAs where a CTA a tile made 48
+
+
+def test_x_image_read_back():
+    """X's image in the data kernel's shared memory (x_image: element (k, q)
+    at (k / 8) 2048 + (q / 4) 128 + (k % 8) 16 + (q % 4) 4 bytes, hi then lo
+    8192 on) read back as h's A registers (x_frag_image: the words x_frag
+    makes from exc) and, its halo rows zeroed (x_halo), as X^T dh's B through
+    the descriptors (32 rows k, SBO 2048, LBO 128, slice ks 256 ks on)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((ROWS, 32)).astype(np.float32)
+    hi, lo = split(x)
+    img = np.zeros(2 * 8192 // 4, np.float32)
+    q, k = np.meshgrid(np.arange(ROWS), np.arange(32), indexing="ij")
+    kmajor_store(img, k, q, hi)
+    kmajor_store(img[8192 // 4:], k, q, lo)
+    for wt in range(128):
+        row, tig = (wt >> 5) * 16 + (wt & 31) // 4, wt % 4
+        base = ((row >> 2) * 128 + tig * 16 + (row & 3) * 4) // 4
+        for s_ in range(4):
+            p0 = base + s_ * 512
+            got = [img[p0], img[p0 + 64], img[p0 + 16], img[p0 + 80]]
+            want = [(row, 8 * s_ + tig), (row + 8, 8 * s_ + tig), (row, 8 * s_ + tig + 4),
+                    (row + 8, 8 * s_ + tig + 4)]
+            assert got == [hi[r, c] for r, c in want]
+            assert [img[p0 + 2048 + o] for o in (0, 64, 16, 80)] == [lo[r, c] for r, c in want]
+    for wt in range(128):  # x_halo's word
+        kk, w = wt & 31, wt >> 5
+        off = (kk >> 3) * 2048 + (kk & 7) * 16 + (15 * 128 + 12 if w & 1 else 0)
+        img[((w >> 1) * 8192 + off) // 4] = 0
+    x0 = hi.copy()
+    x0[[0, ROWS - 1]] = 0
+    l0 = lo.copy()
+    l0[[0, ROWS - 1]] = 0
+    for ks in range(ROWS // 8):
+        np.testing.assert_array_equal(desc_read(img, 256 * ks, 32, 128, 2048),
+                                      x0[8 * ks:8 * ks + 8].T)
+        np.testing.assert_array_equal(desc_read(img, 8192 + 256 * ks, 32, 128, 2048),
+                                      l0[8 * ks:8 * ks + 8].T)
+
+
+def test_dh_raw_reads():
+    """dh raw in the data kernel's shared memory (box c / 8 of 64 rows x 8
+    columns, element (q, c) at (c / 8) 512 + 8 q + c % 8 floats) read as
+    dexc's A (one 8-byte load at row, 2 tig of a slice's box: A registers 0
+    and 2; at row + 8: 1 and 3; dh_as_a's fragment in the permuted K order)
+    and as X^T dh's A (element (m, kk) of slice ks: dh[8 ks + kk][cm + m])."""
+    rng = np.random.default_rng(4)
+    dh = rng.standard_normal((ROWS, PASS)).astype(np.float32)
+    raw = dh.reshape(ROWS, PASS // 8, 8).transpose(1, 0, 2).reshape(-1)
+    a = dh_as_a(dh.reshape(ROWS, PASS // 8, 8).transpose(1, 0, 2))  # (slices, 64, 8)
+    for wt in range(128):
+        row, tig = (wt >> 5) * 16 + (wt & 31) // 4, wt % 4
+        for s_ in range(PASS // 8):
+            p0 = s_ * 512 + row * 8 + 2 * tig
+            assert [raw[p0], raw[p0 + 64], raw[p0 + 1], raw[p0 + 65]] == \
+                [a[s_, row, tig], a[s_, row + 8, tig], a[s_, row, tig + 4], a[s_, row + 8, tig + 4]]
+        for cm in (0, 64, 72):
+            ap = ((cm >> 3) + 2 * (row >> 4)) * 512 + (row & 7) + 8 * tig
+            for ks in range(ROWS // 8):
+                p0 = ap + 64 * ks
+                assert [raw[p0], raw[p0 + 512], raw[p0 + 32], raw[p0 + 544]] == \
+                    [dh[8 * ks + tig, cm + row], dh[8 * ks + tig, cm + row + 8],
+                     dh[8 * ks + tig + 4, cm + row], dh[8 * ks + tig + 4, cm + row + 8]]
 
 
 def test_dexc_permutation_is_the_fragment_layout():
