@@ -1828,15 +1828,19 @@ def k2_bf16_stage(cfg, card, b, t, c, seed):
     del split, g, args
     torch.cuda.empty_cache()
     return worst_d, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, library_ms=l_ms, f32_ms=f_ms,
-                         flops=flops, bytes=nbytes, parts=parts)
+                         flops=flops, bytes=nbytes, parts=parts,
+                         w1_flops=2.0 * b * t * 3 * n * cc * 2 * c)
 
 
 # K2's and K2-bf16's kernels, by the names the profiler gives them (demangled,
 # or not: "...15k2b_data_kernelENS_8DataArgsE"), template arguments kept
 K2B_KERNELS = re.compile(r"(w_images_kernel|k1_(?:f32|images)_kernel|k2b?_[A-Za-z0-9]+?_kernel)"
                          r"(<[^>]*>|I(?:L[ib]\d+E)+E)?")
-# the batch-64 step's largest K2-bf16 call, whose workspace phase 14 prints
+# the batch-64 step's largest K2-bf16 call, whose workspace phase 14 prints,
+# and the wide route's (concat E = Cc = 600, wide_shapes' last), with its
+# scratch of a
 K2B_WS_SHAPE = (2 * B64, SEG, 8, 9, 136, 32)
+K2B_WIDE_WS_SHAPE = (2, 2240, 600, 9, 600, 128)
 
 
 def k2b_label(name: str) -> str | None:
@@ -1951,6 +1955,7 @@ def phase_bf16_kernels(cfg, card):
     k1 = {"convert": dict.fromkeys(keys, 0.0), "train": dict.fromkeys(keys, 0.0)}
     k2 = dict.fromkeys(keys, 0.0)
     k2_parts: dict = {}
+    w1_flops = 0.0
     for i, (t, c) in enumerate(stage_shapes(UTT, cfg)):
         d, v = k1_bf16_stage(cfg, card, B, t, c, 1700 + i, "convert")
         w1 = max(w1, d)
@@ -1963,13 +1968,25 @@ def phase_bf16_kernels(cfg, card):
             for k in keys:
                 k1["train"][k] += v[k]
             d, v = k2_bf16_stage(cfg, card, bsz, t, c, 1800 + i)
+            w1_flops += v["w1_flops"]
             w2 = max(w2, d)
             for k in keys:
                 k2[k] += v[k]
             add_breakdown(k2_parts, v["parts"])
-    ws = cc_mod._library()["bwd_bf16"].cond_chain_bwd_bf16_workspace(*K2B_WS_SHAPE)
+    lib = cc_mod._library()["bwd_bf16"]
+    ws = lib.cond_chain_bwd_bf16_workspace(*K2B_WS_SHAPE)
+    wb, wt, _, wn, wcc, _ = K2B_WIDE_WS_SHAPE
+    wide_ws = lib.cond_chain_bwd_bf16_workspace(*K2B_WIDE_WS_SHAPE)
+    a_scratch = wb * wt * -(-wn * wcc // 8) * 8 * 2
     say(f"k2-bf16 kernels per batch-64 train step (8 calls): {breakdown_line(k2_parts, 8)}; "
-        f"workspace at (B, T, E, n, Cc, 2C) = {K2B_WS_SHAPE}: {ws / 1e9:.3f} GB [{card}]")
+        f"workspace at (B, T, E, n, Cc, 2C) = {K2B_WS_SHAPE}: {ws / 1e9:.3f} GB, at "
+        f"{K2B_WIDE_WS_SHAPE} {wide_ws / 1e9:.3f} GB (of which the scratch of a "
+        f"{a_scratch / 1e6:.1f} MB) [{card}]")
+    w1_ms = k2_parts["k2b_w1_kernel"][0]
+    w1_bound = w1_flops / PEAK_BF16_FLOPS * 1e3
+    say(f"k2b_w1_kernel per batch-64 train step: {w1_ms:.3f} ms against its own bound of "
+        f"{w1_bound:.3f} ms (dW1's {w1_flops / 1e12:.3f} TFLOP at "
+        f"{PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s; {w1_bound / w1_ms:.1%} of it) [{card}]")
     for label, sums, per in (("k1-bf16", k1["convert"], "bf16 convert call (4 calls)"),
                              ("k1-bf16", k1["train"], "batch-64 train step (8 calls)"),
                              ("k2-bf16", k2, "batch-64 train step (8 calls)")):
@@ -3430,13 +3447,16 @@ def timer_libraries(tmp: Path) -> dict:
 
 def read_timers(lib, n: int, fn, reps: int = 5) -> tuple[float, list[float]]:
     """(ms a launch of ``fn``, the ``n`` cycle sums of ``reps`` launches) from
-    a timer library."""
-    cyc = (ctypes.c_ulonglong * n)()
+    a timer library (its reader copies all its counters: up to TIMER_SLOTS)."""
+    cyc = (ctypes.c_ulonglong * max(n, TIMER_SLOTS))()
     lib.timers(cyc, 1)
     ms = cuda_ms(fn, iters=reps, warmup=0)
     if lib.timers(cyc, 1):
         raise RuntimeError("the timers could not be read")
-    return ms, [float(x) for x in cyc]
+    return ms, [float(x) for x in cyc[:n]]
+
+
+TIMER_SLOTS = 64  # more than any timer build's counters
 
 
 # the phases the timer builds count, in the order of their cycle sums; a
@@ -3446,6 +3466,19 @@ K2B_PHASES = ("h", "da", "da's waits on full", "slope+dh", "dexc+X^T dh",
               "their products", "X^T dh's sum", "dexc's shift and store")
 K2_PHASES = ("h", "da", "da's waits on full", "dh", "dexc", "X^T dh", "dexc's store")
 K1_PHASES = ("h", "h's waits on full", "A", "barriers", "P", "P's waits on full", "output")
+# the weight-grad kernels' (k2b_w1_kernel, k2_w1_kernel) counters after the
+# data kernel's, by role: each role's phases, its whole and its count
+K2B_W1_PHASES = (("compute warpgroup",
+                  ("X", "image waits", "waits on g_full", "products' issue",
+                   "wait for the products and h", "lrelu and a's store", "barrier",
+                   "partials' store")),
+                 ("producer thread", ("waits on empty",)))
+K2_W1_PHASES = (("recompute warpgroup",
+                 ("A (X or a's read)", "h", "Wh fetches", "waits on a_empty",
+                  "lrelu, split, store", "g ring's waits")),
+                ("product warpgroup",
+                 ("waits on a_full", "waits on g_full", "A fragments", "products",
+                  "wait after products", "partials' store")))
 PHASE_PARTS = {"da's waits on full", "their products", "X^T dh's sum",
                "dexc's shift and store", "h's waits on full"}
 
@@ -3496,10 +3529,12 @@ def phase_timers(cfg, card) -> None:
     and the bf16 conversion's four stage shapes (each consumer warpgroup's
     cycles in h's product and lrelu, in P's products and in the epilogue);
     K2-bf16's data kernel at the batch-64 step's four stage shapes and the
-    bottleneck's four (K2B_PHASES, and the producer's waits on empty as a
-    share of its cycles); K2 (f32)'s data kernel at the f32 step's four stage
-    shapes (K2_PHASES). Per shape: the shares of the warpgroups' cycles and
-    the launch's time. Each launch is held to its plain version first."""
+    bottleneck's four and concat E = Cc = 600 (K2B_PHASES, and the
+    producer's waits on empty as a share of its cycles); K2 (f32)'s data
+    kernel at the f32 step's four stage shapes (K2_PHASES); with each K2
+    call, its weight-grad kernel's phases (``k2_w1_timers``). Per shape: the
+    shares of the warpgroups' cycles and the launch's time. Each launch is
+    held to its plain version first."""
     with tempfile.TemporaryDirectory() as tmp:
         libs = timer_libraries(Path(tmp))
         k1_f32_timers(cfg, card, libs["fwd"])
@@ -3525,7 +3560,8 @@ def phase_timers(cfg, card) -> None:
                 f"{1 - (h_c + p_c + e_c) / whole:.1%} [{card}]")
             del fwd
             torch.cuda.empty_cache()
-        k2_data_timers(cfg, card, libs["bwd_bf16"], torch.bfloat16, bottleneck)
+        k2_data_timers(cfg, card, libs["bwd_bf16"], torch.bfloat16,
+                       bottleneck + [x for x in wide_shapes(cfg) if x[-1] != 1])
         k2_data_timers(cfg, card, libs["bwd"], torch.float32)
 
 
@@ -3537,6 +3573,9 @@ def k2_data_timers(cfg, card, lib, dtype, extra=()) -> None:
     whole, and the producer's waits on empty as a share of its cycles."""
     bf16 = dtype == torch.bfloat16
     name, phases = ("K2-bf16", K2B_PHASES) if bf16 else ("K2 (f32)", K2_PHASES)
+    w1_phases = K2B_W1_PHASES if bf16 else K2_W1_PHASES
+    n_data = len(phases) + 5
+    n_w1 = sum(len(x) + 2 for _, x in w1_phases)
     bsz, seed = (B64, 3500) if bf16 else (B, 3600)
     cases = [(f"step stage {k} C={c}", bsz, t, None, 2 * c, None)
              for k, (t, c) in enumerate(stage_shapes(SEG, cfg))]
@@ -3558,7 +3597,9 @@ def k2_data_timers(cfg, card, lib, dtype, extra=()) -> None:
             else:
                 ab_f32_agree(f"timers {name} {label} d{key}", got[key], want[key])
         del got, want
-        ms, cyc = read_timers(lib, len(phases) + 5, lambda: old_k2(lib, args, g))
+        ms, cyc = read_timers(lib, n_data + n_w1, lambda: old_k2(lib, args, g))
+        k2_w1_timers(name, w1_phases, label, b, t, cyc[n_data:], card)
+        cyc = cyc[:n_data]
         whole, wgs = cyc[len(phases)], cyc[len(phases) + 1]
         wait, pwhole, prods = cyc[-3:]
         shares = ", ".join(f"{ph} {cyc[x] / whole:.1%}" for x, ph in enumerate(phases))
@@ -3569,6 +3610,22 @@ def k2_data_timers(cfg, card, lib, dtype, extra=()) -> None:
             f"waits on empty {wait / pwhole:.1%} [{card}]")
         del args, g
         torch.cuda.empty_cache()
+
+
+def k2_w1_timers(name, phases, label, b, t, cyc, card) -> None:
+    """The weight-grad kernel's line of ``--timers`` (k2b_w1_kernel,
+    k2_w1_kernel) from its counters of one timed call: for each role's
+    warpgroup (thread), its cycles and the shares of its phases
+    (``phases``: K2B_W1_PHASES, K2_W1_PHASES)."""
+    parts, k = [], 0
+    for role, names in phases:
+        c = cyc[k:k + len(names)]
+        whole, wgs = cyc[k + len(names)], cyc[k + len(names) + 1]
+        k += len(names) + 2
+        shares = ", ".join(f"{ph} {x / whole:.1%}" for ph, x in zip(names, c))
+        parts.append(f"per {role} {whole / wgs:.0f} cycles ({wgs / 5:.0f} a launch): "
+                     f"{shares}, other {1 - sum(c) / whole:.1%}")
+    say(f"timers {name} w1 kernel {label} (B={b} T={t}): {'; '.join(parts)} [{card}]")
 
 
 KERNEL_NAME = (r"(k1_f32_kernel|k1_images_kernel|cond_chain_fwd_kernel|k1_bf16_kernel|"

@@ -175,10 +175,21 @@ constexpr int kSmCount = 132;  // an H100's SMs: the grids are sized by them
 // loads), da's waits on full (also in da), dh (the slope and its stores),
 // dexc's products, X^T dh (its products and the
 // add into the run's sums), dexc's shift and store, and the whole kernel;
-// the producer's waits on empty and its whole. The normal build has none.
+// the producer's waits on empty and its whole. Then k2_w1_kernel's (from
+// kW1Timers on): the recompute warpgroup's A (X's fragments at E <= 9, past
+// it the read of lrelu(h)), h's products and their wait, the fetches of
+// Wh's image, the waits on a_empty, lrelu, its split and store, the g
+// ring's waits on empty (its first thread) and its whole; the product
+// warpgroups' waits on a_full and on g_full, their A fragments (loads and
+// splits), their products, the waits after them, the partials' store and
+// their whole. The normal build has none.
 #ifdef COND_CHAIN_TIMERS
-constexpr int kTimers = 12;  // h, da, da's waits, dh, dexc, X^T dh, dexc's store, whole,
-                             // warpgroups, producer waits, producer whole, producers
+constexpr int kW1Timers = 12;
+constexpr int kTimers = kW1Timers + 16;  // the data kernel: h, da, da's waits, dh, dexc,
+                                         // X^T dh, dexc's store, whole, warpgroups,
+                                         // producer waits, producer whole, producers;
+                                         // k2_w1_kernel: 6 + 1 recompute counters and
+                                         // warpgroups, 6 + 1 products'
 __device__ unsigned long long g_timers[kTimers];
 #define TIMER_START(v) const long long v = clock64()
 #define TIMER_ADD(acc, since) acc += clock64() - since
@@ -855,16 +866,25 @@ __device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
   const HArgs& h = a.h;
   const size_t n2 = (size_t)h.n * a.two_c;
   float acc[kNch][N / 2];
+#ifdef COND_CHAIN_TIMERS
+  long long tw[6] = {0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers + 8
+  const long long t_all = clock64();
+#endif
   for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
     const int fresh = k % a.run == 0;  // the unit's products overwrite the accumulators
     const int slot = n & 1;
     const int st = slot_of<kW1Stages>(n);
+    TIMER_START(t_af);
     mbar_wait(&a_full[slot], (uint32_t)((n >> 1) & 1));
+    TIMER_ADD(tw[0], t_af);
+    TIMER_START(t_gf);
     mbar_wait(&g_full[st], parity_of<kW1Stages>(n));
+    TIMER_ADD(tw[1], t_gf);
     const float* gs = reinterpret_cast<const float*>(gring + st * kW1GStage);
     const uint32_t abase = smem_u32(aslots + slot * kASlot) + (cw / 8) * kAGroup;
 #pragma unroll 1
     for (int kk = 0; kk < kUnit / 8; ++kk) {
+      TIMER_START(t_fr);
       XFrag f[kNch];
 #pragma unroll
       for (int m = 0; m < kNch; ++m) {
@@ -877,6 +897,8 @@ __device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
         fence_regs(f[m].hi);
         fence_regs(f[m].lo);
       }
+      TIMER_ADD(tw[2], t_fr);
+      TIMER_START(t_p);
       const uint32_t bh = abase + 256 * kk;
       wgmma_fence();
       const int keep = kk > 0 || !fresh;
@@ -893,13 +915,17 @@ __device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
         }
       }
       wgmma_commit();
+      TIMER_ADD(tw[3], t_p);
+      TIMER_START(t_pw);
       wgmma_wait<0>();
 #pragma unroll
       for (int m = 0; m < kNch; ++m) fence_regs(acc[m]);
+      TIMER_ADD(tw[4], t_pw);
     }
     release(&g_empty[st]);
     release(&a_empty[slot]);
     if ((k + 1) % a.run && k + 1 < k_end) continue;
+    TIMER_START(t_o);
     float* part = a.pw1 + (size_t)(k / a.run) * 3 * h.cc * n2 + (size_t)i * a.two_c;
 #pragma unroll
     for (int m = 0; m < kNch; ++m) {
@@ -913,7 +939,15 @@ __device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
         }
       }
     }
+    TIMER_ADD(tw[5], t_o);
   }
+#ifdef COND_CHAIN_TIMERS
+  if (l.wt == 0) {
+    for (int x = 0; x < 6; ++x) atomicAdd(&g_timers[kW1Timers + 8 + x], (unsigned long long)tw[x]);
+    atomicAdd(&g_timers[kW1Timers + 14], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[kW1Timers + 15], 1ull);
+  }
+#endif
 }
 
 template <int OT>
@@ -957,13 +991,19 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
   __syncthreads();
 
   if (wg == 0) {
+#ifdef COND_CHAIN_TIMERS
+    long long tw[6] = {0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers
+    const long long t_all = clock64();
+#endif
     // the g stage of unit k (the CTA's n-th), once the products of the unit
     // kW1Stages before are done with it
     auto ask_g = [&](int k, int n) {
       const int b = k / a.nsub;
       const int s0 = (k - b * a.nsub) * kUnit;
       const int st = slot_of<kW1Stages>(n);
+      TIMER_START(t_ge);
       mbar_wait(&g_empty[st], parity_of<kW1Stages>(n) ^ 1);
+      TIMER_ADD(tw[5], t_ge);
       mbar_arrive_expect_tx(&g_full[st], (OT / 8) * kGUnitRows * 32);
       for (int bx = 0; bx < OT / 8; ++bx) {
         tma_load_4d(gring + st * kW1GStage + bx * kW1GBox, &a.g_map, &g_full[st], o0 + 8 * bx, i,
@@ -979,6 +1019,7 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
     // done with what it held
     int loads = 0, held = -1;
     auto fetch = [&](int b) {
+      TIMER_START(t_f);
       bar_sync(1, 128);
       if (l.wt == 0) {
         mbar_arrive_expect_tx(w_full, (uint32_t)(h.nkh * 2 * kHItem));
@@ -987,6 +1028,7 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
       }
       mbar_wait(w_full, (uint32_t)(loads & 1));
       ++loads;
+      TIMER_ADD(tw[2], t_f);
     };
     const uint32_t whb = smem_u32(wh);
     const size_t n0 = (size_t)h.n * h.cc;
@@ -994,6 +1036,7 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
     for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
       const int b = k / a.nsub;
       const int u0 = (k - b * a.nsub) * kUnit;  // a's row q = 0
+      TIMER_START(t_x);
       if (a.a_in) {
         // lrelu(h) of rows u0 + q as the data kernel wrote it (E > 9)
 #pragma unroll
@@ -1018,6 +1061,7 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
         zero(acc);
         if (held < 0 || (a.h_image && b != held)) fetch(b);
         held = b;
+        TIMER_START(t_xf);
         XFrag x[kWhChunk];
 #pragma unroll
         for (int ss = 0; ss < kWhChunk; ++ss) {
@@ -1027,6 +1071,8 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
             fence_regs(x[ss].lo);
           }
         }
+        TIMER_ADD(tw[0], t_xf);
+        TIMER_START(t_h);
         wgmma_fence();
 #pragma unroll
         for (int ss = 0; ss < kWhChunk; ++ss) {
@@ -1040,11 +1086,17 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
+        TIMER_ADD(tw[1], t_h);
+      } else {
+        TIMER_ADD(tw[0], t_x);
       }
       // a = lrelu(h), zero past T and Cc, split, into the slot's K-major image
       const int slot = n & 1;
       unsigned char* as = aslots + slot * kASlot;
+      TIMER_START(t_ae);
       mbar_wait(&a_empty[slot], (uint32_t)(((n >> 1) & 1) ^ 1));
+      TIMER_ADD(tw[3], t_ae);
+      TIMER_START(t_s);
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt) {
 #pragma unroll
@@ -1068,8 +1120,16 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_const
       }
       fence_proxy_async();
       release(&a_full[slot]);
+      TIMER_ADD(tw[4], t_s);
       if (l.wt == 0 && k + kW1Ahead < k_end) ask_g(k + kW1Ahead, n + kW1Ahead);
     }
+#ifdef COND_CHAIN_TIMERS
+    if (l.wt == 0) {
+      for (int x = 0; x < 6; ++x) atomicAdd(&g_timers[kW1Timers + x], (unsigned long long)tw[x]);
+      atomicAdd(&g_timers[kW1Timers + 6], (unsigned long long)(clock64() - t_all));
+      atomicAdd(&g_timers[kW1Timers + 7], 1ull);
+    }
+#endif
     return;
   }
   if (wg == 1) {

@@ -23,16 +23,18 @@
 // What bounds it on an H100: hundreds of flops per byte at the decoder's
 // shapes, above the ridge of the card's dense bf16 tensor-core rate (295
 // flops per byte): bound by operations. Past E = 8 also by the bytes of the
-// dh scratch that the data kernel writes for dW0 and the edges and that
-// k2b_xdh_kernel reads back; at E <= 8 (the decoder's E = 8) there is no
-// such scratch (it was 2 x 7.5 GB a batch-64 train step).
+// dh and a scratches that the data kernel writes for dW0 and the edges and
+// for dW1 and that k2b_xdh_kernel and k2b_w1_kernel read back; at E <= 8
+// (the decoder's E = 8) there is no scratch (each would be 2 x 7.5 GB a
+// batch-64 train step).
 //
 // What the design does about it: the work is split into kernels that each
 // own their outputs, every sum runs in a fixed order (the same result every
 // run, no atomics), every product runs on wgmma (hopper_bf16.cuh) with f32
 // accumulators in registers, and every operand in shared memory comes by
-// TMA or a bulk copy through mbarrier rings. Each kernel has the CTA of
-// cond_chain_bf16.cuh: two consumer warpgroups and a producer warp.
+// TMA or a bulk copy through mbarrier rings. The data kernel and
+// k2b_xdh_kernel have the CTA of cond_chain_bf16.cuh: two consumer
+// warpgroups and a producer warp.
 //
 //  (a) k2b_data_kernel, one CTA per (run of consecutive 124-row time tiles
 //      of one batch row, block i, pass of 136 columns of h): two consumer
@@ -63,7 +65,9 @@
 //         and tiles;
 //       - dh = bf16(slope da), zero outside [0, T), to shared memory, each
 //         8-column chunk holding all its rows 16 bytes apart (past E = 8 its
-//         own rows also to the scratch, for (c));
+//         own rows also to the scratch, for (c), and before da, through the
+//         same shared memory, a = bf16(lrelu(h)) of its own rows to the a
+//         scratch, for (b));
 //       - the block's and pass's dexc: the three taps' products of all 64
 //         rows as one product on wgmma (M = 64, N = 24: 8 columns of E a
 //         tap, K = 144; dh and W0's image in shared memory), then shifted
@@ -79,34 +83,52 @@
 //         tile's D added in f32 to the run's sum in shared memory, written
 //         as the partial of (batch row, run) at its end. A run is at most 8
 //         tiles: 16 units of 62 rows, the most a partial sums.
-//  (b) k2b_w1_kernel, dW1 and db1, with no scratch of a. A CTA owns (block
-//      i, pass p, 64 columns o of g_i) and a chunk of units; a unit is a
-//      batch row's 62 rows t0 .. t0 + 61 of g. Three warpgroups, each with
-//      its own part (warp-specialized, so that the recompute of one unit
-//      overlaps the products of the one before):
-//       - warpgroup 0 recomputes a = bf16(lrelu(h_i)) for the unit's rows
-//         t0 - 1 .. t0 + 62 as (a) computes h (the same X, the same image
-//         of cond_0's weights, the same k-slices and the same m64n136
-//         instruction: the same bits), and writes it to one of two
-//         slots of shared memory without swizzle, each 8-column chunk
-//         holding its 64 rows 16 bytes apart, then zeros (MN-major for the
-//         products' B). Its first thread asks for each unit's g (TMA, a map
-//         like (a)'s with a box of 62 rows: zeros outside [0, T) and past
-//         2C; rows 62 and 63 of a stage stay zero) and, at E = 8, the unit's
-//         exc rows (a bulk copy) two units ahead, so that neither load is
-//         waited on; the image comes by bulk copy once a batch row when K
-//         fits one chunk;
-//       - warpgroups 1 and 2 take dW1_i[j] += g^T a(rows shifted by j) on
-//         wgmma, each on 72 columns c of a: M = the 64 columns o (A: the g
-//         tile, MN-major, 128-byte swizzle), N = 72 (B: a, MN-major), K = 64
-//         rows in 4 slices, the three taps' f32 accumulators in registers
-//         (108 a thread). Tap j's B is the same descriptor 16 j bytes
-//         further on, a one or two rows down: the conv's zero rows are g's
-//         zero fill and a's zeros outside [0, T). In the first pass's CTAs
-//         warpgroup 1 also sums g's columns (db1: the g tile against a
-//         chunk of ones, M = 64, N = 8).
-//      It writes f32 partials per chunk of units. The chunks are as many as
-//      make the CTAs one wave of the card's 132 SMs (one CTA an SM).
+//  (b) k2b_w1_kernel, dW1 and db1. The items are (tile, unit): a tile is
+//      (block i, pass p, 64 columns o of g), a unit a batch row's 62 rows
+//      t0 .. t0 + 61 of g. The CTAs walk the items tile-major in equal runs,
+//      one wave of the card's 132 SMs (one CTA an SM), so that a CTA may end
+//      one tile's units and start the next's; each segment of a tile a CTA
+//      takes is an f32 partial in the next slot, the tile's last CTA zeroing
+//      the slots after its own (the accumulators take a whole segment, up to
+//      ~1,300 units: bf16's rounding at 2^-8 hides wgmma's f32 drift).
+//      Three warpgroups, warpgroup c taking tap c; per unit n:
+//       - the products, dW1_i[c] += g^T a(rows shifted by c) on wgmma for
+//         all 144 columns (the pass's and a column of ones: tap 1's D[o][136]
+//         is db1): M = the 64 columns o (A: the g tile, MN-major, 128-byte
+//         swizzle), N = 144 (B: a, MN-major; tap c's B the same descriptor
+//         16 c bytes on, a one or two rows down: the conv's zero rows are g's
+//         zero fill and a's zeros outside [0, T)), K = 64 rows in 4 slices;
+//       - at E <= 8, issued after them, a third of unit n + 1's recompute: h
+//         of the unit's rows t0 - 1 .. t0 + 62 for 48 columns (40 in the
+//         third), as (a) computes h (the same X in shared memory, image of
+//         cond_0's weights, k-slices and instruction: the same bits); once
+//         both are done, lrelu (max(h, 0.2 h)), the rounding and a's store
+//         (stmatrix, to the other of two slots, MN-major), then one barrier
+//         of the three. At E = 8 X's taps are the unit's exc rows t0 - 2 ..
+//         t0 + 63, which TMA brings with g (tap j's 8 columns the rows from j
+//         on: the descriptor's two k halves 16 bytes apart), and its last 8
+//         columns (1, -[u == 0], -[u == T-1]) one of six chunks written
+//         once; the image of cond_0's weights in one of two slots, the next
+//         one bulk-copied while the one before is in use. Past E = 8 nothing
+//         is recomputed: (a) wrote a to a scratch, which TMA brings with g
+//         (17 boxes of 8 columns), so that neither the image chunks (29 at
+//         concat E = 600) nor X stream per unit and tile.
+//      Warpgroup 0's first thread keeps the ring of stages fed three units
+//      ahead. What the other designs did, on the card against this one
+//      (the batch-64 step, k2b_w1_kernel 5.6 ms): one recompute warpgroup
+//      beside three product warpgroups (512 threads; the three taps' 64
+//      channels stacked as M rows, A = g^T by ldmatrix into register
+//      wgmma) 7.9 ms, the recompute pacing it (the products waited on it
+//      74-79%); two recompute warpgroups taking units in turn beside three
+//      product warpgroups (640 threads) does not compile (m64n144 needs 98
+//      registers, the cap is 96); the recompute issued before the products
+//      and waited on with wgmma_wait<1>, lrelu under the products: ptxas
+//      serialized every wgmma (C7514), 6.8 ms; a whole unit's recompute by
+//      one warpgroup in turn, two units ahead: 308 bytes of spills, 6.3 ms;
+//      two units an iteration: spills and C7511, 7.0 ms; h waited alone
+//      first, then the products with lrelu after their issue: 5.9 ms (the
+//      issue itself waits for the tensor cores); lrelu between the products'
+//      k-slices: C7511, 7.5 ms.
 //  (c) past E = 8, k2b_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one
 //      product, X^T dh, with X the rows of h's A in (a),
 //        X[t] = [exc[t-1] | exc[t] | exc[t+1] | 1 | -[t == 0] | -[t == T-1]]   (K = 3E + 3),
@@ -155,12 +177,21 @@ constexpr int kSmCount = 132;  // an H100's SMs: the kernels' grids are sized by
 // dh's store (with the two CTA barriers around it; where E > 8 also dh's
 // copy to the scratch), dexc and X^T dh (the products, X^T dh's sum in
 // shared memory and dexc's shift and store also counted alone), and the
-// whole kernel; the producer's waits on empty and its whole. The normal
+// whole kernel; the producer's waits on empty and its whole. Then
+// k2b_w1_kernel's (from kW1Timers on), its warpgroup 1's: the recompute's
+// X (the wait for the unit's stage at E = 8, else X's copy) and its waits
+// for an image, the products' waits on g_full, their issue, the wait for
+// the products and the recompute, lrelu and a's store, the barrier of the
+// three warpgroups, the partials' store, its whole and count; the
+// producer's (thread 0's) waits on empty, its whole and count. The normal
 // build has none.
 #ifdef COND_CHAIN_TIMERS
-constexpr int kTimers = 13;  // h, da, da's waits, dh, dexc, dexc's products, X^T dh's
-                             // sum, dexc's shift, whole, warpgroups, producer wait,
-                             // whole, producers
+constexpr int kW1Timers = 13;
+constexpr int kTimers = kW1Timers + 13;  // the data kernel: h, da, da's waits, dh, dexc,
+                                         // dexc's products, X^T dh's sum, dexc's shift,
+                                         // whole, warpgroups, producer wait, whole,
+                                         // producers; k2b_w1_kernel: 8 + 2 compute,
+                                         // 1 + 2 producer
 __device__ unsigned long long g_timers[kTimers];
 #define TIMER_START(v) const long long v = clock64()
 #define TIMER_ADD(acc, since) acc += clock64() - since
@@ -284,6 +315,7 @@ struct DataArgs {
   const bf16* img_h;   // cond_0's weights as h's B (cond_chain_bf16.cuh), per batch row
   const bf16* img_x;   // ... and as dexc's B
   bf16* dh_out;        // E > 8: (B, T, ld) scratch: dh, for k2b_xdh_kernel
+  bf16* a_out;         // E > 8: (B, T, ld) scratch: a = bf16(lrelu(h)), for k2b_w1_kernel
   long long ld;
   float* pdexc;        // (n npass, B, T, E): dexc of each block and pass, or null
   bf16* dexc;          // (B, T, E), written here when n npass = 1
@@ -294,6 +326,30 @@ struct DataArgs {
   CUtensorMap g_map;   // g as (o: 2C, i: n, t: T, b: B), box (64, 1, 64, 1)
   CUtensorMap w1_map;  // w1 as (o: 2C, i: n, c: Cc, j: 3), box (64, 1, 136, 1)
 };
+
+// Past E = 8, a warpgroup's own rows (q = 1 .. 62) of the pass's columns
+// from shared memory (8-column chunks holding their rows 16 bytes apart) to
+// a (B, T, ld) scratch, 8 columns a thread, consecutive threads along a row
+__device__ __forceinline__ void own_rows_out(const HArgs& h, bf16* out, long long ld,
+                                             const unsigned char* src, int b, int i, int c0,
+                                             int u0, int wt) {
+  const bool vec16 = h.cc % 8 == 0;  // block offsets in the scratch's rows 16-byte aligned
+  for (int idx = wt; idx < kOwn * (kPass / 8); idx += 128) {
+    const int q = 1 + idx / (kPass / 8);
+    const int ch = idx - (q - 1) * (kPass / 8);
+    const int c = c0 + ch * 8;
+    if (c < h.cc && u0 + q < h.T) {
+      const uint4 dv = *reinterpret_cast<const uint4*>(src + ch * kDhChunk + q * 16);
+      bf16* dst = out + ((size_t)b * h.T + u0 + q) * ld + (size_t)i * h.cc + c;
+      if (vec16) {
+        *reinterpret_cast<uint4*>(dst) = dv;
+      } else {  // Cc a multiple of 4: 8-byte pieces
+        *reinterpret_cast<uint2*>(dst) = make_uint2(dv.x, dv.y);
+        if (c + 4 < h.cc) *reinterpret_cast<uint2*>(dst + 4) = make_uint2(dv.z, dv.w);
+      }
+    }
+  }
+}
 
 // kNarrow: E <= 8 (K = 3E + 3 <= 27: one k-chunk of h's weights, one of
 // dexc's), X staged in shared memory and X^T dh taken here; else X read
@@ -528,6 +584,22 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
       for (int x = 0; x < 3; ++x) neg[x] = 0u;
 #pragma unroll
       for (int r = 0; r < 68; ++r) neg[r >> 5] |= (acc[r] < 0.f ? 1u : 0u) << (r & 31);
+      // a = bf16(lrelu(h)) through dh's shared memory (free: the last
+      // tile's dexc and copy are done with it) to the scratch, its own rows,
+      // for k2b_w1_kernel, which would otherwise stream the image chunks
+      // for every unit and tile of o
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = l.row + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < kPass / 8; ++nt) {
+          const int v = nt * 4 + 2 * half;
+          *reinterpret_cast<uint32_t*>(dhs + nt * kDhChunk + q * 16 + 4 * l.tig) =
+              pack_rn(fmaxf(acc[v], kSlope * acc[v]), fmaxf(acc[v + 1], kSlope * acc[v + 1]));
+        }
+      }
+      bar_sync(bar, 128);
+      own_rows_out(h, a.a_out, a.ld, dhs, b, i, c0, u0, l.wt);
       TIMER_ADD(tm[0], t_h);
     }
 
@@ -620,24 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
       bar_sync(kBarAll, 256);  // both windows' dh and X in place
     } else {
       bar_sync(bar, 128);
-      // dh of the own rows (q = 1 .. 62) to the scratch (for k2b_xdh_kernel),
-      // 8 columns a thread, consecutive threads along a row
-      const bool vec16 = h.cc % 8 == 0;  // block offsets in the scratch's rows 16-byte aligned
-      for (int idx = l.wt; idx < kOwn * (kPass / 8); idx += 128) {
-        const int q = 1 + idx / (kPass / 8);
-        const int ch = idx - (q - 1) * (kPass / 8);
-        const int c = c0 + ch * 8;
-        if (c < h.cc && u0 + q < h.T) {
-          const uint4 dv = *reinterpret_cast<const uint4*>(dhs + ch * kDhChunk + q * 16);
-          bf16* dst = a.dh_out + ((size_t)b * h.T + u0 + q) * a.ld + (size_t)i * h.cc + c;
-          if (vec16) {
-            *reinterpret_cast<uint4*>(dst) = dv;
-          } else {  // Cc a multiple of 4: 8-byte pieces
-            *reinterpret_cast<uint2*>(dst) = make_uint2(dv.x, dv.y);
-            if (c + 4 < h.cc) *reinterpret_cast<uint2*>(dst + 4) = make_uint2(dv.z, dv.w);
-          }
-        }
-      }
+      own_rows_out(h, a.dh_out, a.ld, dhs, b, i, c0, u0, l.wt);  // for k2b_xdh_kernel
     }
     TIMER_ADD(tm[3], t_dh);
 
@@ -788,58 +843,150 @@ __global__ void __launch_bounds__(kThreads, 1) k2b_data_kernel(const __grid_cons
 }
 
 // k2b_w1_kernel's CTA: three warpgroups, 384 threads (168 registers a
-// thread: three warps on each of the SM's four register files). Warpgroup
-// 0 recomputes each unit's a and keeps the ring of g tiles fed (its first
-// thread asks for a unit's g kW1Ahead units ahead); warpgroups 1 and 2 take
-// the products, each on 72 columns of a (its three taps' accumulators, 108
-// registers a thread). Shared memory: the ring of kW1Stages tiles of g (62
-// rows of 64 columns, 128-byte swizzled, and two zero rows); two slots of
-// a (18 chunks of 8 columns x kARows rows x 16 bytes: the unit's 64 rows,
-// then zeros; the last chunk, columns 136 .. 143, zero); two slots of the
-// image of cond_0's weights; a chunk of ones (db1's B); at E = 8, a ring
-// of the units' exc rows (t0 - 2 .. t0 + 63, 16 bytes each); the barriers.
+// thread). Warpgroup c takes tap c's products for all 144 columns (N = 144:
+// 72 accumulators a thread) and, at E <= 8, recomputes 48 columns of a (40:
+// columns 96 .. 135) one unit ahead of them; warpgroup 0's first thread
+// keeps the ring of stages fed. Shared memory: a ring of kW1Stages stages,
+// each g's 62 rows of 64 columns (128-byte swizzled: a TMA box; rows 62 and
+// 63 zero), then at E = 8 exc's rows t0 - 2 .. t0 + 63 (16 bytes each) or
+// past E = 8 a as the slots hold it; two slots of a (18 chunks of 8 columns
+// x 72 rows x 16 bytes, MN-major: the unit's rows t0 - 1 .. t0 + 62, then
+// zeros; chunk 17, columns 136 .. 143, holds 1, 0, .., 0 in every row:
+// db1's column of ones); at E = 8 the six kinds of X's last 8 columns, else
+// two slots of X; two slots of the image of cond_0's weights; the barriers.
 constexpr int kW1Threads = 384;
-constexpr int kW1Stages = 4;
-constexpr int kW1Ahead = 2;
-constexpr int kW1Cols = 72;                          // columns of a (N) a product warpgroup
+constexpr int kW1GBytes = kOwn * 128;          // 7936: g's box
+constexpr int kW1XRows = kRows + 2;            // exc's rows a unit's X reads: t0 - 2 .. t0 + 63
 constexpr int kARows = 72;
-constexpr int kAChunk = kARows * 16;                 // 1152: the SBO of a as B
-constexpr int kASlot = (2 * kW1Cols / 8) * kAChunk;  // 20736
-constexpr int kOnes = 512;
-constexpr int kXRows = kRows + 2;       // exc rows a unit's X reads
-constexpr int kXSlot = kXRows * 16;    // 1056 bytes: a slot of the exc ring
-constexpr size_t kW1Smem = (size_t)kW1Stages * kGBytes + 2 * kASlot + 2 * kWSlot + kOnes +
-                           kW1Stages * kXSlot + 8 * (3 * kW1Stages + 6) + 1024;
+constexpr int kAChunk = kARows * 16;           // 1152: 8 columns of a (the SBO of a as B)
+constexpr int kW1N = kPass + 8;                // 144: a's columns, then db1's ones
+constexpr int kASlot = (kW1N / 8) * kAChunk;   // 20736
+constexpr int kW1GStage = 29 * 1024;           // g (8192 with its two zero rows), then exc or a
+constexpr int kW1Stages = 4;
+constexpr int kW1Ahead = 3;                    // units the producer asks for ahead
+constexpr int kXChunk8 = kRows * 16;           // 1024: 8 columns of X, its 64 rows
+constexpr int kW1HSlot = kPass * 32 * 2;       // 8704: an image chunk at K <= 32
+constexpr int kW1Kinds = 6;                    // of X's last 8 columns, see the kernel
+constexpr size_t kW1Smem = (size_t)kW1Stages * kW1GStage + 2 * (size_t)kASlot +
+                           kW1Kinds * (size_t)kXChunk8 + 2 * 4 * (size_t)kXChunk8 +
+                           2 * (size_t)kW1HSlot + 8 * (2 * kW1Stages + 2) + 64 + 1024;
 static_assert(kW1Smem <= kSmemMax, "k2b_w1_kernel's shared memory");
-static_assert(2 * kW1Cols >= kPass && kW1Ahead < kW1Stages, "k2b_w1_kernel's shape");
+static_assert(kRows * 128 + kASlot <= kW1GStage && kW1Ahead < kW1Stages, "k2b_w1_kernel's ring");
 
 struct W1Args {
   HArgs h;
-  const bf16* img_h;  // as DataArgs'
-  float* pw1;         // (S, 3, Cc, n*2C): dW1 per chunk
-  float* pb1;         // (S, n*2C): db1 per chunk
-  int two_c, notiles, nsub, units, chunk;  // units = B nsub of 62 rows; chunk: units a CTA
-  int vec;            // E = 8 and exc 16-byte aligned: a unit's exc rows by one bulk copy
+  const bf16* img_h;   // as DataArgs'
+  float* pw1;          // (S, 3, Cc, n*2C): dW1 per segment of a tile's units
+  float* pb1;          // (S, n*2C): db1 per segment
+  int two_c, notiles, nsub, units;  // tiles of 64 columns of g; units a tile = B nsub
+  int per_cta, nslots;  // items (tile, unit) a CTA; S
+  int vec;              // E = 8 and exc 16-byte aligned: exc's rows by TMA (x_map)
+  int wide;             // E > 8: a read from the scratch, nothing recomputed
   W0Geo geo;
-  CUtensorMap g_map;  // g as (o: 2C, i: n, t: T, b: B), box (64, 1, 62, 1)
+  CUtensorMap g_map;   // g as (o: 2C, i: n, t: T, b: B), box (64, 1, 62, 1)
+  CUtensorMap x_map;   // E = 8: exc as (e: 8, t: T, b: B), box (8, 66, 1), no swizzle
+  CUtensorMap a_map;   // E > 8: the a scratch as (c: n Cc, t: T, b: B), box (8, 64, 1), no swizzle
 };
 
-// X[u0 + q][k] at E = 8 from the unit's exc rows in shared memory (xs: rows
-// t0 - 2 .. t0 + 63 of the batch row, u0 = t0 - 1)
-__device__ __forceinline__ uint32_t x_at_rows(const HArgs& h, const unsigned char* xs, int u0,
-                                              int q, int k) {
-  constexpr uint32_t kOne = 0x3F80u, kMinusOne = 0xBF80u;  // bf16 1 and -1
-  const int u = u0 + q;
-  if (k < 24) {
-    const int j = k >> 3;
-    const int t = u + j - 1;
-    if (t < 0 || t >= h.T) return 0u;
-    return *reinterpret_cast<const uint16_t*>(xs + (q + j) * 16 + (k & 7) * 2);
+// The CTAs walk the items (tile, unit), tile-major, per_cta each; a cursor
+// over them, advanced without divisions: the tile's block i, pass p and
+// tile ot of g's columns, the unit's batch row b and first row t0. The
+// segment of tile tau a CTA takes writes the partial of slot cta -
+// first_cta(tau), and the tile's last CTA zeroes the slots after its own.
+struct Item {
+  int x, tau, k, b, t0, i, p, ot;
+  __device__ __forceinline__ Item(const W1Args& a, int x0) : x(x0) {
+    tau = x0 / a.units;
+    k = x0 - tau * a.units;
+    b = k / a.nsub;
+    t0 = (k - b * a.nsub) * kOwn;
+    tile(a);
   }
-  if (k == 24) return kOne;
-  if (k == 25) return u == 0 ? kMinusOne : 0u;
-  if (k == 26) return u == h.T - 1 ? kMinusOne : 0u;
-  return 0u;
+  __device__ __forceinline__ void tile(const W1Args& a) {
+    const int ip = tau / a.notiles;
+    ot = tau - ip * a.notiles;
+    i = ip / a.geo.npass;
+    p = ip - i * a.geo.npass;
+  }
+  __device__ __forceinline__ void next(const W1Args& a) {
+    ++x;
+    t0 += kOwn;
+    if (t0 >= a.nsub * kOwn) {
+      t0 = 0;
+      ++b;
+    }
+    if (++k == a.units) {
+      k = b = 0;
+      ++tau;
+      tile(a);
+    }
+  }
+  // the image of cond_0's weights it needs: of (block, pass), and batch row
+  // where hbias is per row
+  __device__ __forceinline__ bool same_image(const Item& o, const HArgs& h) const {
+    return i == o.i && p == o.p && (h.hbias_bstride == 0 || b == o.b);
+  }
+};
+
+__device__ __forceinline__ int first_cta(const W1Args& a, int tau) {
+  return (int)((long long)tau * a.units / a.per_cta);
+}
+
+// Warpgroup c's share of a unit's recompute at E <= 8, issued (one commit
+// group) and not waited on: h of the unit's rows for the N columns from
+// 48 c on, the data kernel's X, image and k-slices, the data kernel's
+// m64nNk16 instruction on the same operands (the same bits)
+template <int N>
+__device__ __forceinline__ void w1_h_issue(float (&acc)[N / 2], const W0Geo& geo, int c,
+                                           uint64_t xd0, uint64_t xd1, uint32_t hb) {
+  const uint32_t hbc = hb + 6 * c * geo.kc * 16;  // the image's rows from column 48 c on
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (16 * s < geo.kc) {
+      const uint64_t db = make_desc(hbc + 256 * s, 128, geo.kc * 16, kLayoutNone);
+      if constexpr (N == 48) {
+        wgmma_ss_n48(acc, s ? xd1 : xd0, db, s);
+      } else {
+        wgmma_ss_n40(acc, s ? xd1 : xd0, db, s);
+      }
+    }
+  }
+  wgmma_commit();
+}
+
+// ... and once it is done: a = bf16(lrelu(h)) (lrelu(x) = max(x, 0.2 x)),
+// zero outside [0, T) and past Cc, to the slot's rows 0 .. 63 (stmatrix:
+// two 8-column chunks of the warp's 16 rows each)
+template <int N>
+__device__ __forceinline__ void w1_a_store(float (&acc)[N / 2], const HArgs& h, const Lane& l,
+                                           int c, uint32_t aslot, int t0, int p, int warp) {
+  fence_regs(acc);
+  const int lane = threadIdx.x & 31;
+  const int u0 = t0 - 1;
+  const bool inner = u0 >= 0 && u0 + kRows <= h.T && p * kPass + kPass <= h.cc;
+  const bool ok0 = u0 + l.row >= 0 && u0 + l.row < h.T, ok1 = u0 + l.row + 8 < h.T;
+  const int cl = h.cc - p * kPass - 48 * c - 2 * l.tig;  // chunk nt's columns valid: 8 nt < cl
+  const uint32_t base = aslot + 6 * c * kAChunk + (lane >> 4) * kAChunk +
+                        ((warp & 3) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * 16;
+#pragma unroll
+  for (int nt = 0; nt < N / 8; nt += 2) {
+    uint32_t pk[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+      const int ch = nt + (z >> 1);
+      if (ch < N / 8) {
+        const int v = 4 * ch + 2 * (z & 1);
+        pk[z] = pack_rn(fmaxf(acc[v], kSlope * acc[v]), fmaxf(acc[v + 1], kSlope * acc[v + 1]));
+        if (!inner && !(8 * ch < cl && ((z & 1) ? ok1 : ok0))) pk[z] = 0u;
+      }
+    }
+    if (nt + 1 < N / 8) {
+      stmatrix_x4(base + nt * kAChunk, pk[0], pk[1], pk[2], pk[3]);
+    } else {
+      stmatrix_x2(base + nt * kAChunk, pk[0], pk[1]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kW1Threads, 1) k2b_w1_kernel(const __grid_constant__ W1Args a) {
@@ -847,249 +994,292 @@ __global__ void __launch_bounds__(kW1Threads, 1) k2b_w1_kernel(const __grid_cons
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* ring = smem;
-  unsigned char* aslots = ring + kW1Stages * kGBytes;
-  unsigned char* wslots = aslots + 2 * kASlot;
-  unsigned char* ones = wslots + 2 * kWSlot;
-  unsigned char* xring = ones + kOnes;
-  uint64_t* g_full = reinterpret_cast<uint64_t*>(xring + kW1Stages * kXSlot);
+  unsigned char* aslots = ring + kW1Stages * kW1GStage;
+  unsigned char* kinds = aslots + 2 * kASlot;          // at E = 8 X's last 8 columns
+  unsigned char* xslots = kinds + kW1Kinds * kXChunk8;  // else X, two slots
+  unsigned char* hslots = xslots + 2 * 4 * kXChunk8;
+  uint64_t* g_full = reinterpret_cast<uint64_t*>(hslots + 2 * kW1HSlot);
   uint64_t* g_empty = g_full + kW1Stages;
-  uint64_t* a_full = g_empty + kW1Stages;
-  uint64_t* a_empty = a_full + 2;
-  uint64_t* w_full = a_empty + 2;
-  uint64_t* x_full = w_full + 2;
+  uint64_t* w_full = g_empty + kW1Stages;
+  Item* ask_s = reinterpret_cast<Item*>(w_full + 2);  // the producer's next item
 
   const HArgs& h = a.h;
   const W0Geo& geo = a.geo;
-  const int ot = blockIdx.x % a.notiles;
-  const int ip = blockIdx.x / a.notiles;
-  const int p = ip % geo.npass;
-  const int i = ip / geo.npass;
-  const int o0 = ot * 64;
-  const int c0 = p * kPass;
-  const int s = blockIdx.y;
-  const int k_begin = s * a.chunk;
-  const int k_end = min(a.units, k_begin + a.chunk);
-  const int wg = warp_index() >> 2;
+  const int total = (int)((long long)h.n * geo.npass * a.notiles * a.units);
+  const int x0 = blockIdx.x * a.per_cta;
+  const int x1 = min(total, x0 + a.per_cta);
+  const int nx = x1 - x0;  // the CTA's items
+  const int warp = warp_index();
+  const int c = warp >> 2;  // the warpgroup: tap c, a's columns from 48 c on
   const Lane l;
-  const Ring rg{kW1Stages};
 
   if (threadIdx.x == 0) {
     for (int k = 0; k < kW1Stages; ++k) {
       mbar_init(&g_full[k], 1);
-      mbar_init(&g_empty[k], 8);  // one arrival per product warp
-      mbar_init(&x_full[k], 1);
+      mbar_init(&g_empty[k], 12);  // one arrival per warp
     }
-    for (int k = 0; k < 2; ++k) {
-      mbar_init(&a_full[k], 4);   // one arrival per recompute warp
-      mbar_init(&a_empty[k], 8);
-      mbar_init(&w_full[k], 1);
-    }
+    for (int k = 0; k < 2; ++k) mbar_init(&w_full[k], 1);
     fence_barrier_init();
   }
-  // zeros under g's rows 62 and 63 and a's rows 64 .. 71 and columns 136 ..
-  // 143; then the ones
-  for (int idx = threadIdx.x; idx < (int)(wslots - smem) / 16; idx += kW1Threads) {
-    reinterpret_cast<uint4*>(smem)[idx] = make_uint4(0u, 0u, 0u, 0u);
+  // g's rows 62 and 63 zero; every a's (the slots', past E = 8 the stages')
+  // rows 64 .. 71 zero and chunk 17 1 (bf16) in column 136 of each row; at
+  // E = 8 the six kinds of X's last 8 columns (1, -[u == 0], -[u == T-1],
+  // zeros) of a unit's rows u = t0 - 1 + q: kind & 1 a batch row's first
+  // unit (u = 0 at q = 1), kind / 2 = 1 its last (u = T-1 at q = T - t0 of
+  // the last unit), 2 the unit before where its halo row holds u = T-1
+  // (q = 63, where T = 1 mod 62)
+  for (int idx = threadIdx.x; idx < kW1Stages * 2 * 8; idx += kW1Threads) {
+    *reinterpret_cast<uint4*>(ring + (idx >> 4) * kW1GStage + kW1GBytes + (idx & 15) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
-  for (int idx = threadIdx.x; idx < kOnes / 4; idx += kW1Threads) {
-    reinterpret_cast<uint32_t*>(ones)[idx] = 0x3F803F80u;  // bf16 1.0 pairs
+  for (int idx = threadIdx.x; idx < (2 + kW1Stages) * 18 * kARows; idx += kW1Threads) {
+    const int q = idx % kARows, ch = (idx / kARows) % 18, sl = idx / (18 * kARows);
+    unsigned char* as = sl < 2 ? aslots + sl * kASlot : ring + (sl - 2) * kW1GStage + kRows * 128;
+    if (ch == 17 || q >= kRows) {
+      *reinterpret_cast<uint4*>(as + ch * kAChunk + q * 16) =
+          make_uint4(ch == 17 ? 0x3F80u : 0u, 0u, 0u, 0u);
+    }
+  }
+  if (a.vec) {
+    const int q_last = h.T - (a.nsub - 1) * kOwn;  // the row u = T - 1 of the last unit
+    for (int idx = threadIdx.x; idx < kW1Kinds * kRows; idx += kW1Threads) {
+      const int kind = idx / kRows, q = idx % kRows;
+      const bool first = (kind & 1) && q == 1;
+      const bool last = (kind >> 1 == 1 && q == q_last) || (kind >> 1 == 2 && q == kRows - 1);
+      *reinterpret_cast<uint4*>(kinds + idx * 16) =
+          make_uint4(0x3F80u | (first ? 0xBF800000u : 0u), last ? 0xBF80u : 0u, 0u, 0u);
+    }
   }
   fence_proxy_async();
   __syncthreads();
 
-  const bool hoisted = geo.nkc == 1 && geo.kc <= 32;  // K = 3E + 3 <= 32: the decoder's E = 8
-  const bool xsmem = hoisted && a.vec;
-  // the g tile of unit k (the CTA's n-th) into its stage, once the products
-  // of the unit kW1Stages before are done with it; at E = 8 also its exc
-  // rows (t0 - 2 .. t0 + 63, those inside [0, T)), into the same slot of
-  // the exc ring, which only warpgroup 0 reads
-  auto ask_g = [&](int k, int n) {
-    const int b = k / a.nsub;
-    const int t0 = (k - b * a.nsub) * kOwn;
-    const int st = rg.slot(n);
-    mbar_wait(&g_empty[st], rg.parity(n) ^ 1);
-    mbar_arrive_expect_tx(&g_full[st], kOwn * 128);
-    tma_load_4d(ring + st * kGBytes, &a.g_map, &g_full[st], o0, i, t0, b);
-    if (xsmem) {
-      const int lo = max(0, t0 - 2), hi = min(h.T, t0 + kRows);
-      mbar_arrive_expect_tx(&x_full[st], (uint32_t)(hi - lo) * 16);
-      bulk_load(xring + st * kXSlot + (lo - t0 + 2) * 16, h.exc + ((size_t)b * h.T + lo) * 8,
-                (uint32_t)(hi - lo) * 16, &x_full[st]);
+#ifdef COND_CHAIN_TIMERS
+  long long tw[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers
+  const long long t_all = clock64();
+#endif
+  // the producer: item n's (the CTA's n-th) g rows t0 .. t0 + 61 (TMA, zeros
+  // outside [0, T) and past 2C) into its stage and, at E = 8, its exc rows
+  // t0 - 2 .. t0 + 63 (zeros outside [0, T)) or past E = 8 its a rows
+  // t0 - 1 .. t0 + 62 (17 boxes of 8 columns of the scratch), once every
+  // warp is done with the item kW1Stages before
+  const bool producer = threadIdx.x == 0;
+  const uint32_t gbytes =
+      kW1GBytes + (a.vec ? kW1XRows * 16 : 0) + (a.wide ? 17 * kRows * 16 : 0);
+  auto ask_next = [&](int n) {
+    Item ask = *ask_s;
+    const int st = n % kW1Stages;
+    unsigned char* stage = ring + st * kW1GStage;
+    TIMER_START(t_ge);
+    mbar_wait(&g_empty[st], (uint32_t)(((n / kW1Stages) & 1) ^ 1));
+    TIMER_ADD(tw[8], t_ge);
+    mbar_arrive_expect_tx(&g_full[st], gbytes);
+    tma_load_4d(stage, &a.g_map, &g_full[st], ask.ot * 64, ask.i, ask.t0, ask.b);
+    if (a.vec) tma_load_3d(stage + kRows * 128, &a.x_map, &g_full[st], 0, ask.t0 - 2, ask.b);
+    if (a.wide) {
+      for (int q = 0; q < 17; ++q) {
+        tma_load_3d(stage + kRows * 128 + q * kAChunk, &a.a_map, &g_full[st],
+                    ask.i * h.cc + ask.p * kPass + 8 * q, ask.t0 - 1, ask.b);
+      }
     }
+    ask.next(a);
+    *ask_s = ask;
   };
-
-  if (wg == 0) {
-    // a = bf16(lrelu(h_i)) of the unit's rows u0 + q and the pass's columns,
-    // as k2b_data_kernel computes h: the same X, image chunks, k-slices and
-    // instruction
-    if (l.wt == 0) {
-      prefetch_map(&a.g_map);
-      for (int n = 0; n < kW1Ahead && k_begin + n < k_end; ++n) ask_g(k_begin + n, n);
-    }
-    const bool resident = geo.nkc == 1;  // one image chunk: fetched once a batch row
-    int loads = 0, prev_b = -1;
-    // chunk kc of batch row b's image into the next slot, once every
-    // recompute warp is done with what it held two fetches ago
-    auto fetch = [&](int b, int kc) -> uint32_t {
-      const int slot = loads & 1;
-      unsigned char* dst = wslots + slot * kWSlot;
-      bar_sync(1, 128);
-      if (l.wt == 0) {
-        mbar_arrive_expect_tx(&w_full[slot], (uint32_t)geo.h_chunk);
-        bulk_load(dst,
-                  reinterpret_cast<const unsigned char*>(a.img_h) +
-                      (h.hbias_bstride ? (size_t)b * geo.h_image : 0) +
-                      ((size_t)(i * geo.npass + p) * geo.nkc + kc) * geo.h_chunk,
-                  (uint32_t)geo.h_chunk, &w_full[slot]);
-      }
-      mbar_wait(&w_full[slot], (uint32_t)((loads >> 1) & 1));
-      ++loads;
-      return smem_u32(dst);
-    };
-    uint32_t held = 0;
-    float acc[68];
-    for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
-      const int b = k / a.nsub;
-      const int u0 = (k - b * a.nsub) * kOwn - 1;  // a's row q = 0
-      if (resident && (prev_b < 0 || (h.hbias_bstride && b != prev_b))) held = fetch(b, 0);
-      prev_b = b;
-      // the A registers of the h product's first two k-slices, for the
-      // unit's one product when K <= 32: from the exc ring at E = 8
-      uint32_t xa[2][4];
-      if (xsmem) {
-        const int st = rg.slot(n);
-        const unsigned char* xs = xring + st * kXSlot;
-        mbar_wait(&x_full[st], rg.parity(n));
-#pragma unroll
-        for (int sl = 0; sl < 2; ++sl) {
-          const int kk = 16 * sl + 2 * l.tig;
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int q = l.row + 8 * (v & 1);
-            const int k2 = kk + 8 * (v >> 1);
-            xa[sl][v] = x_at_rows(h, xs, u0, q, k2) | (x_at_rows(h, xs, u0, q, k2 + 1) << 16);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int sl = 0; sl < 2; ++sl) {
-          if (hoisted && 16 * sl < geo.kc) {
-            x_frag(h, xa[sl], b, u0, l, 16 * sl);
-          } else {
-            xa[sl][0] = xa[sl][1] = xa[sl][2] = xa[sl][3] = 0u;
-          }
-        }
-      }
-      zero(acc);
-      for (int kc = 0; kc < geo.nkc; ++kc) {
-        const int slices = geo.kc / 16;
-        uint32_t fa[4][4];
-#pragma unroll
-        for (int sl = 0; sl < 4; ++sl) {
-          if (hoisted && sl < 2) {
-#pragma unroll
-            for (int v = 0; v < 4; ++v) fa[sl][v] = xa[sl][v];
-          } else if (!hoisted && sl < slices) {
-            x_frag(h, fa[sl], b, u0, l, kc * geo.kc + 16 * sl);
-          } else {
-            fa[sl][0] = fa[sl][1] = fa[sl][2] = fa[sl][3] = 0u;
-          }
-          fence_regs(fa[sl]);
-        }
-        const uint32_t base = resident ? held : fetch(b, kc);
-        wgmma_fence();
-#pragma unroll
-        for (int sl = 0; sl < 4; ++sl) {
-          if (sl < slices) {
-            wgmma_rs_n136(acc, fa[sl], make_desc(base + 256 * sl, 128, geo.kc * 16, kLayoutNone), 1);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
-      }
-      const int slot = n & 1;
-      unsigned char* as = aslots + slot * kASlot;
-      mbar_wait(&a_empty[slot], (uint32_t)(((n >> 1) & 1) ^ 1));
-#pragma unroll
-      for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int q = l.row + 8 * half;
-          const int u = u0 + q;
-          const int c = c0 + nt * 8 + 2 * l.tig;
-          const int v = nt * 4 + 2 * half;
-          const bool row_ok = u >= 0 && u < h.T;
-          const float x0 = row_ok && c < h.cc ? (acc[v] >= 0.f ? acc[v] + 0.f : kSlope * acc[v]) : 0.f;
-          const float x1 =
-              row_ok && c + 1 < h.cc ? (acc[v + 1] >= 0.f ? acc[v + 1] + 0.f : kSlope * acc[v + 1]) : 0.f;
-          *reinterpret_cast<uint32_t*>(as + nt * kAChunk + q * 16 + 4 * l.tig) = pack_rn(x0, x1);
-        }
-      }
-      fence_proxy_async();
-      release(&a_full[slot]);
-      if (l.wt == 0 && k + kW1Ahead < k_end) ask_g(k + kW1Ahead, n + kW1Ahead);
-    }
-    return;
+  if (producer) {
+    prefetch_map(&a.g_map);
+    if (a.vec) prefetch_map(&a.x_map);
+    if (a.wide) prefetch_map(&a.a_map);
+    *ask_s = Item(a, x0);
+    for (int n = 0; n < kW1Ahead && n < nx; ++n) ask_next(n);
   }
 
-  // dW1_i[j][c][o] += sum_r g[t0 + r][o] a[u0 + r + j][c], r < 64 (g's rows
-  // 62 and 63 zero); db1 += sum_r g[t0 + r]
-  const uint32_t ones_u = smem_u32(ones);
-  const int cw = kW1Cols * (wg - 1);        // the warpgroup's first column of the pass
-  const int cend = min(h.cc - c0, kPass);   // the pass's columns
-  const bool with_db1 = wg == 1 && p == 0;
-  float acc[3][kW1Cols / 2];
-  float accb[4];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) zero(acc[j]);
-  zero(accb);
-  for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
-    const int slot = n & 1;
-    const int st = rg.slot(n);
-    mbar_wait(&a_full[slot], (uint32_t)((n >> 1) & 1));
-    mbar_wait(&g_full[st], rg.parity(n));
-    const uint32_t abase = smem_u32(aslots + slot * kASlot) + cw / 8 * kAChunk;
-    const uint32_t gbase = smem_u32(ring + st * kGBytes);
+  // the recompute's state (E <= 8): the unit whose a is recomputed next
+  // (one ahead of the products), the image in use (slot f & 1) and the
+  // first unit of the next one; the first image fetched by the first
+  // thread before the loop, each next one once every warp is past the
+  // first unit of the one before (the slot it takes held the image before
+  // that)
+  auto fetch = [&](const Item& it, int f) {
+    mbar_arrive_expect_tx(&w_full[f & 1], (uint32_t)geo.h_chunk);
+    bulk_load(hslots + (f & 1) * kW1HSlot,
+              reinterpret_cast<const unsigned char*>(a.img_h) +
+                  (h.hbias_bstride ? (size_t)it.b * geo.h_image : 0) +
+                  (size_t)(it.i * geo.npass + it.p) * geo.h_chunk,
+              (uint32_t)geo.h_chunk, &w_full[f & 1]);
+  };
+  Item rc(a, x0);
+  int img_x = x0, f = -1;
+  bool new_img = false;  // the last recompute issued started an image
+  auto skip_image = [&]() {
+    const Item key(a, img_x);
+    Item nx2 = key;
+    do {
+      nx2.next(a);
+    } while (nx2.x < x1 && nx2.same_image(key, h));
+    img_x = nx2.x;
+  };
+  if (!a.wide && producer) fetch(rc, 0);
+  // issues unit rc's recompute (item m of the CTA) into hacc: waits for its
+  // stage (at E = 8) or copies its X (else), and for its image where it is
+  // the first to use it
+  float hacc[24];
+  auto h_issue = [&](int m) {
+    const int st = m % kW1Stages;
+    unsigned char* stage = ring + st * kW1GStage;
+    TIMER_START(t_x);
+    uint64_t xd0, xd1;
+    if (a.vec) {
+      mbar_wait(&g_full[st], (uint32_t)((m / kW1Stages) & 1));
+      const uint32_t xe = smem_u32(stage + kRows * 128);
+      const int kind = (rc.t0 == 0) + (rc.t0 + kOwn >= h.T ? 2 : rc.t0 + kOwn == h.T - 1 ? 4 : 0);
+      const uint32_t xb = smem_u32(kinds + kind * kXChunk8);
+      xd0 = make_desc(xe, 16, 128, kLayoutNone);
+      xd1 = make_desc(xe + 32, xb - xe - 32, 128, kLayoutNone);
+    } else {
+      unsigned char* xw = xslots + (m & 1) * 4 * kXChunk8;
+      const int ct = threadIdx.x;
+      if (ct < 4 * kRows) {  // chunk ct / 64, row ct % 64
+        *reinterpret_cast<uint4*>(xw + (ct >> 6) * kXChunk8 + (ct & 63) * 16) =
+            x_chunk(h, rc.b, rc.t0 - 1 + (ct & 63), ct >> 6, false);
+      }
+      fence_proxy_async();
+      bar_sync(1, kW1Threads);
+      const uint32_t xs = smem_u32(xw);
+      xd0 = make_desc(xs, kXChunk8, 128, kLayoutNone);
+      xd1 = make_desc(xs + 2 * kXChunk8, kXChunk8, 128, kLayoutNone);
+    }
+    TIMER_ADD(tw[0], t_x);
+    TIMER_START(t_f);
+    if (rc.x == img_x) {
+      ++f;
+      new_img = true;
+      skip_image();
+      mbar_wait(&w_full[f & 1], (uint32_t)((f >> 1) & 1));
+    }
+    TIMER_ADD(tw[1], t_f);
+    const uint32_t hb = smem_u32(hslots + (f & 1) * kW1HSlot);
+    if (c < 2) {
+      w1_h_issue<48>(*reinterpret_cast<float(*)[24]>(hacc), geo, c, xd0, xd1, hb);
+    } else {
+      w1_h_issue<40>(*reinterpret_cast<float(*)[20]>(hacc), geo, c, xd0, xd1, hb);
+    }
+  };
+  auto a_store = [&](int m) {
+    const uint32_t as = smem_u32(aslots + (m & 1) * kASlot);
+    if (c < 2) {
+      w1_a_store<48>(*reinterpret_cast<float(*)[24]>(hacc), h, l, c, as, rc.t0, rc.p, warp);
+    } else {
+      w1_a_store<40>(*reinterpret_cast<float(*)[20]>(hacc), h, l, c, as, rc.t0, rc.p, warp);
+    }
+    fence_proxy_async();
+  };
+  if (!a.wide) {
+    // the first unit's a, then the second image's fetch
+    h_issue(0);
+    wgmma_wait<0>();
+    a_store(0);
+    rc.next(a);
+    bar_sync(1, kW1Threads);
+    if (producer && img_x < x1) fetch(Item(a, img_x), f + 1);
+    new_img = false;
+  }
+
+  // the products of tap c: dW1_i[c][col][o] += sum_r g[t0 + r][o]
+  // a[u0 + r + c][col], r < 64 (g's rows 62 and 63 zero), M = the tile's 64
+  // columns o (A: the g stage, MN-major, 128-byte swizzle), N = 144 (B: a,
+  // MN-major; tap c's B the slot's rows from c on: the descriptor 16 c bytes
+  // on), K = 64 rows in 4 slices; db1 = D[o][136] of tap 1 (a's column of
+  // ones). Per unit n: the products, then unit n + 1's share of the
+  // recompute, one wait for both, a's store, one barrier of the three
+  const size_t n2 = (size_t)h.n * a.two_c;
+  float acc[kW1N / 2];
+  int tau = x0 / a.units, k = x0 - tau * a.units;  // the unit's tile and place in it
+  for (int n = 0; n < nx; ++n) {
+    const int st = n % kW1Stages;
+    unsigned char* stage = ring + st * kW1GStage;
+    const bool ahead = !a.wide && n + 1 < nx;
+    TIMER_START(t_gf);
+    mbar_wait(&g_full[st], (uint32_t)((n / kW1Stages) & 1));
+    TIMER_ADD(tw[2], t_gf);
+    TIMER_START(t_p);
+    const int fresh = n == 0 || k == 0;  // the segment's first unit
+    const uint32_t gbase = smem_u32(stage);
+    const uint32_t abase = smem_u32(a.wide ? stage + kRows * 128 : aslots + (n & 1) * kASlot) +
+                           16 * c;
     wgmma_fence();
 #pragma unroll
     for (int sl = 0; sl < kRows / 16; ++sl) {
-      const uint64_t da = make_desc(gbase + 2048 * sl, 8192, 1024, kLayoutSwizzle128);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        wgmma_ss_n72<1, 1>(acc[j], da,
-                           make_desc(abase + 16 * (16 * sl + j), 128, kAChunk, kLayoutNone), 1);
-      }
-      if (with_db1) wgmma_ss_n8<1, 0>(accb, da, make_desc(ones_u, 128, 256, kLayoutNone), 1);
+      wgmma_ss_n144<1, 1>(acc, make_desc(gbase + 2048 * sl, 8192, 1024, kLayoutSwizzle128),
+                          make_desc(abase + 256 * sl, 128, kAChunk, kLayoutNone),
+                          sl > 0 || !fresh);
     }
     wgmma_commit();
+    TIMER_ADD(tw[3], t_p);
+    if (ahead) h_issue(n + 1);
+    if (producer && n + kW1Ahead < nx) ask_next(n + kW1Ahead);
+    TIMER_START(t_pw);
     wgmma_wait<0>();
-#pragma unroll
-    for (int j = 0; j < 3; ++j) fence_regs(acc[j]);
-    fence_regs(accb);
+    fence_regs(acc);
+    TIMER_ADD(tw[4], t_pw);
+    if (ahead) {
+      TIMER_START(t_s);
+      a_store(n + 1);
+      rc.next(a);
+      TIMER_ADD(tw[5], t_s);
+    }
     release(&g_empty[st]);
-    release(&a_empty[slot]);
-  }
-
-  const size_t n2 = (size_t)h.n * a.two_c;
+    // a of unit n + 1 whole; every warp past the products of unit n (the
+    // slot unit n + 2 takes)
+    TIMER_START(t_b);
+    if (!a.wide) bar_sync(1, kW1Threads);
+    TIMER_ADD(tw[6], t_b);
+    if (new_img && producer && img_x < x1) fetch(Item(a, img_x), f + 1);
+    new_img = false;
+    if (++k < a.units && n + 1 < nx) continue;
+    // the segment's end: its partial to slot blockIdx.x - first_cta(tau);
+    // the tile's last CTA zeroes the slots after it
+    TIMER_START(t_o);
+    Item cur(a, tau * a.units);
+    const int c0 = cur.p * kPass;
+    const int cend = min(h.cc - c0, kPass);
+    const int slot = blockIdx.x - first_cta(a, tau);
+    const int last = (int)(((long long)(tau + 1) * a.units - 1) / a.per_cta);
+    const int s_end = blockIdx.x == last ? a.nslots : slot + 1;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
+    for (int half = 0; half < 2; ++half) {
+      const int o = cur.ot * 64 + l.row + 8 * half;
+      if (o >= a.two_c) continue;
+      const size_t col = (size_t)cur.i * a.two_c + o;
+      for (int sx = slot; sx < s_end; ++sx) {
+        float* part = a.pw1 + (((size_t)sx * 3 + c) * h.cc + c0) * n2 + col;
 #pragma unroll
-    for (int r = 0; r < kW1Cols / 2; ++r) {
-      const int o = o0 + l.row + 8 * ((r >> 1) & 1);
-      const int cl = cw + 8 * (r >> 2) + 2 * l.tig + (r & 1);
-      if (o < a.two_c && cl < cend) {
-        a.pw1[(((size_t)s * 3 + j) * h.cc + c0 + cl) * n2 + (size_t)i * a.two_c + o] = acc[j][r];
+        for (int nt = 0; nt < kPass / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cx = 8 * nt + 2 * l.tig + e;
+            if (cx < cend) part[(size_t)cx * n2] = sx == slot ? acc[4 * nt + 2 * half + e] : 0.f;
+          }
+        }
+        if (cur.p == 0 && c == 1 && l.tig == 0) {
+          a.pb1[(size_t)sx * n2 + col] = sx == slot ? acc[68 + 2 * half] : 0.f;
+        }
       }
     }
+    TIMER_ADD(tw[7], t_o);
+    k = 0;
+    ++tau;
   }
-  if (with_db1 && l.tig == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; r += 2) {
-      const int o = o0 + l.row + 8 * (r >> 1);
-      if (o < a.two_c) a.pb1[(size_t)s * n2 + (size_t)i * a.two_c + o] = accb[r];
-    }
+#ifdef COND_CHAIN_TIMERS
+  if (c == 1 && l.wt == 0) {
+    for (int x = 0; x < 8; ++x) atomicAdd(&g_timers[kW1Timers + x], (unsigned long long)tw[x]);
+    atomicAdd(&g_timers[kW1Timers + 8], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[kW1Timers + 9], 1ull);
   }
+  if (producer) {
+    atomicAdd(&g_timers[kW1Timers + 10], (unsigned long long)tw[8]);
+    atomicAdd(&g_timers[kW1Timers + 11], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[kW1Timers + 12], 1ull);
+  }
+#endif
 }
 
 // k2b_xdh_kernel's shared memory: a ring of kXStages stages of 64 rows x 256
@@ -1264,10 +1454,10 @@ struct Plan {
   bool ok, narrow;                          // narrow: E <= 8, X^T dh in (a)
   int noc, ntiles, run, nruns;              // (a): runs of `run` tiles a batch row
   W0Geo geo;
-  long long ld;                             // the dh scratch's row stride (E > 8)
-  int notiles, nsub, units, chunk, s1;      // (b)
+  long long ld;                             // the dh and a scratches' row stride (E > 8)
+  int notiles, nsub, units, per_cta, w1_ctas, s1;  // (b): s1 partial slots
   int kx, xcols, xks, parts, prows, s0;     // (c), and X^T dh's partials: parts a batch row
-  size_t off_dh, off_dexc, off_pb1, off_pw1, off_pw0, off_imh, off_imx, total;
+  size_t off_dh, off_a, off_dexc, off_pb1, off_pw1, off_pw0, off_imh, off_imx, total;
 };
 
 Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
@@ -1291,14 +1481,24 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   p.nruns = (p.ntiles + p.run - 1) / p.run;
   const size_t R = (size_t)B * T, n0 = (size_t)n * cc, n2 = (size_t)n * two_c;
   p.ld = (long long)(n0 + 7) / 8 * 8;
-  // (b): (block, pass, 64 columns of g) tiles times chunks of units, one wave
+  // (b): the items (tile of (block, pass, 64 columns of g), unit of 62
+  // rows) in equal runs over one wave of the card's SMs; a tile's units go
+  // to consecutive CTAs, each writing the partial of its segment into the
+  // next slot (s1: the most segments of any tile)
   p.notiles = (two_c + 63) / 64;
   p.nsub = (T + kOwn - 1) / kOwn;
   p.units = B * p.nsub;
   const long long tiles = (long long)n * p.geo.npass * p.notiles;
-  const int s1 = (int)std::min<long long>(std::max<long long>(1, kSmCount / tiles), p.units);
-  p.chunk = (p.units + s1 - 1) / s1;
-  p.s1 = (p.units + p.chunk - 1) / p.chunk;
+  const long long items = tiles * p.units;
+  if (items >= (1LL << 31)) return p;
+  p.per_cta = (int)((items + kSmCount - 1) / kSmCount);
+  p.w1_ctas = (int)((items + p.per_cta - 1) / p.per_cta);
+  p.s1 = 1;
+  for (long long tau = 0; tau < tiles; ++tau) {
+    const long long first = tau * p.units / p.per_cta;
+    const long long last = ((tau + 1) * p.units - 1) / p.per_cta;
+    p.s1 = std::max(p.s1, (int)(last - first + 1));
+  }
   p.kx = 3 * E + 3;
   if (p.narrow) {
     // X^T dh in (a): a partial per (batch row, run)
@@ -1316,7 +1516,8 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c) {
   }
   p.s0 = B * p.parts;
   p.off_dh = 0;
-  p.off_dexc = align256(p.off_dh + (p.narrow ? 0 : R * p.ld * 2));
+  p.off_a = align256(p.off_dh + (p.narrow ? 0 : R * p.ld * 2));
+  p.off_dexc = align256(p.off_a + (p.narrow ? 0 : R * p.ld * 2));
   const size_t nparts = (size_t)n * p.geo.npass;  // dexc's partials: one a block and pass
   p.off_pb1 = align256(p.off_dexc + (nparts > 1 ? nparts * R * E * 4 : 0));
   p.off_pw1 = align256(p.off_pb1 + (size_t)p.s1 * n2 * 4);
@@ -1450,6 +1651,7 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   d.img_h = reinterpret_cast<const bf16*>(wsb + p.off_imh);
   d.img_x = reinterpret_cast<const bf16*>(wsb + p.off_imx);
   d.dh_out = dh_s;
+  d.a_out = reinterpret_cast<bf16*>(wsb + p.off_a);
   d.ld = p.ld;
   d.pdexc = reinterpret_cast<float*>(wsb + p.off_dexc);
   d.dexc = static_cast<bf16*>(dexc);
@@ -1470,8 +1672,10 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   w.notiles = p.notiles;
   w.nsub = p.nsub;
   w.units = p.units;
-  w.chunk = p.chunk;
+  w.per_cta = p.per_cta;
+  w.nslots = p.s1;
   w.vec = E == 8 && (uintptr_t)exc % 16 == 0;
+  w.wide = !p.narrow;
   w.geo = p.geo;
   XArgs x;
   x.h = h;
@@ -1492,10 +1696,18 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   const cuuint64_t x_dims[4] = {(cuuint64_t)n0, 1, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t x_strides[3] = {ld2, ld2, ld2 * T};
   const cuuint32_t x_box[4] = {64, 1, 64, 1};
+  const cuuint64_t e_dims[3] = {8, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t e_strides[2] = {16, 16 * (cuuint64_t)T};
+  const cuuint32_t e_box[3] = {8, (cuuint32_t)kW1XRows, 1};
+  const cuuint64_t a_dims[3] = {(cuuint64_t)n0, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t a_strides[2] = {ld2, ld2 * T};
+  const cuuint32_t a_box[3] = {8, (cuuint32_t)kRows, 1};
   if (!make_map(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
       !make_map(&d.w1_map, w1, 4, w_dims, w_strides, w_box) ||
       !make_map(&w.g_map, g, 4, g_dims, g_strides, g_box_w1) ||
-      (!p.narrow && !make_map(&x.dh_map, dh_s, 4, x_dims, x_strides, x_box))) {
+      (!p.narrow && !make_map(&x.dh_map, dh_s, 4, x_dims, x_strides, x_box)) ||
+      (!p.narrow && !make_map(&w.a_map, d.a_out, 3, a_dims, a_strides, a_box, false)) ||
+      (w.vec && !make_map(&w.x_map, exc, 3, e_dims, e_strides, e_box, false))) {
     return (int)cudaErrorInvalidValue;
   }
   ImageArgs im{h, nullptr, reinterpret_cast<bf16*>(wsb + p.off_imh),
@@ -1515,9 +1727,8 @@ extern "C" int cond_chain_bwd_bf16(const void* exc, const void* w0, const void* 
   if (e != cudaSuccess) return (int)e;
   ++launched;
   mark();
-  if ((e = launch_kernel(k2b_w1_kernel,
-                         dim3((unsigned)(n * p.geo.npass * p.notiles), (unsigned)p.s1),
-                         kW1Threads, kW1Smem, w, stream)) != cudaSuccess) return (int)e;
+  if ((e = launch_kernel(k2b_w1_kernel, dim3((unsigned)p.w1_ctas), kW1Threads, kW1Smem, w,
+                         stream)) != cudaSuccess) return (int)e;
   ++launched;
   mark();
   if (!p.narrow) {

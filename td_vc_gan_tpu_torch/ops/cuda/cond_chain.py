@@ -24,9 +24,10 @@ from TF32 products). K1 and K2's data kernel are Hopper kernels: ``wgmma``
 on operands that bulk and TMA copies bring through ``mbarrier`` rings
 (``csrc/cond_chain_f32.cuh``, ``csrc/hopper_bf16.cuh``), on images of the
 weights the libraries make at each launch in a workspace the wrapper
-allocates; K2's weight grads recompute lrelu(h) rather than read it from a
-scratch, and take dW0, dhbias and the edges as one product (in K2's data
-kernel itself at E <= 9, with no scratch of dh). Both are
+allocates; K2's weight grads recompute lrelu(h) at the decoder's E = 8
+rather than read it from a scratch (past E = 9, E = 8 in bf16, the data
+kernel writes one), and take dW0, dhbias and the edges as one product (in
+K2's data kernel itself at E <= 9, with no scratch of dh). Both are
 tied together by :class:`CondChain`, an ``autograd.Function``: CUDA tensors
 launch the kernels (or raise for a device, dtype or layout they do not
 take), CPU tensors run :func:`cond_chain_plain` and

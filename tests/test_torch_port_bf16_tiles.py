@@ -31,22 +31,31 @@ within one bf16 ulp, as ``chip_smoke.py`` holds the kernels on the card:
   own rows, added in f32 tile by tile into a partial per (batch row, run);
   past E = 8 dh to the scratch;
 - K2's weight grads: dW1 and db1 over units of 62 rows of g (two zero rows
-  after them), with a recomputed from exc for the rows t0 - 1 .. t0 + 62
-  and tap j reading a from row j, in chunks of units; past E = 8 dW0,
-  dhbias and the edges as X^T dh over the parts of each batch row; every
-  kind of partial summed over its chunks in order and rounded once.
+  after them), with a of the rows t0 - 1 .. t0 + 62 (recomputed from exc at
+  E <= 8, read from the data kernel's scratch past it) and a column of ones
+  after the pass's columns (db1), tap j reading a from row j; the items
+  (tile of 64 columns of g, unit) in equal runs over the card's SMs, a
+  partial per segment of a tile; past E = 8 dW0, dhbias and the edges as
+  X^T dh over the parts of each batch row; every kind of partial summed
+  over its chunks in order and rounded once. k2b_w1_kernel's X at E = 8,
+  read through descriptors from the exc rows TMA brings, is checked
+  element by element.
 
 Operands are dyadic where a slope must agree (cond_0's sums exact in any
-order), as on the card. Numpy only, no JAX compile.
+order), as on the card. Numpy, and for the wide route's weight grads the
+JAX package's Pallas kernel in interpret mode as the reference.
 """
 
 import shutil
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from td_vc_gan_tpu.ops.pallas import cond_chain as jcc
 from td_vc_gan_tpu_torch.ops.cuda import cond_chain
 
 BF = torch.bfloat16
@@ -302,14 +311,33 @@ def k1_emulated(ops, cpc=None):
 
 
 def w1_plan(bsz, t, n, npass, two_c):
-    """k2b_w1_kernel's work (make_plan): units of 62 rows of g, chunked so
-    that (block, pass, 64 columns of g) tiles x chunks make one wave of SMS
-    CTAs: (units a batch row, units, units a chunk, chunks)."""
+    """k2b_w1_kernel's work (make_plan): tiles of (block, pass, 64 columns
+    of g) times units of 62 rows, the items tile-major in equal runs over one
+    wave of SMS CTAs; a tile's segments (one a CTA) write partial slots 0,
+    1, ..: (tiles, units a batch row, units a tile, items a CTA, CTAs,
+    slots)."""
+    tiles = n * npass * -(-two_c // 64)
     nsub = -(-t // OWN)
     units = bsz * nsub
-    tiles = n * npass * -(-two_c // 64)
-    chunk = -(-units // min(max(1, SMS // tiles), units))
-    return nsub, units, chunk, -(-units // chunk)
+    per_cta = -(-(tiles * units) // SMS)
+    ctas = -(-(tiles * units) // per_cta)
+    slots = max(((tau + 1) * units - 1) // per_cta - tau * units // per_cta + 1
+                for tau in range(tiles))
+    return tiles, nsub, units, per_cta, ctas, slots
+
+
+def w1_segments(plan):
+    """The segments of k2b_w1_kernel's CTAs in launch order: (CTA, tile,
+    slot, units of the tile)."""
+    tiles, _, units, per_cta, ctas, _ = plan
+    out = []
+    for cta in range(ctas):
+        x0, x1 = cta * per_cta, min(tiles * units, (cta + 1) * per_cta)
+        for tau in range(x0 // units, (x1 - 1) // units + 1):
+            k0, k1 = max(x0, tau * units), min(x1, (tau + 1) * units)
+            out.append((cta, tau, cta - tau * units // per_cta,
+                        list(range(k0 - tau * units, k1 - tau * units))))
+    return out
 
 
 def xdh_plan(bsz, t, e, n0):
@@ -360,6 +388,7 @@ def k2_emulated(ops, g):
     narrow = e <= 8
     run, nruns = run_plan(bsz, t, n, npass)
     dh_s = np.zeros((bsz, t, n0), np.float32)
+    a_s = np.zeros((bsz, t, n0), np.float32)
     pdexc = np.zeros((n * npass, bsz, t, e), np.float32)
     pw0 = np.zeros((bsz * nruns, kx, n0), np.float32)
     tiles = -(-t // TILE)
@@ -394,6 +423,7 @@ def k2_emulated(ops, g):
                         if not narrow:
                             rows = u[own]
                             dh_s[b, rows[:, None], cols[None]] = dh[own][:, okc]
+                            a_s[b, rows[:, None], cols[None]] = a[own][:, okc]
                         # X^T dh's operands: the window's dh and X, X zero in the
                         # halo rows (q = 0, 63), which other windows own
                         x = x_rows(ops, b, u, kx)
@@ -421,34 +451,45 @@ def k2_emulated(ops, g):
                 if narrow:
                     pw0[b * nruns + rn][:, cols] = xacc[:, okc]
     dexc = bf16(in_order(pdexc))
-    # dW1 and db1 (k2b_w1_kernel): a unit is 62 rows t0 + r of g (zero
-    # outside [0, T), then two zero rows); a is recomputed for the rows
-    # t0 - 1 + q, q < 64 (then 8 zero rows), tap j's B is a from row j; each
-    # chunk of units sums in f32, slice by slice, unit by unit
-    nsub, units, chunk, s1 = w1_plan(bsz, t, n, npass, two_c)
-    pw1 = np.zeros((s1, 3, cc, n * two_c), np.float32)
-    pb1 = np.zeros((s1, n * two_c), np.float32)
-    for s in range(s1):
-        acc, accb = {}, {}
-        for k in range(s * chunk, min(units, (s + 1) * chunk)):
+    # dW1 and db1 (k2b_w1_kernel): a unit is a batch row's 62 rows t0 + r of g
+    # (zero outside [0, T), then two zero rows); a of the rows t0 - 1 + q,
+    # q < 64 (then 8 zero rows; recomputed at E <= 8, past it read from the
+    # data kernel's scratch), with db1's column of ones after the pass's
+    # columns; tap j's B is a from row j; each segment of a tile's units sums
+    # in f32, slice by slice, unit by unit, into its slot
+    plan = w1_plan(bsz, t, n, npass, two_c)
+    _, nsub, _, _, _, slots = plan
+    notiles = -(-two_c // 64)
+    pw1 = np.zeros((slots, 3, cc, n * two_c), np.float32)
+    pb1 = np.zeros((slots, n * two_c), np.float32)
+    for _, tau, slot, ks in w1_segments(plan):
+        i, p = divmod(tau // notiles, npass)
+        o = (tau % notiles) * 64 + np.arange(64)
+        oko = o < two_c
+        col = i * two_c + o[oko]
+        c0, cend = p * PASS, min(cc - p * PASS, PASS)
+        acc = [None] * 3
+        for k in ks:
             b, t0 = k // nsub, (k % nsub) * OWN
             u = t0 - 1 + np.arange(ROWS)
             r = t0 + np.arange(ROWS)
             okr = (np.arange(ROWS) < OWN) & (r < t)
-            for i in range(n):
-                gt = np.zeros((ROWS, two_c), np.float32)
-                gt[okr] = g[b, r[okr], i * two_c:(i + 1) * two_c]
-                accb[i] = slices16(gt.T, np.ones((ROWS, 1), np.float32), accb.get(i))
-                for p in range(npass):
-                    a = np.zeros((ROWS + 8, PASS), np.float32)
-                    a[:ROWS] = bf16(act(ops, b, u, i, p, kh))
-                    for j in range(3):
-                        acc[i, p, j] = slices16(gt.T, a[j:j + ROWS], acc.get((i, p, j)))
-        for (i, p, j), v in acc.items():
-            c = p * PASS + np.arange(PASS)
-            pw1[s, j, c[c < cc], i * two_c:(i + 1) * two_c] = v[:, c < cc].T
-        for i, v in accb.items():
-            pb1[s, i * two_c:(i + 1) * two_c] = v[:, 0]
+            gt = np.zeros((ROWS, 64), np.float32)
+            gt[np.ix_(okr, oko)] = g[b, r[okr]][:, col]
+            a = np.zeros((ROWS + 8, PASS + 8), np.float32)
+            if narrow:
+                a[:ROWS, :PASS] = bf16(act(ops, b, u, i, p, kh))
+            else:
+                ok = (u >= 0) & (u < t)
+                a[np.ix_(np.flatnonzero(ok), np.arange(cend))] = \
+                    a_s[b, u[ok]][:, i * cc + c0:i * cc + c0 + cend]
+            a[:, PASS] = 1
+            for j in range(3):
+                acc[j] = slices16(gt.T, a[j:j + ROWS], acc[j])
+        for j in range(3):
+            pw1[slot, j, c0:c0 + cend][:, col] = acc[j][oko, :cend].T
+        if p == 0:
+            pb1[slot, col] = acc[1][oko, PASS]
     # past E = 8, dW0, dhbias and the edges (k2b_xdh_kernel): X^T dh over the
     # rows of each part of each batch row, 64 rows a step, X zero past the part
     parts = nruns
@@ -561,16 +602,23 @@ def test_k2_bf16_tiles_emulated(case):
 
 
 def test_k2_bf16_weight_grads_in_chunks_of_units(monkeypatch):
-    """k2b_w1_kernel's chunks on a card of 2 SMs: several units of 62 rows
-    a chunk (at 132 SMs the file's small cases take one unit a chunk), a
-    chunk ending inside a batch row and one crossing into the next; the
-    per-chunk partials summed in order."""
-    monkeypatch.setattr(sys.modules[__name__], "SMS", 2)
+    """k2b_w1_kernel's segments on a card of 5 SMs: 3 tiles of 8 units of 62
+    rows in runs of 5 items a CTA, so that CTAs cross from one tile (and
+    batch row) into the next mid-run and tiles take 2 or 3 partial slots
+    (the reduce sums 3, the missing ones zero); the partials summed in
+    order. The plans at the step's largest and smallest calls (B = 128) fill
+    the card's 132 SMs."""
+    assert w1_plan(128, 8960, 9, 1, 32) == (9, 145, 18560, 1266, 132, 16)
+    assert w1_plan(128, 280, 9, 1, 256) == (36, 5, 640, 175, 132, 5)
+    monkeypatch.setattr(sys.modules[__name__], "SMS", 5)
     _, b, t, e, n, cc, two_c, _ = CASES[0]
-    assert w1_plan(3, 200, n, 1, two_c) == (4, 12, 12, 1)
-    assert w1_plan(3, 200, 1, 1, two_c) == (4, 12, 6, 2)
-    ops = chain_ops(3, 200, e, 1, cc, two_c, seed=11)
-    g = bf16(np.random.default_rng(12).standard_normal((3, 200, two_c)).astype(np.float32))
+    assert w1_plan(2, 200, 3, 1, two_c) == (3, 4, 8, 5, 5, 3)
+    assert [(cta, tau, slot, len(ks)) for cta, tau, slot, ks in
+            w1_segments(w1_plan(2, 200, 3, 1, two_c))] == [
+        (0, 0, 0, 5), (1, 0, 1, 3), (1, 1, 0, 2), (2, 1, 1, 5), (3, 1, 2, 1), (3, 2, 0, 4),
+        (4, 2, 1, 4)]
+    ops = chain_ops(2, 200, e, 3, cc, two_c, seed=11)
+    g = bf16(np.random.default_rng(12).standard_normal((2, 200, 3 * two_c)).astype(np.float32))
     tops = {k: v for k, v in torch_ops(ops).items() if k != "b1"}
     want = cond_chain.cond_chain_bwd_plain(g=torch.from_numpy(g).to(BF), **tops)
     got = k2_emulated(ops, g)
@@ -639,3 +687,60 @@ def test_bf16_libraries_are_keyed_on_the_hopper_header(tmp_path):
     header.write_text(header.read_text() + "\n")
     again = [cond_chain._lib_path(x) for x in (*bf, *f32)]
     assert again[0] != after[0] and again[1] != after[1] and again[2:] == after[2:]
+
+
+def test_k2_bf16_wide_weight_grads_from_the_scratch_against_jax():
+    """Past E = 8 (the concat form at Cc = E = 144: two passes, K = 435 in
+    seven chunks) k2b_w1_kernel recomputes nothing: a is the data kernel's
+    bf16(lrelu(h)) of its own rows, read from the scratch. dW1 and db1 of
+    that route (emulated) against the JAX package's ``_chain_bwd``, the
+    Pallas kernel in interpret mode on the same bf16 operands (f32 sums cast
+    once), within one bf16 ulp but for ULP_SHARE."""
+    ops = chain_ops(1, 96, 24, 2, 144, 16, seed=31, concat=True)
+    g = bf16(np.random.default_rng(32).standard_normal((1, 96, 32)).astype(np.float32))
+    got = k2_emulated(ops, g)
+    jops = [jnp.asarray(ops[k], jnp.bfloat16) for k in ("exc", "w0", "hbias", "w1", "b1")]
+    _, vjp = jax.vjp(lambda *a: jcc.film_cond_chain(*a, interpret=True)[..., :32], *jops)
+    *_, dw1, db1 = vjp(jnp.asarray(g, jnp.bfloat16))
+    assert_ulp(got["w1"], np.asarray(dw1, np.float32), "w1")
+    assert_ulp(got["b1"], np.asarray(db1, np.float32), "b1")
+
+
+def test_k2b_w1_x_from_the_exc_rows():
+    """k2b_w1_kernel's X at E = 8 without a copy: the h product's A is read
+    through K-major descriptors (8-row groups 128 bytes apart, the k-slice's
+    two 8-column halves LBO bytes apart) from the unit's exc rows t0 - 2 ..
+    t0 + 63 as TMA lays them (16 bytes a row, zeros outside [0, T)) and, for
+    k = 24 .. 31, from one of six chunks of 64 rows of (1, -[u == 0],
+    -[u == T-1], 0 ..) written once: slice 0 from the rows' start with
+    LBO = 16 (tap 1 is tap 0 a row on), slice 1 from 32 bytes in with LBO
+    reaching the chunk. The 64 x 32 operand is X of the unit's rows t0 - 1 ..
+    t0 + 62 (x_rows) at every unit of a batch row, at T = 150 and at
+    T = 125 = 1 mod 62, where the unit before the last holds u = T-1 in its
+    halo row."""
+    for t in (150, 125):
+        ops = chain_ops(1, t, 8, 1, 8, 8, seed=41)
+        nsub = -(-t // OWN)
+        q_last = t - (nsub - 1) * OWN
+        for t0 in range(0, nsub * OWN, OWN):
+            rows = t0 - 2 + np.arange(66)
+            ok = (rows >= 0) & (rows < t)
+            mem = np.zeros(8192, np.float32)  # one bf16 element a slot of 2 bytes
+            mem[:66 * 8] = np.where(ok[:, None], ops["exc"][0, np.clip(rows, 0, t - 1)], 0).ravel()
+            kind = (t0 == 0) + (2 if t0 + OWN >= t else 4 if t0 + OWN == t - 1 else 0)
+            base = 2048  # the kinds' byte offset, past the rows
+            for kd in range(6):
+                q = np.arange(64)
+                first = (kd & 1) * (q == 1)
+                last = (kd >> 1 == 1) * (q == q_last) + (kd >> 1 == 2) * (q == 63)
+                chunk = np.stack([np.ones(64), -1.0 * first, -1.0 * last] + [np.zeros(64)] * 5, 1)
+                mem[(base + kd * 1024) // 2:(base + kd * 1024) // 2 + 64 * 8] = chunk.ravel()
+
+            def operand(start, lbo, sbo=128):
+                r, k = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+                off = start + (r // 8) * sbo + (k // 8) * lbo + (r % 8) * 16 + (k % 8) * 2
+                return mem[off // 2]
+
+            got = np.concatenate([operand(0, 16), operand(32, base + kind * 1024 - 32)], 1)
+            u = t0 - 1 + np.arange(64)
+            np.testing.assert_array_equal(got[:, :27], x_rows(ops, 0, u, 27))
