@@ -36,7 +36,10 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    (Cc = 264; E = 6 and 10; Cc = 11 and 138, which the wrapper pads; split
    Cc = 1290; concat E = Cc = 600; 2C = 1032), and at every stage's shape
    for widths of several passes of 136 channels (split Cc = 392 and 1204,
-   concat Cc = 184 and 344);
+   concat Cc = 184 and 344); then K2 through its C entry point at a width
+   where its reduce has a gap of threads before a job summed by warps
+   (GUARD_CASE), with guard elements after every output that must come back
+   unchanged;
 7. train: the full-width stage-2 GAN train step (D -> C -> G, the config
    defaults, conv encoder) on 16 x 8960 samples: its first step against the
    same step with the plain chain, then a warm-up and timed steps (CUDA
@@ -49,8 +52,9 @@ and no weights: everything is made from seeds. Phases, one line or more each:
    version, a second run bit for bit, then its time beside the two bounds,
    the plain version and cuDNN's backward of the same chain (a yardstick),
    its device time by kernel (the events its library records between
-   launches) at each shape and per step, its launches per call, and its
-   workspace at the step's largest call;
+   launches) at each shape and per step, ``k2_w1_kernel``'s per step
+   against its own bound (dW1's flops at the 3xTF32 rate), its launches per
+   call, and its workspace at the step's largest call;
 9. the train CLI (``python -m td_vc_gan_tpu_torch.cli.train``, a
    subprocess) on a corpus the script writes (16 speakers x 6 utterances of
    1.5-4 s, 4 of them FLAC): epoch 0 (5 steps at batch 16, through the
@@ -212,7 +216,9 @@ stage shapes and the bottleneck's Cc = E = 256; in K1-bf16 h's product, P's prod
 epilogue at the bottleneck shapes and the bf16 conversion's stage shapes;
 in the backward data kernels h, da, dh, dexc and X^T dh and their parts at
 the step's stage shapes, K2-bf16's also at the bottleneck shapes; the
-producers' waits on empty). The two flags combine.
+producers' waits on empty; in k2_w1_kernel X's image, h, a's store, the
+products, the run sums and the barrier, in k2b_w1_kernel its compute
+warpgroups' and producer's phases). The two flags combine.
 """
 
 from __future__ import annotations
@@ -309,6 +315,15 @@ WIDE_C = 516
 # shapes (2C = 256 down to 32, partial last tiles).
 TILED_CASES = (("split", 384, 8), ("concat", 176, 8), ("concat", 336, 8),
                ("split", 1196, 8))
+# A width at which K2's reduce has a gap before a job that takes a warp an
+# output: split, Cc = 140 (conditional_dim 132, two passes), 2C = 12, E = 8 at
+# the second stage's T, B = 16: dW1's 45,360 outputs (one thread each, not a
+# multiple of 32) come just before db1's 108, whose 304 partials take a warp
+# (the tiles test's "gap-before-a-warp-job"). Held through the C entry point
+# with GUARD elements of GUARD_WORD after each output, which must come back
+# as they were.
+GUARD_CASE = (16, 132, 6)
+GUARD, GUARD_WORD = 64, -1234.5
 # Each kernel's time in its previous version, as recorded in PERF.md
 # section 6 (NVIDIA H100 80GB HBM3, 700 W): K1 and K2 before their Hopper
 # redesign (K1 whole, K2's data kernel); K1-bf16 and
@@ -338,7 +353,10 @@ EARLIER_MS = {
                        (None, 19.392, "train step",
                         "with dexc's read-modify-write one element at a time"),
                        (None, 17.476, "train step",
-                        "with a CTA per tile walking every block and dh through a scratch")],
+                        "with a CTA per tile walking every block and dh through a scratch"),
+                       (None, 14.532, "train step",
+                        "with k2_w1_kernel's recompute in a warpgroup of its own and a dW1 "
+                        "partial a run of 16 units")],
     "cond_chain_fwd_bf16": [
         ("convert", 22.866, "bf16 convert call (4 calls)", "in their first bf16 version"),
         ("train", 34.319, "batch-64 train step (8 calls)", "in their first bf16 version"),
@@ -649,8 +667,8 @@ def wide_case(cfg, form: str, s: int, e: int, stage: int, timed: bool, c: int | 
 def wide_parity(cfg, card, stage: int = 1):
     """K1 and K2 against their plain versions (B=2, dyadic cond_0 operands)
     at WIDE_CASES on one training stage's (T, C) and 2C = 2 WIDE_C at the
-    first stage's T, each timed, and at TILED_CASES on all four stages'
-    (timed at ``stage``)."""
+    first stage's T, each timed, at TILED_CASES on all four stages' (timed
+    at ``stage``), then K2 at GUARD_CASE with guards after its outputs."""
     for form, s, e in WIDE_CASES:
         say("wide parity: " + wide_case(cfg, form, s, e, stage, timed=True)
             + f"; tolerance {PARITY_RTOL:.0e} of max|ref| [{card}]")
@@ -661,6 +679,27 @@ def wide_parity(cfg, card, stage: int = 1):
         parts = [wide_case(cfg, form, s, e, i, timed=i == stage) for i in range(STAGES)]
         say("tiled parity: " + "; ".join(parts)
             + f"; tolerance {PARITY_RTOL:.0e} of max|ref| [{card}]")
+    say(guard_case(cfg, cc_mod._library()["bwd"], stage) + f" [{card}]")
+
+
+def guard_case(cfg, bwd, stage: int) -> str:
+    """K2 from library ``bwd`` at GUARD_CASE on ``stage``'s T through its C
+    entry point, with GUARD elements after every output that must come back
+    as they were, and against its plain version; the line's text."""
+    t = stage_shapes(SEG, cfg)[stage][0]
+    b, s, c = GUARD_CASE
+    wcfg = copy.deepcopy(cfg)
+    wcfg.model.generator.conditional_dim = s
+    split, _, _, cc = chain_inputs(b, t, c, wcfg, seed=990, exact_h=True)
+    args = {k: v for k, v in split.items() if k != "b1"}
+    g = cotangent(split, seed=991)
+    got = old_k2(bwd, args, g, guard=GUARD)
+    want = cc_mod.cond_chain_bwd_plain(g=g, **args)
+    r = max(rel_err(got[k], want[k])[1] for k in want)
+    if not r <= PARITY_RTOL:
+        raise AssertionError(f"K2 disagrees with its plain version at split Cc={cc} 2C={2 * c}")
+    return (f"guarded K2: split B={b} Cc={cc} E=8 T={t} 2C={2 * c}, {GUARD} elements after each "
+            f"output unchanged; worst output {r:.1e} of max|ref| (tolerance {PARITY_RTOL:.0e})")
 
 
 def signals(seed: int, n: int = UTT) -> np.ndarray:
@@ -1028,6 +1067,7 @@ def phase_k2_times(cfg, card, launches, parity_err):
     totals = Totals()
     worst = parity_err
     k2_parts: dict = {}
+    w1_flops = 0.0  # dW1's: 2*3*n*Cc*2C a (b, t) row
     for bsz in (2 * B, B):
         for i, (t, c) in enumerate(stage_shapes(SEG, cfg)):
             split, _, n, cc = chain_inputs(bsz, t, c, cfg, seed=700 + i, exact_h=True)
@@ -1066,6 +1106,7 @@ def phase_k2_times(cfg, card, launches, parity_err):
             add_breakdown(k2_parts, parts)
             say(f"k2 kernels B={bsz} T={t} C={c}: {breakdown_line(parts)} [{card}]")
             flops, nbytes = k2_work(bsz, t, e, n, cc, 2 * c)
+            w1_flops += 6.0 * bsz * t * n * cc * 2 * c
             bound, bound_simt, _ = bounds(flops, nbytes)
             say(f"k2 B={bsz} T={t} C={c}: kernel {k_ms:.3f} ms, bound {bound:.3f} ms "
                 f"(3xTF32) / {bound_simt:.3f} ms (f32 CUDA cores) ({flops / 1e9:.1f} GFLOP, "
@@ -1084,6 +1125,12 @@ def phase_k2_times(cfg, card, launches, parity_err):
     say(f"k2 kernels per train step (8 calls): {breakdown_line(k2_parts, 8)}; workspace at "
         f"(B, T, E, n, Cc, 2C) = {K2_WS_SHAPE}: {4 * ws / 1e9:.3f} GB (a dh scratch would be "
         f"{4 * b_ws * t_ws * n_ws * cc_ws / 1e9:.3f} GB alone) [{card}]")
+    w1_ms = k2_parts["k2_w1_kernel"][0]
+    w1_bound = w1_flops / PEAK_F32_TC_FLOPS * 1e3
+    say(f"k2_w1_kernel per train step: {w1_ms:.3f} ms against its own bound of "
+        f"{w1_bound:.3f} ms (dW1's {w1_flops / 1e12:.4f} TFLOP at "
+        f"{PEAK_F32_TC_FLOPS / 1e12:.1f} TFLOP/s, 3xTF32; {w1_bound / w1_ms:.1%} of it); the "
+        f"reduce {k2_parts['k2_reduce_kernel'][0]:.3f} ms [{card}]")
     say(f"k2 per train step (8 calls): {totals.line()} [{card}]")
     return {"name": "cond_chain_bwd", "route": "cuda",
             "source": "td_vc_gan_tpu_torch/csrc/cond_chain_bwd.cu",
@@ -1891,14 +1938,16 @@ def kernel_breakdown(fn, attempts: int = 3) -> dict:
     library has no timing events; it runs first in its process, where the
     profiler works. The profiler starts tracing the card some time after its
     session opens and can lose the last records (a short call lost its
-    first kernels, once its last two): the call sits between two spins of
-    the card (the first ~20 ms, 4x longer at each retry), and a session
-    counts only when its first and last device events are those spins."""
+    first kernels, once its last two; a session has lost its first spin
+    however long): the call sits between spins of the card (two before it,
+    the first ~20 ms, 4x longer at each retry), and a session counts only
+    when its first and last device events are spins."""
     seen: list[str] = []
     for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(int(35e6 * 4 ** attempt))
+            torch.cuda._sleep(int(1e6))
             fn()
             torch.cuda._sleep(int(1e6))
             torch.cuda.synchronize()
@@ -3117,14 +3166,22 @@ def old_k1(fwd, split: dict):
     return out
 
 
-def old_k2(bwd, args: dict, g):
+def old_k2(bwd, args: dict, g, guard: int = 0):
     """The earlier K2 (f32 operands, a workspace in floats) or K2-bf16 (bf16,
-    in bytes) on split-form operands: the gradients' dict."""
+    in bytes) on split-form operands: the gradients' dict. ``guard``: each
+    output is followed by that many elements of GUARD_WORD, which the call
+    must leave as they were."""
     exc, w0, hbias, w1 = (args[k] for k in ("exc", "w0", "hbias", "w1"))
     b, t, e, n, cc, two_c = cc_mod._dims(exc, w0, w1)
-    out = {k: torch.empty_like(args[k]) for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")
-           if args[k] is not None}
-    out["b1"] = torch.empty(n * two_c, device=exc.device, dtype=exc.dtype)
+    shapes = {k: args[k].shape for k in ("exc", "w0", "hbias", "w1", "edge0", "edge_t")
+              if args[k] is not None}
+    shapes["b1"] = (n * two_c,)
+    if guard:
+        bufs = {k: torch.full((int(np.prod(v)) + guard,), GUARD_WORD, device=exc.device,
+                              dtype=exc.dtype) for k, v in shapes.items()}
+        out = {k: bufs[k][:-guard].view(v) for k, v in shapes.items()}
+    else:
+        out = {k: torch.empty(v, device=exc.device, dtype=exc.dtype) for k, v in shapes.items()}
     if exc.dtype == torch.float32:
         ws = torch.empty(int(bwd.cond_chain_bwd_workspace(b, t, e, n, cc, two_c, 1)),
                          device=exc.device, dtype=torch.float32)
@@ -3141,6 +3198,9 @@ def old_k2(bwd, args: dict, g):
         b, t, e, n, cc, two_c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the earlier backward kernels failed to launch ({err})")
+    for k in shapes if guard else ():
+        if not torch.equal(bufs[k][-guard:], torch.full_like(bufs[k][-guard:], GUARD_WORD)):
+            raise AssertionError(f"K2 wrote past the end of d{k}")
     return out
 
 
@@ -3473,12 +3533,10 @@ K2B_W1_PHASES = (("compute warpgroup",
                    "wait for the products and h", "lrelu and a's store", "barrier",
                    "partials' store")),
                  ("producer thread", ("waits on empty",)))
-K2_W1_PHASES = (("recompute warpgroup",
-                 ("A (X or a's read)", "h", "Wh fetches", "waits on a_empty",
-                  "lrelu, split, store", "g ring's waits")),
-                ("product warpgroup",
-                 ("waits on a_full", "waits on g_full", "A fragments", "products",
-                  "wait after products", "partials' store")))
+K2_W1_PHASES = (("warpgroup",
+                 ("X's image", "h (waits on X and Wh, products, wait)", "a's store",
+                  "waits on g_full", "products (A fragments, issue, waits on the slice before)",
+                  "wait after the products", "run sums and partials", "barrier")),)
 PHASE_PARTS = {"da's waits on full", "their products", "X^T dh's sum",
                "dexc's shift and store", "h's waits on full"}
 
@@ -3998,8 +4056,8 @@ if __name__ == "__main__":
     parser.add_argument("--ab", type=Path, default=None, metavar="DIR",
                         help="only the A/B of the kernels against earlier sources in DIR")
     parser.add_argument("--timers", action="store_true",
-                        help="only K1-bf16's phases timed by its clock64 counters (a "
-                             "diagnostic build)")
+                        help="only the kernels' phases timed by their clock64 counters "
+                             "(diagnostic builds)")
     cli = parser.parse_args()
     adopt_orphans()
     try:

@@ -84,41 +84,68 @@
 //         + P_1[t]) + P_2[t-1] through shared memory (P in X's place), stored
 //         as this block's and pass's f32 part, which (e) sums in order: no
 //         read-modify-write across blocks.
-//  (c) k2_w1_kernel, dW1 with no scratch of lrelu(h). A CTA owns (block i,
-//      pass p, a tile of OT = 64 output channels o, 32 where 2C <= 32) and
-//      a chunk of units, a unit being a batch row's 64 rows s0 .. s0 + 63 of
-//      lrelu(h). Three warpgroups (warp-specialized, so that the recompute of
-//      one unit overlaps the products of the one before):
-//       - warpgroup 0 recomputes h_i for the unit's rows as (b) does (the same
-//         A words, the same image of Wh, the same k-slices and the same
-//         m64n136k8 products in the same order: the same bits, so the slope
-//         (b) took and the a taken here never disagree), and writes
-//         lrelu(h), split, straight from its accumulators into one of two
-//         K-major images: element (c, s) at (c / 8) 2048 + (s / 4) 128 +
-//         (c % 8) 16 + (s % 4) 4 bytes, rows past T and channels past Cc
-//         zero. The transpose tf32 wgmma needs (K = time) costs nothing: it
-//         is the store. Where K = 3E + 3 > 32 (E > 9) Wh's image does not
-//         fit the one slot held across units, and the recompute would
-//         stream it once per unit and output tile (0.8 MB a unit at
-//         E = 256): there warpgroup 0 reads
-//         lrelu(h) from the scratch (b) wrote instead, 35 KB a unit, the
-//         data kernel's bits by construction. Its first thread asks for each
-//         unit's rows of g s0 - 1 .. s0 + 64 (TMA, boxes of 8 channels, zeros
-//         outside [0, T) and past 2C) two units ahead;
-//       - warpgroups 1 and 2 take dW1_i[j][c][o] += sum_s g[s - j + 1][o]
-//         a[s][c] on wgmma, on 72 and 64 columns c: M = 64 rows (tap, o),
-//         the three taps of OT channels stacked (3 products at OT = 64, 2 at
-//         32), N = the columns c, K = the unit's 64 rows in slices of 8. B
-//         is a's image. A is g^T from registers: each thread loads its
-//         m16n8k8 A fragment (o = m, s = k) from the raw stage of g, the
-//         tap's shift being a shift of the rows it reads, and splits it.
-//         The shift cannot go on a's side: one row is 4 bytes inside a core
-//         matrix, and descriptors move in 16-byte steps.
-//      The chunks are as many as make the CTAs one wave of the card's 132
-//      SMs. wgmma's accumulation drifts over long sums (about 2^-24 of the
-//      sum an add: 1.3e-4 of max|dW1| over a chunk of 320 units), so a
-//      chunk is whole runs of at most 16 units, and the accumulators take
-//      one run and write it as an f32 partial (one per run).
+//  (c) k2_w1_kernel, dW1 with no scratch of lrelu(h). The items are (tile,
+//      unit): a tile is (block i, pass p, OT = 64 output channels o, 32
+//      where 2C <= 32), a unit a batch row's 64 rows s0 .. s0 + 63 of
+//      lrelu(h). The CTAs walk the items tile-major in equal runs, one wave
+//      of the card's 132 SMs, so that a CTA may end one tile's units and
+//      start the next's. Three warpgroups; per item n:
+//       - warpgroup m takes the products of 64 rows (tap, o) of the three
+//         taps' OT channels stacked (at OT = 64 tap m's, so that no A
+//         fragment is built twice; at OT = 32 warpgroups 0 and 1 take the 96
+//         rows, the second with 32 rows of zeros: the M layout wastes 25%,
+//         as any must where B, a's image, is one unit's of one block),
+//         dW1_i[j][c][o] += sum_s g[s - j + 1][o] a[s][c] on m64n136k8: N =
+//         the pass's 136 columns c, K = the unit's 64 rows in slices of 8. B
+//         is a's image, K-major: element (c, s) at (c / 8) 2048 + (s / 4) 128
+//         + (c % 8) 16 + (s % 4) 4 bytes. A is g^T from registers: each
+//         thread loads its m16n8k8 A fragment (o = m, s = k) from the raw TMA
+//         stage of g, the tap's shift being a shift of the rows it reads, and
+//         splits it; the next slice's fragment built while the one before
+//         runs (wgmma_wait<1>). The shift cannot go on a's side: one row is 4
+//         bytes inside a core matrix, and descriptors move in 16-byte steps;
+//         nor can g^T be an A descriptor: g arrives channels contiguous and
+//         tf32 wgmma takes K-major operands only;
+//       - then, behind its products (one wait for both), its third of item
+//         n + 1's a: h of the unit's rows for 48 columns of the pass (40 in
+//         the third) as (b) computes h (the same X, image of Wh, k-slices and
+//         products in the same order: the same bits, so that the slope (b)
+//         took and the a taken here never disagree), A = X by descriptor from
+//         X's image, which the warpgroups write under their products from the
+//         unit's exc rows (cp.async, a unit ahead); lrelu, the split, and a's
+//         store into the other slot, a lane pair's two rows as 8 bytes;
+//       - one barrier of the CTA; the first thread asks for the next unit's
+//         g rows s0 - 1 .. s0 + 64 (TMA, zeros outside [0, T) and past 2C)
+//         and, where it needs another, Wh's image. Past E = 9 (K = 3E + 3 >
+//         32, Wh's image more than a slot) nothing is recomputed: a is the
+//         scratch (b) wrote, its rows brought by TMA in Wh's place.
+//      wgmma's accumulation drifts over long sums (about 2^-24 of the sum an
+//      add: 1.3e-4 of max|dW1| over a chunk of 320 units), so the
+//      accumulators take a run of at most 16 units of a segment (a tile's
+//      units in one CTA), and each run is added, in order, to the sum of the
+//      segment's runs before it, which the CTA keeps in a scratch of its own
+//      (float4 a thread at fixed offsets); the segment's sum is its partial,
+//      one slot per CTA a tile spans, the tile's last CTA zeroing the slots
+//      after its own (at the step's largest call 16 slots of 470 KB, where a
+//      partial a run made 280).
+//      What the other designs did, on the card (the f32 step, k2_w1_kernel
+//      per step; the design before, a recompute warpgroup beside two product
+//      warpgroups split by N, a partial a run: 6.2-6.4 ms in the same
+//      calls): one recompute warpgroup beside three product warpgroups split
+//      by M (512 threads) 6.8 ms, the recompute pacing it; the warpgroups'
+//      shares at different points of their products (so that one stores
+//      while the others multiply) made ptxas serialize the wgmma (C7515) or
+//      spill at every point tried, 6.4-9.5 ms; h issued under the last
+//      k-slices, 412 bytes of spills, 5.2-5.4 ms; each run's sums added
+//      into the partial in device memory, one dependent load a value, 3.6 ms
+//      more; a base aligned through an integer cast, which makes every
+//      shared access generic, 1.0 ms more; an item read by reference from
+//      shared memory, reloaded after every shared store, 0.16 ms more;
+//      h's widths a runtime branch, 0.15 ms more. With this kernel's fixes,
+//      a recompute warpgroup of its own (512 threads at OT = 64, 128
+//      registers) ran 4% slower (5% faster at OT = 32). At E = 8 exc's rows
+//      are staged 16 bytes a copy and X's quads read 16 bytes at a time; the
+//      4-byte copies and reads of other E at E = 8 too were 0.22 ms slower.
 //  (d) past E = 9, k2_xdh_kernel, dW0, dhbias, dedge0 and dedge_t as one
 //      product, X^T dh, with X the rows of h's A in (b),
 //        X[t] = [exc[t-1] | exc[t] | exc[t+1] | 1 | -[t == 0] | -[t == T-1]]   (K = 3E + 3),
@@ -138,7 +165,9 @@
 //      instead, and there is no dh scratch.
 //  (e) k2_reduce_kernel sums every kind of partial (dexc's blocks and
 //      passes, dW1, db1, dW0, dhbias, the edges) over its chunks in order,
-//      in one launch.
+//      in one launch; in a job of few outputs, an output of more than 256
+//      partials by a warp, each lane a run of them in order, the runs' sums
+//      then added in order.
 //
 // Nothing of it grows with Cc or E: one tile for every width (Wh's image is
 // fetched by (c) once a batch row, where it fits one chunk of 4 k-slices).
@@ -176,20 +205,19 @@ constexpr int kSmCount = 132;  // an H100's SMs: the grids are sized by them
 // dexc's products, X^T dh (its products and the
 // add into the run's sums), dexc's shift and store, and the whole kernel;
 // the producer's waits on empty and its whole. Then k2_w1_kernel's (from
-// kW1Timers on): the recompute warpgroup's A (X's fragments at E <= 9, past
-// it the read of lrelu(h)), h's products and their wait, the fetches of
-// Wh's image, the waits on a_empty, lrelu, its split and store, the g
-// ring's waits on empty (its first thread) and its whole; the product
-// warpgroups' waits on a_full and on g_full, their A fragments (loads and
-// splits), their products, the waits after them, the partials' store and
-// their whole. The normal build has none.
+// kW1Timers on), summed over its warpgroups: X's image (its store and the
+// copies of the next unit's exc rows), h (the waits on X and Wh, its
+// products and their wait, which also retires the products before it), a's
+// store (past E = 9 with the read of lrelu(h)), the waits on g_full, the
+// products (A fragments, issue and the waits of the slices before), the
+// wait after them, the run sums and partials, and the barrier; each
+// warpgroup's whole. The normal build has none.
 #ifdef COND_CHAIN_TIMERS
 constexpr int kW1Timers = 12;
-constexpr int kTimers = kW1Timers + 16;  // the data kernel: h, da, da's waits, dh, dexc,
+constexpr int kTimers = kW1Timers + 10;  // the data kernel: h, da, da's waits, dh, dexc,
                                          // X^T dh, dexc's store, whole, warpgroups,
                                          // producer waits, producer whole, producers;
-                                         // k2_w1_kernel: 6 + 1 recompute counters and
-                                         // warpgroups, 6 + 1 products'
+                                         // k2_w1_kernel: 8 phases, whole, warpgroups
 __device__ unsigned long long g_timers[kTimers];
 #define TIMER_START(v) const long long v = clock64()
 #define TIMER_ADD(acc, since) acc += clock64() - since
@@ -801,9 +829,11 @@ __global__ void k2_images_kernel(ImageArgs a) {
 //
 // k2_w1_kernel's CTA: three warpgroups, 384 threads (168 registers a
 // thread). Shared memory: two slots of a's image (hi, then lo, each 17
-// groups of 8 columns c x 64 rows s); a ring of kW1Stages stages of g (OT
-// channels in boxes of 8, each 66 rows of 32 bytes in a 2176-byte slot); a
-// Wh's image where it is recomputed (up to 4 k-slices, hi and lo); the
+// groups of 8 columns c x 64 rows s); a ring of two stages of g (OT
+// channels in boxes of 8, each 66 rows of 32 bytes in a 2176-byte slot);
+// Wh's image where it is recomputed (up to 4 k-slices, hi and lo); X's
+// image of the next unit (4 k-slices, hi and lo); two stages of exc's rows
+// s0 - 1 .. s0 + 64 a unit's X is made from; a ring of four W1Items; the
 // barriers.
 constexpr int kW1Threads = 384;
 constexpr int kUnit = 64;                            // a's rows a unit (dW1's K)
@@ -811,334 +841,576 @@ constexpr int kGUnitRows = kUnit + 2;                // g's rows a unit: s0 - 1 
 constexpr int kW1GBox = 68 * 32;                     // 2176: 8 channels of them, 128-byte
                                                      // aligned (a TMA destination)
 constexpr int kW1GStage = 8 * kW1GBox;               // 17408: 64 channels
-constexpr int kW1Stages = 3;
-constexpr int kW1Ahead = 2;
 constexpr int kW1Run = 16;                           // units a run at most (the accumulators' take)
 constexpr int kAGroup = kUnit * 32;                  // 2048: 8 columns of a, every row (SBO)
 constexpr int kAImg = (kPass / 8) * kAGroup;         // 34816: a, hi or lo
 constexpr int kASlot = 2 * kAImg;
 constexpr int kWhChunk = 4;                          // k-slices of Wh recomputed from
 constexpr int kWhBytes = kWhChunk * 2 * kHItem;      // 34816
-constexpr size_t kW1Smem = 2 * (size_t)kASlot + (size_t)kW1Stages * kW1GStage + kWhBytes +
-                           8 * (2 * kW1Stages + 5) + 1024;
-static_assert(kW1Smem <= kSmemMax, "k2_w1_kernel's shared memory");
-static_assert(kW1Ahead < kW1Stages, "k2_w1_kernel's ring");
+constexpr int kW1XSlice = kUnit * 32;                // 2048: a k-slice of X, 64 rows (A, K-major)
+constexpr int kW1XImg = kWhChunk * kW1XSlice;        // 8192: X, hi or lo
+constexpr int kW1Exc = 2432;                         // a stage of exc's rows: 66 x E <= 9 floats
+constexpr int kW1XAt = 4;                            // the next unit's X built after this many
+                                                     // k-slices of the products
+constexpr int kW1HCols = 48;                         // h's columns a warpgroup recomputes (40
+                                                     // in the third: 96 .. 135)
+constexpr size_t kW1Smem = 2 * (size_t)kASlot + 2 * (size_t)kW1GStage + kWhBytes +
+                           2 * (size_t)kW1XImg + 2 * kW1Exc + 4 * 32 + 8 * 4 + 1024;
+static_assert(kW1Smem <= kSmemMax && kGUnitRows * 9 * 4 <= kW1Exc,
+              "k2_w1_kernel's shared memory");
 
 struct W1Args {
   HArgs h;
   const unsigned char* img_h;  // Wh's images, as the data kernel's
   long long h_image;           // bytes of one batch row's (0: one for every row)
   const float* a_in;           // lrelu(h) (B, T, n*Cc) from the data kernel, or null (recomputed)
-  float* pw1;                  // (runs, 3, Cc, n*2C): dW1 per run of units
-  int two_c, notiles, nsub, units, chunk, run;  // units = B nsub of 64 rows; chunk: units a
-                                                // CTA, whole runs of `run` units
+  float* pw1;                  // (S, 3, Cc, n*2C): dW1 per segment of a tile's units
+  float* w1_runs;              // (CTAs, 17, 384) x 4: each CTA's sum of a segment's runs
+  int two_c, notiles, nsub, units;  // tiles of OT columns of g; units a tile = B nsub
+  int per_cta, nslots;              // items (tile, unit) a CTA; S
   CUtensorMap g_map;           // g as (o: 2C, i: n, t: T, b: B), box (8, 1, 66, 1)
+  CUtensorMap a_map;           // past E = 9: the a scratch as (c: n Cc, t: T, b: B), box (8, 64, 1)
 };
 
-// A product warpgroup of k2_w1_kernel: dW1 of the CTA's tile for N columns
-// of a from cw on, over its chunk of units; then the partial.
-template <int OT, int N>
-__device__ __forceinline__ void w1_products(const W1Args& a, const Lane& l,
-                                            const unsigned char* aslots,
-                                            const unsigned char* gring, uint64_t* g_full,
-                                            uint64_t* g_empty, uint64_t* a_full,
-                                            uint64_t* a_empty, int i, int c0, int o0, int cw,
-                                            int k_begin, int k_end) {
-  constexpr int kNch = (3 * OT + 63) / 64;  // products of 64 rows (tap, o)
-  // this thread's rows r = 64 m + l.row + 8 half of the stacked taps: tap
-  // j = r / OT, channel o = r % OT; the A fragment's element (r, k) is g at
-  // the unit's row k - j + 1, the stage's row k + 2 - j
-  int off[kNch][2];
-  bool ok[kNch][2];
-#pragma unroll
-  for (int m = 0; m < kNch; ++m)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 64 * m + l.row + 8 * half;
-      const int j = r / OT, o = r % OT;
-      ok[m][half] = r < 3 * OT;
-      off[m][half] = ok[m][half] ? (o / 8) * (kW1GBox / 4) + (2 - j + l.tig) * 8 + (o % 8) : 0;
+// The CTAs walk the items (tile, unit), tile-major, per_cta each (a tile
+// being (block i, pass p, OT output channels ot), a unit a batch row's 64
+// rows s0 .. s0 + 63); a cursor over them, advanced without divisions
+struct W1Item {
+  int tau, k, b, s0, i, p, ot;
+  int nwh;  // the images of Wh fetched up to this item's (its own included)
+  __device__ __forceinline__ W1Item(const W1Args& a, int x) {
+    tau = x / a.units;
+    k = x - tau * a.units;
+    b = k / a.nsub;
+    s0 = (k - b * a.nsub) * kUnit;
+    tile(a);
+    nwh = 1;
+  }
+  __device__ __forceinline__ void tile(const W1Args& a) {
+    const int ip = tau / a.notiles;
+    ot = tau - ip * a.notiles;
+    i = ip / a.h.npass;
+    p = ip - i * a.h.npass;
+  }
+  // whether this item's h needs another image of Wh than item o's
+  __device__ __forceinline__ bool new_wh(const W1Item& o, const W1Args& a) const {
+    return i != o.i || p != o.p || (a.h_image && b != o.b);
+  }
+  __device__ __forceinline__ void next(const W1Args& a) {
+    const W1Item o = *this;
+    s0 += kUnit;
+    if (s0 >= a.nsub * kUnit) {
+      s0 = 0;
+      ++b;
     }
-  // The accumulators take one run of units (a chunk is whole runs), then go
-  // to the run's partial, and start again: a long run of wgmma's
-  // accumulation drifts (it loses about 2^-24 of the sum an add: 1.3e-4 of
-  // max|dW1| over 320 units)
+    if (++k == a.units) {
+      k = b = 0;
+      ++tau;
+      tile(a);
+    }
+    nwh += new_wh(o, a);
+  }
+};
+
+// the CTA whose items start tile tau: the segment of tile tau CTA c takes
+// writes the partial of slot c - w1_first_cta(tau)
+__device__ __forceinline__ int w1_first_cta(const W1Args& a, int tau) {
+  return (int)((long long)tau * a.units / a.per_cta);
+}
+
+// k2_w1_kernel's shared memory from its base (1024-byte aligned)
+constexpr int kW1GRing = 2 * kASlot;                       // g, two stages
+constexpr int kW1Wh = kW1GRing + 2 * kW1GStage;            // Wh's image
+constexpr int kW1X = kW1Wh + kWhBytes;                     // X's image of the next unit
+constexpr int kW1Stg = kW1X + 2 * kW1XImg;                 // exc's rows, two stages
+constexpr int kW1Items = kW1Stg + 2 * kW1Exc;              // four items' W1Item
+constexpr int kW1Bars = kW1Items + 4 * (int)sizeof(W1Item);  // g_full (2), x_full, w_full
+static_assert(kW1Bars + 32 + 1024 <= (int)kW1Smem && sizeof(W1Item) == 32,
+              "k2_w1_kernel's shared memory");
+
+// exc's rows s0 - 1 .. s0 + 64 of batch row b (zeros outside [0, T)) into
+// a stage at stg, element (r, e) at r E + e floats: each thread's cp.async
+// copies of 4 bytes, waited on (cp.async.wait_all) by the thread before the
+// barrier after which they are read
+__device__ __forceinline__ void w1_exc_rows(const HArgs& h, int b, int s0, uint32_t stg) {
+  const float* src = h.exc + (size_t)b * h.T * h.E;
+  if (h.E == 8 && ((uintptr_t)h.exc & 15) == 0) {
+    // the decoder's E: 16 bytes a copy, half a row
+    const int x = threadIdx.x;
+    const int t = s0 - 1 + (x >> 1);
+    const bool in = t >= 0 && t < h.T;
+    if (x < 2 * kGUnitRows) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(stg + 16 * x),
+                   "l"(in ? src + (size_t)t * 8 + 4 * (x & 1) : src), "r"(in ? 16 : 0));
+    }
+    return;
+  }
+  for (int x = threadIdx.x; x < kGUnitRows * h.E; x += kW1Threads) {
+    const int r = x / h.E;
+    const int t = s0 - 1 + r;
+    const bool in = t >= 0 && t < h.T;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stg + 4 * x),
+                 "l"(in ? src + (size_t)t * h.E + (x - r * h.E) : src), "r"(in ? 4 : 0));
+  }
+}
+
+// X's image at xs from a unit's exc rows (X at the unit's rows, split): the
+// thread's 16-byte quads x = thread + 384 z (< 512), row q = x % 64,
+// k = 4 (x / 64) .. + 3; K-major (h's A by descriptor): element (q, k) at
+// (k / 8) 2048 + (k % 8 / 4) 1024 + 16 q + (k % 4) 4 bytes, hi then lo
+// kW1XImg on
+__device__ __forceinline__ void w1_x_image(const HArgs& h, int s0, const float* stg,
+                                           unsigned char* xs) {
+#pragma unroll
+  for (int z = 0; z < 2; ++z) {
+    const int x = threadIdx.x + kW1Threads * z;
+    if (x >= 512) break;
+    const int q = x & 63, kq = x >> 6;
+    float v[4];
+    if (h.E == 8) {
+      // the decoder's E: quad kq < 6 is 4 columns of exc's row q + kq / 2
+      // (tap kq / 2), 16 bytes at q E + 4 kq floats; quad 6 the ones and the
+      // edges, quad 7 zeros
+      if (kq < 6) {
+        const float4 r = *reinterpret_cast<const float4*>(stg + q * 8 + 4 * kq);
+        v[0] = r.x;
+        v[1] = r.y;
+        v[2] = r.z;
+        v[3] = r.w;
+      } else {
+        v[0] = kq == 6 ? 1.f : 0.f;
+        v[1] = kq == 6 && s0 + q == 0 ? -1.f : 0.f;
+        v[2] = kq == 6 && s0 + q == h.T - 1 ? -1.f : 0.f;
+        v[3] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * kq + e;
+        // column k < 3E: tap j = k / E's column k - j E of row q + j, at q E + k
+        v[e] = k < 3 * h.E        ? stg[q * h.E + k]
+               : k == 3 * h.E     ? 1.f
+               : k == 3 * h.E + 1 ? (s0 + q == 0 ? -1.f : 0.f)
+               : k == 3 * h.E + 2 ? (s0 + q == h.T - 1 ? -1.f : 0.f)
+                                  : 0.f;
+      }
+    }
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(v[e], hi[e], lo[e]);
+    const int off = (x >> 7) * kW1XSlice + ((x >> 6) & 1) * 1024 + q * 16;
+    *reinterpret_cast<uint4*>(xs + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(xs + kW1XImg + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// Warpgroup c's share of a unit's a is the N columns of the pass from 48 c
+// on. Where it is recomputed: h for the unit's rows s0 + q as the data
+// kernel computes it (the same X, image of Wh, k-slices and m64nNk8
+// products in the same order: the same bits, so that the slope (b) took and
+// the a taken here never disagree; the first product overwrites the
+// accumulators, which the data kernel's zeros before it leave as they are
+// but for the sign of a zero), issued as one commit group once X's and Wh's
+// images are in; not waited on
+template <int N>
+__device__ __forceinline__ void w1_h_issue(const W1Args& a, int col0, int m, int nwh,
+                                           uint32_t xs, uint32_t whb, uint64_t* x_full,
+                                           uint64_t* w_full, float (&acc)[N / 2]) {
   const HArgs& h = a.h;
+  mbar_wait(x_full, (uint32_t)(m & 1));
+  mbar_wait(w_full, (uint32_t)((nwh - 1) & 1));
+  // slice by slice, X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi; Wh's rows (the
+  // pass's columns) from col0 on
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kWhChunk; ++s) {
+    if (s < h.nkh) {
+      const uint64_t xh = desc(xs + s * kW1XSlice, 1024, 128);
+      const uint64_t xl = desc(xs + kW1XImg + s * kW1XSlice, 1024, 128);
+      const uint32_t base = whb + s * 2 * kHItem + (col0 / 8) * 256;
+      const uint64_t wl = desc(base + kHItem, 128, 256), wh = desc(base, 128, 256);
+      if constexpr (N == 48) {
+        tf32x3::wgmma_ss_n48(acc, xl, wh, s > 0);
+        tf32x3::wgmma_ss_n48(acc, xh, wl, 1);
+        tf32x3::wgmma_ss_n48(acc, xh, wh, 1);
+      } else {
+        tf32x3::wgmma_ss_n40(acc, xl, wh, s > 0);
+        tf32x3::wgmma_ss_n40(acc, xh, wl, 1);
+        tf32x3::wgmma_ss_n40(acc, xh, wh, 1);
+      }
+    }
+  }
+  wgmma_commit();
+}
+
+// ... once every product of the warpgroup is done (wgmma_wait<0>): a =
+// lrelu(h), zero past T and Cc, split, into the slot's K-major image at
+// `as`: element (c, s) at (c / 8) 2048 + (s / 4) 128 + (c % 8) 16 + (s % 4) 4
+// bytes, hi then lo kAImg on. Past E = 9 (acc unused) a is the data
+// kernel's scratch, its bits by construction, as TMA brought the unit's rows
+// to a_rows.
+template <int N>
+__device__ __forceinline__ void w1_a_store(const W1Args& a, const Lane& l, int col0,
+                                           const W1Item u, const float (&acc)[N / 2],
+                                           const unsigned char* a_rows, unsigned char* as) {
+  const HArgs& h = a.h;
+  // rows q and q ^ 1 are lanes 4 apart: the even row's lane keeps column cl
+  // of both rows, the odd row's column cl + 1, one exchange; 8 bytes (two
+  // rows, time contiguous) of hi and of lo a store
+  const bool odd = l.row & 1;
+  auto put = [&](int nt, int half, float2 x) {
+    const float r = __shfl_xor_sync(0xffffffffu, odd ? x.x : x.y, 4);
+    const float2 pair = odd ? make_float2(r, x.y) : make_float2(x.x, r);
+    const int q = (l.row & ~1) + 8 * half;
+    const int col = col0 + 8 * nt + 2 * l.tig + odd;
+    uint32_t hi[2], lo[2];
+    split(pair.x, hi[0], lo[0]);
+    split(pair.y, hi[1], lo[1]);
+    const int off = (col >> 3) * kAGroup + (q >> 2) * 128 + (col & 7) * 16 + (q & 3) * 4;
+    *reinterpret_cast<uint2*>(as + off) = make_uint2(hi[0], hi[1]);
+    *reinterpret_cast<uint2*>(as + kAImg + off) = make_uint2(lo[0], lo[1]);
+  };
+  if (a.a_in) {
+    // past E = 9 lrelu(h) as TMA brought it: box cl / 8 of 64 rows x 8 columns
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = l.row + 8 * half;
+        const int cl = col0 + 8 * nt + 2 * l.tig;
+        const float2 x = *reinterpret_cast<const float2*>(a_rows + (cl >> 3) * 2048 + q * 32 +
+                                                          (cl & 7) * 4);
+        put(nt, half, u.s0 + q < h.T && u.p * kPass + cl < h.cc ? x : make_float2(0.f, 0.f));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = l.row + 8 * half;
+        const int cl = col0 + 8 * nt + 2 * l.tig;
+        const bool ok = u.s0 + q < h.T && u.p * kPass + cl < h.cc;
+        const float x0 = acc[nt * 4 + 2 * half], x1 = acc[nt * 4 + 2 * half + 1];
+        put(nt, half, make_float2(ok ? (x0 >= 0.f ? x0 : kSlope * x0) : 0.f,
+                                  ok ? (x1 >= 0.f ? x1 : kSlope * x1) : 0.f));
+      }
+    }
+  }
+  fence_proxy_async();
+}
+
+// A warpgroup's whole share of item m's a (u), the N columns of the pass
+// from col0 on, into slot m & 1 (slot 0 at smem): h issued and waited on
+// (wgmma_wait<0>, which also retires any product issued before it), then
+// a's store; past E = 9 a's rows read from the Wh region once TMA brought
+// them (w_full's phase m)
+template <int N>
+__device__ __forceinline__ void w1_share_n(const W1Args& a, const Lane& l, int col0,
+                                           const W1Item u, int m, uint32_t xs, uint32_t whb,
+                                           unsigned char* smem, uint64_t* x_full,
+                                           uint64_t* w_full, long long* tw) {
+  float acc[N / 2];
+  TIMER_START(t1);
+  if (a.a_in == nullptr) {
+    w1_h_issue<N>(a, col0, m, u.nwh, xs, whb, x_full, w_full, acc);
+  } else {
+    mbar_wait(w_full, (uint32_t)(m & 1));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  TIMER_ADD(tw[1], t1);
+  TIMER_START(t2);
+  w1_a_store<N>(a, l, col0, u, acc, smem + kW1Wh, smem + (m & 1) * kASlot);
+  TIMER_ADD(tw[2], t2);
+}
+
+// Warpgroup c's products of one k-slice kk of a unit: dW1 rows r = 64 c +
+// (0 .. 63) of the three taps' OT channels stacked (tap j = r / OT, channel
+// o = r % OT), all 136 columns, on m64n136k8. A is g^T from registers: the
+// thread's m16n8k8 A fragment (o = m, s = k) loaded from the raw stage of g
+// (its rows shifted by the tap: off, ok) and split; one commit group, and
+// the one before it retired, so that its fragment may be built again
+__device__ __forceinline__ void w1_slice(const float* gs, const int (&off)[2], const bool (&ok)[2],
+                                         int kk, uint32_t abase, int keep, float (&acc)[68],
+                                         XFrag& f) {
+  const float* p0 = gs + off[0] + 64 * kk;
+  const float* p1 = gs + off[1] + 64 * kk;
+  split(ok[0] ? p0[0] : 0.f, f.hi[0], f.lo[0]);
+  split(ok[1] ? p1[0] : 0.f, f.hi[1], f.lo[1]);
+  split(ok[0] ? p0[32] : 0.f, f.hi[2], f.lo[2]);
+  split(ok[1] ? p1[32] : 0.f, f.hi[3], f.lo[3]);
+  fence_regs(f.hi);
+  fence_regs(f.lo);
+  const uint32_t bh = abase + 256 * kk;
+  wgmma_fence();
+  tf32x3::wgmma_rs_n136(acc, f.lo, desc(bh, 128, kAGroup), keep);
+  tf32x3::wgmma_rs_n136(acc, f.hi, desc(bh + kAImg, 128, kAGroup), 1);
+  tf32x3::wgmma_rs_n136(acc, f.hi, desc(bh, 128, kAGroup), 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+// The end of a run of product warpgroup c's accumulators (item u, seg units
+// of the segment so far): the run's sums added to the sum of the segment's
+// runs before it, which the CTA keeps in its own scratch (17 chunks of 4 a
+// thread, each chunk of the CTA's threads contiguous: float4 loads and
+// stores at fixed offsets, four chunks in flight), and that sum stored
+// there; at the segment's end copied from there into its partial, slot sx,
+// and at the tile's end the tile's last CTA zeroes the slots after its own
+template <int OT>
+__device__ __forceinline__ void w1_run_end(const W1Args& a, const Lane& l, int c,
+                                           const W1Item u, float (&acc)[68], int seg, int sx,
+                                           bool seg_end, bool tile_end) {
+  const HArgs& h = a.h;
+  float4* run_sum = reinterpret_cast<float4*>(a.w1_runs) +
+                    (size_t)blockIdx.x * (kPass / 8) * kW1Threads + threadIdx.x;
+  if (seg > kW1Run) {
+#pragma unroll
+    for (int k = 0; k < kPass / 8; ++k) {
+      const float4 v = run_sum[k * kW1Threads];
+      acc[4 * k] += v.x;
+      acc[4 * k + 1] += v.y;
+      acc[4 * k + 2] += v.z;
+      acc[4 * k + 3] += v.w;
+      if (k % 4 == 3) asm volatile("" ::: "memory");
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPass / 8; ++k) {
+    run_sum[k * kW1Threads] =
+        make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+  }
+  if (!seg_end) return;
+  // chunk nt holds the columns c0 + 8 nt + 2 tig + e of the rows r = 64 c +
+  // l.row + 8 half (tap r / OT, o = r % OT), as (half, e) = (0, 0), (0, 1),
+  // (1, 0), (1, 1)
   const size_t n2 = (size_t)h.n * a.two_c;
-  float acc[kNch][N / 2];
-#ifdef COND_CHAIN_TIMERS
-  long long tw[6] = {0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers + 8
-  const long long t_all = clock64();
-#endif
-  for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
-    const int fresh = k % a.run == 0;  // the unit's products overwrite the accumulators
-    const int slot = n & 1;
-    const int st = slot_of<kW1Stages>(n);
-    TIMER_START(t_af);
-    mbar_wait(&a_full[slot], (uint32_t)((n >> 1) & 1));
-    TIMER_ADD(tw[0], t_af);
-    TIMER_START(t_gf);
-    mbar_wait(&g_full[st], parity_of<kW1Stages>(n));
-    TIMER_ADD(tw[1], t_gf);
-    const float* gs = reinterpret_cast<const float*>(gring + st * kW1GStage);
-    const uint32_t abase = smem_u32(aslots + slot * kASlot) + (cw / 8) * kAGroup;
+  const int c0 = u.p * kPass;
+  const int cend = min(h.cc - c0, kPass);
+  const int s_end = tile_end ? a.nslots : sx + 1;
+  const size_t slot = (size_t)3 * h.cc * n2;
 #pragma unroll 1
-    for (int kk = 0; kk < kUnit / 8; ++kk) {
-      TIMER_START(t_fr);
-      XFrag f[kNch];
+  for (int nt = 0; nt < kPass / 8; ++nt) {
+    const float4 v4 = run_sum[nt * kW1Threads];
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-      for (int m = 0; m < kNch; ++m) {
-        const float* p0 = gs + off[m][0] + 64 * kk;
-        const float* p1 = gs + off[m][1] + 64 * kk;
-        split(ok[m][0] ? p0[0] : 0.f, f[m].hi[0], f[m].lo[0]);
-        split(ok[m][1] ? p1[0] : 0.f, f[m].hi[1], f[m].lo[1]);
-        split(ok[m][0] ? p0[32] : 0.f, f[m].hi[2], f[m].lo[2]);
-        split(ok[m][1] ? p1[32] : 0.f, f[m].hi[3], f[m].lo[3]);
-        fence_regs(f[m].hi);
-        fence_regs(f[m].lo);
+    for (int x = 0; x < 4; ++x) {
+      const int r = 64 * c + l.row + 8 * (x >> 1);
+      const int o = u.ot * OT + r % OT;
+      const int cx = 8 * nt + 2 * l.tig + (x & 1);
+      if (r >= 3 * OT || o >= a.two_c || cx >= cend) continue;
+      float* part = a.pw1 + (((size_t)sx * 3 + r / OT) * h.cc + c0 + cx) * n2 +
+                    (size_t)u.i * a.two_c + o;
+      for (int s = sx; s < s_end; ++s, part += slot) *part = s == sx ? v[x] : 0.f;
+    }
+  }
+}
+
+// k2_w1_kernel: per item n of the CTA, every warpgroup c takes the products
+// of tap c's rows (w1_slice; at OT = 32 warpgroups 0 and 1 take the 96
+// rows, the second with 32 rows of zeros, and warpgroup 2 none), writing
+// its quads of item n + 1's X into X's image under them (from the item's
+// exc rows, which cp.async copied under item n - 1), and then, behind them,
+// its share of item n + 1's a (w1_share_n: h issued after the products, one
+// wait for both, a's store into the other slot). One barrier of the CTA
+// before each item: a of item n whole, every product of item n - 1 and
+// every h of item n done (slot, stage, X's and Wh's images free). After it
+// the first thread writes item n + 3's W1Item into the ring of four (every
+// thread reads an item's there: no cursor is held in registers), asks for
+// item n + 1's g rows s0 - 1 .. s0 + 64 (TMA, boxes of 8 channels, zeros
+// outside [0, T) and past 2C) and, where item n + 1 needs another image of
+// Wh than item n, for it (past E = 9 for its rows of the a scratch); the
+// threads copy item n + 2's exc rows. The accumulators take a run of at
+// most kW1Run units of a segment, which is then added, in order, into the
+// segment's f32 partial (w1_run_end).
+template <int OT>
+__global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_constant__ W1Args a) {
+  constexpr int kNch = (3 * OT + 63) / 64;  // warpgroups with products
+  // the base 1024-byte aligned by an offset into the array, so that the
+  // compiler knows every access from it to be a shared one (lds/sts, not
+  // generic loads and stores)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const HArgs& h = a.h;
+  const int total = h.n * h.npass * a.notiles * a.units;
+  const int nx = min(total, (int)(blockIdx.x + 1) * a.per_cta) - (int)blockIdx.x * a.per_cta;
+  const int c = warp_index() >> 2;
+  const Lane l;
+  const bool recompute = a.a_in == nullptr;
+  W1Item* items = reinterpret_cast<W1Item*>(smem + kW1Items);
+  uint64_t* g_full = reinterpret_cast<uint64_t*>(smem + kW1Bars);
+  uint64_t* x_full = g_full + 2;
+  uint64_t* w_full = g_full + 3;
+  const uint32_t xsa = smem_u32(smem + kW1X), whb = smem_u32(smem + kW1Wh);
+  const uint32_t stga = smem_u32(smem + kW1Stg);
+#ifdef COND_CHAIN_TIMERS
+  long long tw[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers
+  const long long t_all = clock64();
+  long long* const twp = tw;
+#else
+  long long* const twp = nullptr;
+#endif
+
+  // the first thread's requests for item m (u): its g stage (slot m & 1)
+  // and, where it needs another than item m - 1's, Wh's image
+  auto ask = [&](const W1Item u, int m, bool wh) {
+    const int st = m & 1;
+    mbar_arrive_expect_tx(&g_full[st], (OT / 8) * kGUnitRows * 32);
+    for (int bx = 0; bx < OT / 8; ++bx) {
+      tma_load_4d(smem + kW1GRing + st * kW1GStage + bx * kW1GBox, &a.g_map, &g_full[st],
+                  u.ot * OT + 8 * bx, u.i, u.s0 - 1, u.b);
+    }
+    if (!recompute) {
+      // past E = 9 the unit's rows of lrelu(h) from the data kernel's
+      // scratch, 17 boxes of 8 columns, into the Wh region
+      mbar_arrive_expect_tx(w_full, kPass * kUnit * 4);
+      for (int q = 0; q < kPass / 8; ++q) {
+        tma_load_3d(smem + kW1Wh + q * 2048, &a.a_map, w_full, u.i * h.cc + u.p * kPass + 8 * q,
+                    u.s0, u.b);
       }
-      TIMER_ADD(tw[2], t_fr);
+    } else if (wh) {
+      mbar_arrive_expect_tx(w_full, (uint32_t)(h.nkh * 2 * kHItem));
+      bulk_load(smem + kW1Wh,
+                a.img_h + (size_t)u.b * a.h_image +
+                    ((size_t)u.i * h.npass + u.p) * h.nkh * 2 * kHItem,
+                (uint32_t)(h.nkh * 2 * kHItem), w_full);
+    }
+  };
+  // item m's X's image from its exc rows (stage m & 1), for the async proxy
+  auto x_put = [&](const W1Item u, int m) {
+    w1_x_image(h, u.s0, reinterpret_cast<const float*>(smem + kW1Stg + (m & 1) * kW1Exc),
+               smem + kW1X);
+    fence_proxy_async();
+    release(x_full);
+  };
+  // warpgroup c's whole share of item m's a (u): the pass's columns from
+  // 48 c on (96 .. 135 in the third)
+  auto share = [&](const W1Item u, int m) {
+    if (c < 2) {
+      w1_share_n<kW1HCols>(a, l, kW1HCols * c, u, m, xsa, whb, smem, x_full, w_full, twp);
+    } else {
+      w1_share_n<kPass - 2 * kW1HCols>(a, l, 2 * kW1HCols, u, m, xsa, whb, smem, x_full, w_full,
+                                       twp);
+    }
+  };
+
+  // items 0 .. 2 and item 0's a: its g, Wh, X, then every warpgroup's share
+  if (threadIdx.x == 0) {
+    mbar_init(&g_full[0], 1);
+    mbar_init(&g_full[1], 1);
+    mbar_init(x_full, kW1Threads / 32);  // one arrival per warp
+    mbar_init(w_full, 1);
+    fence_barrier_init();
+    W1Item u(a, blockIdx.x * a.per_cta);
+    for (int m = 0; m < 3 && m < nx; ++m, u.next(a)) items[m] = u;
+    prefetch_map(&a.g_map);
+    if (!recompute) prefetch_map(&a.a_map);
+    if (nx > 0) ask(items[0], 0, true);
+  }
+  __syncthreads();
+  if (nx > 0) {
+    if (recompute) {
+      w1_exc_rows(h, items[0].b, items[0].s0, stga);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      bar_sync(1, kW1Threads);
+      x_put(items[0], 0);
+      if (nx > 1) w1_exc_rows(h, items[1].b, items[1].s0, stga + kW1Exc);
+    }
+    share(items[0], 0);
+  }
+  float acc[68];
+  int seg = 0;                                            // the segment's units so far
+  int sx = blockIdx.x - w1_first_cta(a, items[0].tau);  // its partial's slot
+  for (int n = 0; n < nx; ++n) {
+    TIMER_START(t_b);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // item n + 1's exc rows
+    bar_sync(1, kW1Threads);
+    TIMER_ADD(tw[7], t_b);
+    const bool more = n + 1 < nx;
+    if (recompute && more) {
+      // item n + 1's X (the product warpgroups' parts under their products)
+      // and item n + 2's exc rows
+      TIMER_START(t_x);
+      if (c >= kNch) x_put(items[(n + 1) & 3], n + 1);
+      if (n + 2 < nx) {
+        w1_exc_rows(h, items[(n + 2) & 3].b, items[(n + 2) & 3].s0, stga + (n & 1) * kW1Exc);
+      }
+      TIMER_ADD(tw[0], t_x);
+    }
+    if (threadIdx.x == 0) {
+      if (n + 3 < nx) {
+        W1Item u = items[(n + 2) & 3];
+        u.next(a);
+        items[(n + 3) & 3] = u;
+      }
+      if (more) ask(items[(n + 1) & 3], n + 1, items[(n + 1) & 3].nwh != items[n & 3].nwh);
+    }
+    if (c < kNch) {
+      const int st = n & 1;
+      TIMER_START(t_gf);
+      mbar_wait(&g_full[st], (uint32_t)((n >> 1) & 1));
+      TIMER_ADD(tw[3], t_gf);
+      const float* gs = reinterpret_cast<const float*>(smem + kW1GRing + st * kW1GStage);
+      const uint32_t abase = smem_u32(smem + st * kASlot);
+      const int keep0 = seg % kW1Run != 0;  // else the unit's products overwrite the accumulators
+      // this thread's product rows r = 64 c + l.row + 8 half; the A
+      // fragment's element (r, k) is g at the unit's row k - j + 1, the
+      // stage's row k + 2 - j
+      int off[2];
+      bool ok[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 64 * c + l.row + 8 * half;
+        ok[half] = r < 3 * OT;
+        off[half] = ok[half] ? (r % OT / 8) * (kW1GBox / 4) + (2 - r / OT + l.tig) * 8 + r % 8 : 0;
+      }
+      XFrag f[2];
       TIMER_START(t_p);
-      const uint32_t bh = abase + 256 * kk;
-      wgmma_fence();
-      const int keep = kk > 0 || !fresh;
-#pragma unroll
-      for (int m = 0; m < kNch; ++m) {
-        if constexpr (N == 72) {
-          tf32x3::wgmma_rs_n72(acc[m], f[m].lo, desc(bh, 128, kAGroup), keep);
-          tf32x3::wgmma_rs_n72(acc[m], f[m].hi, desc(bh + kAImg, 128, kAGroup), 1);
-          tf32x3::wgmma_rs_n72(acc[m], f[m].hi, desc(bh, 128, kAGroup), 1);
-        } else {
-          tf32x3::wgmma_rs_n64(acc[m], f[m].lo, desc(bh, 128, kAGroup), keep);
-          tf32x3::wgmma_rs_n64(acc[m], f[m].hi, desc(bh + kAImg, 128, kAGroup), 1);
-          tf32x3::wgmma_rs_n64(acc[m], f[m].hi, desc(bh, 128, kAGroup), 1);
+#pragma unroll 1
+      for (int kk = 0; kk < kUnit / 8; kk += 2) {
+        if (kk == kW1XAt && recompute && more) {
+          // item n + 1's X, under the products issued so far
+          TIMER_START(t_x);
+          x_put(items[(n + 1) & 3], n + 1);
+          TIMER_ADD(tw[0], t_x);
         }
+        w1_slice(gs, off, ok, kk, abase, kk > 0 || keep0, acc, f[0]);
+        w1_slice(gs, off, ok, kk + 1, abase, 1, acc, f[1]);
       }
-      wgmma_commit();
-      TIMER_ADD(tw[3], t_p);
-      TIMER_START(t_pw);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int m = 0; m < kNch; ++m) fence_regs(acc[m]);
-      TIMER_ADD(tw[4], t_pw);
-    }
-    release(&g_empty[st]);
-    release(&a_empty[slot]);
-    if ((k + 1) % a.run && k + 1 < k_end) continue;
-    TIMER_START(t_o);
-    float* part = a.pw1 + (size_t)(k / a.run) * 3 * h.cc * n2 + (size_t)i * a.two_c;
-#pragma unroll
-    for (int m = 0; m < kNch; ++m) {
-#pragma unroll
-      for (int v = 0; v < N / 2; ++v) {
-        const int r = 64 * m + l.row + 8 * ((v >> 1) & 1);
-        const int j = r / OT, o = o0 + r % OT;
-        const int c = c0 + cw + 8 * (v >> 2) + 2 * l.tig + (v & 1);
-        if (r < 3 * OT && o < a.two_c && c < h.cc) {
-          part[((size_t)j * h.cc + c) * n2 + o] = acc[m][v];
-        }
+      TIMER_ADD(tw[4], t_p);
+      if (more) {
+        share(items[(n + 1) & 3], n + 1);  // h behind the products: one wait for both
+      } else {
+        TIMER_START(t_pw);
+        wgmma_wait<0>();
+        TIMER_ADD(tw[5], t_pw);
       }
+      fence_regs(acc);
+      ++seg;
+      const W1Item u = items[n & 3];
+      const bool tile_end = u.k + 1 == a.units;
+      const bool seg_end = tile_end || !more;
+      if (seg % kW1Run == 0 || seg_end) {
+        TIMER_START(t_o);
+        w1_run_end<OT>(a, l, c, u, acc, seg, sx, seg_end, tile_end);
+        TIMER_ADD(tw[6], t_o);
+      }
+      if (seg_end) {
+        seg = 0;
+        sx = 0;  // the next tile starts in this CTA
+      }
+    } else if (more) {
+      share(items[(n + 1) & 3], n + 1);
     }
-    TIMER_ADD(tw[5], t_o);
   }
 #ifdef COND_CHAIN_TIMERS
   if (l.wt == 0) {
-    for (int x = 0; x < 6; ++x) atomicAdd(&g_timers[kW1Timers + 8 + x], (unsigned long long)tw[x]);
-    atomicAdd(&g_timers[kW1Timers + 14], (unsigned long long)(clock64() - t_all));
-    atomicAdd(&g_timers[kW1Timers + 15], 1ull);
+    for (int x = 0; x < 8; ++x) atomicAdd(&g_timers[kW1Timers + x], (unsigned long long)tw[x]);
+    atomicAdd(&g_timers[kW1Timers + 8], (unsigned long long)(clock64() - t_all));
+    atomicAdd(&g_timers[kW1Timers + 9], 1ull);
   }
 #endif
-}
-
-template <int OT>
-__global__ void __launch_bounds__(kW1Threads, 1) k2_w1_kernel(const __grid_constant__ W1Args a) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  unsigned char* aslots = smem;
-  unsigned char* gring = aslots + 2 * kASlot;
-  unsigned char* wh = gring + kW1Stages * kW1GStage;
-  uint64_t* g_full = reinterpret_cast<uint64_t*>(wh + kWhBytes);
-  uint64_t* g_empty = g_full + kW1Stages;
-  uint64_t* a_full = g_empty + kW1Stages;
-  uint64_t* a_empty = a_full + 2;
-  uint64_t* w_full = a_empty + 2;
-
-  const HArgs& h = a.h;
-  const int ot = blockIdx.x % a.notiles;
-  const int ip = blockIdx.x / a.notiles;
-  const int p = ip % h.npass;
-  const int i = ip / h.npass;
-  const int o0 = ot * OT;
-  const int c0 = p * kPass;
-  const int k_begin = blockIdx.y * a.chunk;
-  const int k_end = min(a.units, k_begin + a.chunk);
-  const int wg = warp_index() >> 2;
-  const Lane l;
-
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kW1Stages; ++k) {
-      mbar_init(&g_full[k], 1);
-      mbar_init(&g_empty[k], 8);  // one arrival per product warp
-    }
-    for (int k = 0; k < 2; ++k) {
-      mbar_init(&a_full[k], 4);   // one arrival per recompute warp
-      mbar_init(&a_empty[k], 8);
-    }
-    mbar_init(w_full, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-#ifdef COND_CHAIN_TIMERS
-    long long tw[6] = {0, 0, 0, 0, 0, 0};  // as g_timers from kW1Timers
-    const long long t_all = clock64();
-#endif
-    // the g stage of unit k (the CTA's n-th), once the products of the unit
-    // kW1Stages before are done with it
-    auto ask_g = [&](int k, int n) {
-      const int b = k / a.nsub;
-      const int s0 = (k - b * a.nsub) * kUnit;
-      const int st = slot_of<kW1Stages>(n);
-      TIMER_START(t_ge);
-      mbar_wait(&g_empty[st], parity_of<kW1Stages>(n) ^ 1);
-      TIMER_ADD(tw[5], t_ge);
-      mbar_arrive_expect_tx(&g_full[st], (OT / 8) * kGUnitRows * 32);
-      for (int bx = 0; bx < OT / 8; ++bx) {
-        tma_load_4d(gring + st * kW1GStage + bx * kW1GBox, &a.g_map, &g_full[st], o0 + 8 * bx, i,
-                    s0 - 1, b);
-      }
-    };
-    if (l.wt == 0) {
-      prefetch_map(&a.g_map);
-      for (int n = 0; n < kW1Ahead && k_begin + n < k_end; ++n) ask_g(k_begin + n, n);
-    }
-    // batch row b's image of Wh (block i, pass p; at most kWhChunk k-slices
-    // where it is recomputed) into the slot, once every recompute thread is
-    // done with what it held
-    int loads = 0, held = -1;
-    auto fetch = [&](int b) {
-      TIMER_START(t_f);
-      bar_sync(1, 128);
-      if (l.wt == 0) {
-        mbar_arrive_expect_tx(w_full, (uint32_t)(h.nkh * 2 * kHItem));
-        bulk_load(wh, a.img_h + (size_t)b * a.h_image + ((size_t)i * h.npass + p) * h.nkh * 2 * kHItem,
-                  (uint32_t)(h.nkh * 2 * kHItem), w_full);
-      }
-      mbar_wait(w_full, (uint32_t)(loads & 1));
-      ++loads;
-      TIMER_ADD(tw[2], t_f);
-    };
-    const uint32_t whb = smem_u32(wh);
-    const size_t n0 = (size_t)h.n * h.cc;
-    float acc[68];
-    for (int k = k_begin, n = 0; k < k_end; ++k, ++n) {
-      const int b = k / a.nsub;
-      const int u0 = (k - b * a.nsub) * kUnit;  // a's row q = 0
-      TIMER_START(t_x);
-      if (a.a_in) {
-        // lrelu(h) of rows u0 + q as the data kernel wrote it (E > 9)
-#pragma unroll
-        for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int u = u0 + l.row + 8 * half;
-            const int c = c0 + 8 * nt + 2 * l.tig;
-            float2 v = make_float2(0.f, 0.f);
-            if (u < h.T && c < h.cc) {
-              v = __ldg(reinterpret_cast<const float2*>(a.a_in + ((size_t)b * h.T + u) * n0 +
-                                                        (size_t)i * h.cc + c));
-            }
-            acc[nt * 4 + 2 * half] = v.x;
-            acc[nt * 4 + 2 * half + 1] = v.y;
-          }
-        }
-      }
-      // else h for rows u0 + q as the data kernel's h_pass takes it: slice by
-      // slice, X.lo Wh.hi, X.hi Wh.lo, X.hi Wh.hi
-      if (!a.a_in) {
-        zero(acc);
-        if (held < 0 || (a.h_image && b != held)) fetch(b);
-        held = b;
-        TIMER_START(t_xf);
-        XFrag x[kWhChunk];
-#pragma unroll
-        for (int ss = 0; ss < kWhChunk; ++ss) {
-          if (ss < h.nkh) {
-            x[ss] = x_frag(h, b, u0, l, ss);
-            fence_regs(x[ss].hi);
-            fence_regs(x[ss].lo);
-          }
-        }
-        TIMER_ADD(tw[0], t_xf);
-        TIMER_START(t_h);
-        wgmma_fence();
-#pragma unroll
-        for (int ss = 0; ss < kWhChunk; ++ss) {
-          if (ss < h.nkh) {
-            const uint32_t base = whb + ss * 2 * kHItem;
-            tf32x3::wgmma_rs_n136(acc, x[ss].lo, desc(base, 128, 256), 1);
-            tf32x3::wgmma_rs_n136(acc, x[ss].hi, desc(base + kHItem, 128, 256), 1);
-            tf32x3::wgmma_rs_n136(acc, x[ss].hi, desc(base, 128, 256), 1);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
-        TIMER_ADD(tw[1], t_h);
-      } else {
-        TIMER_ADD(tw[0], t_x);
-      }
-      // a = lrelu(h), zero past T and Cc, split, into the slot's K-major image
-      const int slot = n & 1;
-      unsigned char* as = aslots + slot * kASlot;
-      TIMER_START(t_ae);
-      mbar_wait(&a_empty[slot], (uint32_t)(((n >> 1) & 1) ^ 1));
-      TIMER_ADD(tw[3], t_ae);
-      TIMER_START(t_s);
-#pragma unroll
-      for (int nt = 0; nt < kPass / 8; ++nt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int q = l.row + 8 * half;
-          const bool row_ok = u0 + q < h.T;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = acc[nt * 4 + 2 * half + e];
-            const int cl = 2 * l.tig + e;
-            const float v = !(row_ok && c0 + 8 * nt + cl < h.cc) ? 0.f
-                            : a.a_in || x >= 0.f                 ? x
-                                                                 : kSlope * x;
-            uint32_t hi, lo;
-            split(v, hi, lo);
-            const int off = nt * kAGroup + (q >> 2) * 128 + cl * 16 + (q & 3) * 4;
-            *reinterpret_cast<uint32_t*>(as + off) = hi;
-            *reinterpret_cast<uint32_t*>(as + kAImg + off) = lo;
-          }
-        }
-      }
-      fence_proxy_async();
-      release(&a_full[slot]);
-      TIMER_ADD(tw[4], t_s);
-      if (l.wt == 0 && k + kW1Ahead < k_end) ask_g(k + kW1Ahead, n + kW1Ahead);
-    }
-#ifdef COND_CHAIN_TIMERS
-    if (l.wt == 0) {
-      for (int x = 0; x < 6; ++x) atomicAdd(&g_timers[kW1Timers + x], (unsigned long long)tw[x]);
-      atomicAdd(&g_timers[kW1Timers + 6], (unsigned long long)(clock64() - t_all));
-      atomicAdd(&g_timers[kW1Timers + 7], 1ull);
-    }
-#endif
-    return;
-  }
-  if (wg == 1) {
-    w1_products<OT, 72>(a, l, aslots, gring, g_full, g_empty, a_full, a_empty, i, c0, o0, 0,
-                        k_begin, k_end);
-  } else {
-    w1_products<OT, 64>(a, l, aslots, gring, g_full, g_empty, a_full, a_empty, i, c0, o0, 72,
-                        k_begin, k_end);
-  }
 }
 
 // -- (d): past E = 9, dW0, dhbias and the edges as X^T dh
@@ -1290,41 +1562,67 @@ __global__ void __launch_bounds__(kThreads, 2) k2_xdh_kernel(const __grid_consta
 // -- (e): the reduce
 //
 // One job of k2_reduce_kernel: out[o*len + k] = sum_{s < S} part[o*ostride +
-// s*sstride + k], s in order, for o < outer, k < len.
+// s*sstride + k], s in order, for o < outer, k < len. Past kReduceLong
+// partials, in a job of fewer than kReduceFew outputs (whose threads would
+// not fill the card), an output's sum is taken by a warp: lane l sums the l-th of
+// kReduceLanes runs of ceil(S / kReduceLanes) consecutive partials in
+// order, then the runs' sums are added in order (a long sum, such as db1's
+// over every (batch row, tile), would otherwise be one thread's chain of
+// dependent loads). Shorter sums stay one thread's: a warp an output reads
+// 32 partials' sectors for one float each (on an H100, past 32 partials, dW0's 49,152
+// outputs of 64 at the options' bottleneck took 3x as long by warps), and
+// 32 registers keep eight CTAs of 256 threads an SM (at 40, concat
+// E = Cc = 600's reduce, 600 MB, took 8% longer).
 struct ReduceJob {
   const float* part;
   float* out;
-  long long len, sstride, ostride, first;  // first: its first element in the launch
-  int outer, S;
+  long long len, sstride, ostride, first;  // first: its first thread in the launch
+  int outer, S, lanes;                     // lanes: threads an output, 1 or kReduceLanes
 };
 constexpr int kMaxJobs = 7;
+constexpr int kReduceLanes = 32;
+constexpr int kReduceLong = 256;           // partials a job has at least to take lanes
+constexpr long long kReduceFew = 1 << 16;  // outputs a job has at most to take lanes
 struct ReduceArgs {
   ReduceJob job[kMaxJobs];
   int n;
   long long total;
 };
 
-__global__ void k2_reduce_kernel(const __grid_constant__ ReduceArgs r) {
+__global__ void __launch_bounds__(256, 8) k2_reduce_kernel(const __grid_constant__ ReduceArgs r) {
   const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= r.total) return;
+  if (x >= r.total) return;  // a warp of a job of kReduceLanes lanes is whole
   int j = 0;
   while (j + 1 < r.n && x >= r.job[j + 1].first) ++j;
   const ReduceJob& jb = r.job[j];
-  const long long e = x - jb.first;
+  // a job that takes lanes starts on a warp: the threads of the gap before
+  // it fall in the job before, which takes one lane an output, past its end
+  const bool warp = jb.lanes > 1;
+  const long long e = warp ? (x - jb.first) / kReduceLanes : x - jb.first;
+  if (e >= jb.len * jb.outer) return;
+  const int lane = warp ? (int)(x - jb.first) % kReduceLanes : 0;
   const long long o = e / jb.len;
   const long long k = e - o * jb.len;
   const float* p = jb.part + o * jb.ostride + k;
+  const int per = warp ? (jb.S + kReduceLanes - 1) / kReduceLanes : jb.S;
+  const int s1 = min(jb.S, (lane + 1) * per);
   // in order, eight loads in flight at a time
   float acc = 0.f;
-  int s = 0;
-  for (; s + 8 <= jb.S; s += 8) {
+  int s = lane * per;
+  for (; s + 8 <= s1; s += 8) {
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) v[u] = p[(long long)(s + u) * jb.sstride];
 #pragma unroll
     for (int u = 0; u < 8; ++u) acc += v[u];
   }
-  for (; s < jb.S; ++s) acc += p[(long long)s * jb.sstride];
+  for (; s < s1; ++s) acc += p[(long long)s * jb.sstride];
+  if (warp) {
+    float sum = 0.f;
+    for (int l = 0; l < kReduceLanes; ++l) sum += __shfl_sync(0xffffffffu, acc, l);
+    if (lane) return;
+    acc = sum;
+  }
   jb.out[o * jb.len + k] = acc;
 }
 
@@ -1339,8 +1637,10 @@ void add_job(ReduceArgs& r, const float* part, float* out, long long len, int ou
   j.S = S;
   j.sstride = sstride;
   j.ostride = ostride;
+  j.lanes = S > kReduceLong && len * outer < kReduceFew ? kReduceLanes : 1;
+  if (j.lanes > 1) r.total = (r.total + kReduceLanes - 1) / kReduceLanes * kReduceLanes;
   j.first = r.total;
-  r.total += len * outer;
+  r.total += len * outer * j.lanes;
 }
 
 // Everything the launch needs, from the shapes alone; ok = false for shapes
@@ -1351,10 +1651,11 @@ struct Plan {
   bool narrow;                              // E <= 9: X^T dh in (b); else (b) writes the
                                             // dh and lrelu(h) scratches, for (d) and (c)
   int ntiles, no, ne, nimg, run, nruns;     // (a), (b): runs of `run` tiles a batch row
-  int ot, notiles, nsub, units, chunk, wrun, s1, runs;  // (c)
+  int ot, notiles, nsub, units, per_cta, w1_ctas, s1;  // (c): s1 partial slots
   int kx, xcols, xks, parts, prows, s0;     // (d), and X^T dh's partials: parts a batch row
   size_t h_image;                           // bytes
-  size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, off_a, off_dx, total;
+  size_t off_dh, off_pb1, off_pw1, off_pw0, off_imh, off_imw1, off_imw0, off_a, off_dx, off_w1r;
+  size_t total;
 };
 
 Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
@@ -1391,19 +1692,25 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
     }
   }
   p.nruns = (p.ntiles + p.run - 1) / p.run;
-  // (c): (block, pass, OT output channels) tiles times chunks of units, one wave
+  // (c): the items (tile of (block, pass, OT output channels), unit of 64
+  // rows) in equal runs over one wave of the card's SMs; a tile's units go
+  // to consecutive CTAs, each writing the partial of its segment into the
+  // next slot (s1: the most segments of any tile)
   p.ot = two_c <= 32 ? 32 : 64;
   p.notiles = (two_c + p.ot - 1) / p.ot;
   p.nsub = (T + kUnit - 1) / kUnit;
   p.units = B * p.nsub;
   const long long tiles = (long long)n * npass * p.notiles;
-  const int s1 = (int)std::min<long long>(std::max<long long>(1, kSmCount / tiles), p.units);
-  const int chunk = (p.units + s1 - 1) / s1;
-  const int nwruns = (chunk + kW1Run - 1) / kW1Run;  // a chunk is nwruns runs of at most kW1Run
-  p.wrun = (chunk + nwruns - 1) / nwruns;
-  p.chunk = p.wrun * nwruns;
-  p.s1 = (p.units + p.chunk - 1) / p.chunk;
-  p.runs = (p.units + p.wrun - 1) / p.wrun;
+  const long long items = tiles * p.units;
+  if (items >= (1LL << 31)) return p;
+  p.per_cta = (int)((items + kSmCount - 1) / kSmCount);
+  p.w1_ctas = (int)((items + p.per_cta - 1) / p.per_cta);
+  p.s1 = 1;
+  for (long long tau = 0; tau < tiles; ++tau) {
+    const long long first = tau * p.units / p.per_cta;
+    const long long last = ((tau + 1) * p.units - 1) / p.per_cta;
+    p.s1 = std::max(p.s1, (int)(last - first + 1));
+  }
   p.kx = 3 * E + 3;
   if (p.narrow) {
     // X^T dh in (b): a partial per (batch row, run)
@@ -1426,14 +1733,15 @@ Plan make_plan(int B, int T, int E, int n, int cc, int two_c, bool per_row) {
   p.off_dh = 0;
   p.off_pb1 = up(p.narrow ? 0 : R * n0);
   p.off_pw1 = up(p.off_pb1 + (size_t)B * p.ntiles * n2);
-  p.off_pw0 = up(p.off_pw1 + (size_t)p.runs * 3 * cc * n2);
+  p.off_pw0 = up(p.off_pw1 + (size_t)p.s1 * 3 * cc * n2);
   p.off_imh = up(p.off_pw0 + (size_t)p.s0 * p.kx * n0);
   p.off_imw1 = up(p.off_imh + p.nimg * p.h_image / 4);
   p.off_imw0 = up(p.off_imw1 + (size_t)n * npass * p.no * kW1Item / 4);
   p.off_a = up(p.off_imw0 + (size_t)n * npass * p.ne * kW0Item / 4);
   // dexc: one part a block and pass, which (e) sums in order
   p.off_dx = up(p.off_a + (p.narrow ? 0 : R * n0));
-  p.total = p.off_dx + ((size_t)n * npass > 1 ? (size_t)n * npass * R * E : 0);
+  p.off_w1r = up(p.off_dx + ((size_t)n * npass > 1 ? (size_t)n * npass * R * E : 0));
+  p.total = p.off_w1r + (size_t)p.w1_ctas * (kPass / 8) * kW1Threads * 4;
   p.ok = true;
   return p;
 }
@@ -1555,12 +1863,13 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   w.h_image = h_image;
   w.a_in = d.a_out;
   w.pw1 = pw1;
+  w.w1_runs = ws + p.off_w1r;
   w.two_c = two_c;
   w.notiles = p.notiles;
   w.nsub = p.nsub;
   w.units = p.units;
-  w.chunk = p.chunk;
-  w.run = p.wrun;
+  w.per_cta = p.per_cta;
+  w.nslots = p.s1;
   XArgs x;
   x.h = h;
   x.pw0 = pw0;
@@ -1576,9 +1885,13 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   const cuuint64_t dh_dims[4] = {(cuuint64_t)n0, 1, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t dh_strides[3] = {ld, ld, ld * T};
   const cuuint32_t dh_box[4] = {8, 1, (cuuint32_t)kXRows, 1};
+  const cuuint64_t a_dims[3] = {(cuuint64_t)n0, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t a_strides[2] = {ld, ld * T};
+  const cuuint32_t a_box[3] = {8, (cuuint32_t)kUnit, 1};
   if (!make_map_f32(&d.g_map, g, 4, g_dims, g_strides, g_box) ||
       !make_map_f32(&w.g_map, g, 4, g_dims, g_strides, g_box_w1) ||
-      (!p.narrow && !make_map_f32(&x.dh_map, d.dh_out, 4, dh_dims, dh_strides, dh_box))) {
+      (!p.narrow && (!make_map_f32(&x.dh_map, d.dh_out, 4, dh_dims, dh_strides, dh_box) ||
+                     !make_map_f32(&w.a_map, d.a_out, 3, a_dims, a_strides, a_box)))) {
     return (int)cudaErrorInvalidValue;
   }
   const ImageArgs im{WhArgs{w0, hbias, hbias_bstride, edge0, edge_t, E, n, cc}, w1, img_h, img_w1,
@@ -1602,7 +1915,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   if (e != cudaSuccess) return (int)e;
   ++launched;
   mark();
-  const dim3 w1_grid((unsigned)(n * passes(cc) * p.notiles), (unsigned)p.s1);
+  const dim3 w1_grid((unsigned)p.w1_ctas);
   e = p.ot == 32 ? launch_kernel(k2_w1_kernel<32>, w1_grid, kW1Threads, kW1Smem, w, stream)
                  : launch_kernel(k2_w1_kernel<64>, w1_grid, kW1Threads, kW1Smem, w, stream);
   if (e != cudaSuccess) return (int)e;
@@ -1615,7 +1928,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
     mark();
   }
 
-  // dexc over the blocks and passes; dW1 over the runs of units; db1 over
+  // dexc over the blocks and passes; dW1 over the segments' slots; db1 over
   // every (batch row, time tile); dW0 over every (batch row, part); dhbias,
   // the edges over a batch row's parts (dhbias over all of them when hbias
   // is shared)
@@ -1623,7 +1936,7 @@ extern "C" int cond_chain_bwd_f32(const float* exc, const float* w0, const float
   const long long xs = (long long)p.kx * n0;
   if (nparts > 1) add_job(r, d.dexc, dexc, (long long)B * T * E, 1, nparts,
                           (long long)B * T * E, 0);
-  add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.runs, 3LL * cc * n2, 0);
+  add_job(r, pw1, dw1, 3LL * cc * n2, 1, p.s1, 3LL * cc * n2, 0);
   add_job(r, pb1, db1, n2, 1, B * p.ntiles, n2, 0);
   add_job(r, pw0, dw0, 3LL * E * n0, 1, p.s0, xs, 0);
   if (hbias_bstride) {

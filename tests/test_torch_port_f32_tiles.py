@@ -36,13 +36,19 @@ on the card:
   from dh and X (its halo rows zeroed), added into each warpgroup's sums
   tile by tile, the two warpgroups' sums added at the run's end: a partial
   per (batch row, run); db1 per tile;
-- k2_w1_kernel: per (block, pass, tile of 64 or 32 output channels) and
-  64-row unit, lrelu(h) recomputed with the data kernel's bits (checked),
-  written split into a K-major image (element (c, s) at (c / 8) 2048 +
-  (s / 4) 128 + (c % 8) 16 + (s % 4) 4 bytes) and read back through the
-  products' descriptors; A = g^T read from the raw TMA stage of g with the
-  rows shifted by the tap, the three taps stacked as M = 64 rows (tap, o);
-  a partial per run of at most 16 units;
+- k2_w1_kernel: the items (tile of (block, pass, 64 or 32 output
+  channels), 64-row unit) in equal runs over the card's 132 SMs
+  (``w1_plan``, ``w1_segments``); per item lrelu(h) recomputed with the
+  data kernel's bits (checked) from X's K-major image (read back through
+  h's descriptors), written split into a K-major image (element (c, s) at
+  (c / 8) 2048 + (s / 4) 128 + (c % 8) 16 + (s % 4) 4 bytes) and read back
+  through the products' descriptors; A = g^T read from the raw TMA stage of
+  g with the rows shifted by the tap, the three taps stacked as M rows
+  (tap, o), 64 a product warpgroup, N = all 136 columns; the accumulators'
+  runs of at most 16 units of a segment added in order into the segment's
+  partial, one a (tile, CTA); the reduce sums more than 256 partials of an
+  output of a small job by a warp (``reduce_sum``), its threads laid out
+  over the jobs as ``reduce_threads`` has them;
 - k2_xdh_kernel (past E = 9 only): X = [exc taps | 1 | -[t == 0] |
   -[t == T-1]] built per step of 64 rows into its K-major image, A = dh^T
   from the raw stage of the dh scratch, X^T dh per (batch row, part); the
@@ -50,6 +56,8 @@ on the card:
 
 Numpy and torch's CPU ops only, no JAX compile.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -355,7 +363,7 @@ def k2_data_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None, run=None):
                 dexc_p[i * npass + p][..., 8 * ec:8 * ec + v.shape[-1]] = v
         # db1: each tile's rows of g, per channel
         pb1[..., i * two_c:(i + 1) * two_c] = gi[:, :, 2:TILE + 2].sum(2)
-    return ordered_sum(dexc_p), dh_s, pb1, hs, a_s, pw0, None if wide else nruns
+    return reduce_sum(dexc_p), dh_s, pb1, hs, a_s, pw0, None if wide else nruns
 
 
 # --- k2_w1_kernel and k2_xdh_kernel, as their threads read and write shared memory
@@ -366,15 +374,84 @@ AGROUP = 2048      # bytes of 8 columns of a's image, every row (SBO)
 AIMG = 17 * AGROUP  # bytes of a's image, hi or lo
 SM_COUNT = 132
 WH_CHUNK = 4       # k-slices of Wh's image k2_w1_kernel fetches at once
-W1_RUN = 16        # units of a run of k2_w1_kernel's accumulators at most (one partial each)
+W1_RUN = 16        # units a run of k2_w1_kernel's accumulators takes at most (wgmma's drift)
 
 
 def ordered_sum(parts):
-    """parts summed along axis 0, one after the other (the reduce's order)."""
+    """parts summed along axis 0, one after the other."""
     acc = np.zeros_like(parts[0])
     for x in parts:
         acc += x
     return acc
+
+
+REDUCE_LANES = 32    # lanes of a warp the reduce gives an output of a long sum
+REDUCE_LONG = 256    # partials past which the reduce takes an output's sum by a warp
+REDUCE_FEW = 1 << 16  # ... in a job of fewer outputs than this
+
+
+def takes_lanes(outputs, s):
+    """Whether the reduce's job of ``outputs`` sums of ``s`` partials each
+    takes REDUCE_LANES threads an output (add_job)."""
+    return s > REDUCE_LONG and outputs < REDUCE_FEW
+
+
+def reduce_sum(parts, outputs=None):
+    """parts summed along axis 0 as k2_reduce_kernel sums them: in order; past
+    REDUCE_LONG partials, in a job of fewer than REDUCE_FEW outputs (those of
+    parts[0] unless given), each lane's run of ceil(S / 32) consecutive ones
+    in order, then the 32 runs' sums in order."""
+    s = len(parts)
+    if outputs is None:
+        outputs = np.asarray(parts[0]).size
+    if not takes_lanes(outputs, s):
+        return ordered_sum(parts)
+    per = -(-s // REDUCE_LANES)
+    acc = np.zeros_like(parts[0])
+    for lane in range(REDUCE_LANES):
+        acc += ordered_sum(parts[lane * per:(lane + 1) * per]) if lane * per < s else 0
+    return acc
+
+
+def reduce_jobs(b, t, e, n, cc, two_c):
+    """The reduce's jobs as cond_chain_bwd_f32 adds them, per-row hbias and
+    the edges, as (outputs, partials): dexc's parts (with more than one
+    block or pass), dW1's slots, db1's (batch row, tile) partials, dW0's,
+    dhbias's and the edges' (batch row, part) partials."""
+    npass = -(-cc // PASS)
+    n0, n2 = n * cc, n * two_c
+    if -(-(3 * e + 3) // 8) <= WH_CHUNK:
+        parts = k2_plan(b, t, n, cc)[1]
+    else:
+        parts = xdh_parts(b, t, n0, 3 * e + 3)[0]
+    jobs = [(b * t * e, n * npass)] if n * npass > 1 else []
+    jobs += [(3 * cc * n2, w1_plan(b, t, n, npass, two_c)[-1]), (n2, b * -(-t // TILE)),
+             (3 * e * n0, b * parts)]
+    return jobs + [(b * n0, parts)] * 3
+
+
+def reduce_threads(jobs):
+    """k2_reduce_kernel's threads over ``jobs`` [(outputs, partials)] as
+    add_job lays them out, a job that takes lanes (``takes_lanes``) from the
+    next whole warp on: for each thread x its job (the last one to start at
+    or before x), its output (x - first) / lanes, its lane, and whether the
+    output is one of its job's (the threads of the gap before a job that
+    takes lanes fall past the end of the job before, and return); then each
+    job's first thread and lanes."""
+    first, lanes, total = [], [], 0
+    for outputs, s in jobs:
+        ln = REDUCE_LANES if takes_lanes(outputs, s) else 1
+        if ln > 1:
+            total = -(-total // REDUCE_LANES) * REDUCE_LANES
+        first.append(total)
+        lanes.append(ln)
+        total += outputs * ln
+    first, lanes = np.array(first), np.array(lanes)
+    x = np.arange(total)
+    j = np.searchsorted(first, x, side="right") - 1
+    rel = x - first[j]
+    out = rel // lanes[j]
+    return j, out, rel % lanes[j], out < np.array([o for o, _ in jobs])[j], first, lanes
 
 
 def kmajor_store(img, c, k, v):
@@ -400,28 +477,61 @@ def add3s(acc, a, b):
     return acc
 
 
-def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s=None):
-    """dW1 (3, Cc, n*2C) as k2_w1_kernel takes it: per (block, pass, o-tile)
-    and unit, a recomputed (checked bit for bit against the data kernel's h
-    at the same rows, ``hs``), or read from the data kernel's scratch
-    ``a_s`` at wide E (the same bits), into its K-major image; A = g^T from
-    the stage's rows shifted by the tap; the accumulators' runs of units (a
-    CTA's chunk of units cut into runs of at most W1_RUN) summed in order."""
-    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+def w1_plan(b, t, n, npass, two_c):
+    """k2_w1_kernel's plan (make_plan): (OT, o-tiles, units a batch row,
+    units a tile, items a CTA, CTAs, partial slots S). The items (tile,
+    unit), tile-major, in equal runs over SM_COUNT CTAs; S the most CTAs
+    any tile's units span."""
     ot = 32 if two_c <= 32 else 64
+    notiles = -(-two_c // ot)
     nsub = -(-t // UNIT)
     units = b * nsub
-    tiles = n * -(-cc // PASS) * -(-two_c // ot)
-    chunk = -(-units // min(max(1, SM_COUNT // tiles), units))
-    run = -(-chunk // -(-chunk // W1_RUN))
+    tiles = n * npass * notiles
+    per_cta = -(-(tiles * units) // SM_COUNT)
+    ctas = -(-(tiles * units) // per_cta)
+    slots = max(((tau + 1) * units - 1) // per_cta - tau * units // per_cta + 1
+                for tau in range(tiles))
+    return ot, notiles, nsub, units, per_cta, ctas, slots
+
+
+def w1_segments(plan, tiles):
+    """(CTA, tile, partial slot, the tile's units k) of each segment, in the
+    order each CTA walks them: a CTA's items cut where a tile ends; the slot
+    is the CTA's place among the tile's CTAs."""
+    _, _, _, units, per_cta, ctas, _ = plan
+    out = []
+    for cta in range(ctas):
+        x, x1 = cta * per_cta, min(tiles * units, (cta + 1) * per_cta)
+        while x < x1:
+            tau = x // units
+            end = min(x1, (tau + 1) * units)
+            out.append((cta, tau, cta - tau * units // per_cta,
+                        list(range(x - tau * units, end - tau * units))))
+            x = end
+    return out
+
+
+def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s=None):
+    """dW1 (3, Cc, n*2C) as k2_w1_kernel takes it: per item, a recomputed
+    (checked bit for bit against the data kernel's h at the same rows,
+    ``hs``), or read from the data kernel's scratch ``a_s`` at wide E (the
+    same bits), into its K-major image; A = g^T from the stage's rows shifted
+    by the tap; per segment (``w1_segments``) the accumulators' runs of at
+    most W1_RUN units summed in order into its partial slot, then the slots
+    reduced in order (slots a tile's CTAs do not fill are zero)."""
+    b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
+    npass = -(-cc // PASS)
+    plan = w1_plan(b, t, n, npass, two_c)
+    ot, notiles, nsub, units, _, _, nslots = plan
     nch = -(-3 * ot // 64)
     n2 = n * two_c
-    runs = -(-units // run)
-    pw1 = np.zeros((runs, 3, cc, n2), np.float32)
+    pw1 = np.zeros((nslots, 3, cc, n2), np.float32)
     r = np.arange(64 * nch)
     j_r, o_r = r // ot, r % ot
+    cl, q = np.meshgrid(np.arange(PASS), np.arange(UNIT), indexing="ij")
+    a_of, b_of = {}, {}  # a (B, nsub, 64, 136) of each (block, pass); B's reads of each unit
     for i in range(n):
-        for p in range(-(-cc // PASS)):
+        for p in range(npass):
             c0 = PASS * p
             u = np.arange(nsub)[:, None] * UNIT + np.arange(UNIT)[None]
             h = h_at(exc, w0, hbias, edge0, edge_t, i, p, cc, u)  # (B, nsub, 64, 136)
@@ -438,45 +548,58 @@ def w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s=None):
                 read = np.where(ok, a_s[:, np.clip(u, 0, t - 1)][..., cols], 0)
                 np.testing.assert_array_equal(read, a)
                 a = read.astype(np.float32)
-            cl, q = np.meshgrid(np.arange(PASS), np.arange(UNIT), indexing="ij")
-            for o0 in range(0, two_c, ot):
-                for r_i in range(runs):
-                    acc = np.zeros((64 * nch, PASS), np.float32)
-                    for k in range(r_i * run, min(units, (r_i + 1) * run)):
-                        bb, sub = divmod(k, nsub)
-                        s0 = sub * UNIT
-                        img = np.zeros(2 * AIMG // 4, np.float32)
-                        hi, lo = split(a[bb, sub].T)  # (136 c, 64 s)
-                        kmajor_store(img, cl, q, hi)
-                        kmajor_store(img[AIMG // 4:], cl, q, lo)
-                        # the g stage: rows s0 - 1 .. s0 + 64 of channels o0 .., in boxes of 8
-                        stage = np.zeros((ot // 8, 68, 8), np.float32)
-                        rows = np.arange(s0 - 1, s0 + 67)
-                        rok = (rows >= 0) & (rows < t) & (np.arange(68) < UNIT + 2)
-                        for bx in range(ot // 8):
-                            oo = o0 + 8 * bx + np.arange(8)
-                            cols = oo < two_c
-                            stage[bx][np.ix_(rok, cols)] = g[bb, rows[rok]][:, i * two_c + oo[cols]]
-                        flat = stage.reshape(-1)
-                        for kk in range(UNIT // 8):
-                            kcol = np.arange(8)[None]
-                            idx = (o_r // 8)[:, None] * GBOX + (2 - j_r[:, None] + kcol) * 8 \
-                                + (o_r % 8)[:, None] + 64 * kk
-                            av = np.where((r < 3 * ot)[:, None], flat[np.clip(idx, 0, None)], 0)
-                            fa = split(av.astype(np.float32))
-                            for cw, nn in ((0, 72), (72, 64)):
-                                start = (cw // 8) * AGROUP + 256 * kk
-                                fb = (desc_read(img, start, nn, 128, AGROUP),
-                                      desc_read(img, AIMG + start, nn, 128, AGROUP))
-                                for m in range(nch):
-                                    rm = slice(64 * m, 64 * m + 64)
-                                    add3s(acc[rm, cw:cw + nn], (fa[0][rm], fa[1][rm]), fb)
-                    for rr in range(3 * ot):
-                        o = o0 + o_r[rr]
-                        if o < two_c:
-                            width = min(PASS, cc - c0)
-                            pw1[r_i, j_r[rr], c0:c0 + width, i * two_c + o] = acc[rr, :width]
-    return ordered_sum(pw1)
+            a_of[i, p] = a
+    tiles = n * npass * notiles
+    for _, tau, slot, ks in w1_segments(plan, tiles):
+        ip, oti = divmod(tau, notiles)
+        i, p = divmod(ip, npass)
+        c0, o0 = PASS * p, oti * ot
+        part = None
+        for r0 in range(0, len(ks), W1_RUN):
+            acc = np.zeros((64 * nch, PASS), np.float32)
+            for k in ks[r0:r0 + W1_RUN]:
+                bb, sub = divmod(k, nsub)
+                s0 = sub * UNIT
+                if (i, p, k) not in b_of:
+                    img = np.zeros(2 * AIMG // 4, np.float32)
+                    hi, lo = split(a_of[i, p][bb, sub].T)  # (136 c, 64 s)
+                    kmajor_store(img, cl, q, hi)
+                    kmajor_store(img[AIMG // 4:], cl, q, lo)
+                    b_of[i, p, k] = [(desc_read(img, 256 * kk, PASS, 128, AGROUP),
+                                      desc_read(img, AIMG + 256 * kk, PASS, 128, AGROUP))
+                                     for kk in range(UNIT // 8)]
+                # the g stage: rows s0 - 1 .. s0 + 64 of channels o0 .., in boxes of 8
+                stage = np.zeros((ot // 8, 68, 8), np.float32)
+                rows = np.arange(s0 - 1, s0 + 67)
+                rok = (rows >= 0) & (rows < t) & (np.arange(68) < UNIT + 2)
+                for bx in range(ot // 8):
+                    oo = o0 + 8 * bx + np.arange(8)
+                    cols = oo < two_c
+                    stage[bx][np.ix_(rok, cols)] = g[bb, rows[rok]][:, i * two_c + oo[cols]]
+                flat = stage.reshape(-1)
+                for kk in range(UNIT // 8):
+                    kcol = np.arange(8)[None]
+                    idx = (o_r // 8)[:, None] * GBOX + (2 - j_r[:, None] + kcol) * 8 \
+                        + (o_r % 8)[:, None] + 64 * kk
+                    av = np.where((r < 3 * ot)[:, None], flat[np.clip(idx, 0, None)], 0)
+                    add3s(acc, split(av.astype(np.float32)), b_of[i, p, k][kk])
+            part = acc if part is None else part + acc
+        width = min(PASS, cc - c0)
+        for rr in range(3 * ot):
+            o = o0 + o_r[rr]
+            if o < two_c:
+                pw1[slot, j_r[rr], c0:c0 + width, i * two_c + o] = part[rr, :width]
+    return reduce_sum(pw1)
+
+
+def xdh_parts(b, t, n0, kx):
+    """(parts a batch row, rows a part) of k2_xdh_kernel (make_plan): CTAs
+    of (128 columns of dh, 32 of X, a part), at least 8 an SM, parts of whole
+    steps of 64 rows."""
+    per_b = b * -(-n0 // 128) * -(-kx // 32)
+    parts = min(max(1, -(-8 * SM_COUNT // per_b)), 65535 // b)
+    prows = -(-(-(-t // parts)) // 64) * 64
+    return -(-t // prows), prows
 
 
 def xdh_emulated(exc, dh_s, kx):
@@ -486,11 +609,8 @@ def xdh_emulated(exc, dh_s, kx):
     row."""
     b, t, e = exc.shape
     n0 = dh_s.shape[-1]
-    xcols, xks = -(-n0 // 128), -(-kx // 32)
-    per_b = b * xcols * xks
-    parts = min(max(1, -(-8 * SM_COUNT // per_b)), 65535 // b)
-    prows = -(-(-(-t // parts)) // 64) * 64
-    parts = -(-t // prows)
+    xks = -(-kx // 32)
+    parts, prows = xdh_parts(b, t, n0, kx)
     pw0 = np.zeros((b * parts, kx, n0), np.float32)
     kk8, tg = np.meshgrid(np.arange(32), np.arange(64), indexing="ij")
     for sp in range(b * parts):
@@ -544,17 +664,19 @@ def k2_emulated(exc, w0, hbias, w1, g, edge0=None, edge_t=None, run=None):
     b, t, e, n, cc, two_c = chain_dims(exc, w0, w1)
     dexc, dh_s, pb1, hs, a_s, pw0, parts = k2_data_emulated(exc, w0, hbias, w1, g, edge0,
                                                             edge_t, run)
-    out = dict(exc=dexc, b1=ordered_sum(pb1.reshape(-1, n * two_c)))
+    out = dict(exc=dexc, b1=reduce_sum(pb1.reshape(-1, n * two_c)))
     out["w1"] = w1_emulated(exc, w0, hbias, w1, g, edge0, edge_t, hs, a_s)
     if pw0 is None:
         pw0, parts = xdh_emulated(exc, dh_s, 3 * e + 3)
-    out["w0"] = ordered_sum(pw0[:, :3 * e]).reshape(3, e, n * cc)
+    out["w0"] = reduce_sum(pw0[:, :3 * e]).reshape(3, e, n * cc)
     per_b = pw0.reshape(b, parts, *pw0.shape[1:])
-    dhb = np.stack([ordered_sum(per_b[bb, :, 3 * e]) for bb in range(b)])
-    out["hbias"] = dhb if hbias.ndim == 2 else ordered_sum(pw0[:, 3 * e])
+    rows = b * n * cc  # the per-row jobs' outputs
+    dhb = np.stack([reduce_sum(per_b[bb, :, 3 * e], rows) for bb in range(b)])
+    out["hbias"] = dhb if hbias.ndim == 2 else reduce_sum(pw0[:, 3 * e])
     if edge0 is not None:
-        out.update(edge0=np.stack([ordered_sum(per_b[bb, :, 3 * e + 1]) for bb in range(b)]),
-                   edge_t=np.stack([ordered_sum(per_b[bb, :, 3 * e + 2]) for bb in range(b)]))
+        out.update(edge0=np.stack([reduce_sum(per_b[bb, :, 3 * e + 1], rows) for bb in range(b)]),
+                   edge_t=np.stack([reduce_sum(per_b[bb, :, 3 * e + 2], rows)
+                                    for bb in range(b)]))
     return out
 
 
@@ -657,14 +779,15 @@ def test_k1_w1_image_read_back(w, permuted):
 # 78 rows: one run of 8 tiles, each (batch row, run) partial of X^T dh at its
 # limit of 16 units of 62 rows, and one of 4. Then E = 9, the last width
 # with X^T dh in the data kernel (K = 30), and a concat form of two passes
-# (E = Cc = 140), which takes the scratch route
+# (E = Cc = 140), which takes the scratch route; and 2 x 130 tiles, so that
+# db1's 260 partials are summed by a warp of the reduce
 K2_CASES = CASES + [(True, 1, 70, 10, 1, 138, 6), (False, 2, 530, 0, 1, 16, 72),
                     (True, 1, 300, 8, 6, 150, 136), (False, 2, 150, 0, 1, 48, 40),
                     (True, 2, 200, 9, 2, 20, 16), (False, 1, 130, 0, 1, 140, 8),
-                    (True, 1, 1442, 8, 1, 12, 8)]
+                    (True, 1, 1442, 8, 1, 12, 8), (True, 2, 16000, 8, 1, 12, 8)]
 K2_IDS = IDS + ["split-E10-padded", "concat-two-otiles", "split-runs-of-two",
                 "concat-E48-a-scratch", "split-E9-on-chip", "concat-two-passes-scratch",
-                "split-run-of-8-ragged"]
+                "split-run-of-8-ragged", "split-db1-by-a-warp"]
 K2_RUNS = {"split-run-of-8-ragged": RUN_TILES}
 
 
@@ -704,6 +827,131 @@ def test_k2_plan_runs():
             assert 1 <= run <= RUN_TILES and (nruns - 1) * run < -(-t // TILE) <= nruns * run
             assert b * 9 * nruns >= 2 * SM_COUNT, (b, t, run)
     assert k2_plan(16, 280, 9, 136) == (1, 3)  # 432 CTAs where a CTA a tile made 48
+
+
+def test_k2_w1_items_over_the_sms(monkeypatch):
+    """k2_w1_kernel's plan at the f32 step's 8 shapes (n = 9, one pass): the
+    items fill the card's 132 SMs in one wave, with at most 16 partial slots
+    a tile. Then on a card of 5 SMs: 3 tiles (2C = 136: two o-tiles of 64
+    and a ragged one of 8) of 42 units in runs of 26 items a CTA, so that
+    CTAs cross from one tile into the next mid-run, segments hold more than
+    one run of 16 units, and two tiles take 2 of the 3 slots (the reduce
+    sums 3, the third zero); the whole backward emulated against the plain
+    version."""
+    plans = {(b, t, c2): w1_plan(b, t, 9, 1, c2) for b in (32, 16)
+             for t, c2 in ((280, 256), (2240, 128), (4480, 64), (8960, 32))}
+    assert plans[32, 280, 256] == (64, 4, 5, 160, 44, 131, 5)
+    assert plans[32, 8960, 32] == (32, 1, 140, 4480, 306, 132, 16)
+    assert plans[16, 4480, 64] == (64, 1, 70, 1120, 77, 131, 16)
+    for ot, notiles, nsub, units, per_cta, ctas, slots in plans.values():
+        assert SM_COUNT - 1 <= ctas <= SM_COUNT
+        assert (ctas - 1) * per_cta < 9 * notiles * units <= ctas * per_cta and slots <= 16
+    monkeypatch.setattr(sys.modules[__name__], "SM_COUNT", 5)
+    plan = w1_plan(2, 1300, 1, 1, 136)
+    assert plan == (64, 3, 21, 42, 26, 5, 3)
+    assert [(cta, tau, slot, len(ks)) for cta, tau, slot, ks in w1_segments(plan, 3)] == [
+        (0, 0, 0, 26), (1, 0, 1, 16), (1, 1, 0, 10), (2, 1, 1, 26), (3, 1, 2, 6), (3, 2, 0, 20),
+        (4, 2, 1, 22)]
+    ops = operands(True, 2, 1300, 8, 1, 20, 136, seed=13)
+    ops.pop("b1")
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal((2, 1300, 136))
+                         .astype(np.float32))
+    want = cond_chain.cond_chain_bwd_plain(g=g, **ops)
+    got = k2_emulated(exc=ops["exc"].numpy(), g=g.numpy(),
+                      **np32({k: v for k, v in ops.items() if k != "exc"}))
+    for k in want:
+        assert_parity(got[k], want[k].numpy(), f"d{k}")
+
+
+# The reduce's jobs: the smoke's guard case (split Cc = 140, 2C = 12, E = 8,
+# B = 16, T = 2240), where dW1's 45,360 outputs leave a gap of 16 threads
+# before db1's job of 304 partials, which takes lanes; the f32 step's last
+# call (db1 by warps from the first whole warp on, no gap); and the options'
+# bottleneck (E = Cc = 128, past E = 9: one thread an output throughout)
+REDUCE_CASES = [(16, 2240, 8, 9, 140, 12, True), (16, 8960, 8, 9, 136, 32, False),
+                (16, 224, 128, 1, 128, 256, False)]
+
+
+@pytest.mark.parametrize("b,t,e,n,cc,two_c,gap", REDUCE_CASES,
+                         ids=["gap-before-a-warp-job", "step-last-call", "bottleneck"])
+def test_reduce_threads_write_each_output_once(b, t, e, n, cc, two_c, gap):
+    """k2_reduce_kernel's threads (``reduce_threads``) at the jobs
+    cond_chain_bwd_f32 adds: every output of every job written once, by lane
+    0 of its thread group; a job that takes lanes starts on a warp and every
+    thread of its warps is inside it (the shuffle needs all 32); the threads
+    of a gap before such a job fall past the end of the job before and write
+    nothing."""
+    jobs = reduce_jobs(b, t, e, n, cc, two_c)
+    j, out, lane, inside, first, lanes = reduce_threads(jobs)
+    writes = inside & (lane == 0)
+    for jj, (outputs, _) in enumerate(jobs):
+        np.testing.assert_array_equal(np.sort(out[writes & (j == jj)]), np.arange(outputs))
+        if lanes[jj] > 1:
+            assert first[jj] % REDUCE_LANES == 0 and inside[j == jj].all()
+    assert (~inside).any() == gap
+    assert (lanes > 1).any() == (e <= 9)
+
+
+def w1_exc_stage(exc, bb, s0):
+    """The exc rows s0 - 1 .. s0 + 64 of batch row bb as w1_exc_rows stages
+    them, zeros outside [0, T): element (r, e) at r E + e."""
+    t, e = exc.shape[1:]
+    rows = s0 - 1 + np.arange(UNIT + 2)
+    ok = (rows >= 0) & (rows < t)
+    stage = np.zeros((UNIT + 2, e), np.float32)
+    stage[ok] = exc[bb, rows[ok]]
+    return stage.reshape(-1)
+
+
+def w1_x_words(stage, e, s0, t, quads):
+    """X's image of a unit as w1_x_image writes it from the exc stage: thread
+    quad x < 512 puts row q = x % 64, columns k = 4 kq .. 4 kq + 3 (kq = x /
+    64), split, at (kq / 2) 2048 + (kq % 2) 1024 + 16 q bytes (hi; lo 8192
+    on). Column k < 3E, tap j = k / E's column k - j E of the stage's row
+    q + j, is the stage's word q E + k; then the ones, the edges, zeros.
+    ``quads`` (E = 8): the four columns of quad kq < 6 read as one 16-byte
+    word, quad 6 the ones and the edges, quad 7 zeros."""
+    img = np.zeros(2 * 8192 // 4, np.float32)
+    for x in range(512):
+        q, kq = x & 63, x >> 6
+        first, last = float(-(s0 + q == 0)), float(-(s0 + q == t - 1))
+        if quads:
+            v = (stage[q * 8 + 4 * kq:][:4] if kq < 6
+                 else [1.0, first, last, 0.0] if kq == 6 else [0.0] * 4)
+        else:
+            v = []
+            for k in range(4 * kq, 4 * kq + 4):
+                v.append(stage[q * e + k] if k < 3 * e else
+                         {3 * e: 1.0, 3 * e + 1: first, 3 * e + 2: last}.get(k, 0.0))
+        hi, lo = split(np.asarray(v, np.float32))
+        at = ((kq >> 1) * 2048 + (kq & 1) * 1024 + q * 16) // 4
+        img[at:at + 4] = hi
+        img[2048 + at:2048 + at + 4] = lo
+    return img
+
+
+@pytest.mark.parametrize("e,quads", [(8, True), (8, False), (6, False), (9, False)],
+                         ids=["E8-quads", "E8", "E6", "E9"])
+def test_w1_x_image_read_back(e, quads):
+    """X's image in k2_w1_kernel's slot as its threads build it from a unit's
+    staged exc rows (``w1_exc_stage``, ``w1_x_words``: element (q, k) at
+    (k / 8) 2048 + (k % 8 / 4) 1024 + 16 q + (k % 4) 4 bytes, hi then lo 8192
+    on; at E = 8 also by 16-byte quads), read back through h's A descriptors
+    (64 rows q, LBO 1024, SBO 128, slice s 2048 s on), is X at the unit's
+    rows (``x_rows``: the three taps, 1, -[u == 0], -[u == T-1], zeros to 32
+    columns) split: the first unit, and the last unit of the second batch
+    row, whose T ends mid-unit."""
+    b, t = 2, 2 * UNIT + 37
+    exc = np.random.default_rng(e).standard_normal((b, t, e)).astype(np.float32)
+    for bb, s0 in ((0, 0), (1, 2 * UNIT)):
+        img = w1_x_words(w1_exc_stage(exc, bb, s0), e, s0, t, quads)
+        x = x_rows(exc[bb:bb + 1], s0 + np.arange(UNIT))[0]
+        hi, lo = split(np.pad(x, ((0, 0), (0, 32 - x.shape[1]))))
+        for s_ in range(4):
+            np.testing.assert_array_equal(desc_read(img, 2048 * s_, ROWS, 1024, 128),
+                                          hi[:, 8 * s_:8 * s_ + 8])
+            np.testing.assert_array_equal(desc_read(img, 8192 + 2048 * s_, ROWS, 1024, 128),
+                                          lo[:, 8 * s_:8 * s_ + 8])
 
 
 def test_x_image_read_back():
